@@ -1,0 +1,341 @@
+"""TransformerLM, dense family: prefill (``forward``) and ``decode_step``.
+
+PyTorch counterpart of ``repro.models.transformer`` for the dense family.
+Parameters stay stacked on a leading layer axis as in the reference, and a
+loop over the layers takes the place of its ``lax.scan``.
+
+The other families raise ``NotImplementedError`` naming the ROADMAP.md item
+(queue A) that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import device as device_lib
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import layers
+
+_ROADMAP_ITEM = {
+    "moe": "MoE and sliding window",
+    "hybrid": "Griffin (hybrid) family with B5",
+    "ssm": "xLSTM (ssm) family with B4",
+    "vlm": "Encoder-decoder and VLM",
+}
+
+
+def require_dense(cfg) -> None:
+    """Raise unless ``cfg`` is of the dense family, the one ported."""
+    if cfg.family != "dense":
+        item = _ROADMAP_ITEM.get(cfg.family)
+        if item is None:
+            raise ValueError(f"unknown family {cfg.family}")
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue A, "
+            f"item '{item}'")
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | vlm | hybrid | ssm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    window: Optional[int] = None          # sliding-window attention
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    moe_dropless: bool = True
+    # --- hybrid (Griffin) ---
+    rec_per_attn: int = 2                 # recurrent layers per attn layer
+    d_rnn: Optional[int] = None
+    # --- ssm (xlstm) ---
+    mlstm_per_slstm: int = 7
+    proj_factor: float = 2.0
+    # --- misc ---
+    tie_embeddings: bool = False
+    dtype: Any = torch.float32            # param dtype
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a multiple of 256, as in the reference."""
+        return -(-self.vocab // 256) * 256
+
+    def attn_cfg(self, window=None) -> layers.AttnConfig:
+        return layers.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
+            qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
+            rope_theta=self.rope_theta,
+            window=window if window is not None else self.window)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if serve memory/compute is O(window) or O(1) per token."""
+        return self.family in ("hybrid", "ssm") or self.window is not None
+
+    @property
+    def takes_embeddings(self) -> bool:
+        return self.family == "vlm"
+
+    @property
+    def hybrid_groups(self) -> int:
+        return self.n_layers // (self.rec_per_attn + 1)
+
+    @property
+    def hybrid_tail(self) -> int:
+        return self.n_layers - self.hybrid_groups * (self.rec_per_attn + 1)
+
+    @property
+    def ssm_groups(self) -> int:
+        return self.n_layers // (self.mlstm_per_slstm + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemConfig:
+    """The paper's 'system parameters', with the reference's fields.
+
+    ``use_pallas`` keeps its name and, unlike the reference, defaults to True:
+    it routes prefill attention through ``kernels.ops.flash_attention``,
+    whose wrapper launches the hand-written Hopper kernel on CUDA tensors.
+    On the card that kernel is the normal runtime path, the counterpart of
+    the reference's TPU runtime; on the CPU the wrapper runs its plain
+    PyTorch version. ``q_chunk``/``kv_chunk`` size the plain chunked path;
+    the kernel's tiles are its own.
+    """
+    dp: int = 1
+    tp: int = 1
+    pods: int = 1
+    microbatches: int = 1
+    remat: str = "none"                 # none | block | dots
+    precision: str = "bf16"             # bf16 | fp32
+    donate: bool = True
+    zero1: bool = True
+    compression: str = "none"           # none | int8 | topk
+    param_sharding: str = "2d"          # 2d (TP+FSDP) | tp (model axis only)
+    shard_attn: bool = False            # constrain q/k/v to head sharding
+    batch_axes: tuple = ()              # mesh axes carrying the batch dim
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    use_pallas: bool = True             # flash kernel (see docstring)
+    kv_quant: bool = False              # int8 KV cache
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return device_lib.compute_dtype(self.precision)
+
+    @property
+    def chips(self) -> int:
+        return self.dp * self.tp * self.pods
+
+
+DEFAULT_SYS = SystemConfig()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _cast(params, dtype):
+    """Floating leaves to ``dtype`` (a leaf already in it is not copied)."""
+    return _tree_map(
+        lambda a: a.to(dtype) if a.is_floating_point() else a, params)
+
+
+# ---------------------------------------------------------------------------
+# per-layer blocks
+# ---------------------------------------------------------------------------
+
+
+def _init_attn_block(gen, cfg: ModelConfig, window=None):
+    return {"attn_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
+                                             gen.device),
+            "attn": layers.init_attention(gen, cfg.attn_cfg(window),
+                                          cfg.dtype),
+            "mlp_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
+                                            gen.device),
+            "mlp": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)}
+
+
+def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
+                      collect_cache=False, max_cache=None):
+    acfg = cfg.attn_cfg(window)
+    h = layers.rmsnorm(p["attn_norm"], x)
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    q, k, v = layers.attention_qkv(p["attn"], h, acfg, positions)
+    if sys.use_pallas:
+        out = kernel_ops.flash_attention(q, k, v, True, acfg.window)
+    elif S > 2048:
+        out = layers.chunked_attention(q, k, v, causal=True,
+                                       window=acfg.window,
+                                       q_chunk=sys.q_chunk,
+                                       kv_chunk=sys.kv_chunk)
+    else:
+        out = layers.attention(q, k, v, causal=True, window=acfg.window)
+    x = x + layers.attn_out(out, p["attn"]["wo"])
+    h = layers.rmsnorm(p["mlp_norm"], x)
+    x = x + layers.apply_swiglu(p["mlp"], h)
+    cache = None
+    if collect_cache:
+        # Ring invariant: position p lives at slot p % W (decode relies on
+        # it). Full attention: pad to max_cache (slots 0..S-1 = positions).
+        # SWA: keep the last W positions and roll so slot = p % W.
+        cache = {"k": _ring_layout(k, S, acfg.window, max_cache),
+                 "v": _ring_layout(v, S, acfg.window, max_cache)}
+    return x, cache
+
+
+def _ring_layout(kv, S, window, max_cache):
+    """(B, S, K, D) -> the ring cache (B, W, K, D), bf16 at any precision."""
+    kv = kv.to(torch.bfloat16)
+    if window is None:
+        W = max(max_cache or S, S)
+        return F.pad(kv, (0, 0, 0, 0, 0, W - S)) if W > S else kv
+    W = window
+    if S >= W:
+        return torch.roll(kv[:, -W:], S % W, dims=1)
+    return F.pad(kv, (0, 0, 0, 0, 0, W - S))
+
+
+def _apply_attn_block_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
+    acfg = cfg.attn_cfg(window)
+    h = layers.rmsnorm(p["attn_norm"], x)
+    out, cache = layers.apply_attention_decode(p["attn"], h, acfg, cache, pos)
+    x = x + out
+    h = layers.rmsnorm(p["mlp_norm"], x)
+    return x + layers.apply_swiglu(p["mlp"], h), cache
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, device=None):
+    """Parameters of ``cfg`` on ``device``, drawn from ``gen``.
+
+    ``gen`` must live on ``device`` (a CUDA tensor needs a CUDA generator).
+    Distributions follow the reference (truncated-normal fan-in dense
+    weights, N(0, 0.02²) embeddings, unit norm scales); the numbers differ,
+    since a ``torch.Generator`` is not ``jax.random``.
+    """
+    dev = device_lib.resolve(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, parameters on {dev}")
+    require_dense(cfg)
+    V = cfg.padded_vocab
+    params = {"final_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype, dev)}
+    params["embed"] = layers.embed_init(gen, (V, cfg.d_model), cfg.dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(gen, (cfg.d_model, V),
+                                              dtype=cfg.dtype)
+    params["layers"] = _tree_stack(
+        [_init_attn_block(gen, cfg) for _ in range(cfg.n_layers)])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _layer(stacked, i):
+    return _tree_map(lambda a: a[i], stacked)
+
+
+def _lm_head(params, cparams, x, cfg: ModelConfig):
+    """Final norm (on the uncast scale) and the head, accumulated in fp32."""
+    x = layers.rmsnorm(params["final_norm"], x)
+    head = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
+    return x.float() @ head.float()
+
+
+def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
+            collect_cache=False, max_cache=None, last_only=False):
+    """batch: {"tokens": (B, S) int}.
+
+    Returns (logits, aux_loss) or (logits, aux_loss, cache) with
+    collect_cache. last_only projects the LM head on the final position only
+    (prefill).
+    """
+    require_dense(cfg)
+    cparams = _cast(params, sys.compute_dtype)
+    x = cparams["embed"][batch["tokens"]]
+    caches = []
+    for i in range(cfg.n_layers):
+        x, cache = _apply_attn_block(_layer(cparams["layers"], i), x, cfg,
+                                     sys, collect_cache=collect_cache,
+                                     max_cache=max_cache)
+        caches.append(cache)
+    if last_only:
+        x = x[:, -1:]
+    logits = _lm_head(params, cparams, x, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if collect_cache:
+        return logits, aux_total, _tree_stack(caches)
+    return logits, aux_total
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, quant: bool = False, device=None):
+    """The decode cache, stacked on the layer axis: (L, B, W, K, D) each."""
+    require_dense(cfg)
+    dev = device_lib.resolve(device)
+    one = layers.init_kv_cache(cfg.attn_cfg(), batch, max_len, dtype,
+                               quant=quant, device=dev)
+    return {k: torch.zeros((cfg.n_layers,) + a.shape, dtype=a.dtype,
+                           device=dev) for k, a in one.items()}
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
+                sys: SystemConfig = DEFAULT_SYS):
+    """One new token for every sequence in the batch.
+
+    tokens: (B, 1) int; pos: current context length. Returns
+    (logits (B, 1, V) fp32, cache); the cache is updated in place
+    (see ``layers.apply_attention_decode``).
+    """
+    require_dense(cfg)
+    pos = int(pos)
+    cparams = _cast(params, sys.compute_dtype)
+    x = cparams["embed"][tokens]
+    for i in range(cfg.n_layers):
+        x, _ = _apply_attn_block_decode(_layer(cparams["layers"], i), x, cfg,
+                                        _layer(cache, i), pos)
+    return _lm_head(params, cparams, x, cfg), cache
