@@ -5,23 +5,38 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
-     ``src/repro_torch/kernels/csrc`` with nvcc and print the build time and
-     ptxas's register report;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     serve shape and at ragged, windowed, non-causal, fp32 and other
-     group-size shapes;
+     ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, all
+     started together) and print the build time and ptxas's register report;
+  2. hold each kernel against its plain PyTorch version on the card: B1 (the
+     forward) and B2/B3 (the backward: dq, and dk/dv) at the serve or train
+     shape and at ragged, windowed, non-causal, fp32 and other group-size
+     shapes. A planted fault (one kv tile hidden from the later rows in the
+     forward; in the backward, the dk/dv contribution of the same rows to
+     the same keys left out) must fail each check. The whole autograd op
+     (B1 forward, B2 and B3 backward) is held against autograd through fp32
+     dense attention at the train shape;
   3. serve full-width qwen3-0.6b (seeded bf16 weights, 8 requests of 2048
      prompt tokens, 32 generated) through ``repro_torch.launch.serve.main``,
      with every launch counter set to 0 just before and read just after; the
-     flash kernel must have run 28 times (one per layer) per prefill. Then
-     recompute the prefill logits on the plain attention path
-     (``use_pallas=False``) in bf16 and in fp32, and hold both bf16 paths
-     against the fp32 one (``LOGITS_RATIO``). A planted fault (one kv tile
-     hidden from the later rows) must fail both this check and phase 2's;
-  4. time the kernel at the serve shape beside its bound, its plain version
-     and one PyTorch library call of the same function
-     (``scaled_dot_product_attention`` with the kv heads expanded, timed here
-     only: the port never calls it).
+     flash kernel must have run 28 times (one per layer) per prefill, the
+     backward kernels never. Then recompute the prefill logits on the plain
+     attention path (``use_pallas=False``) in bf16 and in fp32, and hold both
+     bf16 paths against the fp32 one (``LOGITS_RATIO``); the planted forward
+     fault must fail this check;
+  4. train full-width qwen3-0.6b (fp32 masters, bf16 compute, 4 x 2048
+     tokens, 6 steps) through ``repro_torch.launch.train.main``, counters set
+     to 0 just before: B1, B2 and B3 must each have run 28 times a step, and
+     every loss must be finite. Then 2 steps with ``--remat block
+     --microbatches 2``: B1 runs twice per layer and microbatch (forward and
+     recompute), B2 and B3 once, and the first loss must match;
+  5. hold the loss gradients of full-width qwen3-0.6b (1 x 2048 tokens) on
+     the bf16 kernel path against those of the fp32 plain path: per leaf no
+     further than ``GRAD_RATIO`` times the bf16 plain path's distance. The
+     planted backward fault must fail this check;
+  6. time each kernel at its main path's shape beside its bound, its plain
+     version and one PyTorch library call of the same function
+     (``scaled_dot_product_attention`` and its backward, with the kv heads
+     expanded, timed here only: the port never calls it).
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
@@ -29,6 +44,7 @@ Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,9 +70,31 @@ LOGITS_RATIO = 2.0
 # A planted fault that both checks must catch: keys 64..127 (one kv tile)
 # hidden from query rows >= 1024, as a kernel that skipped a tile would do.
 FAULT = (1024, 64, 128)
+# B2/B3 against their plain version, per gradient tensor: |err| <= a *
+# max|ref| + r * |ref|, r about a bf16 step. Both sum in fp32 and round the
+# result to the input dtype once; in bf16 the kernels also round p and dS to
+# bf16 as the operands of three of their products (see
+# csrc/flash_attention_bwd.cu). On an NVIDIA H100 80GB HBM3 (700 W) the
+# smallest a that passes was at most 1.74e-3 in bf16 over the nine shapes
+# and 6.2e-7 in fp32; the limits leave about twice (bf16) and thirty times
+# (fp32, a sum of up to S*G terms in another order) that.
+GRAD_TOL = {"bfloat16": (4e-3, 2.0 ** -7), "float32": (2e-5, 2e-5)}
+# The autograd op (bf16 B1 forward, B2/B3 backward) against autograd through
+# fp32 dense attention, which rounds nothing: same form as GRAD_TOL, with a
+# doubled for the bf16 out of B1 that the backward reads (the smallest a
+# that passes read 3.4e-3 at the train shape).
+OP_TOL = (8e-3, 2.0 ** -7)
+# Full-width loss gradients: the bf16 kernel path may be at most GRAD_RATIO
+# times as far from the fp32 plain path's gradients as the bf16 plain path
+# is, leaf by leaf (distance max|delta| / max|g_fp32|), as for the logits.
+GRAD_RATIO = 2.0
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+# The kernels' shapes: serve (B1) and train (B2, B3) at full width.
+SERVE_SHAPE = (REQUESTS, PROMPT_LEN, 8, 2, 128)
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8, 2, 128)
 
 
 class SmokeFailure(RuntimeError):
@@ -74,6 +112,24 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip()
+
+
+def ptxas_report(log):
+    """[(kernel, "registers ...; spills ...")] from nvcc's -Xptxas -v log."""
+    import re
+    rows, kernel, spill = [], "?", ""
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(fa_\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            kernel = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
+                      else k.group(1) if k else m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            rows.append((kernel, f"{line.split(':', 1)[-1].strip()}; "
+                                 f"{spill}"))
+    return rows
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -148,6 +204,68 @@ def compare(out, lse, ref_out, ref_lse):
     return ok, float(e_out.max()), float(e_lse.max()), atol, rtol
 
 
+def dense_attention_bwd(q, k, v, do, causal, window=None, drop=None):
+    """Plain masked attention backward in fp32: (dq, dk, dv) in the inputs'
+    dtype, from a softmax of its own.
+
+    ``drop=(row, lo, hi)`` leaves the contribution of query rows >= row to
+    keys lo..hi-1 out of dk and dv: the planted fault of the backward.
+    """
+    import torch
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(T, device=q.device)[None, :]
+    visible = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        visible &= cols <= rows
+    if window:
+        visible &= cols > rows - window
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    scale = D ** -0.5
+    s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
+    p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
+    del s
+    out = torch.einsum("bkgst,btkd->bkgsd", p, vf)
+    delta = (out * dof.permute(0, 2, 3, 1, 4)).sum(-1)
+    ds = p * (torch.einsum("bskgd,btkd->bkgst", dof, vf)
+              - delta[..., None]) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf)
+    if drop:
+        row, lo, hi = drop
+        keep = ~((rows >= row) & (cols >= lo) & (cols < hi))
+        p, ds = p * keep, ds * keep
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def compare_grads(got, ref, tol):
+    """(within tolerance, [(max|err|, max|ref|) for dq, dk, dv], reading).
+
+    |err| <= a * max|ref| + r * |ref| elementwise, with (a, r) = tol; the
+    reading is the smallest a that passes.
+    """
+    import torch
+    a, r = tol
+    finite, errs, need = True, [], 0.0
+    for g, f in zip(got, ref):
+        f = f.float()
+        e = (g.float() - f).abs()
+        top = float(f.abs().max())
+        finite = finite and bool(torch.isfinite(g).all())
+        errs.append((float(e.max()), top))
+        need = max(need, float((e - r * f.abs()).max()) / top)
+    return finite and need <= a, errs, need
+
+
+def grad_line(errs, need, tol):
+    return (", ".join(f"{n} {e:.3e} (max|ref| {t:.3e})"
+                      for n, (e, t) in zip(("dq", "dk", "dv"), errs))
+            + f"; needs a >= {need:.3e} (limit a*max|ref| + r|ref|, "
+            f"a={tol[0]:g}, r={tol[1]:g})")
+
+
 def phase_kernels(fa):
     import torch
     shapes = [  # name, B, S, T, K, G, D, dtype, causal, window
@@ -194,21 +312,107 @@ def phase_kernels(fa):
     return errs
 
 
-def phase_serve(fa, serve, steps):
+BWD_SHAPES = [  # name, B, S, T, K, G, D, dtype, causal, window
+    ("train", 4, 2048, 2048, 8, 2, 128, "bfloat16", True, None),
+    ("ragged", 2, 1000, 1000, 8, 2, 128, "bfloat16", True, None),
+    ("window", 2, 2048, 2048, 8, 2, 128, "bfloat16", True, 256),
+    ("noncausal", 2, 1024, 1024, 8, 2, 128, "bfloat16", False, None),
+    ("fp32", 2, 512, 512, 8, 2, 128, "float32", True, None),
+    ("g1", 2, 1024, 1024, 16, 1, 128, "bfloat16", True, None),
+    ("g2_d64", 2, 1024, 1024, 4, 2, 64, "bfloat16", True, None),
+    ("g3_d40_s_ne_t", 1, 200, 333, 2, 3, 40, "bfloat16", True, 50),
+    ("fp32_g3_d72", 1, 333, 333, 2, 3, 72, "float32", False, 64),
+]
+
+
+def phase_bwd_kernels(fa, fa_bwd):
+    """B2/B3 against their plain version; the planted backward fault."""
+    import torch
+    errs = {}
+    for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(
+            BWD_SHAPES):
+        dtype = getattr(torch, dt)
+        q, k, v = attention_inputs(B, S, T, K, G, D, dtype, seed=200 + i)
+        do = attention_inputs(B, S, S, K, G, D, dtype, seed=300 + i)[0]
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+        got = fa_bwd.flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = fa_bwd.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ok, e, need = compare_grads(got, ref, GRAD_TOL[dt])
+        errs[name] = e
+        print(f"[kernel] flash_attention_bwd {name:14s} B={B} S={S} T={T} "
+              f"K={K} G={G} D={D} {dt} causal={causal} window={window}: "
+              f"max|err| {grad_line(e, need, GRAD_TOL[dt])} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"flash_attention_bwd disagrees with its plain version at "
+                  f"{name}")
+        if name == "train":
+            fault = dense_attention_bwd(q, k, v, do, causal, window, FAULT)
+            passed, fe, fneed = compare_grads(fault, ref, GRAD_TOL[dt])
+            caught = not passed
+            print(f"[kernel] planted backward fault at {name} (the dk/dv "
+                  f"contribution of rows >= {FAULT[0]} to keys {FAULT[1]}.."
+                  f"{FAULT[2] - 1} left out): max|err| "
+                  f"{grad_line(fe, fneed, GRAD_TOL[dt])} "
+                  f"{'caught' if caught else 'MISSED'}", flush=True)
+            check(caught, "the backward check misses a dropped tile")
+            del fault
+        del q, k, v, do, out, lse, got, ref
+    return errs
+
+
+def phase_op(ops):
+    """The autograd op against autograd through fp32 dense attention."""
+    import torch
+    B, S, K, G, D = TRAIN_SHAPE
+    q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=400)
+    do = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=401)[0]
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, True, None),
+                              leaves, do)
+    dense = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(dense_attention(*dense, True)[0], dense,
+                              do.float())
+    torch.cuda.synchronize()
+    ok, e, need = compare_grads(got, ref, OP_TOL)
+    print(f"[kernel] autograd op (B1 + B2 + B3, bf16) vs autograd through "
+          f"fp32 dense attention, B={B} S={S} K={K} G={G} D={D} causal: "
+          f"max|err| {grad_line(e, need, OP_TOL)} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the autograd op disagrees with dense attention")
+
+
+def reset_counts(fa, fa_bwd):
+    fa.launches = fa_bwd.launches_dq = fa_bwd.launches_dkv = 0
+
+
+def read_counts(fa, fa_bwd):
+    import torch
+    torch.cuda.synchronize()
+    return fa.launches, fa_bwd.launches_dq, fa_bwd.launches_dkv
+
+
+def phase_serve(fa, fa_bwd, serve, steps):
     import dataclasses
     import torch
-    fa.launches = 0
+    reset_counts(fa, fa_bwd)
     res = serve.main(["--arch", ARCH, "--requests", str(REQUESTS),
                       "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN),
                       "--seed", "0"])
-    torch.cuda.synchronize()
-    launches = fa.launches
+    launches = read_counts(fa, fa_bwd)[0]
     cfg = res.cfg
     print(f"[serve] flash_attention launches: {launches} over "
-          f"{res.prefills} prefills of {cfg.n_layers} layers", flush=True)
+          f"{res.prefills} prefills of {cfg.n_layers} layers; backward "
+          f"{fa_bwd.launches_dq} dq, {fa_bwd.launches_dkv} dkv", flush=True)
     check(launches == cfg.n_layers * res.prefills,
           f"expected {cfg.n_layers * res.prefills} kernel launches, "
           f"got {launches}")
+    check(fa_bwd.launches_dq == fa_bwd.launches_dkv == 0,
+          "serving launched a backward kernel")
     V = cfg.padded_vocab
     check(tuple(res.prefill_logits.shape) == (REQUESTS, 1, V),
           f"prefill logits shape {tuple(res.prefill_logits.shape)}")
@@ -265,26 +469,159 @@ def phase_serve(fa, serve, steps):
     return res, launches
 
 
+def phase_train(fa, fa_bwd, train, card):
+    """Full-width training through train.main, launches counted."""
+    import torch
+    argv = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--precision", "bf16"]
+    reset_counts(fa, fa_bwd)
+    res = train.main(argv + ["--steps", str(TRAIN_STEPS)])
+    counts = read_counts(fa, fa_bwd)
+    L = res.cfg.n_layers
+    print(f"[train] launches over {TRAIN_STEPS} steps of {L} layers: "
+          f"flash_attention {counts[0]}, dq {counts[1]}, dkv {counts[2]}",
+          flush=True)
+    check(counts == (L * TRAIN_STEPS,) * 3,
+          f"expected {L * TRAIN_STEPS} launches of each kernel, got {counts}")
+    print(f"[train] losses: {' '.join(f'{x:.4f}' for x in res.losses)}",
+          flush=True)
+    check(all(math.isfinite(x) for x in res.losses), "non-finite loss")
+    print(f"[train] {card} | {res.tokens_per_s:.1f} tok/s, "
+          f"{res.ms_per_step:.3f} ms/step over steps 2..{TRAIN_STEPS} "
+          f"({' '.join(f'{x:.3f}' for x in res.step_ms)} ms), peak memory "
+          f"{res.peak_memory_bytes / 2 ** 30:.3f} GiB "
+          f"(max_memory_allocated)", flush=True)
+    torch.cuda.empty_cache()
+
+    reset_counts(fa, fa_bwd)
+    remat = train.main(argv + ["--steps", "2", "--remat", "block",
+                               "--microbatches", "2"])
+    rc = read_counts(fa, fa_bwd)
+    want = (2 * L * 2 * 2, L * 2 * 2, L * 2 * 2)
+    diff = abs(remat.losses[0] - res.losses[0])
+    print(f"[train] remat block, 2 microbatches, 2 steps: launches "
+          f"flash_attention {rc[0]}, dq {rc[1]}, dkv {rc[2]} (expected "
+          f"{want}); first loss {remat.losses[0]:.4f} against "
+          f"{res.losses[0]:.4f} (|diff| {diff:.2e}, limit 1e-2); "
+          f"{remat.ms_per_step:.3f} ms/step, peak memory "
+          f"{remat.peak_memory_bytes / 2 ** 30:.3f} GiB", flush=True)
+    check(rc == want, f"remat block: expected launches {want}, got {rc}")
+    check(diff <= 1e-2, "remat block changes the first loss")
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def loss_grads(params, batch, cfg, sys):
+    """{leaf path: fp32 gradient of transformer.loss_fn}."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.models import transformer
+    flat = {path: leaf.detach().requires_grad_()
+            for path, leaf in weights.flatten(params).items()}
+    loss, _ = transformer.loss_fn(weights.unflatten(flat), batch, cfg, sys)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return {path: g.detach() for path, g in zip(flat, grads)}
+
+
+def phase_grad(fa_bwd):
+    """Full-width gradients: kernel path against the fp32 plain path."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get(ARCH)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(1),
+                              cfg, "cuda")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (1, TRAIN_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).cuda(),
+             "labels": torch.from_numpy(np.roll(toks, -1, -1)).cuda()}
+
+    def grads(**kw):
+        out = loss_grads(params, batch, cfg, transformer.SystemConfig(**kw))
+        torch.cuda.synchronize()
+        return out
+
+    exact = grads(precision="fp32", use_pallas=False)
+    kernel = grads(precision="bf16")
+    plain = grads(precision="bf16", use_pallas=False)
+    kernel_bwd = fa_bwd.flash_attention_bwd
+    fa_bwd.flash_attention_bwd = (
+        lambda q, k, v, out, lse, do, *, causal=True, window=None, **_:
+        dense_attention_bwd(q, k, v, do, causal, window, FAULT))
+    try:
+        fault = grads(precision="bf16")
+    finally:
+        fa_bwd.flash_attention_bwd = kernel_bwd
+
+    def dist(g):
+        return {p: float((g[p] - e).abs().max() / e.abs().max())
+                for p, e in exact.items()}
+
+    def rel_l2(g):
+        num = sum(float((g[p] - e).square().sum()) for p, e in exact.items())
+        den = sum(float(e.square().sum()) for e in exact.values())
+        return (num / den) ** 0.5
+
+    d_k, d_p, d_f = dist(kernel), dist(plain), dist(fault)
+    ratio = {p: d_k[p] / d_p[p] for p in exact}
+    worst = max(ratio, key=ratio.get)
+    fault_ratio = {p: d_f[p] / d_p[p] for p in exact}
+    worst_fault = max(fault_ratio, key=fault_ratio.get)
+    for p in exact:
+        print(f"[grad] {p:24s} max|g32| {float(exact[p].abs().max()):.3e}: "
+              f"distance kernel {d_k[p]:.3e}, plain {d_p[p]:.3e} "
+              f"({ratio[p]:.2f}x), fault {d_f[p]:.3e} "
+              f"({fault_ratio[p]:.2f}x)", flush=True)
+    ok = all(ratio[p] <= GRAD_RATIO for p in exact)
+    caught = fault_ratio[worst_fault] > GRAD_RATIO
+    print(f"[grad] full-width loss gradients (B=1, S={TRAIN_SEQ}) against "
+          f"the fp32 plain path: worst leaf {worst} at {ratio[worst]:.2f}x "
+          f"the bf16 plain path's distance (limit {GRAD_RATIO:g}x); global "
+          f"relative L2 kernel {rel_l2(kernel):.3e}, plain "
+          f"{rel_l2(plain):.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"[grad] planted backward fault in every layer: worst leaf "
+          f"{worst_fault} at {fault_ratio[worst_fault]:.2f}x, global "
+          f"relative L2 {rel_l2(fault):.3e} "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(ok, "kernel-path gradients disagree with the plain path")
+    check(caught, "the gradient check misses a dropped tile")
+    del params, exact, kernel, plain, fault
+    torch.cuda.empty_cache()
+
+
+def bound(flops, nbytes):
+    """(least ms the card needs, what sets it)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def expand_heads(q, k, v):
+    """(B, S, K, G, D) / (B, T, K, D) -> (B, H, S, D) each, kv heads
+    repeated over their group, for the library call."""
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    qh = q.reshape(B, S, K * G, D).transpose(1, 2).contiguous()
+    kh, vh = (x[:, :, :, None].expand(B, T, K, G, D).reshape(B, T, K * G, D)
+              .transpose(1, 2).contiguous() for x in (k, v))
+    return qh, kh, vh
+
+
 def phase_timing(fa, card):
     import torch
     import torch.nn.functional as F
-    B, S, K, G, D = REQUESTS, PROMPT_LEN, 8, 2, 128
+    B, S, K, G, D = SERVE_SHAPE
     H = K * G
     q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=100)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=3,
                        warmup=1)
-    qh = q.reshape(B, S, H, D).transpose(1, 2).contiguous()
-    kh = k[:, :, :, None].expand(B, S, K, G, D).reshape(B, S, H, D)
-    vh = v[:, :, :, None].expand(B, S, K, G, D).reshape(B, S, H, D)
-    kh, vh = kh.transpose(1, 2).contiguous(), vh.transpose(1, 2).contiguous()
+    qh, kh, vh = expand_heads(q, k, v)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True), iters=20)
     flops = 4.0 * B * H * D * visible_pairs(S, S, True, None)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * S * H
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes)
     print(f"[timing] {card} | flash_attention B={B} S=T={S} H={H} K={K} "
           f"D={D} bf16 causal: kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
@@ -293,6 +630,49 @@ def phase_timing(fa, card):
           f"{library_ms:.4f} ms", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_bwd_timing(fa, fa_bwd, card):
+    """B2 and B3 at the train shape; the library call is SDPA's backward,
+    which computes dq, dk and dv together."""
+    import torch
+    import torch.nn.functional as F
+    B, S, K, G, D = TRAIN_SHAPE
+    H = K * G
+    q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=500)
+    do = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=501)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = fa_bwd.attention_delta(out, do)
+    kw = dict(causal=True, scale=D ** -0.5)
+    args = (q, k, v, do, lse, delta)
+    qh, kh, vh = (x.requires_grad_() for x in expand_heads(q, k, v))
+    out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    do_h = do.reshape(B, S, H, D).transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_h, (qh, kh, vh), do_h, retain_graph=True), iters=20)
+    pairs = B * H * visible_pairs(S, S, True, None)
+    stats = 4 * 2 * B * S * H                    # lse and delta, fp32
+    io = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, dO, k, v in bf16
+    rows = {}
+    for name, kernel, plain, products, outs in (
+            ("dq", fa_bwd.dq_kernel, fa_bwd.dq_reference, 3, q.numel()),
+            ("dkv", fa_bwd.dkv_kernel, fa_bwd.dkv_reference, 4,
+             k.numel() + v.numel())):
+        ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+        flops = 2.0 * D * products * pairs
+        nbytes = io + stats + 2 * outs
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[timing] {card} | flash_attention_bwd {name} B={B} S=T={S} "
+              f"H={H} K={K} D={D} bf16 causal: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B), plain "
+              f"{plain_ms:.4f} ms, library (SDPA backward, dq, dk and dv "
+              f"together, kv heads expanded) {library_ms:.4f} ms",
+              flush=True)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    return rows
 
 
 def main() -> int:
@@ -309,7 +689,9 @@ def main() -> int:
     from repro_torch import device as device_lib
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve, steps
+    from repro_torch.kernels import flash_attention_bwd as fa_bwd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps, train
 
     card = card_line()
     print(f"[card] {card}", flush=True)
@@ -322,26 +704,42 @@ def main() -> int:
     print(f"[build] {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, lib in libs.items():
-        log = lib.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {name}: {line.strip()}", flush=True)
+        for kernel, report in ptxas_report(lib.with_suffix(".log")):
+            print(f"[ptxas] {name}: {kernel}: {report}", flush=True)
 
     errs = phase_kernels(fa)
-    res, launches = phase_serve(fa, serve, steps)
+    bwd_errs = phase_bwd_kernels(fa, fa_bwd)
+    phase_op(ops)
+    res, launches = phase_serve(fa, fa_bwd, serve, steps)
     print(f"[serve] {card} | prefill {res.prefill_tok_s:.1f} tok/s "
           f"({res.prefill_ms:.3f} ms for {REQUESTS}x{PROMPT_LEN}), decode "
           f"{res.decode_tok_s:.1f} tok/s ({res.decode_ms / (GEN - 1):.3f} "
           f"ms/step at batch {REQUESTS})", flush=True)
     del res
     torch.cuda.empty_cache()
+    _, train_counts = phase_train(fa, fa_bwd, train, card)
+    phase_grad(fa_bwd)
     timing = phase_timing(fa, card)
+    bwd_timing = phase_bwd_timing(fa, fa_bwd, card)
 
-    kernels = [{
-        "name": "flash_attention", "id": "B1", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": launches, "max_abs_err": errs["serve"], **timing}]
+    src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    train_errs = bwd_errs["train"]
+    kernels = [
+        {"name": "flash_attention", "id": "B1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:28",
+         "launches": launches, "max_abs_err": errs["serve"], **timing},
+        {"name": "flash_attention_bwd_dq", "id": "B2", "route": "cuda",
+         "source": src_bwd,
+         "replaces": "src/repro/kernels/flash_attention_bwd.py:43",
+         "launches": train_counts[1], "max_abs_err": train_errs[0][0],
+         **bwd_timing["dq"]},
+        {"name": "flash_attention_bwd_dkv", "id": "B3", "route": "cuda",
+         "source": src_bwd,
+         "replaces": "src/repro/kernels/flash_attention_bwd.py:87",
+         "launches": train_counts[2],
+         "max_abs_err": max(train_errs[1][0], train_errs[2][0]),
+         **bwd_timing["dkv"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,9 @@ _MODULES = {"qwen3-0.6b": "qwen3_0_6b"}
 _NOT_PORTED = {
     "mixtral-8x22b": "MoE and sliding window",
     "qwen2-moe-a2.7b": "MoE and sliding window",
-    "yi-34b": "Training slice",
-    "qwen2-1.5b": "Training slice",
-    "deepseek-coder-33b": "Training slice",
+    "yi-34b": "Other dense archs",
+    "qwen2-1.5b": "Other dense archs",
+    "deepseek-coder-33b": "Other dense archs",
     "internvl2-26b": "Encoder-decoder and VLM",
     "whisper-small": "Encoder-decoder and VLM",
     "recurrentgemma-9b": "Griffin (hybrid) family with B5",

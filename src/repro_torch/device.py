@@ -11,6 +11,7 @@
 """
 from __future__ import annotations
 
+import time
 from typing import Union
 
 import torch
@@ -40,3 +41,27 @@ def compute_dtype(precision: str) -> torch.dtype:
         return torch.float32
     raise ValueError(f"unknown precision {precision!r} (bf16 | fp32)")
 
+
+class Timer:
+    """Elapsed ms of a ``with`` block: CUDA events on the card, the host
+    clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def __enter__(self):
+        if self.cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self._end.record()
+            self._end.synchronize()
+            self.ms = self._start.elapsed_time(self._end)
+        else:
+            self.ms = (time.perf_counter() - self._t0) * 1e3

@@ -41,11 +41,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // as the reference
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace attn;
 
 struct Args {
   const void* q;
@@ -78,10 +78,7 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int rows) {
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
-  bool ok = kpos < a.T;
-  if (a.causal) ok = ok && kpos <= qpos;
-  if (a.window > 0) ok = ok && kpos > qpos - a.window;
-  return ok;
+  return attn::visible(qpos, kpos, a.T, a.causal, a.window);
 }
 
 // True when every (row, column) of the kv tile [k0, k0 + n) is visible to
@@ -100,65 +97,6 @@ constexpr int kRows = 64;      // flattened (position, group) rows per block
 constexpr int kBN = 64;        // kv rows per tile
 constexpr int kWarps = 4;      // 16 rows each
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  // src-size 0 zero-fills the 16 bytes (rows past the edge, columns >= D)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(smem)), "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(smem)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of DP bf16 (16-byte chunks) into shared memory with row
-// stride LD. row_ptr(r) gives the global row or nullptr when r is outside
-// the tensor; such rows and chunks at column >= D are zero-filled (the copy
-// then reads nothing and is handed `base`, a valid address).
-template <int DP, int LD, typename RowPtr>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int rows, int D,
-                                          const __nv_bfloat16* base,
-                                          RowPtr row_ptr) {
-  constexpr int kChunks = DP / 8;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const __nv_bfloat16* src = row_ptr(r);
-    const bool ok = src != nullptr && col < D;
-    cp_async16(dst + r * LD + col, ok ? src + col : base, ok);
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -198,10 +136,10 @@ fa_fwd_bf16_kernel(Args a) {
   const int n_tiles = t.kv_hi > t.kv_lo ? (t.kv_hi - t.kv_lo + kBN - 1) / kBN
                                         : 0;
 
-  load_rows<DP, LD>(sQ, kRows, a.D, q, q_row);
+  load_rows<DP, LD, kThreads>(sQ, kRows, a.D, q, q_row);
   if (n_tiles > 0) {
-    load_rows<DP, LD>(sK, kBN, a.D, k, kv_loader(k, t.kv_lo));
-    load_rows<DP, LD>(sV, kBN, a.D, v, kv_loader(v, t.kv_lo));
+    load_rows<DP, LD, kThreads>(sK, kBN, a.D, k, kv_loader(k, t.kv_lo));
+    load_rows<DP, LD, kThreads>(sV, kBN, a.D, v, kv_loader(v, t.kv_lo));
   }
   cp_async_commit();
 
@@ -222,9 +160,9 @@ fa_fwd_bf16_kernel(Args a) {
     const int k0 = t.kv_lo + j * kBN;
     if (j + 1 < n_tiles) {
       const int nb = buf ^ 1;
-      load_rows<DP, LD>(sK + nb * kBN * LD, kBN, a.D, k,
+      load_rows<DP, LD, kThreads>(sK + nb * kBN * LD, kBN, a.D, k,
                         kv_loader(k, k0 + kBN));
-      load_rows<DP, LD>(sV + nb * kBN * LD, kBN, a.D, v,
+      load_rows<DP, LD, kThreads>(sV + nb * kBN * LD, kBN, a.D, v,
                         kv_loader(v, k0 + kBN));
       cp_async_commit();
       cp_async_wait<1>();

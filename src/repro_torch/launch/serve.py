@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -51,30 +50,6 @@ class ServeResult:
         return B * (gen - 1) / (self.decode_ms / 1e3) if gen > 1 else 0.0
 
 
-class _Timer:
-    """Elapsed ms: CUDA events on the card, the host clock on the CPU."""
-
-    def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
-
-    def __enter__(self):
-        if self.cuda:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._end = torch.cuda.Event(enable_timing=True)
-            self._start.record()
-        else:
-            self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            self._end.record()
-            self._end.synchronize()
-            self.ms = self._start.elapsed_time(self._end)
-        else:
-            self.ms = (time.perf_counter() - self._t0) * 1e3
-
-
 def serve(params, prompts, cfg, sys, gen: int) -> ServeResult:
     """Warm up, then prefill ``prompts`` and decode ``gen`` tokens greedily."""
     if gen < 1:
@@ -91,11 +66,11 @@ def serve(params, prompts, cfg, sys, gen: int) -> ServeResult:
     decode(params, cache, next_token(logits), S)
     del cache
 
-    with _Timer(dev) as t_prefill:
+    with device_lib.Timer(dev) as t_prefill:
         logits, cache = prefill(params, {"tokens": prompts})
         tok = next_token(logits)
     out = [tok]
-    with _Timer(dev) as t_decode:
+    with device_lib.Timer(dev) as t_decode:
         for i in range(gen - 1):
             step_logits, cache = decode(params, cache, tok, S + i)
             tok = next_token(step_logits)

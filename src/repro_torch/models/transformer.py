@@ -1,8 +1,10 @@
-"""TransformerLM, dense family: prefill (``forward``) and ``decode_step``.
+"""TransformerLM, dense family: ``forward``, ``loss_fn`` and ``decode_step``.
 
 PyTorch counterpart of ``repro.models.transformer`` for the dense family.
 Parameters stay stacked on a leading layer axis as in the reference, and a
-loop over the layers takes the place of its ``lax.scan``.
+loop over the layers takes the place of its ``lax.scan``. Parameters are
+fp32 masters; ``forward`` casts them to the compute dtype, so their
+gradients arrive in fp32, as in the reference.
 
 The other families raise ``NotImplementedError`` naming the ROADMAP.md item
 (queue A) that ports them.
@@ -10,14 +12,17 @@ The other families raise ``NotImplementedError`` naming the ROADMAP.md item
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
+from repro_torch.tree import tree_map
 
 _ROADMAP_ITEM = {
     "moe": "MoE and sliding window",
@@ -154,12 +159,6 @@ class SystemConfig:
 DEFAULT_SYS = SystemConfig()
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _tree_stack(trees):
     if isinstance(trees[0], dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
@@ -168,8 +167,47 @@ def _tree_stack(trees):
 
 def _cast(params, dtype):
     """Floating leaves to ``dtype`` (a leaf already in it is not copied)."""
-    return _tree_map(
+    return tree_map(
         lambda a: a.to(dtype) if a.is_floating_point() else a, params)
+
+
+# ``dots``: keep the outputs of the matrix products, recompute the rest (the
+# counterpart of ``jax.checkpoint_policies.checkpoint_dots``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXT = {
+    "block": ckpt.noop_context_fn,
+    "dots": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                              _dots_policy),
+}
+
+
+def _remat(fn, sys: SystemConfig):
+    """The reference's ``_remat``: ``none`` runs ``fn`` as it is, ``block``
+    saves only its inputs and recomputes the rest in the backward, ``dots``
+    also saves the matrix products' outputs. The flash kernel (B1) is
+    recomputed under both, as the Pallas call is under ``jax.checkpoint``.
+    Without autograd there is nothing to save and ``fn`` runs as it is."""
+    if sys.remat == "none":
+        return fn
+    if sys.remat not in _REMAT_CONTEXT:
+        raise ValueError(f"unknown remat {sys.remat!r} (none | block | dots)")
+    context_fn = _REMAT_CONTEXT[sys.remat]
+
+    def remat_fn(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn)
+    return remat_fn
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +309,20 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
 
 
 def _layer(stacked, i):
-    return _tree_map(lambda a: a[i], stacked)
+    return tree_map(lambda a: a[i], stacked)
+
+
+def _unstack(stacked, n):
+    """Stacked leaves -> ``n`` per-layer trees, one ``unbind`` per leaf.
+
+    Taking ``a[i]`` for each layer would give each layer's backward a zero
+    gradient the size of the whole stacked leaf; ``unbind``'s backward
+    stacks the per-layer gradients once.
+    """
+    if isinstance(stacked, dict):
+        parts = {k: _unstack(v, n) for k, v in stacked.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return stacked.unbind(0)
 
 
 def _lm_head(params, cparams, x, cfg: ModelConfig):
@@ -292,11 +343,14 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
     require_dense(cfg)
     cparams = _cast(params, sys.compute_dtype)
     x = cparams["embed"][batch["tokens"]]
+
+    def body(lp, x):
+        return _apply_attn_block(lp, x, cfg, sys, collect_cache=collect_cache,
+                                 max_cache=max_cache)
+    body = _remat(body, sys)
     caches = []
-    for i in range(cfg.n_layers):
-        x, cache = _apply_attn_block(_layer(cparams["layers"], i), x, cfg,
-                                     sys, collect_cache=collect_cache,
-                                     max_cache=max_cache)
+    for lp in _unstack(cparams["layers"], cfg.n_layers):
+        x, cache = body(lp, x)
         caches.append(cache)
     if last_only:
         x = x[:, -1:]
@@ -305,6 +359,27 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
     if collect_cache:
         return logits, aux_total, _tree_stack(caches)
     return logits, aux_total
+
+
+def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
+    """Mean next-token cross entropy over labels >= 0: (loss, metrics).
+
+    batch: {"tokens": (B, S) int, "labels": (B, S) int, < 0 = ignored}. As
+    the reference: fp32 logsumexp, the gold logit by gather, and metrics
+    ``loss``, ``aux_loss``, ``tokens`` and ``accuracy``.
+    """
+    logits, aux = forward(params, batch, cfg, sys)
+    labels = batch["labels"]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    n = mask.sum().clamp(min=1.0)
+    loss = ((lse - gold) * mask).sum() / n
+    with torch.no_grad():
+        accuracy = ((logits.argmax(-1) == labels).float() * mask).sum() / n
+    metrics = {"loss": loss.detach(), "aux_loss": aux, "tokens": mask.sum(),
+               "accuracy": accuracy}
+    return loss + aux, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ The port keeps the reference's parameter layout (dense weights ``(in, out)``
 used as ``x @ W``, layers stacked on a leading axis), so a leaf carries over
 as it is. ``leaf_shapes`` is the layout map: every leaf path the port knows,
 with its shape. ``from_jax`` accepts exactly those paths and raises on an
-unknown, missing or misshapen leaf.
+unknown, missing or misshapen leaf; ``state_from_jax`` carries a whole train
+state (parameters, optimizer moments, step) over the same map.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ def flatten(tree, prefix: str = "") -> Dict[str, object]:
     return out
 
 
-def _unflatten(flat):
+def unflatten(flat):
+    """{"a/b/c": leaf} -> nested dicts (the inverse of ``flatten``)."""
     tree = {}
     for path, leaf in flat.items():
         *parents, last = path.split("/")
@@ -81,4 +83,18 @@ def from_jax(params_np, cfg, device, dtype=None):
                              f"{expected[path]}")
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         out[path] = t.to(device=device, dtype=dtype)
-    return _unflatten(out)
+    return unflatten(out)
+
+
+def state_from_jax(state_np, cfg, device):
+    """The reference's train state (numpy leaves) -> the port's.
+
+    ``{"params", "opt", "step"}`` as ``repro.launch.steps.make_train_state``
+    builds it: the parameters take ``cfg.dtype`` as in ``from_jax``; every
+    optimizer moment tree (adamw's ``m`` and ``v``, sgd's ``mu``) has the
+    parameters' layout and stays fp32; the step becomes a Python int.
+    """
+    return {"params": from_jax(state_np["params"], cfg, device),
+            "opt": {name: from_jax(tree, cfg, device, torch.float32)
+                    for name, tree in state_np["opt"].items()},
+            "step": int(np.asarray(state_np["step"]))}
