@@ -36,7 +36,28 @@ Phases (any failure raises, and the script exits non-zero):
   6. time each kernel at its main path's shape beside its bound, its plain
      version and one PyTorch library call of the same function
      (``scaled_dot_product_attention`` and its backward, with the kv heads
-     expanded, timed here only: the port never calls it).
+     expanded, timed here only: the port never calls it);
+  7. hold B4 (mLSTM) against its plain version at the xlstm-350m width
+     (B=8, S=2048, H=4, D=512) at each chunk 32..256, in bf16, and at
+     head dims and chunks that are not multiples of the kernel's tiles; and
+     B5 (RG-LRU) at the recurrentgemma-9b width (B=8, S=2048, R=4096), at
+     ragged S and R, with and without h0. Planted faults (B4 without the
+     inter-chunk q C term for chunks >= 1; B5 without one step's carry)
+     must fail the checks;
+  8. run the kernel tuner (``repro_torch.kernels.tune.tune_kernel``: grid,
+     3 reps, 1 warm-up, a fresh find-db) on both full-width workloads with
+     every launch counter set to 0 just before and read just after: 4 and
+     16 trials, the B4 and B5 launches equal to the kernel calls the
+     backend timed, no B1-B3 launch, rows under a ``cuda/...h100...``
+     hardware key, a golden table under ``build/``; a second call must
+     answer from the find-db with 0 trials and 0 launches, and
+     ``ops.mlstm``/``ops.rglru`` with ``chunk=None`` must launch with the
+     defaults on an empty find-db, the winners' configs on the golden
+     table, and on a find-db of configs that are neither, with those;
+  9. time B4 and B5 at full width at the default config and at the winner,
+     beside their bounds (one per shape: the least work at any chunk) and
+     their plain versions (no single PyTorch call computes either: no
+     library time), and at every config of the grid.
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
@@ -52,6 +73,7 @@ from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12          # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
 
 # The kernel against its plain version on the same inputs. Both accumulate
@@ -89,6 +111,27 @@ OP_TOL = (8e-3, 2.0 ** -7)
 # is, leaf by leaf (distance max|delta| / max|g_fp32|), as for the logits.
 GRAD_RATIO = 2.0
 
+# B4 and B5 against their plain versions, |err| <= a * max|ref| + r * |ref|
+# per output tensor as for GRAD_TOL. The kernels sum in fp32 in another
+# order than the plain versions (and B5 carries a product of decays into
+# each time segment, see csrc/rglru.cu); in bf16 and fp16 both round the
+# fp32 result to the output dtype once, so r is one step of it. On an
+# NVIDIA H100 80GB HBM3 (700 W) max|err| / max|ref| read at most 8.2e-7
+# for B4 in fp32 (eight shapes) and 3.5e-7 for B5 (seven shapes); in bf16
+# and fp16 B4 was within one step of the output dtype (a ~ 0 at that r).
+# The limits leave about 2.4x (B4) and 2.8x (B5) on those readings.
+MLSTM_TOL = {"float32": (2e-6, 2e-6), "bfloat16": (1e-4, 2.0 ** -7),
+             "float16": (1e-4, 2.0 ** -10)}
+RGLRU_TOL = (1e-6, 1e-6)
+# The tuner's full-width workloads: xlstm-350m's mLSTM (d_model 1024 x
+# proj_factor 2 over 4 heads: D = 512) and recurrentgemma-9b's RG-LRU
+# (d_rnn 4096).
+MLSTM_WORKLOAD = "mlstm@B=8,S=2048,H=4,D=512"
+RGLRU_WORKLOAD = "rglru@B=8,S=2048,R=4096"
+MLSTM_SHAPE = (8, 2048, 4, 512)
+RGLRU_SHAPE = (8, 2048, 4096)
+GOLDEN = Path("build") / "chip_smoke" / "kernel_golden.json"
+
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
@@ -121,9 +164,15 @@ def ptxas_report(log):
     for line in (log.read_text().splitlines() if log.exists() else []):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(fa_\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
-            kernel = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
-                      else k.group(1) if k else m.group(1))
+            k = re.search(r"\d((?:fa|mlstm|rglru)_\w+?_kernel)(I\w+?E)?",
+                          m.group(1))
+            kernel = k.group(1) if k else m.group(1)
+            if k and k.group(2):              # template arguments
+                args = [{"13__nv_bfloat16": "bf16", "6__half": "half",
+                         "f": "float"}.get(t.group(1), t.group(2))
+                        for t in re.finditer(r"(13__nv_bfloat16|6__half|f)"
+                                             r"|Li(\d+)", k.group(2))]
+                kernel += f"<{', '.join(args)}>"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -589,9 +638,9 @@ def phase_grad(fa_bwd):
     torch.cuda.empty_cache()
 
 
-def bound(flops, nbytes):
-    """(least ms the card needs, what sets it)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(least ms the card needs, what sets it), at the operations' peak."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -675,6 +724,306 @@ def phase_bwd_timing(fa, fa_bwd, card):
     return rows
 
 
+def mlstm_inputs(B, S, H, D, dtype, seed, f_shift=0.0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    ig = torch.randn((B, S, H), generator=g, device="cuda")
+    fg = torch.randn((B, S, H), generator=g, device="cuda") + f_shift
+    return q, k, v, ig, fg
+
+
+def mlstm_drop_inter(ml, q, k, v, ig, fg, chunk):
+    """The plain version with the inter-chunk q C term left out of the
+    output of every chunk after the first (n and m still carried): the
+    planted fault of B4."""
+    import torch
+    hs, state = [], None
+    for c0 in range(0, q.shape[1], chunk):
+        args = [x[:, c0:c0 + chunk] for x in (q, k, v, ig, fg)]
+        if state is None:
+            h, state = ml.mlstm_chunkwise_reference(*args, chunk=chunk)
+        else:
+            C, n, m = state
+            h = ml.mlstm_chunkwise_reference(
+                *args, chunk=chunk, state=(torch.zeros_like(C), n, m))[0]
+            state = ml.mlstm_chunkwise_reference(*args, chunk=chunk,
+                                                 state=state)[1]
+        hs.append(h)
+    return torch.cat(hs, dim=1)
+
+
+def tol_line(name, e, need, tol):
+    return (", ".join(f"{n} {x:.3e} (max|ref| {t:.3e})"
+                      for n, (x, t) in zip(name, e))
+            + f"; needs a >= {need:.3e} (limit a*max|ref| + r|ref|, "
+            f"a={tol[0]:g}, r={tol[1]:g})")
+
+
+MLSTM_CHECKS = [  # name, B, S, H, D, dtype, chunk, forget-gate shift
+    ("full_c32", 8, 2048, 4, 512, "float32", 32, 0.0),
+    ("full_c64", 8, 2048, 4, 512, "float32", 64, 0.0),
+    ("full_c128", 8, 2048, 4, 512, "float32", 128, 0.0),
+    ("full_c256", 8, 2048, 4, 512, "float32", 256, 0.0),
+    ("full_bf16", 8, 2048, 4, 512, "bfloat16", 128, 0.0),
+    ("d72_c64", 2, 512, 2, 72, "float32", 64, 2.0),
+    ("d40_s384_f16", 1, 384, 3, 40, "float16", 128, 2.0),
+    ("d200_s100_bf16", 2, 100, 2, 200, "bfloat16", 100, 2.0),
+]
+
+
+def phase_mlstm(ml):
+    """B4 against its plain version; the planted fault at full width."""
+    import torch
+    errs = {}
+    for i, (name, B, S, H, D, dt, chunk, shift) in enumerate(MLSTM_CHECKS):
+        tol = MLSTM_TOL[dt]
+        x = mlstm_inputs(B, S, H, D, getattr(torch, dt), 600 + i, shift)
+        h = ml.mlstm_chunkwise(*x, chunk=chunk)
+        torch.cuda.synchronize()
+        ref = ml.mlstm_chunkwise_reference(*x, chunk=chunk)[0]
+        torch.cuda.synchronize()
+        ok, e, need = compare_grads([h], [ref], tol)
+        errs[name] = e[0][0]
+        print(f"[kernel] mlstm {name:16s} B={B} S={S} H={H} D={D} {dt} "
+              f"chunk={chunk}: max|err| {tol_line(['h'], e, need, tol)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"mlstm disagrees with its plain version at {name}")
+        if name == "full_c128":
+            fault = mlstm_drop_inter(ml, *x, chunk=chunk)
+            passed, fe, fneed = compare_grads([fault], [ref], tol)
+            print(f"[kernel] planted mlstm fault at {name} (q C left out of "
+                  f"chunks >= 1): max|err| {tol_line(['h'], fe, fneed, tol)} "
+                  f"{'MISSED' if passed else 'caught'}", flush=True)
+            check(not passed, "the mlstm check misses a dropped q C term")
+            del fault
+        del x, h, ref
+    return errs
+
+
+RGLRU_CHECKS = [  # name, B, S, R, h0, chunk, r_block
+    ("full", 8, 2048, 4096, False, 128, 128),
+    ("full_h0", 8, 2048, 4096, True, 128, 128),
+    ("full_c32_r256", 8, 2048, 4096, True, 32, 256),
+    ("full_c256_r32", 8, 2048, 4096, False, 256, 32),
+    ("ragged_h0", 2, 1000, 1000, True, 64, 128),
+    ("ragged", 3, 777, 333, False, 256, 32),
+    ("one_segment_h0", 2, 100, 4100, True, 128, 256),
+]
+
+
+def rglru_inputs(B, S, R, h0, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    la = -torch.randn((B, S, R), generator=g, device="cuda").abs() * 0.1
+    b = torch.randn((B, S, R), generator=g, device="cuda")
+    return la, b, (torch.randn((B, R), generator=g, device="cuda")
+                   if h0 else None)
+
+
+def phase_rglru(rg):
+    """B5 against its plain version; the planted fault at full width."""
+    import torch
+    errs = {}
+    for i, (name, B, S, R, h0, chunk, r_block) in enumerate(RGLRU_CHECKS):
+        x = rglru_inputs(B, S, R, h0, 700 + i)
+        got = rg.rglru_scan(*x, chunk=chunk, r_block=r_block)
+        torch.cuda.synchronize()
+        ref = rg.rglru_reference(*x)
+        torch.cuda.synchronize()
+        ok, e, need = compare_grads(got, ref, RGLRU_TOL)
+        errs[name] = max(e[0][0], e[1][0])
+        print(f"[kernel] rglru {name:16s} B={B} S={S} R={R} h0={h0} "
+              f"chunk={chunk} r_block={r_block}: max|err| "
+              f"{tol_line(['h', 'h_last'], e, need, RGLRU_TOL)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"rglru disagrees with its plain version at {name}")
+        if name == "full":
+            la = x[0].clone()
+            la[:, S // 2] = float("-inf")        # step S/2 drops its carry
+            fault = rg.rglru_reference(la, *x[1:])
+            passed, fe, fneed = compare_grads(fault, ref, RGLRU_TOL)
+            print(f"[kernel] planted rglru fault at {name} (step {S // 2} "
+                  f"without its carry): max|err| "
+                  f"{tol_line(['h', 'h_last'], fe, fneed, RGLRU_TOL)} "
+                  f"{'MISSED' if passed else 'caught'}", flush=True)
+            check(not passed, "the rglru check misses a dropped carry")
+            del fault, la
+        del x, got, ref
+    return errs
+
+
+def reset_all(counters):
+    """Set every launch counter, [(kernel id, module, attribute)], to 0."""
+    for _, mod, attr in counters:
+        setattr(mod, attr, 0)
+
+
+def read_all(counters):
+    import torch
+    torch.cuda.synchronize()
+    return {kid: getattr(mod, attr) for kid, mod, attr in counters}
+
+
+def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
+    """The slice's main path: the kernel tuner on both full-width
+    workloads, launch counters read around it; then the warm find-db path
+    and the ops resolving to the winners."""
+    import torch
+    db = groundtruth.KernelConfigDB()
+    reset_all(counters)
+    summaries = [tune.tune_kernel(w, db=db, scheduler="grid", reps=3,
+                                  warmup=1, device="cuda")
+                 for w in (MLSTM_WORKLOAD, RGLRU_WORKLOAD)]
+    counts = read_all(counters)
+    GOLDEN.parent.mkdir(parents=True, exist_ok=True)
+    groundtruth.export_golden(db.rows(), str(GOLDEN))
+    for smry, want in zip(summaries, (4, 16)):
+        print(f"[tune] {smry['workload']}: {smry['trials']} trials, winner "
+              f"{smry['config']} against default "
+              f"{tune.BASELINES[smry['kernel']]}: default "
+              f"{smry['default_s'] * 1e3:.4f} ms, tuned "
+              f"{smry['tuned_s'] * 1e3:.4f} ms, speedup "
+              f"{smry['speedup']:.3f}x, hardware {smry['hardware']}, "
+              f"tuning {smry['tuning_time_s']:.3f} s of kernel time in "
+              f"{smry['wall_time_s']:.2f} s, kernel calls "
+              f"{smry['kernel_calls'][smry['kernel']]}", flush=True)
+        check(smry["source"] == "tuned" and smry["trials"] == want,
+              f"{smry['workload']}: expected {want} trials, got "
+              f"{smry['trials']}")
+        check(smry["hardware"].startswith("cuda/")
+              and "h100" in smry["hardware"],
+              f"hardware key {smry['hardware']}")
+        check(db.get(smry["kernel"], smry["shape"], smry["hardware"])
+              == smry["config"], "the winner is not in the find-db")
+    calls = {"mlstm": summaries[0]["kernel_calls"]["mlstm"],
+             "rglru": summaries[1]["kernel_calls"]["rglru"]}
+    print(f"[tune] launches over the tuner run: {counts}; kernel calls the "
+          f"backend timed: {calls}", flush=True)
+    check(counts["B4"] == calls["mlstm"] > 0
+          and counts["B5"] == calls["rglru"] > 0,
+          "B4/B5 launches differ from the calls the tuner timed")
+    check(counts["B1"] == counts["B2"] == counts["B3"] == 0,
+          "the tuner launched an attention kernel")
+    rows = groundtruth.load_golden(str(GOLDEN))
+    check(len(rows) == 2, f"golden table holds {len(rows)} rows")
+
+    reset_all(counters)
+    warm = [tune.tune_kernel(w, db=db, device="cuda")
+            for w in (MLSTM_WORKLOAD, RGLRU_WORKLOAD)]
+    warm_counts = read_all(counters)
+    print(f"[tune] second run: {[(w['source'], w['trials']) for w in warm]}"
+          f", launches {warm_counts}", flush=True)
+    check(all(w["source"] == "find-db" and w["trials"] == 0
+              and w["config"] == s_["config"]
+              for w, s_ in zip(warm, summaries)), "the warm run re-tuned")
+    check(not any(warm_counts.values()), "the warm run launched a kernel")
+
+    # ops with chunk=None on an empty find-db (the defaults), on the golden
+    # table (the winners), and on a db holding configs that differ from
+    # both, so that each lookup shows whether it hit its row
+    winners = [smry["config"] for smry in summaries]
+    other = [{"chunk": next(c for c in (64, 32) if c != winners[0]["chunk"])},
+             next({"chunk": c, "r_block": r} for c in (64, 32)
+                  for r in (256, 32) if (c, r) != (winners[1]["chunk"],
+                                                  winners[1]["r_block"]))]
+    planted = groundtruth.KernelConfigDB()
+    for smry, cfg in zip(summaries, other):
+        planted.put(smry["kernel"], smry["shape"], cfg,
+                    hardware=smry["hardware"])
+    seen = []
+    launch_ml, launch_rg = ml._launch, rg._launch
+    ml._launch = lambda *a: seen.append(("mlstm", {"chunk": a[-1]})) or \
+        launch_ml(*a)
+    rg._launch = lambda *a: seen.append(
+        ("rglru", {"chunk": a[-2], "r_block": a[-1]})) or launch_rg(*a)
+    golden = groundtruth.KernelConfigDB()
+    golden.merge_rows(rows)
+    x = mlstm_inputs(*MLSTM_SHAPE, torch.float32, 800)
+    y = rglru_inputs(*RGLRU_SHAPE, True, 801)
+    prev = findb.get_find_db()
+    try:
+        for db_ in (groundtruth.KernelConfigDB(), golden, planted):
+            findb.set_find_db(db_)
+            ops.mlstm(*x)
+            ops.rglru(*y)
+        torch.cuda.synchronize()
+    finally:
+        findb.set_find_db(prev)
+        ml._launch, rg._launch = launch_ml, launch_rg
+    want = []
+    for cfgs in ([findb.DEFAULTS["mlstm"], findb.DEFAULTS["rglru"]], winners,
+                 other):
+        want += [("mlstm", dict(cfgs[0])), ("rglru", dict(cfgs[1]))]
+    print(f"[tune] ops with chunk=None on an empty db, the golden table and "
+          f"a db of other configs launched {seen} (expected {want})",
+          flush=True)
+    check(seen == want, "ops do not resolve to the find-db's configs")
+    return summaries, counts
+
+
+def mlstm_bound(B, S, H, D, itemsize):
+    """The least work of the function at any chunk size: at chunk 1 (the
+    recurrent form), per step and head, q C and the rank-one update of C
+    (4 D^2) and q k, a v, q n and the update of n (8 D)."""
+    flops = B * H * S * (4.0 * D * D + 8.0 * D)
+    nbytes = 4 * B * S * H * D * itemsize + 2 * B * S * H * 4
+    return bound(flops, nbytes, PEAK_FP32_FLOPS)
+
+
+def rglru_bound(B, S, R):
+    return bound(2.0 * B * S * R, 3 * B * S * R * 4 + B * R * 4,
+                 PEAK_FP32_FLOPS)
+
+
+def phase_recurrent_timing(ml, rg, summaries, card):
+    """B4 and B5 at full width, default config and the winner."""
+    import torch
+    rows = {}
+    x = mlstm_inputs(*MLSTM_SHAPE, torch.float32, 900)
+    plain_ms = cuda_ms(lambda: ml.mlstm_chunkwise_reference(x[0], *x[1:],
+                                                            chunk=128),
+                       iters=2, warmup=1)
+    for label, cfg in (("default", {"chunk": 128}),
+                       ("tuned", summaries[0]["config"])):
+        ms = cuda_ms(lambda: ml.mlstm_chunkwise(*x, chunk=cfg["chunk"]),
+                     iters=10)
+        bound_ms, bound_by = mlstm_bound(*MLSTM_SHAPE, 4)
+        print(f"[timing] {card} | mlstm B,S,H,D={MLSTM_SHAPE} fp32 {label} "
+              f"{cfg}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, fp32 CUDA-core peak), plain (chunk 128) "
+              f"{plain_ms:.4f} ms, library none", flush=True)
+        rows[("mlstm", label)] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=None)
+    grid = {c: cuda_ms(lambda: ml.mlstm_chunkwise(*x, chunk=c), iters=5)
+            for c in (32, 64, 128, 256)}
+    print(f"[timing] {card} | mlstm every chunk of the grid: "
+          + ", ".join(f"{c} {t:.4f} ms" for c, t in grid.items()), flush=True)
+    del x
+    y = rglru_inputs(*RGLRU_SHAPE, False, 901)
+    plain_ms = cuda_ms(lambda: rg.rglru_reference(*y), iters=2, warmup=1)
+    for label, cfg in (("default", {"chunk": 128, "r_block": 128}),
+                       ("tuned", summaries[1]["config"])):
+        ms = cuda_ms(lambda: rg.rglru_scan(*y, **cfg), iters=20)
+        bound_ms, bound_by = rglru_bound(*RGLRU_SHAPE)
+        print(f"[timing] {card} | rglru B,S,R={RGLRU_SHAPE} fp32 {label} "
+              f"{cfg}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, library none",
+              flush=True)
+        rows[("rglru", label)] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=None)
+    grid = {(c, r): cuda_ms(lambda: rg.rglru_scan(*y, chunk=c, r_block=r),
+                            iters=10)
+            for c in (32, 64, 128, 256) for r in (32, 64, 128, 256)}
+    print(f"[timing] {card} | rglru every (chunk, r_block) of the grid: "
+          + ", ".join(f"{c}/{r} {t:.4f} ms" for (c, r), t in grid.items()),
+          flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -690,7 +1039,12 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fa_bwd
+    from repro_torch.core import groundtruth
+    from repro_torch.kernels import findb
+    from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import tune
     from repro_torch.launch import serve, steps, train
 
     card = card_line()
@@ -721,6 +1075,14 @@ def main() -> int:
     phase_grad(fa_bwd)
     timing = phase_timing(fa, card)
     bwd_timing = phase_bwd_timing(fa, fa_bwd, card)
+    mlstm_errs = phase_mlstm(ml)
+    rglru_errs = phase_rglru(rg)
+    counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
+                ("B3", fa_bwd, "launches_dkv"), ("B4", ml, "launches"),
+                ("B5", rg, "launches")]
+    summaries, tune_counts = phase_tuner(counters, ml, rg, tune, findb, ops,
+                                         groundtruth)
+    rec_timing = phase_recurrent_timing(ml, rg, summaries, card)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs = bwd_errs["train"]
@@ -739,7 +1101,19 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention_bwd.py:87",
          "launches": train_counts[2],
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),
-         **bwd_timing["dkv"]}]
+         **bwd_timing["dkv"]},
+        {"name": "mlstm", "id": "B4", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+         "replaces": "src/repro/kernels/mlstm.py:27",
+         "launches": tune_counts["B4"],
+         "max_abs_err": mlstm_errs["full_c128"],
+         **rec_timing[("mlstm", "tuned")]},
+        {"name": "rglru", "id": "B5", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru.cu",
+         "replaces": "src/repro/kernels/rglru.py:24",
+         "launches": tune_counts["B5"],
+         "max_abs_err": rglru_errs["full"],
+         **rec_timing[("rglru", "tuned")]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels (B1 forward in
-// flash_attention.cu; B2 and B3 backward in flash_attention_bwd.cu):
+// flash_attention.cu; B2 and B3 backward in flash_attention_bwd.cu; mlstm.cu
+// takes the cp.async helpers):
 // the reference's mask constant, cp.async tile copies, bf16 mma.sync and
 // ldmatrix fragments, and the causal / window / kv_len visibility test.
 #pragma once

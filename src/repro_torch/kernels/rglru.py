@@ -1,0 +1,125 @@
+"""RG-LRU linear recurrence (B5): the Hopper kernel's wrapper, plain version.
+
+``rglru_scan`` has the signature of ``repro.kernels.rglru.rglru_scan``
+minus the TPU-only ``interpret``: log_a, b (B, S, R), optional h0 (B, R),
+returning (h (B, S, R), h_last (B, R)) in fp32 (inputs of another float
+dtype are cast to fp32 first, as the reference's kernel does at load).
+``chunk`` and ``r_block`` left as None resolve through the find-db
+(``kernels.findb``) for the tensors' device; any S and R are taken.
+
+* On CUDA tensors it launches ``csrc/rglru.cu`` (built by
+  ``repro_torch.kernels.build``) on the current stream, or raises. There is
+  no fallback. One call is one launch of B5 (up to three passes over time
+  segments of ``chunk`` steps, see the source's header).
+* On CPU tensors it runs ``rglru_reference``, the plain PyTorch version of
+  ``repro.kernels.ref.rglru_ref``: an associative scan with h0 folded into
+  the first step.
+
+``launches`` counts kernel launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+launches = 0
+_fns = {}
+
+
+def rglru_reference(log_a, b, h0=None):
+    """Plain version: h_t = exp(log_a_t) * h_{t-1} + b_t in fp32.
+
+    A Hillis-Steele associative scan over S with the reference's combine
+    ``(la1 + la2, exp(la2) * b1 + b2)``; h0 is folded into the first step,
+    as ``ref.rglru_ref`` does. Returns (h (B, S, R), h_last (B, R)).
+    """
+    la, h = log_a.float(), b.float()
+    if h0 is not None:
+        h = torch.cat([h[:, :1] + torch.exp(la[:, :1]) * h0.float()[:, None],
+                       h[:, 1:]], dim=1)
+    S, d = la.shape[1], 1
+    while d < S:
+        h = torch.cat([h[:, :d], torch.exp(la[:, d:]) * h[:, :-d] + h[:, d:]],
+                      dim=1)
+        la = torch.cat([la[:, :d], la[:, d:] + la[:, :-d]], dim=1)
+        d *= 2
+    return h, h[:, -1]
+
+
+def _kernel():
+    if not _fns:
+        from repro_torch.kernels import build
+        lib = build.load("rglru")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rglru_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.rglru_fwd.restype = i32
+        lib.rglru_error_string.argtypes = [i32]
+        lib.rglru_error_string.restype = ctypes.c_char_p
+        _fns["fwd"] = (lib.rglru_fwd, lib.rglru_error_string)
+    return _fns["fwd"]
+
+
+def _launch(log_a, b, h0, chunk, r_block):
+    global launches
+    B, S, R = log_a.shape
+    dev = log_a.device
+    if b.device != dev or (h0 is not None and h0.device != dev):
+        raise ValueError("rglru_scan: log_a, b and h0 must be on one device")
+    if not 1 <= r_block <= 1024:
+        raise ValueError(f"r_block {r_block}: a block holds 1..1024 channels")
+    fn, err_str = _kernel()
+    la = log_a.float().contiguous()
+    bb = b.float().contiguous()
+    h0c = None if h0 is None else h0.float().contiguous()
+    h = torch.empty((B, S, R), dtype=torch.float32, device=dev)
+    h_last = torch.empty((B, R), dtype=torch.float32, device=dev)
+    ns = -(-S // chunk)
+    seg = ([torch.empty((B, ns, R), dtype=torch.float32, device=dev)
+            for _ in range(3)] if ns > 1 else [None] * 3)
+    ptrs = [None if t is None else t.data_ptr() for t in seg]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(la.data_ptr(), bb.data_ptr(),
+            None if h0c is None else h0c.data_ptr(), h.data_ptr(),
+            h_last.data_ptr(), *ptrs, B, S, R, chunk, r_block, stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru kernel launch failed: "
+                           f"{err_str(rc).decode()} ({rc})")
+    launches += 1
+    return h, h_last
+
+
+def resolve_blocks(log_a, chunk=None, r_block=None):
+    """(chunk, r_block), each left as None taken from the find-db's config
+    for log_a's shape and device (``findb.DEFAULTS`` on a miss)."""
+    if chunk is None or r_block is None:
+        from repro_torch.kernels import findb
+        B, S, R = log_a.shape
+        tuned = findb.lookup_or_default(
+            "rglru", findb.rglru_shape_key(B=B, S=S, R=R),
+            hardware=findb.hardware_key(log_a.device))
+        chunk = tuned["chunk"] if chunk is None else chunk
+        r_block = tuned["r_block"] if r_block is None else r_block
+    return int(chunk), int(r_block)
+
+
+def rglru_scan(log_a, b, h0=None, *, chunk=None, r_block=None):
+    """log_a, b: (B, S, R); h0: (B, R) or None. Returns (h, h_last)."""
+    B, S, R = log_a.shape
+    if b.shape != log_a.shape or (h0 is not None and h0.shape != (B, R)):
+        raise ValueError(f"log_a {tuple(log_a.shape)}, b {tuple(b.shape)}, "
+                         f"h0 {None if h0 is None else tuple(h0.shape)} do "
+                         "not match")
+    if S == 0 or R == 0:
+        raise ValueError(f"empty recurrence: S={S}, R={R}")
+    chunk, r_block = resolve_blocks(log_a, chunk, r_block)
+    chunk, r_block = min(chunk, S), min(r_block, R)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if log_a.device.type == "cuda":
+        return _launch(log_a, b, h0, chunk, r_block)
+    if log_a.device.type == "cpu" and b.device == log_a.device and (
+            h0 is None or h0.device == log_a.device):
+        return rglru_reference(log_a, b, h0)
+    raise ValueError(f"log_a on {log_a.device}, b on {b.device}, h0 on "
+                     f"{None if h0 is None else h0.device}")
