@@ -7,12 +7,19 @@ Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
      ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, all
      started together) and print the build time and ptxas's register report;
-  2. hold each kernel against its plain PyTorch version on the card: B1 (the
-     forward) and B2/B3 (the backward: dq, and dk/dv) at the serve or train
-     shape and at ragged, windowed, non-causal, fp32 and other group-size
-     shapes. A planted fault (one kv tile hidden from the later rows in the
-     forward; in the backward, the dk/dv contribution of the same rows to
-     the same keys left out) must fail each check. The whole autograd op
+  2. run hopper.cuh's self-test (csrc/hopper_selftest.cu, not a port of a
+     TPU kernel): a TMA load of a 64 x D and a 128 x D tile, then wgmma
+     with B K-major and with B MN-major, at D = 64 and 128, each held
+     against an fp32 product of the same bf16 inputs, so that a descriptor
+     or swizzle fault fails here under its own name;
+     then hold each kernel against its plain PyTorch version on the card: B1
+     (the forward) and B2/B3 (the backward: dq, and dk/dv) at the serve or
+     train shape and at ragged, windowed, non-causal, fp32 and other
+     group-size shapes, the Hopper tiles' edge cases among them (G = 8 with
+     ragged S; B1 at G = 64; B3 at G = 80, with out and lse from the plain
+     forward). A planted fault (one kv tile hidden from the later rows in
+     the forward; in the backward, the dk/dv contribution of the same rows
+     to the same keys left out) must fail each check. The whole autograd op
      (B1 forward, B2 and B3 backward) is held against autograd through fp32
      dense attention at the train shape;
   3. serve full-width qwen3-0.6b (seeded bf16 weights, 8 requests of 2048
@@ -132,6 +139,12 @@ MLSTM_SHAPE = (8, 2048, 4, 512)
 RGLRU_SHAPE = (8, 2048, 4096)
 GOLDEN = Path("build") / "chip_smoke" / "kernel_golden.json"
 
+# hopper.cuh's self-test (csrc/hopper_selftest.cu) against fp32 products of
+# the same bf16 inputs: both sum 64 or 128 products that fp32 holds exactly,
+# in another order, so |err| <= HOPPER_TOL * max|ref|; a wrong descriptor
+# or swizzle puts whole rows or columns out of place, an error of O(1).
+HOPPER_TOL = 1e-4
+
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
@@ -164,8 +177,8 @@ def ptxas_report(log):
     for line in (log.read_text().splitlines() if log.exists() else []):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d((?:fa|mlstm|rglru)_\w+?_kernel)(I\w+?E)?",
-                          m.group(1))
+            k = re.search(r"\d((?:fa|mlstm|rglru|hopper)_\w+?_kernel)"
+                          r"(I\w+?E)?", m.group(1))
             kernel = k.group(1) if k else m.group(1)
             if k and k.group(2):              # template arguments
                 args = [{"13__nv_bfloat16": "bf16", "6__half": "half",
@@ -315,6 +328,46 @@ def grad_line(errs, need, tol):
             f"a={tol[0]:g}, r={tol[1]:g})")
 
 
+def phase_hopper(build):
+    """hopper.cuh's TMA maps, mbarrier and wgmma descriptors on the card:
+    C1 = A B^T (B K-major) and C2 = bf16(C1) B (B MN-major) at D = 64 and
+    128, each against an fp32 product of the same inputs."""
+    import ctypes
+    import torch
+    lib = build.load("hopper_selftest")
+    fn = lib.hopper_selftest
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.hopper_error_string.argtypes = [ctypes.c_int]
+    lib.hopper_error_string.restype = ctypes.c_char_p
+    for D in (64, 128):
+        g = torch.Generator(device="cuda").manual_seed(1000 + D)
+        a = torch.randn((64, D), generator=g, device="cuda").bfloat16()
+        b = torch.randn((128, D), generator=g, device="cuda").bfloat16()
+        c1 = torch.empty((64, 128), device="cuda")
+        c2 = torch.empty((64, D), device="cuda")
+        rc = fn(a.data_ptr(), b.data_ptr(), c1.data_ptr(), c2.data_ptr(), D,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"hopper self-test launch failed at D={D}: "
+                       f"{lib.hopper_error_string(rc).decode()} ({rc})")
+        torch.cuda.synchronize()
+        # elementwise fp32 sums: no TF32 anywhere
+        ref1 = (a.float()[:, None, :] * b.float()[None, :, :]).sum(-1)
+        ref2 = (c1.bfloat16().float()[:, :, None]
+                * b.float()[None, :, :]).sum(1)
+        errs = [float((c - r).abs().max() / r.abs().max())
+                for c, r in ((c1, ref1), (c2, ref2))]
+        ok = [bool(torch.isfinite(c).all()) and e <= HOPPER_TOL
+              for c, e in zip((c1, c2), errs)]
+        print(f"[hopper] D={D}: TMA + wgmma, B K-major (A B^T) max|err| / "
+              f"max|ref| {errs[0]:.3e} {'ok' if ok[0] else 'FAIL'}; B "
+              f"MN-major, A in registers (bf16(C1) B) {errs[1]:.3e} "
+              f"{'ok' if ok[1] else 'FAIL'} (limit {HOPPER_TOL:g})",
+              flush=True)
+        check(ok[0], f"hopper self-test: K-major wgmma wrong at D={D}")
+        check(ok[1], f"hopper self-test: MN-major wgmma wrong at D={D}")
+
+
 def phase_kernels(fa):
     import torch
     shapes = [  # name, B, S, T, K, G, D, dtype, causal, window
@@ -327,6 +380,8 @@ def phase_kernels(fa):
         ("g2_d64", 2, 1024, 1024, 4, 2, 64, torch.bfloat16, True, None),
         ("g3_d40_s_ne_t", 1, 200, 333, 2, 3, 40, torch.bfloat16, True, 50),
         ("fp32_g3_d72", 1, 333, 333, 2, 3, 72, torch.float32, False, 64),
+        ("g8_ragged", 2, 1000, 1000, 2, 8, 128, torch.bfloat16, True, None),
+        ("g64_d64", 2, 256, 256, 1, 64, 64, torch.bfloat16, True, None),
     ]
     errs = {}
     for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(shapes):
@@ -371,6 +426,9 @@ BWD_SHAPES = [  # name, B, S, T, K, G, D, dtype, causal, window
     ("g2_d64", 2, 1024, 1024, 4, 2, 64, "bfloat16", True, None),
     ("g3_d40_s_ne_t", 1, 200, 333, 2, 3, 40, "bfloat16", True, 50),
     ("fp32_g3_d72", 1, 333, 333, 2, 3, 72, "float32", False, 64),
+    ("g8_ragged", 2, 1000, 1000, 2, 8, 128, "bfloat16", True, None),
+    # B1 takes at most 64 heads a group: out and lse from the plain forward
+    ("g80_d64", 1, 128, 128, 1, 80, 64, "bfloat16", True, None),
 ]
 
 
@@ -383,8 +441,13 @@ def phase_bwd_kernels(fa, fa_bwd):
         dtype = getattr(torch, dt)
         q, k, v = attention_inputs(B, S, T, K, G, D, dtype, seed=200 + i)
         do = attention_inputs(B, S, S, K, G, D, dtype, seed=300 + i)[0]
-        out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
+        if G <= 64:
+            out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+        else:
+            out, lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                    window=window)
+            lse = lse.contiguous()
         got = fa_bwd.flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1061,6 +1124,7 @@ def main() -> int:
         for kernel, report in ptxas_report(lib.with_suffix(".log")):
             print(f"[ptxas] {name}: {kernel}: {report}", flush=True)
 
+    phase_hopper(build)
     errs = phase_kernels(fa)
     bwd_errs = phase_bwd_kernels(fa, fa_bwd)
     phase_op(ops)

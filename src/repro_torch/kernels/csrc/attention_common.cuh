@@ -1,8 +1,11 @@
-// Device helpers shared by the attention kernels (B1 forward in
-// flash_attention.cu; B2 and B3 backward in flash_attention_bwd.cu; mlstm.cu
-// takes the cp.async helpers):
-// the reference's mask constant, cp.async tile copies, bf16 mma.sync and
-// ldmatrix fragments, and the causal / window / kv_len visibility test.
+// Device helpers of the kernels without TMA or wgmma: B2's mma.sync dq
+// kernel and the fp32 SIMT kernels (flash_attention.cu,
+// flash_attention_bwd.cu), and mlstm.cu (the cp.async helpers): the
+// reference's mask constant, cp.async tile copies, bf16 mma.sync and
+// ldmatrix fragments, and the causal / window / kv_len visibility test. The
+// Hopper kernels B1 and B3 take the constants, the visibility test,
+// pack_bf16, cp_async4 (lse, delta) and exp2_ftz from here too; their TMA,
+// mbarrier and wgmma helpers are in hopper.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,6 +25,14 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int T, int causal,
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
+}
+
+// 2^x in one MUFU.EX2 (results below 2^-126 flush to 0), the exp2f of the
+// softmax without exp2f's denormal fix-up.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

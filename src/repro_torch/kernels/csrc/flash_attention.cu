@@ -11,41 +11,57 @@
 //
 // What bounds it on an H100. At the serve shape (B=8, S=T=2048, 16 q heads
 // over 8 kv heads, D=128, causal) the two products need about
-// 4*B*S^2*H*D/2 = 1.4e11 FLOP, 0.14 ms at 989 TFLOP/s bf16, while q, k, v,
-// out and lse move about 200 MB, 0.06 ms at 3.35 TB/s: it is bound by the
-// tensor cores. The design therefore
-//   * never writes a score to device memory: S = Q K^T, the softmax and
-//     P V happen in registers, tile by tile;
-//   * runs both products on the tensor cores (mma.sync m16n8k16, bf16 in,
-//     fp32 accumulate), with Q's fragments held in registers for the whole
-//     kv loop and P handed from the S accumulators straight to the A operand
-//     of P V without a trip through shared memory;
-//   * clips the kv loop to the visible range (up to the diagonal when
-//     causal, from q_start - window + 1 with a window) instead of testing
-//     every kv block as the TPU kernel does, and masks per element only on
-//     the tiles that straddle an edge;
-//   * has one block own a tile of query rows of ONE (batch, kv head) across
-//     all G query heads of the group, so each K/V tile is read once per
-//     group; K/V tiles are double-buffered with cp.async;
-//   * launches the longest causal tiles first.
-// wgmma, TMA and warp specialisation (the way to the full tensor-core rate)
-// are left for a later change.
+// 4*B*S^2*H*D/2 = 1.375e11 FLOP, 0.139 ms at 989 TFLOP/s bf16, while q, k,
+// v, out and lse move about 2.0e8 bytes, 0.060 ms at 3.35 TB/s: it is bound
+// by the tensor cores, whose full rate only wgmma reaches. The bf16 design:
+//   * one block of three warpgroups owns 128 flattened (position, head)
+//     rows of ONE (batch, kv head): Pb = 128 / G positions x all G heads, so
+//     each K/V tile is read once for the group and feeds 128 query rows;
+//   * a producer warp (warpgroup 2, cut to 24 registers by setmaxnreg)
+//     issues every load by TMA: the Q tile once, then K and V tiles of 128
+//     rows through a ring of two stages with full and empty mbarriers, so
+//     the copies of the next tile run under the products of this one and
+//     no consumer spends an instruction or a register on them. TMA writes
+//     zeros past T, past S and in columns D..DP-1 (D = 40 or 72), so nothing
+//     is masked by hand on the way in;
+//   * two consumer warpgroups own 64 rows each (setmaxnreg 240; ptxas of
+//     CUDA 12.8 still allocates within the launch bound of 168 registers,
+//     which S, O and P fit). Per kv tile S = Q K^T is one wgmma chain
+//     (m64n128k16, Q and K read from 128B-swizzled shared memory, K
+//     K-major), the online softmax runs in fp32 registers (exp2, masks only
+//     on tiles that straddle the diagonal, the window edge or T, under one
+//     branch a tile: a branch per element bloats the unrolled loop past the
+//     instruction cache), and P, rounded to bf16 in registers, is the
+//     register A operand of O += P V (m64nDPk16, V MN-major). A consumer
+//     frees a stage through its empty barrier once its P V has completed;
+//   * the kv loop is clipped to the visible range (up to the diagonal when
+//     causal, from q_start - window + 1 with a window) and the longest
+//     causal tiles launch first.
+// Shared memory at D = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB, one
+// block an SM. Where it rounds: P to bf16 as the operand of P V (as the
+// reference's kernel does); S, the softmax statistics and O are fp32, and
+// out is rounded once. Left for a later change: overlapping one consumer's
+// softmax with the other's products (ping-pong), a persistent scheduler,
+// and fp8.
 //
 // fp32 inputs take a separate SIMT kernel (fp32 FMA, no tensor cores), so an
 // fp32 caller gets fp32 products and not TF32.
 //
-// C entry points return cudaGetLastError() after the launch; they launch on
-// the given stream and do not synchronise.
+// C entry points return cudaGetLastError() after the launch (or the error
+// of encoding a TMA map); they launch on the given stream and do not
+// synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace hopper;
 
 struct Args {
   const void* q;
@@ -93,226 +109,236 @@ __device__ __forceinline__ bool tile_unmasked(const Args& a, const Tile& t,
 
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int kRows = 64;      // flattened (position, group) rows per block
-constexpr int kBN = 64;        // kv rows per tile
-constexpr int kWarps = 4;      // 16 rows each
-constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 128;       // flattened (position, head) rows a block
+constexpr int kBN = 128;         // kv rows a tile
+constexpr int kStages = 2;       // K/V ring
+constexpr int kThreads = 384;    // consumers: warpgroups 0, 1; producer: 2
+constexpr int kBox = 128 * 128;  // bytes of a 128-row box of 64 bf16 columns
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_bf16_kernel(Args a) {
-  constexpr int LD = DP + 8;               // padding: conflict-free fragments
-  constexpr int KSTEPS = DP / 16;          // k-steps of S = Q K^T
-  constexpr int NT_S = kBN / 8;            // n-tiles of S
-  constexpr int NT_O = DP / 8;             // n-tiles of O
+constexpr int fwd_smem_bytes() {
+  return (DP / 64) * kBox * (1 + 2 * kStages) + 8 * (1 + 2 * kStages) + 1024;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, Args a) {
+  constexpr int kTile = (DP / 64) * kBox;       // bytes of a Q, K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kRows * LD;     // [2][kBN][LD]
-  __nv_bfloat16* sV = sK + 2 * kBN * LD;   // [2][kBN][LD]
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sK = sQ + kTile;                // [kStages]
+  unsigned char* sV = sK + kStages * kTile;      // [kStages]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  uint64_t* full = q_full + 1;                   // [kStages]
+  uint64_t* empty = full + kStages;              // [kStages]
 
   const int kh = blockIdx.y, b = blockIdx.z;
   const Tile t = tile_of(a, kRows);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g4 = lane / 4, t4 = lane % 4;   // mma fragment coordinates
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  const int rows_used = t.bq * a.G;
-
-  auto q_row = [&](int r) -> const __nv_bfloat16* {
-    const int s = t.q0 + r / a.G;
-    if (r >= rows_used || s >= a.S) return nullptr;
-    return q + ((((size_t)b * a.S + s) * a.K + kh) * a.G + r % a.G) * a.D;
-  };
-  auto kv_loader = [&](const __nv_bfloat16* base, int k0) {
-    return [=](int r) -> const __nv_bfloat16* {
-      const int s = k0 + r;
-      if (s >= t.kv_hi) return nullptr;
-      return base + (((size_t)b * a.T + s) * a.K + kh) * a.D;
-    };
-  };
-
   const int n_tiles = t.kv_hi > t.kv_lo ? (t.kv_hi - t.kv_lo + kBN - 1) / kBN
                                         : 0;
-
-  load_rows<DP, LD, kThreads>(sQ, kRows, a.D, q, q_row);
-  if (n_tiles > 0) {
-    load_rows<DP, LD, kThreads>(sK, kBN, a.D, k, kv_loader(k, t.kv_lo));
-    load_rows<DP, LD, kThreads>(sV, kBN, a.D, v, kv_loader(v, t.kv_lo));
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                   // one per consumer warp
+    }
+    fence_mbar_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  // rows of this thread: r0 = 16*warp + g4 and r0 + 8
-  const int r0 = warp * 16 + g4;
-  const int qpos0 = t.q0 + r0 / a.G, qpos1 = t.q0 + (r0 + 8) / a.G;
-
-  uint32_t qf[KSTEPS][4];
-  float o[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;       // running max, log2 units
-  float l0 = 0.f, l1 = 0.f;               // this thread's share of the sums
-  const float sl2 = a.scale * kLog2e;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    const int k0 = t.kv_lo + j * kBN;
-    if (j + 1 < n_tiles) {
-      const int nb = buf ^ 1;
-      load_rows<DP, LD, kThreads>(sK + nb * kBN * LD, kBN, a.D, k,
-                        kv_loader(k, k0 + kBN));
-      load_rows<DP, LD, kThreads>(sV + nb * kBN * LD, kBN, a.D, v,
-                        kv_loader(v, k0 + kBN));
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* p0 = sQ + r0 * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* p1 = p0 + 8 * LD;
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-      }
-    }
-
-    const __nv_bfloat16* tK = sK + buf * kBN * LD;
-    const __nv_bfloat16* tV = sV + buf * kBN * LD;
-
-    // S = Q K^T for this warp's 16 rows x kBN columns
-    float s[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = tK + (nt * 8 + g4) * LD + 2 * t4;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma16816(s[nt], qf[kk], b0, b1);
-      }
-    }
-
-    // scale (log2 units) and mask
-    const bool full = tile_unmasked(a, t, k0, kBN);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * sl2;
-        if (!full) {
-          const int kpos = k0 + nt * 8 + 2 * t4 + (e & 1);
-          if (!visible(a, e < 2 ? qpos0 : qpos1, kpos)) x = kNegInf;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, (DP / 64) * 128 * a.G * t.bq);
+      for (int h = 0; h < DP / 64; ++h)
+        tma_load_5d(sQ + h * kBox, &tm_q, q_full, 64 * h, 0, kh, t.q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int k0 = t.kv_lo + j * kBN;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        for (int h = 0; h < DP / 64; ++h) {
+          tma_load_4d(sK + s * kTile + h * kBox, &tm_k, &full[s], 64 * h, kh,
+                      k0, b);
+          tma_load_4d(sV + s * kTile + h * kBox, &tm_v, &full[s], 64 * h, kh,
+                      k0, b);
         }
-        s[nt][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      ls0 += s[nt][0] + s[nt][1];
-      ls1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * c0 + ls0;
-    l1 = l1 * c1 + ls1;
-#pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      o[i][0] *= c0;
-      o[i][1] *= c0;
-      o[i][2] *= c1;
-      o[i][3] *= c1;
-    }
-
-    // O += P V: the S accumulators of two n-tiles form one A fragment
-#pragma unroll
-    for (int ks = 0; ks < kBN / 16; ++ks) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-      const __nv_bfloat16* vr =
-          tV + (ks * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int dp = 0; dp < NT_O / 2; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vr + dp * 16);
-        mma16816(o[2 * dp], pa, vb[0], vb[1]);
-        mma16816(o[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
-    __syncthreads();   // this buffer is refilled two iterations on
-  }
-  cp_async_wait<0>();  // no tile visible: only Q was in flight
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g4 = lane / 4, t4 = lane % 4;    // accumulator coordinates
+    const int r0 = wg * 64 + warp * 16 + g4;   // this thread's rows: r0, +8
+    const int qpos0 = t.q0 + r0 / a.G, qpos1 = t.q0 + (r0 + 8) / a.G;
+    // keys lo..hi are visible to the rows' positions (causal, window, T)
+    const int lo0 = a.window > 0 ? qpos0 - a.window + 1 : 0;
+    const int lo1 = a.window > 0 ? qpos1 - a.window + 1 : 0;
+    const int hi0 = a.causal ? min(qpos0, a.T - 1) : a.T - 1;
+    const int hi1 = a.causal ? min(qpos1, a.T - 1) : a.T - 1;
+    const unsigned char* myQ = sQ + wg * 64 * 128;
 
-  // epilogue: reduce l over the quad, normalise, store out and lse
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  l0 = fmaxf(l0, 1e-30f);
-  l1 = fmaxf(l1, 1e-30f);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;         // running max, log2 units
+    float l0 = 0.f, l1 = 0.f;                 // this thread's share of sums
+    const float sl2 = a.scale * kLog2e;
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int k0 = t.kv_lo + j * kBN;
+      const unsigned char* tK = sK + s * kTile;
+      const unsigned char* tV = sV + s * kTile;
+      mbar_wait(&full[s], (j / kStages) & 1);
+
+      // S = Q K^T: 64 rows x kBN columns, k16 steps over DP
+      float sc[kBN / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + half * 8;
-    const int s_pos = t.q0 + r / a.G;
-    if (r >= rows_used || s_pos >= a.S) continue;
-    const size_t row = (((size_t)b * a.S + s_pos) * a.K + kh) * a.G + r % a.G;
-    const float inv = half ? inv1 : inv0;
+      for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      const int col = i * 8 + 2 * t4;
-      if (col < a.D) {
-        *reinterpret_cast<uint32_t*>(out + row * a.D + col) =
-            pack_bf16(o[i][2 * half] * inv, o[i][2 * half + 1] * inv);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss<0>(sc, desc_k(myQ + off), desc_k(tK + off), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale (log2 units) and mask; sc[4 nt + e] is row r0 + 8 (e / 2),
+      // column k0 + 8 nt + 2 t4 + e % 2. One branch for the whole tile:
+      // a branch per element would bloat the unrolled loop past the
+      // instruction cache
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) sc[i] *= sl2;
+      if (!tile_unmasked(a, t, k0, kBN)) {
+#pragma unroll
+        for (int nt = 0; nt < kBN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + nt * 8 + 2 * t4 + (e & 1);
+            const bool ok = e < 2 ? kpos >= lo0 && kpos <= hi0
+                                  : kpos >= lo1 && kpos <= hi1;
+            sc[4 * nt + e] = ok ? sc[4 * nt + e] : kNegInf;
+          }
+        }
+      }
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < kBN / 8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kBN / 8; ++nt) {
+        sc[4 * nt] = exp2_ftz(sc[4 * nt] - mn0);
+        sc[4 * nt + 1] = exp2_ftz(sc[4 * nt + 1] - mn0);
+        sc[4 * nt + 2] = exp2_ftz(sc[4 * nt + 2] - mn1);
+        sc[4 * nt + 3] = exp2_ftz(sc[4 * nt + 3] - mn1);
+        ls0 += sc[4 * nt] + sc[4 * nt + 1];
+        ls1 += sc[4 * nt + 2] + sc[4 * nt + 3];
+      }
+      l0 = l0 * c0 + ls0;
+      l1 = l1 * c1 + ls1;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= c0;
+        o[4 * i + 1] *= c0;
+        o[4 * i + 2] *= c1;
+        o[4 * i + 3] *= c1;
+      }
+
+      // O += P V: P's accumulators of n-tiles 2 ks and 2 ks + 1 are the A
+      // fragment of k16 step ks; V is MN-major, a step 16 rows on
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kBN / 16; ++ks) {
+        pa[ks][0] = pack_bf16(sc[8 * ks], sc[8 * ks + 1]);
+        pa[ks][1] = pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
+        pa[ks][2] = pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
+        pa[ks][3] = pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBN / 16; ++ks)
+        wgmma_rs<1>(o, pa[ks], desc_mn(tV + ks * 16 * 128, kBox), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with s
     }
-    if (t4 == 0) {
-      const float m = half ? m1 : m0;
-      const float l = half ? l1 : l0;
-      a.lse[row] = m * kLn2 + logf(l);
+
+    // epilogue: reduce l over the quad, normalise, store out and lse
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    l0 = fmaxf(l0, 1e-30f);
+    l1 = fmaxf(l1, 1e-30f);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const int rows_used = t.bq * a.G;
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + half * 8;
+      const int s_pos = t.q0 + r / a.G;
+      if (r >= rows_used || s_pos >= a.S) continue;   // padding rows
+      const size_t row =
+          (((size_t)b * a.S + s_pos) * a.K + kh) * a.G + r % a.G;
+      const float inv = half ? inv1 : inv0;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        const int col = i * 8 + 2 * t4;
+        if (col < a.D) {
+          *reinterpret_cast<uint32_t*>(out + row * a.D + col) =
+              pack_bf16(o[4 * i + 2 * half] * inv,
+                        o[4 * i + 2 * half + 1] * inv);
+        }
+      }
+      if (t4 == 0) {
+        const float m = half ? m1 : m0;
+        const float l = half ? l1 : l0;
+        a.lse[row] = m * kLn2 + logf(l);
+      }
     }
   }
 }
 
 template <int DP>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  constexpr int LD = DP + 8;
-  const int smem = (kRows + 4 * kBN) * LD * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const int bq = kRows / a.G;                  // positions a block
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, a.G, bq);
+  if (err == cudaSuccess) err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, kBN);
+  if (err == cudaSuccess) err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, kBN);
   if (err != cudaSuccess) return err;
-  const int bq = kRows / a.G;
+  const int smem = fwd_smem_bytes<DP>();
+  err = cudaFuncSetAttribute(fa_fwd_bf16_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((a.S + bq - 1) / bq, a.K, a.B);
-  fa_fwd_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(a);
+  fa_fwd_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
+                                                           a);
   return cudaGetLastError();
 }
 

@@ -14,9 +14,7 @@
 //
 // Layouts (contiguous): q, dO, dq (B, S, K, G, D); k, v, dk, dv (B, T, K, D);
 // lse, delta (B, S, K, G) fp32. Query head (k, g) reads kv head k. Rows of
-// the query side are flattened (position, head) pairs of one kv head: row f
-// is position f / G, head f % G, so a tile of rows covers all G heads and any
-// G is taken.
+// the query side are flattened (position, head) pairs of one kv head.
 //
 // What bounds them on an H100. At the train shape (B=4, S=T=2048, 16 q heads
 // over 8 kv heads, D=128, bf16, causal: 2,098,176 visible pairs per
@@ -24,49 +22,75 @@
 // 1.03e11 FLOP, 0.104 ms at 989 TFLOP/s, and moves q, k, v, dO, lse, delta
 // and dq once, about 135 MB, 0.040 ms at 3.35 TB/s. B3 runs four (S, dP, dV,
 // dK: 8*D FLOP), 1.38e11 FLOP, 0.139 ms, and moves about 135 MB. Both are
-// bound by the tensor cores, so the design
-//   * never writes a score, probability or dS to device memory: each is
-//     recomputed tile by tile in registers from q, k and the saved LSE;
-//   * runs every product on the tensor cores (mma.sync m16n8k16, bf16 in,
-//     fp32 accumulate), handing P and dS from the accumulators straight to
-//     the A operand of the next product, as B1 hands P to P V;
-//   * B2: one block owns 64 flattened query rows of one (batch, kv head), so
-//     a K/V tile (double-buffered with cp.async) is read once for the group;
-//     the kv loop is clipped to the visible range and the longest causal
-//     blocks launch first;
-//   * B3: one block owns 64 kv rows of one (batch, kv head) and walks the
-//     flattened query rows of all G heads, so the group sum happens in the
-//     block, in fp32 registers, with no atomics: the result does not depend
-//     on the order blocks run in. The query walk is clipped (from the tile's
-//     first key when causal, up to the last key + window - 1, up to S);
-//   * masks per element only on tiles that straddle the diagonal, the window
-//     edge or the end of the rows.
-// Where it rounds: the reference keeps p and ds in fp32 for p^T dO, ds^T q
+// bound by the tensor cores. Neither writes a score, probability or dS to
+// device memory: each is recomputed tile by tile in registers from q, k and
+// the saved LSE. Loops are clipped to the visible range and mask per
+// element only on tiles that straddle the diagonal, the window edge or the
+// end of the rows.
+//
+// B2 (mma.sync m16n8k16): one block of four warps owns 64 flattened query
+// rows of one (batch, kv head), so a K/V tile (double-buffered with
+// cp.async) is read once for the group; P and dS go from the accumulators
+// straight to the A operand of the next product; the longest causal blocks
+// launch first.
+//
+// B3 (wgmma, TMA, warp specialisation): one block of three warpgroups owns
+// 64 kv rows of one (batch, kv head) and walks the query side in tiles of
+// Pb positions x Gb heads (Gb = min(G, 64), Pb = 64 / Gb; with G > 64 it
+// also walks the blocks of 64 heads), so the GQA group sum happens in the
+// block, in fp32 registers, with no atomics: the result does not depend on
+// the order blocks run in. The walk starts at the block's first key when
+// causal and ends at its last key + window - 1 or S.
+//   * A producer warp (warpgroup 2) loads K and V once by TMA, then the Q
+//     and dO tiles by TMA through a ring of two stages with full and empty
+//     mbarriers, and each tile's lse and delta by cp.async (their rows are 4
+//     bytes, not 16-byte aligned), which completes on the same full
+//     barrier. The copies of the next tile run under the products of this
+//     one. TMA writes zeros outside q and dO; the rows Pb x Gb..63 it never
+//     writes are zeroed once, since the products sum over them.
+//   * Warpgroup 0 owns dV: per tile S^T = K Q^T (wgmma m64n64k16, K the
+//     shared-memory A operand, Q K-major), P^T = exp(S^T scale - lse) in
+//     fp32 registers, then dV += P^T dO (m64nDPk16, P^T in bf16 as the
+//     register A operand, dO MN-major). It hands P^T (fp32) to warpgroup 1
+//     through a double-buffered shared-memory slot and a pair of mbarriers.
+//   * Warpgroup 1 owns dK: per tile dP^T = V dO^T (m64n64k16, V the A
+//     operand, dO K-major), dS^T = P^T (dP^T - delta) scale with warpgroup
+//     0's P^T, then dK += dS^T Q (dS^T in bf16 registers, Q MN-major). The
+//     two warpgroups' products run side by side; neither computes S^T or
+//     dP^T twice.
+//   * Registers set this split. Each consumer thread holds one 64 x DP fp32
+//     accumulator (64 registers at D = 128) and one 64 x 64 product (32), so
+//     both fit the 168 registers a 384-thread block gets at launch. Holding
+//     dK and dV in one warpgroup (128 + 64 registers) spilled: ptxas of
+//     CUDA 12.8 allocates within that launch bound even under setmaxnreg
+//     240, and a smaller block (288 threads) is held to the same 168.
+// Where they round: the reference keeps p and ds in fp32 for p^T dO, ds^T q
 // and ds k. Here p and ds are rounded to bf16 (round to nearest) as the A
 // operand of those three products; every sum is fp32 and dq, dk, dv are
-// rounded to the inputs' dtype once, at the end.
-// Registers: B3 keeps two fp32 64x D accumulators (dk, dv) across four warps,
-// 128 registers a thread at D = 128, besides the S and dP fragments of a
-// 32-row query tile; ptxas's report (chip_smoke.py prints it) says whether
-// that spills.
-// wgmma, TMA and warp specialisation are left for a later change.
+// rounded to the inputs' dtype once, at the end. Left for a later change:
+// B2 on wgmma and TMA; in B3, overlapping a tile's dV or dK product with
+// the next tile's S^T or dP^T, and persistent blocks.
 //
 // fp32 inputs take separate SIMT kernels (fp32 FMA, no tensor cores), so an
 // fp32 caller gets fp32 products and not TF32.
 //
-// C entry points return cudaGetLastError() after the launch; they launch on
-// the given stream and do not synchronise.
+// C entry points return cudaGetLastError() after the launch (or the error
+// of encoding a TMA map); they launch on the given stream and do not
+// synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace hopper;
 
 struct Args {
   const void* q;
@@ -141,8 +165,6 @@ constexpr int kWarps = 4;          // 16 rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsQ = 64;         // B2: flattened query rows per block
 constexpr int kBN = 64;            // B2: kv rows per tile
-constexpr int kRowsK = 64;         // B3: kv rows per block
-constexpr int kBQ = 32;            // B3: flattened query rows per tile
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -305,183 +327,300 @@ fa_bwd_dq_bf16_kernel(Args a) {
   }
 }
 
+// B3: dk and dv. One block owns 64 kv rows: warpgroup 0 computes their dV,
+// warpgroup 1 their dK, and the first warp of warpgroup 2 is the producer.
+constexpr int kWsThreads = 384;
+constexpr int kWsRowsK = 64;         // kv rows a block
+constexpr int kWsBQ = 64;            // rows of a query tile (Pb x Gb used)
+constexpr int kStages = 2;           // Q / dO ring
+constexpr int kBox64 = 64 * 128;     // bytes of a 64-row box of 64 columns
+constexpr int kPBytes = kWsRowsK * kWsBQ * 4;   // P^T of a tile, fp32
+
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_bf16_kernel(Args a) {
-  constexpr int LD = DP + 8;
-  constexpr int KSTEPS = DP / 16;          // k-steps of S^T = K Q^T
-  constexpr int NT_S = kBQ / 8;            // n-tiles of S^T and dP^T
-  constexpr int NT_O = DP / 8;             // n-tiles of dK and dV
+constexpr int dkv_smem_bytes() {
+  return (2 + 2 * kStages) * (DP / 64) * kBox64 + kStages * kPBytes +
+         2 * kStages * kWsBQ * 4 + kWsBQ * 4 + 8 * (1 + 4 * kStages) + 1024;
+}
+
+// gb heads x pb positions make a query tile: gb = min(G, 64), pb = 64 / gb;
+// with G > 64 the walk also steps over blocks of 64 heads.
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1)
+fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, Args a,
+                       int gb, int pb) {
+  constexpr int kTile = (DP / 64) * kBox64;    // bytes of a K, V, Q or dO tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kRowsK * LD;
-  __nv_bfloat16* sQ = sV + kRowsK * LD;    // [2][kBQ][LD]
-  __nv_bfloat16* sdO = sQ + 2 * kBQ * LD;  // [2][kBQ][LD]
-  float* sLse = reinterpret_cast<float*>(sdO + 2 * kBQ * LD);   // [2][kBQ]
-  float* sDelta = sLse + 2 * kBQ;                               // [2][kBQ]
+  unsigned char* sK = align_1024(smem_raw);
+  unsigned char* sV = sK + kTile;
+  unsigned char* sQ = sV + kTile;              // [kStages]
+  unsigned char* sdO = sQ + kStages * kTile;   // [kStages]
+  float* sP = reinterpret_cast<float*>(sdO + kStages * kTile);  // [kStages]
+  float* sLse = sP + kStages * kPBytes / 4;                     // [kStages]
+  float* sDelta = sLse + kStages * kWsBQ;                       // [kStages]
+  int* sRow = reinterpret_cast<int*>(sDelta + kStages * kWsBQ);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRow + kWsBQ);
+  uint64_t* full = kv_full + 1;                // [kStages] Q, dO, lse, delta
+  uint64_t* empty = full + kStages;            // [kStages]
+  uint64_t* p_full = empty + kStages;          // [kStages] P^T handed over
+  uint64_t* p_empty = p_full + kStages;        // [kStages]
 
   const int kh = blockIdx.y, b = blockIdx.z;
-  const KTile t = k_tile(a, kRowsK);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g4 = lane / 4, t4 = lane % 4;
+  const KTile t = k_tile(a, kWsRowsK);
+  const int p_lo = t.f_lo / a.G, p_hi = t.f_hi / a.G;
+  const int n_hb = (a.G + gb - 1) / gb;         // head blocks
+  const int n_tiles = (p_hi - p_lo + pb - 1) / pb * n_hb;
+  const int used = pb * gb;                     // loaded rows of a tile
 
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
-
-  auto kv_row = [&](const __nv_bfloat16* base) {
-    return [=](int r) -> const __nv_bfloat16* {
-      const int s = t.k0 + r;
-      return s < a.T ? base + krow(a, b, kh, s) * a.D : nullptr;
-    };
-  };
-  auto q_loader = [&](const __nv_bfloat16* base, int f0) {
-    return [=](int r) -> const __nv_bfloat16* {
-      const int f = f0 + r;
-      return f < t.f_hi ? base + qrow(a, b, kh, f) * a.D : nullptr;
-    };
-  };
-  // lse and delta of a query tile, copied with the tile (a row past the end
-  // reads 0 and is masked)
-  auto load_stats = [&](int nb, int f0) {
-    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-      const int f = f0 + r;
-      const bool ok = f < t.f_hi;
-      const size_t i = ok ? qrow(a, b, kh, f) : 0;
-      cp_async4(sLse + nb * kBQ + r, a.lse + i, ok);
-      cp_async4(sDelta + nb * kBQ + r, a.delta + i, ok);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1 + 32);    // the TMA arrival, 32 cp.async lanes
+      mbar_init(&empty[s], 8);        // one per consumer warp
+      mbar_init(&p_full[s], 128);     // every thread of the dV warpgroup
+      mbar_init(&p_empty[s], 128);    // every thread of the dK warpgroup
     }
-  };
-
-  const int n_tiles = (t.f_hi - t.f_lo + kBQ - 1) / kBQ;
-  load_rows<DP, LD, kThreads>(sK, kRowsK, a.D, k, kv_row(k));
-  load_rows<DP, LD, kThreads>(sV, kRowsK, a.D, v, kv_row(v));
-  if (n_tiles > 0) {
-    load_rows<DP, LD, kThreads>(sQ, kBQ, a.D, q, q_loader(q, t.f_lo));
-    load_rows<DP, LD, kThreads>(sdO, kBQ, a.D, dout, q_loader(dout, t.f_lo));
-    load_stats(0, t.f_lo);
+    fence_mbar_init();
   }
-  cp_async_commit();
-
-  // kv rows of this thread: 16*warp + g4 and + 8
-  const int kr0 = warp * 16 + g4;
-  const int kpos[2] = {t.k0 + kr0, t.k0 + kr0 + 8};
-  const float sl2 = a.scale * kLog2e;
-
-  float dk[NT_O][4], dv[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
+  // Row r of every query tile is position p0 + r / gb, head g0 + r % gb:
+  // sRow[r] = (r / gb) << 8 | r % gb, or -1 past the loaded rows.
+  if (threadIdx.x < kWsBQ) {
+    const int r = threadIdx.x;
+    sRow[r] = r < used ? (r / gb) << 8 | (r % gb) : -1;
   }
+  // Rows used..63 of the Q and dO buffers are never loaded. The products
+  // sum over them (with p = 0), so they must hold finite values: zeros.
+  const int pad = kWsBQ - used;
+  for (int i = threadIdx.x; i < 2 * kStages * (DP / 64) * pad * 8;
+       i += kWsThreads) {
+    const int box = i / (pad * 8), c = i % (pad * 8);
+    *reinterpret_cast<uint4*>(sQ + box * kBox64 + (used + c / 8) * 128 +
+                              (c % 8) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async();
+  __syncthreads();
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    const int f0 = t.f_lo + j * kBQ;
-    if (j + 1 < n_tiles) {
-      const int nb = buf ^ 1;
-      load_rows<DP, LD, kThreads>(sQ + nb * kBQ * LD, kBQ, a.D, q,
-                                  q_loader(q, f0 + kBQ));
-      load_rows<DP, LD, kThreads>(sdO + nb * kBQ * LD, kBQ, a.D, dout,
-                                  q_loader(dout, f0 + kBQ));
-      load_stats(nb, f0 + kBQ);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* tQ = sQ + buf * kBQ * LD;
-    const __nv_bfloat16* tdO = sdO + buf * kBQ * LD;
-    const float* tLse = sLse + buf * kBQ;
-    const float* tDelta = sDelta + buf * kBQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 kv rows x kBQ query rows
-    float st[NT_S][4], dpt[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-      dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a_frag(ka, sK, LD, warp * 16, kk * 16, g4, t4);
-      load_a_frag(va, sV, LD, warp * 16, kk * 16, g4, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const __nv_bfloat16* qr = tQ + (nt * 8 + g4) * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* dr =
-            tdO + (nt * 8 + g4) * LD + kk * 16 + 2 * t4;
-        mma16816(st[nt], ka, ld32(qr), ld32(qr + 8));
-        mma16816(dpt[nt], va, ld32(dr), ld32(dr + 8));
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------ producer warp
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * kTile);
+      for (int h = 0; h < DP / 64; ++h) {
+        tma_load_4d(sK + h * kBox64, &tm_k, kv_full, 64 * h, kh, t.k0, b);
+        tma_load_4d(sV + h * kBox64, &tm_v, kv_full, 64 * h, kh, t.k0, b);
       }
     }
-
-    // P^T (masked to 0) and dS^T = P^T (dP^T - delta) scale
-    const int rows = min(kBQ, t.f_hi - f0);         // query rows in the tile
-    const int p0 = f0 / a.G, p1 = (f0 + rows - 1) / a.G;
-    const bool full =
-        rows == kBQ && pairs_unmasked(a, p0, p1, t.k0, kRowsK);
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t4 + (e & 1);    // query row in the tile
-        const bool vis =
-            full || (c < rows && visible((f0 + c) / a.G, kpos[e >> 1], a.T,
-                                         a.causal, a.window));
-        const float p =
-            vis ? exp2f(fmaf(st[nt][e], sl2, -tLse[c] * kLog2e)) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - tDelta[c]) * a.scale;
+    // this lane copies the lse and delta of tile rows lane and lane + 32
+    const int row0 = sRow[lane], row1 = sRow[lane + 32];
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int p0 = p_lo + (i / n_hb) * pb, g0 = (i % n_hb) * gb;
+      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * (DP / 64) * 128 * used);
+        for (int h = 0; h < DP / 64; ++h) {
+          tma_load_5d(sQ + s * kTile + h * kBox64, &tm_q, &full[s], 64 * h,
+                      g0, kh, p0, b);
+          tma_load_5d(sdO + s * kTile + h * kBox64, &tm_do, &full[s], 64 * h,
+                      g0, kh, p0, b);
+        }
       }
-    }
-
-    // dV += P^T dO and dK += dS^T Q over the tile's query rows
+      // lse and delta: (B, S, K, G) fp32 rows need not be 16-byte aligned,
+      // so cp.async, 4 bytes each (zeros outside the tensor)
 #pragma unroll
-    for (int ks = 0; ks < kBQ / 16; ++ks) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(st[2 * ks][0], st[2 * ks][1]);
-      pa[1] = pack_bf16(st[2 * ks][2], st[2 * ks][3]);
-      pa[2] = pack_bf16(st[2 * ks + 1][0], st[2 * ks + 1][1]);
-      pa[3] = pack_bf16(st[2 * ks + 1][2], st[2 * ks + 1][3]);
-      da[0] = pack_bf16(dpt[2 * ks][0], dpt[2 * ks][1]);
-      da[1] = pack_bf16(dpt[2 * ks][2], dpt[2 * ks][3]);
-      da[2] = pack_bf16(dpt[2 * ks + 1][0], dpt[2 * ks + 1][1]);
-      da[3] = pack_bf16(dpt[2 * ks + 1][2], dpt[2 * ks + 1][3]);
-      const int off = (ks * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int dd = 0; dd < NT_O / 2; ++dd) {
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4_trans(ob, tdO + off + dd * 16);
-        mma16816(dv[2 * dd], pa, ob[0], ob[1]);
-        mma16816(dv[2 * dd + 1], pa, ob[2], ob[3]);
-        ldmatrix_x4_trans(qb, tQ + off + dd * 16);
-        mma16816(dk[2 * dd], da, qb[0], qb[1]);
-        mma16816(dk[2 * dd + 1], da, qb[2], qb[3]);
+      for (int h = 0; h < 2; ++h) {
+        const int rc = h ? row1 : row0;
+        const int p = p0 + (rc >> 8), g = g0 + (rc & 255);
+        const bool ok = rc >= 0 && p < a.S && g < a.G;
+        const size_t idx =
+            ok ? (((size_t)b * a.S + p) * a.K + kh) * a.G + g : 0;
+        const int r = lane + 32 * h;
+        cp_async4(sLse + s * kWsBQ + r, a.lse + idx, ok);
+        cp_async4(sDelta + s * kWsBQ + r, a.delta + idx, ok);
       }
+      mbar_arrive_cp_async(&full[s]);
     }
-    __syncthreads();   // this buffer is refilled two iterations on
+    return;
   }
-  cp_async_wait<0>();  // no query tile: only K and V were in flight
 
-  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(a.out0);
-  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(a.out1);
+  // ------------------------------------------------------------- consumers
+  // acc is this warpgroup's dV (warpgroup 0) or dK (1): 64 kv rows x DP.
+  // acc[4 i + 2 h + e] is kv row kpos[h], column 8 i + 2 t4 + e; the
+  // products' accumulators st / dpt (64 kv rows x 64 query rows) follow the
+  // same pattern with query rows for columns. P^T goes from warpgroup 0 to
+  // warpgroup 1 through shared memory, in fp32, thread by thread:
+  // sP[s][e][tid] is element e of thread tid.
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane / 4, t4 = lane % 4;      // accumulator coordinates
+  const int kpos[2] = {t.k0 + warp * 16 + g4, t.k0 + warp * 16 + g4 + 8};
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  if (wg == 0) {
+    // ----------------------------------- dV += P^T dO, P^T = exp(S^T - lse)
+    // query positions p_min..p_max see key kpos[h] (causal, window, T)
+    int p_min[2], p_max[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      p_min[h] = kpos[h] >= a.T ? INT_MAX : a.causal ? kpos[h] : INT_MIN;
+      p_max[h] = a.window > 0 ? kpos[h] + a.window - 1 : INT_MAX;
+    }
+    const float sl2 = a.scale * kLog2e;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const int p0 = p_lo + (i / n_hb) * pb, g0 = (i % n_hb) * gb;
+      const unsigned char* tQ = sQ + s * kTile;
+      const unsigned char* tdO = sdO + s * kTile;
+      const float* tLse = sLse + s * kWsBQ;
+      mbar_wait(&full[s], ph);
+
+      // S^T = K Q^T: K the shared-memory A operand, Q K-major
+      float st[kWsBQ / 2];
+#pragma unroll
+      for (int e = 0; e < kWsBQ / 2; ++e) st[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * kBox64 + (kk % 4) * 32;
+        wgmma_ss<0>(st, desc_k(sK + off), desc_k(tQ + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+
+      // P^T = exp(S^T scale - lse), masked to exactly 0: one branch for the
+      // whole tile, masked scores become -inf; st[4 j + e] is query row
+      // 8 j + 2 t4 + e % 2
+      const bool full_tile =
+          used == kWsBQ && p0 + pb <= a.S && g0 + gb <= a.G &&
+          pairs_unmasked(a, p0, p0 + pb - 1, t.k0, kWsRowsK);
+      if (!full_tile) {
+#pragma unroll
+        for (int j = 0; j < kWsBQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int rc = sRow[8 * j + 2 * t4 + e];
+            const int p = p0 + (rc >> 8), g = g0 + (rc & 255);
+            const bool row_ok = rc >= 0 && p < a.S && g < a.G;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const bool vis = row_ok && p >= p_min[h] && p <= p_max[h];
+              st[4 * j + 2 * h + e] = vis ? st[4 * j + 2 * h + e] : -INFINITY;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kWsBQ / 8; ++j) {
+        const float2 lse =
+            *reinterpret_cast<const float2*>(tLse + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l2 = ((e & 1) ? lse.y : lse.x) * kLog2e;
+          st[4 * j + e] = exp2_ftz(fmaf(st[4 * j + e], sl2, -l2));
+        }
+      }
+
+      // hand P^T to the dK warpgroup
+      mbar_wait(&p_empty[s], ph ^ 1);
+      float* pt = sP + s * (kPBytes / 4) + tid;
+#pragma unroll
+      for (int e = 0; e < kWsBQ / 2; ++e) pt[e * 128] = st[e];
+      mbar_arrive(&p_full[s]);
+
+      // dV += P^T dO: P^T in bf16 as the register A operand (elements
+      // 8 ks .. 8 ks + 7 are its k16 step ks), dO MN-major (16 query rows,
+      // 2048 bytes, a step)
+      uint32_t pa[kWsBQ / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kWsBQ / 16; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pa[ks][q] = pack_bf16(st[8 * ks + 2 * q], st[8 * ks + 2 * q + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWsBQ / 16; ++ks)
+        wgmma_rs<1>(acc, pa[ks], desc_mn(tdO + ks * 16 * 128, kBox64), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with s
+    }
+  } else {
+    // ------------------------- dK += dS^T Q, dS^T = P^T (dP^T - delta) scale
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const unsigned char* tQ = sQ + s * kTile;
+      const unsigned char* tdO = sdO + s * kTile;
+      const float* tDelta = sDelta + s * kWsBQ;
+      mbar_wait(&full[s], ph);
+
+      // dP^T = V dO^T: V the shared-memory A operand, dO K-major
+      float dpt[kWsBQ / 2];
+#pragma unroll
+      for (int e = 0; e < kWsBQ / 2; ++e) dpt[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * kBox64 + (kk % 4) * 32;
+        wgmma_ss<0>(dpt, desc_k(sV + off), desc_k(tdO + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dpt);
+
+      // dS^T from the dV warpgroup's P^T, in bf16 as the register A operand
+      // of dK += dS^T Q (elements 8 ks + 2 q, + 1 are query rows
+      // 16 ks + 8 (q / 2) + 2 t4, + 1)
+      mbar_wait(&p_full[s], ph);
+      const float* pt = sP + s * (kPBytes / 4) + tid;
+      uint32_t da[kWsBQ / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kWsBQ / 16; ++ks) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e0 = 8 * ks + 2 * q;
+          const float2 dl = *reinterpret_cast<const float2*>(
+              tDelta + 16 * ks + 8 * (q / 2) + 2 * t4);
+          da[ks][q] = pack_bf16(pt[e0 * 128] * (dpt[e0] - dl.x) * a.scale,
+                                pt[(e0 + 1) * 128] * (dpt[e0 + 1] - dl.y) *
+                                    a.scale);
+        }
+      }
+      mbar_arrive(&p_empty[s]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWsBQ / 16; ++ks)
+        wgmma_rs<1>(acc, da[ks], desc_mn(tQ + ks * 16 * 128, kBox64), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with s
+    }
+  }
+
+  // dV (warpgroup 0) or dK (1), rounded once
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(wg == 0 ? a.out1 : a.out0);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (kpos[h] >= a.T) continue;
     const size_t row = krow(a, b, kh, kpos[h]) * a.D;
 #pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
+    for (int i = 0; i < DP / 8; ++i) {
       const int col = i * 8 + 2 * t4;
       if (col < a.D) {
-        *reinterpret_cast<uint32_t*>(dk_out + row + col) =
-            pack_bf16(dk[i][2 * h], dk[i][2 * h + 1]);
-        *reinterpret_cast<uint32_t*>(dv_out + row + col) =
-            pack_bf16(dv[i][2 * h], dv[i][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(out + row + col) =
+            pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
       }
     }
   }
@@ -502,15 +641,24 @@ cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
 
 template <int DP>
 cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
-  constexpr int LD = DP + 8;
-  const int smem = (2 * kRowsK + 4 * kBQ) * LD * (int)sizeof(__nv_bfloat16) +
-                   4 * kBQ * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const int gb = min(a.G, 64), pb = kWsBQ / gb;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, gb, pb);
+  if (err == cudaSuccess)
+    err = map_q(&tm_do, a.dout, a.B, a.S, a.K, a.G, a.D, gb, pb);
+  if (err == cudaSuccess)
+    err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, kWsRowsK);
+  if (err == cudaSuccess)
+    err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, kWsRowsK);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.T + kRowsK - 1) / kRowsK, a.K, a.B);
-  fa_bwd_dkv_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(a);
+  const int smem = dkv_smem_bytes<DP>();
+  err = cudaFuncSetAttribute(fa_bwd_dkv_bf16_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.T + kWsRowsK - 1) / kWsRowsK, a.K, a.B);
+  fa_bwd_dkv_bf16_kernel<DP><<<grid, kWsThreads, smem, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a, gb, pb);
   return cudaGetLastError();
 }
 

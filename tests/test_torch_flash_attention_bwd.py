@@ -3,13 +3,15 @@
 ``flash_attention_bwd_reference`` is held against the JAX Pallas backward
 kernels in interpret mode on one set of inputs (q, k, v, dO and the forward's
 out and LSE, from the JAX forward kernel), sweeping causal, window,
-non-causal, ragged S, S != T, G in {1, 3} and D = 40. Tolerances: fp32 1e-4
-(tests/test_kernels.py's fused-backward test), bf16 2e-2. The port's
-differentiable ``ops.flash_attention`` is held against ``jax.grad`` of the
-reference's ``ops.flash_attention`` (backward through the jnp oracle) and
-``ops.flash_attention_fused`` (backward through the Pallas kernels) in fp32
-at 1e-4. The CUDA kernels run only on the card (``chip_smoke.py`` holds them
-against the plain version there); CPU tensors take the plain version.
+non-causal, ragged S, S != T, G in {1, 3, 8, 80} and D = 40 (G = 8 and
+G = 80 are chip_smoke.py's edge cases of the Hopper tiles, scaled down).
+Tolerances: fp32 1e-4 (tests/test_kernels.py's fused-backward test), bf16
+2e-2. The port's differentiable ``ops.flash_attention`` is held against
+``jax.grad`` of the reference's ``ops.flash_attention`` (backward through the
+jnp oracle) and ``ops.flash_attention_fused`` (backward through the Pallas
+kernels) in fp32 at 1e-4. The CUDA kernels run only on the card
+(``chip_smoke.py`` holds them against the plain version there); CPU tensors
+take the plain version.
 """
 import numpy as np
 import pytest
@@ -31,6 +33,8 @@ SWEEP = [  # B, S, T, K, G, D, causal, window
     (1, 48, 48, 1, 3, 40, False, None),    # non-causal, G = 3, D = 40
     (2, 50, 50, 2, 2, 16, True, None),     # ragged against the 32 block
     (1, 40, 72, 1, 3, 40, True, 24),       # S != T, window, G = 3, D = 40
+    (1, 50, 50, 2, 8, 64, True, None),     # G = 8, ragged (chip_smoke g8)
+    (1, 32, 32, 1, 80, 32, True, None),    # G > 64: B3 walks head blocks
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
