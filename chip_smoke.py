@@ -11,7 +11,10 @@ Phases (any failure raises, and the script exits non-zero):
      TPU kernel): a TMA load of a 64 x D and a 128 x D tile, then wgmma
      with B K-major and with B MN-major, at D = 64 and 128, each held
      against an fp32 product of the same bf16 inputs, so that a descriptor
-     or swizzle fault fails here under its own name;
+     or swizzle fault fails here under its own name; then, in a cluster of
+     8 blocks, a TMA multicast into every block, distributed shared memory
+     read and written across blocks, the cluster barrier, remote mbarrier
+     arrivals and the blocks' ranks, each checked by name;
      then hold each kernel against its plain PyTorch version on the card: B1
      (the forward) and B2/B3 (the backward: dq, and dk/dv) at the serve or
      train shape and at ragged, windowed, non-causal, fp32 and other
@@ -43,10 +46,14 @@ Phases (any failure raises, and the script exits non-zero):
   6. time each kernel at its main path's shape beside its bound, its plain
      version and one PyTorch library call of the same function
      (``scaled_dot_product_attention`` and its backward, with the kv heads
-     expanded, timed here only: the port never calls it);
+     expanded and the flash backend pinned, timed here only: the port never
+     calls it), and B2 + B3 back to back beside SDPA's whole backward. Every
+     time is the median of 5 windows after 5 warm-up calls, printed with its
+     spread;
   7. hold B4 (mLSTM) against its plain version at the xlstm-350m width
-     (B=8, S=2048, H=4, D=512) at each chunk 32..256, in bf16, and at
-     head dims and chunks that are not multiples of the kernel's tiles; and
+     (B=8, S=2048, H=4, D=512) at each chunk of the tuner's grid (32..256)
+     in fp32 and in bf16, and at head dims and chunks that are not
+     multiples of the kernel's tiles; and
      B5 (RG-LRU) at the recurrentgemma-9b width (B=8, S=2048, R=4096), at
      ragged S and R, with and without h0. Planted faults (B4 without the
      inter-chunk q C term for chunks >= 1; B5 without one step's carry)
@@ -170,6 +177,22 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+def demangled_kernel(mangled):
+    """(kernel name, mangled template arguments or "") of a kernel's
+    mangled symbol. Each name in it follows its length in digits; the
+    anonymous namespace's hash before it may hold any letters and digits,
+    so the name is the one whose length prefix fits it exactly."""
+    import re
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n = int(mangled[i:run.end()])
+            name = mangled[run.end():run.end() + n]
+            if re.fullmatch(r"(?:fa|mlstm|rglru|hopper)_\w+_kernel", name):
+                rest = re.match(r"I\w+?E", mangled[run.end() + n:])
+                return name, rest.group(0) if rest else ""
+    return mangled, ""
+
+
 def ptxas_report(log):
     """[(kernel, "registers ...; spills ...")] from nvcc's -Xptxas -v log."""
     import re
@@ -177,14 +200,12 @@ def ptxas_report(log):
     for line in (log.read_text().splitlines() if log.exists() else []):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d((?:fa|mlstm|rglru|hopper)_\w+?_kernel)"
-                          r"(I\w+?E)?", m.group(1))
-            kernel = k.group(1) if k else m.group(1)
-            if k and k.group(2):              # template arguments
+            kernel, targs = demangled_kernel(m.group(1))
+            if targs:                         # template arguments
                 args = [{"13__nv_bfloat16": "bf16", "6__half": "half",
                          "f": "float"}.get(t.group(1), t.group(2))
                         for t in re.finditer(r"(13__nv_bfloat16|6__half|f)"
-                                             r"|Li(\d+)", k.group(2))]
+                                             r"|Li(\d+)", targs)]
                 kernel += f"<{', '.join(args)}>"
         elif "spill" in line:
             spill = line.strip()
@@ -194,18 +215,38 @@ def ptxas_report(log):
     return rows
 
 
-def cuda_ms(fn, iters, warmup=2):
+class Timing(float):
+    """A kernel time in ms: the median of ``windows`` timed windows, with
+    their least and largest."""
+
+    def __new__(cls, times):
+        times = sorted(times)
+        t = super().__new__(cls, times[len(times) // 2])
+        t.lo, t.hi, t.n = times[0], times[-1], len(times)
+        return t
+
+    def spread(self):
+        return (f"median of {self.n} windows, spread {self.lo:.4f}-"
+                f"{self.hi:.4f} ms")
+
+
+def cuda_ms(fn, iters, warmup=5, windows=5):
+    """ms per call of ``fn``: CUDA events around ``windows`` windows of
+    ``iters`` calls each, after ``warmup`` calls; the median window."""
     import torch
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return Timing(times)
 
 
 def attention_inputs(B, S, T, K, G, D, dtype, seed):
@@ -331,7 +372,8 @@ def grad_line(errs, need, tol):
 def phase_hopper(build):
     """hopper.cuh's TMA maps, mbarrier and wgmma descriptors on the card:
     C1 = A B^T (B K-major) and C2 = bf16(C1) B (B MN-major) at D = 64 and
-    128, each against an fp32 product of the same inputs."""
+    128, each against an fp32 product of the same inputs; then its cluster
+    helpers in a cluster of 8, each held against what it must give."""
     import ctypes
     import torch
     lib = build.load("hopper_selftest")
@@ -366,6 +408,42 @@ def phase_hopper(build):
               flush=True)
         check(ok[0], f"hopper self-test: K-major wgmma wrong at D={D}")
         check(ok[1], f"hopper self-test: MN-major wgmma wrong at D={D}")
+
+    cl = lib.hopper_cluster_selftest
+    cl.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    cl.restype = ctypes.c_int
+    n = 8                                     # B4's cluster size
+    src = torch.randn((8, 256), generator=torch.Generator(
+        device="cuda").manual_seed(1001), device="cuda")
+    tiles = torch.full((n, 8, 256), float("nan"), device="cuda")
+    dsmem = torch.full((n, 128), float("nan"), device="cuda")
+    pushed = torch.full((n, 128), float("nan"), device="cuda")
+    ranks = torch.full((n + 1,), -1, dtype=torch.int32, device="cuda")
+    rc = cl(src.data_ptr(), tiles.data_ptr(), dsmem.data_ptr(),
+            pushed.data_ptr(), ranks.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"hopper cluster self-test launch failed: "
+                   f"{lib.hopper_error_string(rc).decode()} ({rc})")
+    torch.cuda.synchronize()
+    rank = torch.arange(n, device="cuda")[:, None]
+    tid = torch.arange(128, device="cuda")[None, :]
+    want = (rank + 1) % n * 1000 + tid        # read from the next rank
+    want_pushed = (rank - 1) % n * 1000 + tid  # stored by the previous one
+    results = {
+        "TMA multicast into every block": bool(torch.equal(
+            tiles, src.expand(n, 8, 256))),
+        "DSMEM reads of the next rank (mapa, ld.shared::cluster) after the "
+        "cluster barrier": bool(torch.equal(dsmem, want.float())),
+        "DSMEM stores (st.shared::cluster) seen after a remote mbarrier "
+        "arrival": bool(torch.equal(pushed, want_pushed.float())),
+        "cluster ranks": ranks[:n].tolist() == list(range(n)),
+        "remote mbarrier arrivals on rank 0": int(ranks[n]) == 1,
+    }
+    print(f"[hopper] cluster of {n}: " + "; ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in results.items()),
+        flush=True)
+    for what, ok in results.items():
+        check(ok, f"hopper cluster self-test: {what} wrong")
 
 
 def phase_kernels(fa):
@@ -719,34 +797,43 @@ def expand_heads(q, k, v):
     return qh, kh, vh
 
 
+def sdpa_flash():
+    """The context that pins SDPA to its flash backend; a shape it refuses
+    raises instead of falling to another backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel(SDPBackend.FLASH_ATTENTION)
+
+
 def phase_timing(fa, card):
-    import torch
     import torch.nn.functional as F
+    import torch
     B, S, K, G, D = SERVE_SHAPE
     H = K * G
     q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=100)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=3,
-                       warmup=1)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=1)
     qh, kh, vh = expand_heads(q, k, v)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), iters=20)
+    with sdpa_flash():
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=20)
     flops = 4.0 * B * H * D * visible_pairs(S, S, True, None)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * S * H
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[timing] {card} | flash_attention B={B} S=T={S} H={H} K={K} "
-          f"D={D} bf16 causal: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+          f"D={D} bf16 causal: kernel {ms:.4f} ms ({ms.spread()}; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
           f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B), plain "
-          f"{plain_ms:.4f} ms, library (SDPA, kv heads expanded) "
-          f"{library_ms:.4f} ms", flush=True)
+          f"{plain_ms:.4f} ms ({plain_ms.spread()}), library (SDPA, backend "
+          f"FLASH_ATTENTION pinned, kv heads expanded) {library_ms:.4f} ms "
+          f"({library_ms.spread()})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
 
 def phase_bwd_timing(fa, fa_bwd, card):
-    """B2 and B3 at the train shape; the library call is SDPA's backward,
-    which computes dq, dk and dv together."""
+    """B2 and B3 at the train shape; the library call is SDPA's backward
+    (flash backend pinned), which computes dq, dk and dv together, so it is
+    also set beside B2 + B3 launched back to back."""
     import torch
     import torch.nn.functional as F
     B, S, K, G, D = TRAIN_SHAPE
@@ -758,10 +845,22 @@ def phase_bwd_timing(fa, fa_bwd, card):
     kw = dict(causal=True, scale=D ** -0.5)
     args = (q, k, v, do, lse, delta)
     qh, kh, vh = (x.requires_grad_() for x in expand_heads(q, k, v))
-    out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    with sdpa_flash():
+        out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    backend = type(out_h.grad_fn).__name__
+    check("Flash" in backend, f"SDPA's backward is {backend}, not flash")
     do_h = do.reshape(B, S, H, D).transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         out_h, (qh, kh, vh), do_h, retain_graph=True), iters=20)
+    # Not the yardstick: what SDPA picks unpinned, which earlier readings
+    # of this phase timed without saying which backend it was.
+    out_d = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    default_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_d, (qh, kh, vh), do_h, retain_graph=True), iters=20)
+    print(f"[timing] {card} | SDPA unpinned (not the yardstick): backward "
+          f"{type(out_d.grad_fn).__name__} {default_ms:.4f} ms "
+          f"({default_ms.spread()})", flush=True)
+    del out_d
     pairs = B * H * visible_pairs(S, S, True, None)
     stats = 4 * 2 * B * S * H                    # lse and delta, fp32
     io = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, dO, k, v in bf16
@@ -771,19 +870,26 @@ def phase_bwd_timing(fa, fa_bwd, card):
             ("dkv", fa_bwd.dkv_kernel, fa_bwd.dkv_reference, 4,
              k.numel() + v.numel())):
         ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=1)
         flops = 2.0 * D * products * pairs
         nbytes = io + stats + 2 * outs
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"[timing] {card} | flash_attention_bwd {name} B={B} S=T={S} "
               f"H={H} K={K} D={D} bf16 causal: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B), plain "
-              f"{plain_ms:.4f} ms, library (SDPA backward, dq, dk and dv "
-              f"together, kv heads expanded) {library_ms:.4f} ms",
-              flush=True)
+              f"({ms.spread()}; {flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops:.3e} FLOP, "
+              f"{nbytes:.3e} B), plain {plain_ms:.4f} ms "
+              f"({plain_ms.spread()}), library (SDPA backward, {backend}, "
+              f"dq, dk and dv together, kv heads expanded) "
+              f"{library_ms:.4f} ms ({library_ms.spread()})", flush=True)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
+    both = cuda_ms(lambda: (fa_bwd.dq_kernel(*args, **kw),
+                            fa_bwd.dkv_kernel(*args, **kw)), iters=20)
+    print(f"[timing] {card} | flash_attention_bwd dq + dkv back to back "
+          f"{both:.4f} ms ({both.spread()}) against SDPA's whole backward "
+          f"({backend}) {library_ms:.4f} ms: {both / library_ms:.3f}x",
+          flush=True)
     return rows
 
 
@@ -824,12 +930,17 @@ def tol_line(name, e, need, tol):
             f"a={tol[0]:g}, r={tol[1]:g})")
 
 
+# Every chunk of the tuner's grid at the full width, in fp32 and bf16 (each
+# trial launches one), then head dims and chunks off the kernel's tiles.
 MLSTM_CHECKS = [  # name, B, S, H, D, dtype, chunk, forget-gate shift
     ("full_c32", 8, 2048, 4, 512, "float32", 32, 0.0),
     ("full_c64", 8, 2048, 4, 512, "float32", 64, 0.0),
     ("full_c128", 8, 2048, 4, 512, "float32", 128, 0.0),
     ("full_c256", 8, 2048, 4, 512, "float32", 256, 0.0),
     ("full_bf16", 8, 2048, 4, 512, "bfloat16", 128, 0.0),
+    ("full_bf16_c32", 8, 2048, 4, 512, "bfloat16", 32, 0.0),
+    ("full_bf16_c64", 8, 2048, 4, 512, "bfloat16", 64, 0.0),
+    ("full_bf16_c256", 8, 2048, 4, 512, "bfloat16", 256, 0.0),
     ("d72_c64", 2, 512, 2, 72, "float32", 64, 2.0),
     ("d40_s384_f16", 1, 384, 3, 40, "float16", 128, 2.0),
     ("d200_s100_bf16", 2, 100, 2, 200, "bfloat16", 100, 2.0),
@@ -1040,41 +1151,46 @@ def rglru_bound(B, S, R):
                  PEAK_FP32_FLOPS)
 
 
-def phase_recurrent_timing(ml, rg, summaries, card):
+def phase_recurrent_timing(build, ml, rg, summaries, card):
     """B4 and B5 at full width, default config and the winner."""
     import torch
     rows = {}
     x = mlstm_inputs(*MLSTM_SHAPE, torch.float32, 900)
     plain_ms = cuda_ms(lambda: ml.mlstm_chunkwise_reference(x[0], *x[1:],
                                                             chunk=128),
-                       iters=2, warmup=1)
+                       iters=1)
+    lib = build.load("mlstm")
     for label, cfg in (("default", {"chunk": 128}),
                        ("tuned", summaries[0]["config"])):
         ms = cuda_ms(lambda: ml.mlstm_chunkwise(*x, chunk=cfg["chunk"]),
                      iters=10)
         bound_ms, bound_by = mlstm_bound(*MLSTM_SHAPE, 4)
+        cluster = lib.mlstm_cluster_size(*MLSTM_SHAPE, cfg["chunk"], 4)
         print(f"[timing] {card} | mlstm B,S,H,D={MLSTM_SHAPE} fp32 {label} "
-              f"{cfg}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, fp32 CUDA-core peak), plain (chunk 128) "
-              f"{plain_ms:.4f} ms, library none", flush=True)
+              f"{cfg}, clusters of {cluster}: kernel {ms:.4f} ms "
+              f"({ms.spread()}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}, fp32 CUDA-core peak), plain "
+              f"(chunk 128) {plain_ms:.4f} ms ({plain_ms.spread()}), library "
+              f"none", flush=True)
         rows[("mlstm", label)] = dict(ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=None)
     grid = {c: cuda_ms(lambda: ml.mlstm_chunkwise(*x, chunk=c), iters=5)
             for c in (32, 64, 128, 256)}
     print(f"[timing] {card} | mlstm every chunk of the grid: "
-          + ", ".join(f"{c} {t:.4f} ms" for c, t in grid.items()), flush=True)
+          + ", ".join(f"{c} {t:.4f} ms ({t.lo:.4f}-{t.hi:.4f})"
+                      for c, t in grid.items()), flush=True)
     del x
     y = rglru_inputs(*RGLRU_SHAPE, False, 901)
-    plain_ms = cuda_ms(lambda: rg.rglru_reference(*y), iters=2, warmup=1)
+    plain_ms = cuda_ms(lambda: rg.rglru_reference(*y), iters=1)
     for label, cfg in (("default", {"chunk": 128, "r_block": 128}),
                        ("tuned", summaries[1]["config"])):
         ms = cuda_ms(lambda: rg.rglru_scan(*y, **cfg), iters=20)
         bound_ms, bound_by = rglru_bound(*RGLRU_SHAPE)
         print(f"[timing] {card} | rglru B,S,R={RGLRU_SHAPE} fp32 {label} "
-              f"{cfg}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), plain {plain_ms:.4f} ms, library none",
-              flush=True)
+              f"{cfg}: kernel {ms:.4f} ms ({ms.spread()}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms "
+              f"({plain_ms.spread()}), library none", flush=True)
         rows[("rglru", label)] = dict(ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=None)
@@ -1082,7 +1198,8 @@ def phase_recurrent_timing(ml, rg, summaries, card):
                             iters=10)
             for c in (32, 64, 128, 256) for r in (32, 64, 128, 256)}
     print(f"[timing] {card} | rglru every (chunk, r_block) of the grid: "
-          + ", ".join(f"{c}/{r} {t:.4f} ms" for (c, r), t in grid.items()),
+          + ", ".join(f"{c}/{r} {t:.4f} ms ({t.lo:.4f}-{t.hi:.4f})"
+                      for (c, r), t in grid.items()),
           flush=True)
     return rows
 
@@ -1146,7 +1263,7 @@ def main() -> int:
                 ("B5", rg, "launches")]
     summaries, tune_counts = phase_tuner(counters, ml, rg, tune, findb, ops,
                                          groundtruth)
-    rec_timing = phase_recurrent_timing(ml, rg, summaries, card)
+    rec_timing = phase_recurrent_timing(build, ml, rg, summaries, card)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs = bwd_errs["train"]

@@ -11,16 +11,16 @@ import importlib
 
 _MODULES = {"qwen3-0.6b": "qwen3_0_6b"}
 
-_NOT_PORTED = {
-    "mixtral-8x22b": "MoE and sliding window",
-    "qwen2-moe-a2.7b": "MoE and sliding window",
-    "yi-34b": "Other dense archs",
-    "qwen2-1.5b": "Other dense archs",
-    "deepseek-coder-33b": "Other dense archs",
-    "internvl2-26b": "Encoder-decoder and VLM",
-    "whisper-small": "Encoder-decoder and VLM",
-    "recurrentgemma-9b": "Griffin (hybrid) family with B5",
-    "xlstm-350m": "xLSTM (ssm) family with B4",
+_NOT_PORTED = {   # arch -> (ROADMAP.md queue A item, its title)
+    "mixtral-8x22b": ("3", "MoE and sliding window"),
+    "qwen2-moe-a2.7b": ("3", "MoE and sliding window"),
+    "yi-34b": ("2c", "Other dense archs"),
+    "qwen2-1.5b": ("2c", "Other dense archs"),
+    "deepseek-coder-33b": ("2c", "Other dense archs"),
+    "internvl2-26b": ("7", "Encoder-decoder and VLM"),
+    "whisper-small": ("7", "Encoder-decoder and VLM"),
+    "recurrentgemma-9b": ("4", "Griffin (hybrid) family"),
+    "xlstm-350m": ("5", "xLSTM (ssm) family"),
 }
 
 
@@ -28,9 +28,10 @@ def _mod(name: str):
     if name in _MODULES:
         return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     if name in _NOT_PORTED:
+        num, title = _NOT_PORTED[name]
         raise NotImplementedError(
             f"arch {name!r} is not ported yet: ROADMAP.md queue A, item "
-            f"'{_NOT_PORTED[name]}'")
+            f"{num} '{title}'")
     raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
 
 

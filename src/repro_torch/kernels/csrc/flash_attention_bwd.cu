@@ -28,11 +28,29 @@
 // element only on tiles that straddle the diagonal, the window edge or the
 // end of the rows.
 //
-// B2 (mma.sync m16n8k16): one block of four warps owns 64 flattened query
-// rows of one (batch, kv head), so a K/V tile (double-buffered with
-// cp.async) is read once for the group; P and dS go from the accumulators
-// straight to the A operand of the next product; the longest causal blocks
-// launch first.
+// B2 (wgmma, TMA, warp specialisation): one block of three warpgroups owns
+// 128 flattened query rows of one (batch, kv head), Pb positions x Gb heads
+// (Gb = min(G, 128), Pb = 128 / Gb; with G > 128 the grid also steps over
+// blocks of 128 heads), so each K/V tile is read once for the group and
+// feeds 128 rows. The longest causal blocks launch first.
+//   * A producer warp (warpgroup 2) loads Q and dO once by TMA, with the
+//     rows' lse and delta by cp.async on the same mbarrier (their rows are 4
+//     bytes, not 16-byte aligned), then K and V tiles of 64 rows by TMA
+//     through a ring of two stages with full and empty mbarriers. TMA writes
+//     zeros past S, T and G and in columns D..DP-1; the rows of Q and dO
+//     past Pb x Gb are zeroed once.
+//   * Warpgroups 0 and 1 own 64 rows each. Per kv tile: S = Q K^T and
+//     dP = dO V^T are two wgmma chains (m64n64k16, Q and dO the
+//     shared-memory A operand, K and V K-major), committed one after the
+//     other, so the fp32 P = exp2(S scale log2e - lse log2e) runs while dP
+//     is still in the tensor cores; dS = P (dP - delta) scale is rounded once
+//     to bf16 as the register A operand of dQ += dS K (m64nDPk16, K
+//     MN-major). Masks only on tiles that straddle the diagonal, the window
+//     edge or T, under one branch a tile.
+//   * Registers set the 64-row kv tile: each consumer thread holds dQ (64
+//     fp32 at D = 128), S and dP (32 each), within the 168 registers a
+//     384-thread block gets at launch (ptxas of CUDA 12.8 allocates within
+//     that bound whatever setmaxnreg asks for, so neither kernel uses it).
 //
 // B3 (wgmma, TMA, warp specialisation): one block of three warpgroups owns
 // 64 kv rows of one (batch, kv head) and walks the query side in tiles of
@@ -68,8 +86,8 @@
 // and ds k. Here p and ds are rounded to bf16 (round to nearest) as the A
 // operand of those three products; every sum is fp32 and dq, dk, dv are
 // rounded to the inputs' dtype once, at the end. Left for a later change:
-// B2 on wgmma and TMA; in B3, overlapping a tile's dV or dK product with
-// the next tile's S^T or dP^T, and persistent blocks.
+// overlapping a tile's dQ, dV or dK product with the next tile's products,
+// and persistent blocks.
 //
 // fp32 inputs take separate SIMT kernels (fp32 FMA, no tensor cores), so an
 // fp32 caller gets fp32 products and not TF32.
@@ -161,167 +179,233 @@ __device__ __forceinline__ bool pairs_unmasked(const Args& a, int p0, int p1,
 
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int kWarps = 4;          // 16 rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsQ = 64;         // B2: flattened query rows per block
-constexpr int kBN = 64;            // B2: kv rows per tile
+constexpr int kWsThreads = 384;      // warpgroups 0, 1 consume; 2 produces
+constexpr int kStages = 2;           // B2: K / V ring; B3: Q / dO ring
+constexpr int kBox64 = 64 * 128;     // bytes of a 64-row box of 64 columns
+constexpr int kBox128 = 128 * 128;   // bytes of a 128-row box of 64 columns
+
+// B2: dq. One block owns 128 flattened query rows (pb positions x gb heads
+// of one (batch, kv head)); warpgroups 0 and 1 own 64 of them each and the
+// first warp of warpgroup 2 is the producer.
+constexpr int kDqRows = 128;         // query rows a block (pb x gb used)
+constexpr int kDqBN = 64;            // kv rows a tile
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_bf16_kernel(Args a) {
-  constexpr int LD = DP + 8;               // padding: conflict-free fragments
-  constexpr int KSTEPS = DP / 16;          // k-steps of S = Q K^T, dP = dO V^T
-  constexpr int NT_S = kBN / 8;            // n-tiles of S and dP
-  constexpr int NT_O = DP / 8;             // n-tiles of dQ
+constexpr int dq_smem_bytes() {
+  return (DP / 64) * (2 * kBox128 + 2 * kStages * kBox64) + 2 * kDqRows * 4 +
+         8 * (1 + 2 * kStages) + 1024;
+}
+
+// gb heads x pb positions make the block's rows: gb = min(G, 128),
+// pb = 128 / gb; with G > 128 the grid also steps over blocks of 128 heads.
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1)
+fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, Args a,
+                      int gb, int pb) {
+  constexpr int kQTile = (DP / 64) * kBox128;   // bytes of the Q or dO tile
+  constexpr int kKTile = (DP / 64) * kBox64;    // bytes of a K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kRowsQ * LD;
-  __nv_bfloat16* sK = sdO + kRowsQ * LD;   // [2][kBN][LD]
-  __nv_bfloat16* sV = sK + 2 * kBN * LD;   // [2][kBN][LD]
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sdO = sQ + kQTile;
+  unsigned char* sK = sdO + kQTile;             // [kStages]
+  unsigned char* sV = sK + kStages * kKTile;    // [kStages]
+  float* sLse = reinterpret_cast<float*>(sV + kStages * kKTile);
+  float* sDelta = sLse + kDqRows;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sDelta + kDqRows);
+  uint64_t* full = q_full + 1;                  // [kStages] K, V
+  uint64_t* empty = full + kStages;             // [kStages]
 
   const int kh = blockIdx.y, b = blockIdx.z;
-  const QTile t = q_tile(a, kRowsQ);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g4 = lane / 4, t4 = lane % 4;   // mma fragment coordinates
+  const int n_hb = (a.G + gb - 1) / gb;         // head blocks
+  const int n_pb = (a.S + pb - 1) / pb;         // position blocks
+  const int p0 = (n_pb - 1 - (int)blockIdx.x / n_hb) * pb;   // longest first
+  const int g0 = (blockIdx.x % n_hb) * gb;
+  const int used = pb * gb;                     // loaded rows
+  const int p_last = min(p0 + pb, a.S) - 1;
+  const int kv_hi = a.causal ? min(a.T, p_last + 1) : a.T;
+  const int kv_lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kDqBN - 1) / kDqBN : 0;
 
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
-
-  auto q_loader = [&](const __nv_bfloat16* base) {
-    return [=](int r) -> const __nv_bfloat16* {
-      const int f = t.f0 + r;
-      return f < t.f_end ? base + qrow(a, b, kh, f) * a.D : nullptr;
-    };
-  };
-  auto kv_loader = [&](const __nv_bfloat16* base, int k0) {
-    return [=](int r) -> const __nv_bfloat16* {
-      const int s = k0 + r;
-      return s < t.kv_hi ? base + krow(a, b, kh, s) * a.D : nullptr;
-    };
-  };
-
-  const int n_tiles = t.kv_hi > t.kv_lo ? (t.kv_hi - t.kv_lo + kBN - 1) / kBN
-                                        : 0;
-  load_rows<DP, LD, kThreads>(sQ, kRowsQ, a.D, q, q_loader(q));
-  load_rows<DP, LD, kThreads>(sdO, kRowsQ, a.D, dout, q_loader(dout));
-  if (n_tiles > 0) {
-    load_rows<DP, LD, kThreads>(sK, kBN, a.D, k, kv_loader(k, t.kv_lo));
-    load_rows<DP, LD, kThreads>(sV, kBN, a.D, v, kv_loader(v, t.kv_lo));
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1 + 32);          // the TMA arrival, 32 cp.async lanes
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);          // one per consumer warp
+    }
+    fence_mbar_init();
   }
-  cp_async_commit();
+  // Rows used..127 of Q and dO are never loaded; the products read them, so
+  // they must hold finite values: zeros.
+  const int pad = kDqRows - used;
+  for (int i = threadIdx.x; i < 2 * (DP / 64) * pad * 8; i += kWsThreads) {
+    const int box = i / (pad * 8), c = i % (pad * 8);
+    *reinterpret_cast<uint4*>(sQ + box * kBox128 + (used + c / 8) * 128 +
+                              (c % 8) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async();
+  __syncthreads();
 
-  // rows of this thread: r0 = 16*warp + g4 and r0 + 8. A row past the end
-  // gets lse = +inf, so its p is exp2(-inf) = 0, and delta = 0.
-  const int r0 = warp * 16 + g4;
-  int qpos[2];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------ producer warp
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * (DP / 64) * 128 * used);
+      for (int h = 0; h < DP / 64; ++h) {
+        tma_load_5d(sQ + h * kBox128, &tm_q, q_full, 64 * h, g0, kh, p0, b);
+        tma_load_5d(sdO + h * kBox128, &tm_do, q_full, 64 * h, g0, kh, p0, b);
+      }
+    }
+    // lse and delta: (B, S, K, G) fp32 rows need not be 16-byte aligned, so
+    // cp.async, 4 bytes each (zeros outside the tensor); rows lane + 32 i
+#pragma unroll
+    for (int i = 0; i < kDqRows / 32; ++i) {
+      const int r = lane + 32 * i;
+      const int p = p0 + r / gb, g = g0 + r % gb;
+      const bool ok = r < used && p < a.S && g < a.G;
+      const size_t idx = ok ? (((size_t)b * a.S + p) * a.K + kh) * a.G + g : 0;
+      cp_async4(sLse + r, a.lse + idx, ok);
+      cp_async4(sDelta + r, a.delta + idx, ok);
+    }
+    mbar_arrive_cp_async(q_full);
+    if (lane == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int k0 = kv_lo + j * kDqBN;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kKTile);
+        for (int h = 0; h < DP / 64; ++h) {
+          tma_load_4d(sK + s * kKTile + h * kBox64, &tm_k, &full[s], 64 * h,
+                      kh, k0, b);
+          tma_load_4d(sV + s * kKTile + h * kBox64, &tm_v, &full[s], 64 * h,
+                      kh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------------- consumers
+  // dq[4 i + 2 h + e] is row r[h], column 8 i + 2 t4 + e; the products' sc
+  // and dp (64 rows x 64 keys) follow the same pattern with keys for
+  // columns.
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane / 4, t4 = lane % 4;      // accumulator coordinates
+  const unsigned char* myQ = sQ + wg * 64 * 128;
+  const unsigned char* mydO = sdO + wg * 64 * 128;
+  int r[2], lo[2], hi[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    r[h] = wg * 64 + warp * 16 + g4 + 8 * h;
+    const int p = p0 + r[h] / gb;
+    row_ok[h] = r[h] < used && p < a.S && g0 + r[h] % gb < a.G;
+    // keys lo..hi are visible to the row's position (causal, window, T)
+    lo[h] = a.window > 0 ? p - a.window + 1 : 0;
+    hi[h] = a.causal ? min(p, a.T - 1) : a.T - 1;
+  }
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_full, 0);
+  // a row outside the tensor gets lse = +inf, so its p is 0
   float lse2[2], dlt[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int f = t.f0 + r0 + 8 * h;
-    const bool ok = f < t.f_end;
-    qpos[h] = f / a.G;
-    lse2[h] = ok ? a.lse[qrow(a, b, kh, f)] * kLog2e : INFINITY;
-    dlt[h] = ok ? a.delta[qrow(a, b, kh, f)] : 0.f;
+    lse2[h] = row_ok[h] ? sLse[r[h]] * kLog2e : INFINITY;
+    dlt[h] = sDelta[r[h]];
   }
-  const int p_first = t.f0 / a.G, p_last = (t.f_end - 1) / a.G;
   const float sl2 = a.scale * kLog2e;
 
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
   for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    const int k0 = t.kv_lo + j * kBN;
-    if (j + 1 < n_tiles) {
-      const int nb = buf ^ 1;
-      load_rows<DP, LD, kThreads>(sK + nb * kBN * LD, kBN, a.D, k,
-                                  kv_loader(k, k0 + kBN));
-      load_rows<DP, LD, kThreads>(sV + nb * kBN * LD, kBN, a.D, v,
-                                  kv_loader(v, k0 + kBN));
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int s = j % kStages;
+    const int k0 = kv_lo + j * kDqBN;
+    const unsigned char* tK = sK + s * kKTile;
+    const unsigned char* tV = sV + s * kKTile;
+    mbar_wait(&full[s], (j / kStages) & 1);
 
-    const __nv_bfloat16* tK = sK + buf * kBN * LD;
-    const __nv_bfloat16* tV = sV + buf * kBN * LD;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x kBN columns
-    float s[NT_S][4], dp[NT_S][4];
+    // S = Q K^T and dP = dO V^T (K, V K-major): two chains, S's first, so
+    // that the softmax of S runs while dP is still in the tensor cores
+    float sc[kDqBN / 2], dp[kDqBN / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int oq = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const int okv = (kk / 4) * kBox64 + (kk % 4) * 32;
+      wgmma_ss<0>(sc, desc_k(myQ + oq), desc_k(tK + okv), kk > 0);
     }
+    wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a_frag(qa, sQ, LD, warp * 16, kk * 16, g4, t4);
-      load_a_frag(da, sdO, LD, warp * 16, kk * 16, g4, t4);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int oq = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const int okv = (kk / 4) * kBox64 + (kk % 4) * 32;
+      wgmma_ss<0>(dp, desc_k(mydO + oq), desc_k(tV + okv), kk > 0);
+    }
+    wgmma_commit();
+    fence_regs(dp);
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // p = exp(s scale - lse), masked to exactly 0: one branch for the whole
+    // tile, masked scores become -inf; sc[4 n + 2 h + e] is key
+    // k0 + 8 n + 2 t4 + e of row r[h]
+    if (!pairs_unmasked(a, p0, p_last, k0, kDqBN)) {
 #pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const __nv_bfloat16* kr = tK + (nt * 8 + g4) * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* vr = tV + (nt * 8 + g4) * LD + kk * 16 + 2 * t4;
-        mma16816(s[nt], qa, ld32(kr), ld32(kr + 8));
-        mma16816(dp[nt], da, ld32(vr), ld32(vr + 8));
+      for (int n = 0; n < kDqBN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, kpos = k0 + 8 * n + 2 * t4 + (e & 1);
+          const bool vis = kpos >= lo[h] && kpos <= hi[h];
+          sc[4 * n + e] = vis ? sc[4 * n + e] : -INFINITY;
+        }
       }
     }
+#pragma unroll
+    for (int i = 0; i < kDqBN / 2; ++i)
+      sc[i] = exp2_ftz(fmaf(sc[i], sl2, -lse2[(i / 2) % 2]));
 
-    // p = exp(s * scale - lse), masked to 0; dS = p (dP - delta) scale
-    const bool full = pairs_unmasked(a, p_first, p_last, k0, kBN);
+    // dS = p (dP - delta) scale, in bf16 as the register A operand of
+    // dQ += dS K (elements 8 ks .. 8 ks + 7 are its k16 step ks; K MN-major,
+    // 16 kv rows, 2048 bytes, a step)
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[kDqBN / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+    for (int ks = 0; ks < kDqBN / 16; ++ks)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int kpos = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const bool vis =
-            full || visible(qpos[h], kpos, a.T, a.causal, a.window);
-        const float p = vis ? exp2f(fmaf(s[nt][e], sl2, -lse2[h])) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dlt[h]) * a.scale;
+      for (int q = 0; q < 4; ++q) {
+        const int e0 = 8 * ks + 2 * q, h = q % 2;
+        da[ks][q] = pack_bf16(sc[e0] * (dp[e0] - dlt[h]) * a.scale,
+                              sc[e0 + 1] * (dp[e0 + 1] - dlt[h]) * a.scale);
       }
-    }
-
-    // dQ += dS K: the dS accumulators of two n-tiles form one A fragment
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kBN / 16; ++ks) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-      const __nv_bfloat16* kr =
-          tK + (ks * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int dd = 0; dd < NT_O / 2; ++dd) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, kr + dd * 16);
-        mma16816(acc[2 * dd], pa, kb[0], kb[1]);
-        mma16816(acc[2 * dd + 1], pa, kb[2], kb[3]);
-      }
-    }
-    __syncthreads();   // this buffer is refilled two iterations on
+    for (int ks = 0; ks < kDqBN / 16; ++ks)
+      wgmma_rs<1>(dq, da[ks], desc_mn(tK + ks * 16 * 128, kBox64), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);     // this warp is done with s
   }
-  cp_async_wait<0>();  // no tile visible: only Q and dO were in flight
 
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(a.out0);
+  // dq, rounded once
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out0);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int f = t.f0 + r0 + 8 * h;
-    if (f >= t.f_end) continue;
-    __nv_bfloat16* row = dq + qrow(a, b, kh, f) * a.D;
+    if (!row_ok[h]) continue;
+    const size_t row = (((size_t)b * a.S + p0 + r[h] / gb) * a.K + kh) * a.G +
+                       g0 + r[h] % gb;
 #pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
+    for (int i = 0; i < DP / 8; ++i) {
       const int col = i * 8 + 2 * t4;
       if (col < a.D) {
-        *reinterpret_cast<uint32_t*>(row + col) =
-            pack_bf16(acc[i][2 * h], acc[i][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(out + row * a.D + col) =
+            pack_bf16(dq[4 * i + 2 * h], dq[4 * i + 2 * h + 1]);
       }
     }
   }
@@ -329,11 +413,8 @@ fa_bwd_dq_bf16_kernel(Args a) {
 
 // B3: dk and dv. One block owns 64 kv rows: warpgroup 0 computes their dV,
 // warpgroup 1 their dK, and the first warp of warpgroup 2 is the producer.
-constexpr int kWsThreads = 384;
 constexpr int kWsRowsK = 64;         // kv rows a block
 constexpr int kWsBQ = 64;            // rows of a query tile (Pb x Gb used)
-constexpr int kStages = 2;           // Q / dO ring
-constexpr int kBox64 = 64 * 128;     // bytes of a 64-row box of 64 columns
 constexpr int kPBytes = kWsRowsK * kWsBQ * 4;   // P^T of a tile, fp32
 
 template <int DP>
@@ -628,14 +709,23 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int DP>
 cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
-  constexpr int LD = DP + 8;
-  const int smem = (2 * kRowsQ + 4 * kBN) * LD * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const int gb = min(a.G, kDqRows), pb = kDqRows / gb;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, gb, pb);
+  if (err == cudaSuccess)
+    err = map_q(&tm_do, a.dout, a.B, a.S, a.K, a.G, a.D, gb, pb);
+  if (err == cudaSuccess) err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, kDqBN);
+  if (err == cudaSuccess) err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, kDqBN);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.S * a.G + kRowsQ - 1) / kRowsQ, a.K, a.B);
-  fa_bwd_dq_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(a);
+  const int smem = dq_smem_bytes<DP>();
+  err = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int n_hb = (a.G + gb - 1) / gb;
+  dim3 grid((a.S + pb - 1) / pb * n_hb, a.K, a.B);
+  fa_bwd_dq_bf16_kernel<DP><<<grid, kWsThreads, smem, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a, gb, pb);
   return cudaGetLastError();
 }
 

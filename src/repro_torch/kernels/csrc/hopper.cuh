@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels
-// (flash_attention.cu: B1; flash_attention_bwd.cu: B3) and of
-// hopper_selftest.cu, which checks them on the card:
+// (flash_attention.cu: B1; flash_attention_bwd.cu: B2, B3), of the mLSTM
+// chunk kernel (mlstm.cu: B4) and of hopper_selftest.cu, which checks them on
+// the card:
 //   * TMA tensor maps over the attention tensors' own layouts, encoded on
 //     the host at every call. cuTensorMapEncodeTiled is fetched through
 //     cudaGetDriverEntryPoint, so the libraries need no -lcuda;
@@ -11,7 +12,13 @@
 //     m64nNk16 bf16 -> fp32 products with A from shared memory (ss) or from
 //     registers (rs), N = 64 or 128;
 //   * setmaxnreg, which moves registers from the producer warpgroup to the
-//     consumers.
+//     consumers;
+//   * thread-block clusters: the block's rank, the cluster barrier, mapa
+//     and distributed shared memory (loads, stores and mbarrier arrivals in
+//     another block of the cluster, and the cluster-scope wait that sees
+//     them), and TMA loads multicast to several blocks of a
+//     cluster (unswizzled fp32 / bf16 / fp16 tiles, as B4 reads them with
+//     the CUDA cores).
 //
 // Tiles in shared memory. Every tile is loaded as boxes of 64 bf16 columns
 // (128 bytes a row) with CU_TENSOR_MAP_SWIZZLE_128B: row r of a box lies at
@@ -61,13 +68,13 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tiled map of a bf16 tensor of `rank` dimensions, innermost first: dims,
-// strides of dimensions 1.. in elements (each a multiple of 8, so of 16
-// bytes), box extents. 128B swizzle; what lies outside the tensor is read as
-// zero.
-inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
-                               const uint64_t* dims, const uint64_t* strides,
-                               const uint32_t* box) {
+// A tiled map of a tensor of `rank` dimensions, innermost first: dims,
+// strides of dimensions 1.. in elements (each a multiple of 16 bytes), box
+// extents. What lies outside the tensor is read as zero.
+inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType dtype,
+                          int elem_bytes, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t gdim[5], gstride[4];
@@ -77,14 +84,20 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
     bdim[i] = box[i];
     estride[i] = 1;
   }
-  for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i] * 2;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), gdim, gstride, bdim, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i] * elem_bytes;
+  const CUresult r = fn(map, dtype, rank, const_cast<void*>(base), gdim,
+                        gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16 with 128B swizzle: the attention kernels' tiles.
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
+                               const uint64_t* dims, const uint64_t* strides,
+                               const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // q, dO or out (B, S, K, G, D) as (D, G, K, S, B); box: 64 columns x gb
@@ -207,6 +220,107 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
 // (the async proxy); a barrier follows.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --------------------------------------------------------- device: clusters
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits: shared
+// memory written before it (and the blocks' mbarrier inits, after
+// fence_mbar_init) is visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`: the same offset in that block.
+__device__ __forceinline__ uint32_t mapa(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// A float of another block's shared memory, at a mapa address.
+__device__ __forceinline__ float ld_dsmem(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// A float into another block's shared memory, at a mapa address.
+__device__ __forceinline__ void st_dsmem(uint32_t addr, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(addr), "f"(x) : "memory");
+}
+
+// mbar_wait for a phase completed by arrivals from other blocks of the
+// cluster: what they wrote before arriving (release.cluster) is visible
+// after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// One arrival on the mbarrier at bar's offset in the block of rank `rank`,
+// for a stage this thread's warp has read (its reads are done: no fence).
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(mapa(bar, rank)) : "memory");
+}
+
+// The same arrival with release at cluster scope: what this thread wrote,
+// or saw written through a barrier before, is visible to the cluster's
+// threads that see the phase complete (mbar_wait_cluster). A fence: only
+// for hand-offs of data, not per tile.
+__device__ __forceinline__ void mbar_arrive_remote_release(uint64_t* bar,
+                                                           uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               "\n" :: "r"(mapa(bar, rank)) : "memory");
+}
+
+// One arrival, and `bytes` more to come by TMA, on the mbarrier at bar's
+// offset in the block of rank `rank`.
+__device__ __forceinline__ void mbar_arrive_expect_tx_remote(uint64_t* bar,
+                                                             uint32_t rank,
+                                                             uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;\n"
+      :: "r"(mapa(bar, rank)), "r"(bytes) : "memory");
+}
+
+// TMA multicast: the box of `map` at c (innermost first) lands at dst's
+// offset in every block of the cluster whose bit is set in `mask`, and its
+// bytes complete on the mbarrier at bar's offset in each of them.
+__device__ __forceinline__ void tma_load_4d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, uint16_t mask, int c0,
+    int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
 // ----------------------------------------------------------- device: wgmma

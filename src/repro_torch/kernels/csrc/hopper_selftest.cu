@@ -1,8 +1,8 @@
 // Self-test of hopper.cuh on the card. Not a port of a TPU kernel: it checks
-// the TMA maps, the mbarrier wait and the wgmma descriptors that B1 and B3
-// are built from, so that a descriptor or swizzle fault (which gives wrong
-// numbers, not an error) fails under its own name before the attention
-// checks run (chip_smoke.py, phase "hopper").
+// the TMA maps, the mbarrier wait and the wgmma descriptors that B1-B3 are
+// built from, and the cluster helpers of B4, so that a descriptor, swizzle
+// or cluster fault (which gives wrong numbers, not an error) fails under its
+// own name before the kernels' checks run (chip_smoke.py, phase "hopper").
 //
 // One warpgroup:
 //   * loads A (64 x D bf16, read through map_q as q of shape
@@ -17,8 +17,26 @@
 // The caller holds C1 against the fp32 product of A and B, and C2 against
 // the fp32 product of bf16(C1) and B. D is 64 or 128: one box, or two.
 //
-// hopper_selftest returns cudaGetLastError() after the launch (or the error
-// of encoding a TMA map); it launches on the given stream.
+// A second kernel checks the cluster helpers that B4 is built from, in one
+// cluster of `cluster` blocks of 128 threads:
+//   * rank 0 loads an fp32 tile (8 x 256, unswizzled) once by TMA multicast
+//     into every block of the cluster, each block's full mbarrier armed with
+//     its bytes; every block copies what landed to tiles[rank];
+//   * every block writes rank * 1000 + thread into its shared memory, and
+//     after the cluster barrier reads the next rank's values through mapa /
+//     ld.shared::cluster into dsmem[rank];
+//   * every block stores the same values into the next rank's shared memory
+//     (st.shared::cluster) and then arrives on that rank's mbarrier; each
+//     block waits on its own (acquire.cluster) and copies what it received
+//     to pushed[rank];
+//   * every block arrives once on rank 0's mbarrier (count `cluster`) from
+//     afar, and rank 0 sets ranks[cluster] = 1 once that phase completes;
+//     ranks[block] is each block's cluster rank.
+// The caller holds each against what it must be.
+//
+// hopper_selftest and hopper_cluster_selftest return cudaGetLastError()
+// after the launch (or the error of encoding a TMA map); they launch on the
+// given stream.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -129,6 +147,91 @@ extern "C" int hopper_selftest(const void* a, const void* b, float* c1,
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(D == 64 ? launch<64>(a, b, c1, c2, st)
                                   : launch<128>(a, b, c1, c2, st));
+}
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kClRows = 8, kClCols = 256;   // the multicast tile
+
+__global__ void __launch_bounds__(128)
+hopper_cluster_selftest_kernel(const __grid_constant__ CUtensorMap tm,
+                               float* tiles, float* dsmem, float* pushed,
+                               int* ranks, int cluster) {
+  __shared__ __align__(128) float tile[kClRows * kClCols];
+  __shared__ float mine[128], got[128];
+  __shared__ uint64_t full, remote, push_full;
+  const uint32_t rank = cluster_rank();
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&full, 1);
+    mbar_init(&remote, cluster);
+    mbar_init(&push_full, 1);
+    fence_mbar_init();
+  }
+  mine[tid] = (float)(rank * 1000 + tid);
+  __syncthreads();
+  cluster_sync();                     // barriers and `mine` cluster-wide
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&full, kClRows * kClCols * 4);
+    if (rank == 0)
+      tma_load_4d_multicast(tile, &tm, &full, (uint16_t)((1u << cluster) - 1),
+                            0, 0, 0, 0);
+    mbar_arrive_remote(&remote, 0);
+  }
+  mbar_wait(&full, 0);
+  for (int i = tid; i < kClRows * kClCols; i += 128)
+    tiles[rank * kClRows * kClCols + i] = tile[i];
+  const uint32_t next = (rank + 1) % cluster;
+  dsmem[rank * 128 + tid] = ld_dsmem(mapa(&mine[tid], next));
+  st_dsmem(mapa(&got[tid], next), mine[tid]);
+  __syncthreads();
+  if (tid == 0) mbar_arrive_remote_release(&push_full, next);
+  mbar_wait_cluster(&push_full, 0);
+  pushed[rank * 128 + tid] = got[tid];
+  if (tid == 0) ranks[blockIdx.x] = (int)rank;
+  if (rank == 0 && tid == 0) {
+    mbar_wait(&remote, 0);
+    ranks[cluster] = 1;
+  }
+  cluster_sync();                     // no block leaves while others read it
+}
+
+}  // namespace
+
+// src: (8, 256) fp32, 16-byte aligned; tiles: (cluster, 8, 256) fp32;
+// dsmem, pushed: (cluster, 128) fp32; ranks: cluster + 1 ints. cluster is
+// 1..8.
+extern "C" int hopper_cluster_selftest(const float* src, float* tiles,
+                                       float* dsmem, float* pushed,
+                                       int* ranks, int cluster,
+                                       void* stream) {
+  if (cluster < 1 || cluster > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm;
+  const uint64_t dims[4] = {kClCols, 1, kClRows, 1};
+  const uint64_t strides[3] = {kClCols, kClCols, kClRows * kClCols};
+  const uint32_t box[4] = {kClCols, 1, kClRows, 1};
+  cudaError_t err =
+      hopper::encode(&tm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, src, 4, dims,
+                     strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(128);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, hopper_cluster_selftest_kernel, tm, tiles,
+                           dsmem, pushed, ranks, cluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* hopper_error_string(int err) {

@@ -10,7 +10,8 @@ the tensors' device, and ``S % chunk`` must be 0.
   ``repro_torch.kernels.build``) on the current stream, or raises. There is
   no fallback: a tensor on the card reaches the kernel or an exception.
   One call is one launch of B4: a scores kernel (each chunk's q k^T, once)
-  and the chunk kernel that walks the sequence (see the source's header).
+  and the chunk kernel that walks the sequence, its column blocks in
+  thread-block clusters (see the source's header).
 * On CPU tensors it runs ``mlstm_chunkwise_reference``, the plain PyTorch
   version: the port of ``repro.models.xlstm.mlstm_chunkwise`` in fp32
   einsums, which also takes and returns the carried state.
@@ -125,6 +126,9 @@ def _launch(q, k, v, i_gate, f_gate, Q):
     if Q > 256:
         raise ValueError(f"chunk {Q}: the kernel takes chunks of at most 256 "
                          "steps")
+    if D * q.element_size() % 16:
+        raise ValueError(f"head_dim {D} in {q.dtype}: the kernel's TMA "
+                         "loads need rows of a multiple of 16 bytes")
     if S * H * D >= 2 ** 31:
         raise ValueError(f"S*H*D = {S * H * D}: the kernel indexes one "
                          "batch row with 32-bit offsets")

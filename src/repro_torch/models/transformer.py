@@ -24,11 +24,11 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 from repro_torch.tree import tree_map
 
-_ROADMAP_ITEM = {
-    "moe": "MoE and sliding window",
-    "hybrid": "Griffin (hybrid) family with B5",
-    "ssm": "xLSTM (ssm) family with B4",
-    "vlm": "Encoder-decoder and VLM",
+_ROADMAP_ITEM = {   # family -> (ROADMAP.md queue A item, its title)
+    "moe": ("3", "MoE and sliding window"),
+    "hybrid": ("4", "Griffin (hybrid) family"),
+    "ssm": ("5", "xLSTM (ssm) family"),
+    "vlm": ("7", "Encoder-decoder and VLM"),
 }
 
 
@@ -40,7 +40,7 @@ def require_dense(cfg) -> None:
             raise ValueError(f"unknown family {cfg.family}")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md queue A, "
-            f"item '{item}'")
+            f"item {item[0]} '{item[1]}'")
 
 
 # ---------------------------------------------------------------------------

@@ -103,6 +103,19 @@ def test_seq_not_divisible_by_chunk_raises():
                                      chunk=64, interpret=True)
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 4), (torch.float16, 12),
+                                     (torch.float32, 2)])
+def test_kernel_launch_rejects_rows_tma_cannot_load(dtype, D):
+    """The kernel's TMA loads need head rows of a multiple of 16 bytes: the
+    launch raises before it builds or launches anything."""
+    arrs = [torch.from_numpy(a) for a in _inputs(1, 64, 2, D)]
+    q, k, v = (x.to(dtype) for x in arrs[:3])
+    before = mlstm.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        mlstm._launch(q, k, v, arrs[3], arrs[4], 32)
+    assert mlstm.launches == before
+
+
 def test_cpu_wrapper_runs_plain_version_and_reads_find_db(monkeypatch):
     arrs = [torch.from_numpy(a) for a in _inputs(1, 128, 2, 16)]
     seen = []

@@ -15,6 +15,8 @@ difference seen is 4e-7 with one flip in the cache), so decode logits are
 held at 1e-4 too.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -119,11 +121,43 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     assert device_lib.resolve("cpu") == torch.device("cpu")
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tconfigs.get_config("mixtral-8x22b")
-    cfg = dataclasses.replace(tconfigs.get_reduced("qwen3-0.6b"),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        TT.forward({}, {"tokens": torch.zeros((1, 1), dtype=torch.long)},
-                   cfg)
+# Every arch and family that is not ported, with the ROADMAP.md queue A item
+# (number, title) that brings it.
+UNPORTED = {
+    ("arch", "mixtral-8x22b"): ("3", "MoE and sliding window"),
+    ("arch", "qwen2-moe-a2.7b"): ("3", "MoE and sliding window"),
+    ("arch", "yi-34b"): ("2c", "Other dense archs"),
+    ("arch", "qwen2-1.5b"): ("2c", "Other dense archs"),
+    ("arch", "deepseek-coder-33b"): ("2c", "Other dense archs"),
+    ("arch", "internvl2-26b"): ("7", "Encoder-decoder and VLM"),
+    ("arch", "whisper-small"): ("7", "Encoder-decoder and VLM"),
+    ("arch", "recurrentgemma-9b"): ("4", "Griffin (hybrid) family"),
+    ("arch", "xlstm-350m"): ("5", "xLSTM (ssm) family"),
+    ("family", "moe"): ("3", "MoE and sliding window"),
+    ("family", "hybrid"): ("4", "Griffin (hybrid) family"),
+    ("family", "ssm"): ("5", "xLSTM (ssm) family"),
+    ("family", "vlm"): ("7", "Encoder-decoder and VLM"),
+}
+
+
+def test_unported_table_covers_the_port():
+    assert {n for kind, n in UNPORTED if kind == "arch"} == \
+        set(tconfigs._NOT_PORTED)
+    assert {n for kind, n in UNPORTED if kind == "family"} == \
+        set(TT._ROADMAP_ITEM)
+
+
+@pytest.mark.parametrize("kind,name", sorted(UNPORTED))
+def test_unported_families_raise(kind, name):
+    num, title = UNPORTED[(kind, name)]
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    assert f"{num}. **{title}." in roadmap or f"**{num}. {title}." in roadmap
+    want = re.escape(f"item {num} '{title}'")
+    with pytest.raises(NotImplementedError, match=want):
+        if kind == "arch":
+            tconfigs.get_config(name)
+        else:
+            cfg = dataclasses.replace(tconfigs.get_reduced("qwen3-0.6b"),
+                                      family=name)
+            TT.forward({}, {"tokens": torch.zeros((1, 1), dtype=torch.long)},
+                       cfg)
