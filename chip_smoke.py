@@ -55,9 +55,12 @@ Phases (any failure raises, and the script exits non-zero):
      in fp32 and in bf16, and at head dims and chunks that are not
      multiples of the kernel's tiles; and
      B5 (RG-LRU) at the recurrentgemma-9b width (B=8, S=2048, R=4096), at
-     ragged S and R, with and without h0. Planted faults (B4 without the
-     inter-chunk q C term for chunks >= 1; B5 without one step's carry)
-     must fail the checks;
+     ragged S and R, with and without h0, and at the edges of its ring (a
+     chunk the plan cuts, S = 2047, R = 4094 by cp.async, several TMA
+     boxes a tile, the most stages), each with the kernel's launch plan
+     (tile depth, stages, shared memory, fill path). Planted faults (B4
+     without the inter-chunk q C term for chunks >= 1; B5 without one
+     step's carry) must fail the checks;
   8. run the kernel tuner (``repro_torch.kernels.tune.tune_kernel``: grid,
      3 reps, 1 warm-up, a fresh find-db) on both full-width workloads with
      every launch counter set to 0 just before and read just after: 4 and
@@ -71,7 +74,11 @@ Phases (any failure raises, and the script exits non-zero):
   9. time B4 and B5 at full width at the default config and at the winner,
      beside their bounds (one per shape: the least work at any chunk) and
      their plain versions (no single PyTorch call computes either: no
-     library time), and at every config of the grid.
+     library time), and at every config of the grid (B5 by each fill
+     path); each B5 time with its plan and the TB/s it reached, and B5's
+     default config once by each fill path (TMA, cp.async), beside an
+     elementwise ``torch.add`` that moves the same bytes (the memory rate
+     a streaming call reaches).
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
@@ -127,11 +134,13 @@ GRAD_RATIO = 2.0
 
 # B4 and B5 against their plain versions, |err| <= a * max|ref| + r * |ref|
 # per output tensor as for GRAD_TOL. The kernels sum in fp32 in another
-# order than the plain versions (and B5 carries a product of decays into
-# each time segment, see csrc/rglru.cu); in bf16 and fp16 both round the
+# order than the plain versions (B5 walks the steps one by one, as the
+# reference does, where the plain version's associative scan combines them
+# in a tree); in bf16 and fp16 both round the
 # fp32 result to the output dtype once, so r is one step of it. On an
 # NVIDIA H100 80GB HBM3 (700 W) max|err| / max|ref| read at most 8.2e-7
-# for B4 in fp32 (eight shapes) and 3.5e-7 for B5 (seven shapes); in bf16
+# for B4 in fp32 (eight shapes) and 3.5e-7 for B5 (seven shapes; the
+# one-pass kernel read at most 1.9e-7 over twelve); in bf16
 # and fp16 B4 was within one step of the output dtype (a ~ 0 at that r).
 # The limits leave about 2.4x (B4) and 2.8x (B5) on those readings.
 MLSTM_TOL = {"float32": (2e-6, 2e-6), "bfloat16": (1e-4, 2.0 ** -7),
@@ -984,7 +993,22 @@ RGLRU_CHECKS = [  # name, B, S, R, h0, chunk, r_block
     ("ragged_h0", 2, 1000, 1000, True, 64, 128),
     ("ragged", 3, 777, 333, False, 256, 32),
     ("one_segment_h0", 2, 100, 4100, True, 128, 256),
+    # the ring's edges: a chunk the plan cuts (512 KB a tile), the last
+    # tile partial at full width, the cp.async fill at full length (R * 4
+    # not a multiple of 16), several TMA boxes a tile, the most stages
+    ("full_c256_r256", 8, 2048, 4096, False, 256, 256),
+    ("full_s2047_h0", 8, 2047, 4096, True, 128, 128),
+    ("full_r4094_h0", 8, 2048, 4094, True, 128, 128),
+    ("full_r512", 8, 2048, 4096, True, 128, 512),
+    ("full_c32_r32", 8, 2048, 4096, False, 32, 32),
 ]
+
+
+def plan_text(rg, S, R, chunk, r_block, fill=None):
+    """The kernel's launch plan for a shape and config, as printed."""
+    p = rg.plan(S, R, chunk, r_block, fill)
+    return (f"plan depth {p['depth']} x {p['stages']} stages, {p['smem']} B "
+            f"smem, {p['threads']} threads, {p['fill']}")
 
 
 def rglru_inputs(B, S, R, h0, seed):
@@ -1009,7 +1033,9 @@ def phase_rglru(rg):
         ok, e, need = compare_grads(got, ref, RGLRU_TOL)
         errs[name] = max(e[0][0], e[1][0])
         print(f"[kernel] rglru {name:16s} B={B} S={S} R={R} h0={h0} "
-              f"chunk={chunk} r_block={r_block}: max|err| "
+              f"chunk={chunk} r_block={r_block} "
+              f"({plan_text(rg, S, R, min(chunk, S), min(r_block, R))}): "
+              f"max|err| "
               f"{tol_line(['h', 'h_last'], e, need, RGLRU_TOL)} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"rglru disagrees with its plain version at {name}")
@@ -1151,8 +1177,14 @@ def rglru_bound(B, S, R):
                  PEAK_FP32_FLOPS)
 
 
+def rglru_rate(B, S, R, ms):
+    """TB/s reached: log_a and b read once, h and h_last written once."""
+    return (12 * B * S * R + 4 * B * R) / (ms * 1e-3) / 1e12
+
+
 def phase_recurrent_timing(build, ml, rg, summaries, card):
-    """B4 and B5 at full width, default config and the winner."""
+    """B4 and B5 at full width, default config and the winner; B5 at each
+    config of the grid and by each fill path, with its plan."""
     import torch
     rows = {}
     x = mlstm_inputs(*MLSTM_SHAPE, torch.float32, 900)
@@ -1182,25 +1214,45 @@ def phase_recurrent_timing(build, ml, rg, summaries, card):
                       for c, t in grid.items()), flush=True)
     del x
     y = rglru_inputs(*RGLRU_SHAPE, False, 901)
+    B, S, R = RGLRU_SHAPE
     plain_ms = cuda_ms(lambda: rg.rglru_reference(*y), iters=1)
+    bound_ms, bound_by = rglru_bound(*RGLRU_SHAPE)
     for label, cfg in (("default", {"chunk": 128, "r_block": 128}),
                        ("tuned", summaries[1]["config"])):
         ms = cuda_ms(lambda: rg.rglru_scan(*y, **cfg), iters=20)
-        bound_ms, bound_by = rglru_bound(*RGLRU_SHAPE)
         print(f"[timing] {card} | rglru B,S,R={RGLRU_SHAPE} fp32 {label} "
-              f"{cfg}: kernel {ms:.4f} ms ({ms.spread()}), bound "
+              f"{cfg} ({plan_text(rg, S, R, cfg['chunk'], cfg['r_block'])})"
+              f": kernel {ms:.4f} ms ({ms.spread()}), "
+              f"{rglru_rate(B, S, R, ms):.3f} TB/s, bound "
               f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms "
               f"({plain_ms.spread()}), library none", flush=True)
         rows[("rglru", label)] = dict(ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=None)
-    grid = {(c, r): cuda_ms(lambda: rg.rglru_scan(*y, chunk=c, r_block=r),
-                            iters=10)
-            for c in (32, 64, 128, 256) for r in (32, 64, 128, 256)}
-    print(f"[timing] {card} | rglru every (chunk, r_block) of the grid: "
-          + ", ".join(f"{c}/{r} {t:.4f} ms ({t.lo:.4f}-{t.hi:.4f})"
-                      for (c, r), t in grid.items()),
-          flush=True)
+    out = torch.empty_like(y[0])
+    ms = cuda_ms(lambda: torch.add(y[0], y[1], out=out), iters=20)
+    print(f"[timing] {card} | torch.add over B5's bytes (two fp32 inputs "
+          f"read, one written; not B5's function): {ms:.4f} ms "
+          f"({ms.spread()}), {rglru_rate(B, S, R, ms):.3f} TB/s", flush=True)
+    del out
+    for fill in ("tma", "cp_async"):
+        ms = cuda_ms(lambda: rg._launch(*y, 128, 128, fill=fill),
+                     iters=20)
+        print(f"[timing] {card} | rglru default config by {fill} "
+              f"({plan_text(rg, S, R, 128, 128, fill)}): kernel {ms:.4f} ms "
+              f"({ms.spread()}), {rglru_rate(B, S, R, ms):.3f} TB/s",
+              flush=True)
+    for c in (32, 64, 128, 256):
+        for r in (32, 64, 128, 256):
+            ms = cuda_ms(lambda: rg.rglru_scan(*y, chunk=c, r_block=r),
+                         iters=10)
+            cp = cuda_ms(lambda: rg._launch(*y, c, r, fill="cp_async"),
+                         iters=10)
+            print(f"[timing] {card} | rglru grid chunk={c} r_block={r} "
+                  f"({plan_text(rg, S, R, c, r)}): {ms:.4f} ms "
+                  f"({ms.lo:.4f}-{ms.hi:.4f}), "
+                  f"{rglru_rate(B, S, R, ms):.3f} TB/s; by cp_async "
+                  f"{cp:.4f} ms ({cp.lo:.4f}-{cp.hi:.4f})", flush=True)
     return rows
 
 

@@ -1,8 +1,8 @@
 // Device helpers shared by the attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu) and mlstm.cu: the reference's mask constant, the
+// flash_attention_bwd.cu) and rglru.cu: the reference's mask constant, the
 // causal / window / kv_len visibility test, exp2_ftz, pack_bf16 and the
-// 4-byte cp.async copies (lse, delta; mlstm's fp32 rows). The TMA, mbarrier
-// and wgmma helpers are in hopper.cuh.
+// 4-byte cp.async copies (lse, delta; rglru's fp32 columns). The TMA,
+// mbarrier and wgmma helpers are in hopper.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

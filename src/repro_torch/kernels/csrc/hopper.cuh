@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels
 // (flash_attention.cu: B1; flash_attention_bwd.cu: B2, B3), of the mLSTM
-// chunk kernel (mlstm.cu: B4) and of hopper_selftest.cu, which checks them on
-// the card:
+// chunk kernel (mlstm.cu: B4), of the RG-LRU scan (rglru.cu: B5) and of
+// hopper_selftest.cu, which checks them on the card:
 //   * TMA tensor maps over the attention tensors' own layouts, encoded on
 //     the host at every call. cuTensorMapEncodeTiled is fetched through
 //     cudaGetDriverEntryPoint, so the libraries need no -lcuda;
@@ -193,6 +193,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // TMA: the box of `map` at coordinates c (innermost first) into dst; its
 // bytes complete on bar. Coordinates outside the tensor read zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
