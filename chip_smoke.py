@@ -56,9 +56,9 @@ Phases (any failure raises, and the script exits non-zero):
      multiples of the kernel's tiles; and
      B5 (RG-LRU) at the recurrentgemma-9b width (B=8, S=2048, R=4096), at
      ragged S and R, with and without h0, and at the edges of its ring (a
-     chunk the plan cuts, S = 2047, R = 4094 by cp.async, several TMA
-     boxes a tile, the most stages), each with the kernel's launch plan
-     (tile depth, stages, shared memory, fill path). Planted faults (B4
+     chunk the plan cuts, S = 2047, R = 4094, r_block 512, the most
+     stages), each with the kernel's launch plan (tile depth, stages,
+     shared memory, threads). Planted faults (B4
      without the inter-chunk q C term for chunks >= 1; B5 without one
      step's carry) must fail the checks;
   8. run the kernel tuner (``repro_torch.kernels.tune.tune_kernel``: grid,
@@ -74,11 +74,10 @@ Phases (any failure raises, and the script exits non-zero):
   9. time B4 and B5 at full width at the default config and at the winner,
      beside their bounds (one per shape: the least work at any chunk) and
      their plain versions (no single PyTorch call computes either: no
-     library time), and at every config of the grid (B5 by each fill
-     path); each B5 time with its plan and the TB/s it reached, and B5's
-     default config once by each fill path (TMA, cp.async), beside an
-     elementwise ``torch.add`` that moves the same bytes (the memory rate
-     a streaming call reaches).
+     library time), and at every config of the grid, B5's output there
+     held against its plain version; each B5 time with its plan and the
+     TB/s it reached, beside an elementwise ``torch.add`` that moves the
+     same bytes (the memory rate a streaming call reaches).
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
@@ -994,8 +993,8 @@ RGLRU_CHECKS = [  # name, B, S, R, h0, chunk, r_block
     ("ragged", 3, 777, 333, False, 256, 32),
     ("one_segment_h0", 2, 100, 4100, True, 128, 256),
     # the ring's edges: a chunk the plan cuts (512 KB a tile), the last
-    # tile partial at full width, the cp.async fill at full length (R * 4
-    # not a multiple of 16), several TMA boxes a tile, the most stages
+    # tile partial at full width, rows of R * 4 bytes that are not a
+    # multiple of 16 at full length, 16 warps a block, the most stages
     ("full_c256_r256", 8, 2048, 4096, False, 256, 256),
     ("full_s2047_h0", 8, 2047, 4096, True, 128, 128),
     ("full_r4094_h0", 8, 2048, 4094, True, 128, 128),
@@ -1004,11 +1003,11 @@ RGLRU_CHECKS = [  # name, B, S, R, h0, chunk, r_block
 ]
 
 
-def plan_text(rg, S, R, chunk, r_block, fill=None):
+def plan_text(rg, S, R, chunk, r_block):
     """The kernel's launch plan for a shape and config, as printed."""
-    p = rg.plan(S, R, chunk, r_block, fill)
-    return (f"plan depth {p['depth']} x {p['stages']} stages, {p['smem']} B "
-            f"smem, {p['threads']} threads, {p['fill']}")
+    p = rg.plan(S, R, chunk, r_block)
+    return (f"plan: cp.async ring of {p['stages']} tiles of {p['depth']} "
+            f"steps, {p['smem']} B smem, {p['threads']} threads")
 
 
 def rglru_inputs(B, S, R, h0, seed):
@@ -1184,7 +1183,7 @@ def rglru_rate(B, S, R, ms):
 
 def phase_recurrent_timing(build, ml, rg, summaries, card):
     """B4 and B5 at full width, default config and the winner; B5 at each
-    config of the grid and by each fill path, with its plan."""
+    config of the grid, with its plan, held against its plain version."""
     import torch
     rows = {}
     x = mlstm_inputs(*MLSTM_SHAPE, torch.float32, 900)
@@ -1235,24 +1234,21 @@ def phase_recurrent_timing(build, ml, rg, summaries, card):
           f"read, one written; not B5's function): {ms:.4f} ms "
           f"({ms.spread()}), {rglru_rate(B, S, R, ms):.3f} TB/s", flush=True)
     del out
-    for fill in ("tma", "cp_async"):
-        ms = cuda_ms(lambda: rg._launch(*y, 128, 128, fill=fill),
-                     iters=20)
-        print(f"[timing] {card} | rglru default config by {fill} "
-              f"({plan_text(rg, S, R, 128, 128, fill)}): kernel {ms:.4f} ms "
-              f"({ms.spread()}), {rglru_rate(B, S, R, ms):.3f} TB/s",
-              flush=True)
+    ref = rg.rglru_reference(*y)
     for c in (32, 64, 128, 256):
         for r in (32, 64, 128, 256):
             ms = cuda_ms(lambda: rg.rglru_scan(*y, chunk=c, r_block=r),
                          iters=10)
-            cp = cuda_ms(lambda: rg._launch(*y, c, r, fill="cp_async"),
-                         iters=10)
+            ok, e, need = compare_grads(rg.rglru_scan(*y, chunk=c, r_block=r),
+                                        ref, RGLRU_TOL)
             print(f"[timing] {card} | rglru grid chunk={c} r_block={r} "
                   f"({plan_text(rg, S, R, c, r)}): {ms:.4f} ms "
                   f"({ms.lo:.4f}-{ms.hi:.4f}), "
-                  f"{rglru_rate(B, S, R, ms):.3f} TB/s; by cp_async "
-                  f"{cp:.4f} ms ({cp.lo:.4f}-{cp.hi:.4f})", flush=True)
+                  f"{rglru_rate(B, S, R, ms):.3f} TB/s; needs a >= "
+                  f"{need:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"rglru disagrees with its plain version at chunk={c} "
+                  f"r_block={r}")
+    del ref
     return rows
 
 

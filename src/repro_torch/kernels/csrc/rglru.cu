@@ -26,36 +26,30 @@
 //    h = fmaf(expf(la), h, b) (rglru.py:35), and h goes straight from the
 //    register to device memory, one 128-byte row a warp a step;
 //  * a ring of `stages` tiles in shared memory, each `depth` steps x r_block
-//    channels of log_a and of b, with full/empty mbarriers, keeps many
-//    steps of loads in flight without more threads: with one thread per
-//    channel a plain load loop has 32,768 threads at this width, too few to
-//    keep the memory busy;
-//  * the ring is filled by TMA where the tensors allow it (R and r_block
-//    multiples of 4, 16-byte aligned bases, a producer warp within the
-//    1024 threads of a block): a producer warp loads boxes of a (R, S, B)
-//    map, at most 256 columns each (a wider block loads several), zero
-//    beyond S and R. Otherwise each consumer thread fills its own column by
-//    4-byte cp.async (the steps within S), completing on the stage's
-//    mbarrier, and needs no empty barrier, since no other thread reads that
-//    column;
+//    channels of log_a and of b, keeps many steps of loads in flight without
+//    more threads: with one thread per channel a plain load loop has 32,768
+//    threads at this width, too few to keep the memory busy;
+//  * each thread fills its own column of a tile by 4-byte cp.async (the
+//    steps within S) and arrives on the stage's full mbarrier once the
+//    copies have landed. No other thread reads that column, so the ring
+//    needs no empty barrier, and any R, r_block and base address is taken;
 //  * `chunk` (the reference's DMA tile) is the depth of a ring tile, and
 //    `r_block` the channels of a block, as in the tuner's grid. The ring
 //    holds about kRingBytes (between kMinStages and kMaxStages tiles); where
-//    kMinStages tiles of a chunk do not fit a block's shared memory, or a
-//    chunk is deeper than a TMA box (256), the plan cuts the chunk into
-//    equal shallower tiles. rglru_plan returns what a launch will use.
+//    kMinStages tiles of a chunk do not fit a block's shared memory, the
+//    plan cuts the chunk into equal shallower tiles. rglru_plan returns what
+//    a launch will use.
 //
 // C entry points return cudaGetLastError() after the launch; they launch on
 // the given stream and do not synchronise.
 
-#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "attention_common.cuh"   // attn::cp_async4
-#include "hopper.cuh"             // mbarriers, TMA
+#include "hopper.cuh"             // mbarriers
 
 namespace {
 
@@ -63,11 +57,8 @@ constexpr int kMinStages = 2;
 constexpr int kMaxStages = 8;
 constexpr int kRingBytes = 64 << 10;
 constexpr int kMaxSmem = 232448;       // bytes a block may use (H100)
-constexpr int kMaxBox = 256;           // TMA box extent a dimension
 constexpr int kMaxThreads = 1024;
 constexpr int kBatch = 8;              // steps whose loads go out together
-
-enum Fill { kAuto = 0, kTma = 1, kCpAsync = 2 };
 
 struct Args {
   const float* log_a;
@@ -81,91 +72,55 @@ struct Args {
 struct Plan {
   int depth;       // steps of a ring tile
   int stages;
-  int fill;        // kTma or kCpAsync
-  int nbox;        // boxes across a tile's columns (1 for cp.async)
-  int bw;          // columns of a box: the step stride in shared memory
-  int box_bytes;   // shared memory of a box, a multiple of 128 bytes
-  int consumers;   // r_block rounded up to whole warps
-  int threads;     // consumers, and the producer warp for TMA
+  int threads;     // r_block rounded up to whole warps
   int smem;        // dynamic shared memory bytes
 };
 
-__host__ __device__ inline int stage_bytes(const Plan& p) {
-  return 2 * p.nbox * p.box_bytes;          // log_a's boxes, then b's
+// A stage: log_a's depth x r_block tile, then b's; a step's row is r_block
+// floats.
+int stage_bytes(int depth, int r_block) {
+  return 2 * depth * r_block * 4;
 }
 
-__device__ __forceinline__ unsigned char* align_128(unsigned char* p) {
-  return p + ((128u - (hopper::smem_u32(p) & 127u)) & 127u);
-}
-
-template <int kFill>
 __global__ void __launch_bounds__(kMaxThreads)
-rglru_scan_kernel(const __grid_constant__ CUtensorMap tm_la,
-                  const __grid_constant__ CUtensorMap tm_b, Args a, Plan p) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* tiles = align_128(smem_raw);
-  const int sb = stage_bytes(p);
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + (size_t)p.stages * sb);
-  uint64_t* empty = full + p.stages;
+rglru_scan_kernel(Args a, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const int tile = p.depth * a.r_block;     // floats of one input's tile
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + (size_t)p.stages * 2 * tile);
   const int rb = blockIdx.x % a.nr, bi = blockIdx.x / a.nr;
-  const int r0 = rb * a.r_block, tid = threadIdx.x;
+  const int tid = threadIdx.x, r = rb * a.r_block + tid;
   const int ntiles = (a.S + p.depth - 1) / p.depth;
   if (tid == 0) {
-    for (int s = 0; s < p.stages; ++s) {
-      hopper::mbar_init(&full[s], kFill == kTma ? 1 : p.consumers);
-      hopper::mbar_init(&empty[s], p.consumers / 32);
-    }
+    for (int s = 0; s < p.stages; ++s) hopper::mbar_init(&full[s], p.threads);
     hopper::fence_mbar_init();
   }
   __syncthreads();
 
-  if (kFill == kTma && tid >= p.consumers) {        // the producer warp
-    if (tid == p.consumers) {
-      const uint32_t tx = 2u * p.nbox * p.bw * p.depth * 4u;
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % p.stages;
-        if (t >= p.stages)
-          hopper::mbar_wait(&empty[s], (t / p.stages - 1) & 1);
-        hopper::mbar_arrive_expect_tx(&full[s], tx);
-        unsigned char* st = tiles + (size_t)s * sb;
-        for (int j = 0; j < p.nbox; ++j) {
-          hopper::tma_load_3d(st + j * p.box_bytes, &tm_la, &full[s],
-                              r0 + j * p.bw, t * p.depth, bi);
-          hopper::tma_load_3d(st + (p.nbox + j) * p.box_bytes, &tm_b,
-                              &full[s], r0 + j * p.bw, t * p.depth, bi);
-        }
-      }
-    }
-    return;
-  }
-
-  // A consumer: channel r0 + tid, its column of every stage.
-  const int r = r0 + tid;
+  // Channel r: this thread's column of every stage.
   const bool live = tid < a.r_block && r < a.R;
-  const int j = live ? tid / p.bw : 0;
-  const int col = j * p.box_bytes + (tid - j * p.bw) * 4;
   const size_t base = (size_t)bi * a.S * a.R + r;
 
-  // cp.async: this thread's own column of tile t, then its arrival on the
-  // stage's full barrier once the copies have landed.
+  // This thread's column of tile t, then its arrival on the stage's full
+  // barrier once the copies have landed.
   auto issue = [&](int t) {
     asm volatile("" ::: "memory");   // this column's reads of the stage first
     const int s = t % p.stages;
     if (live) {
-      unsigned char* st = tiles + (size_t)s * sb + col;
+      float* la_s = ring + (size_t)s * 2 * tile + tid;
       const int t0 = t * p.depth, n = min(p.depth, a.S - t0);
       const size_t g = base + (size_t)t0 * a.R;
       for (int i = 0; i < n; ++i) {
-        attn::cp_async4(st + i * p.bw * 4, a.log_a + g + (size_t)i * a.R,
+        attn::cp_async4(la_s + i * a.r_block, a.log_a + g + (size_t)i * a.R,
                         true);
-        attn::cp_async4(st + p.nbox * p.box_bytes + i * p.bw * 4,
+        attn::cp_async4(la_s + tile + i * a.r_block,
                         a.b + g + (size_t)i * a.R, true);
       }
     }
     hopper::mbar_arrive_cp_async(&full[s]);
   };
-  if (kFill == kCpAsync)
-    for (int t = 0; t < min(p.stages, ntiles); ++t) issue(t);
+  for (int t = 0; t < min(p.stages, ntiles); ++t) issue(t);
 
   float h = live && a.h0 ? a.h0[(size_t)bi * a.R + r] : 0.f;
   float* out = a.h + base;
@@ -173,17 +128,16 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap tm_la,
     const int s = t % p.stages;
     hopper::mbar_wait(&full[s], (t / p.stages) & 1);
     if (live) {
-      const float* la_s =
-          reinterpret_cast<const float*>(tiles + (size_t)s * sb + col);
-      const float* b_s = la_s + p.nbox * p.box_bytes / 4;
+      const float* la_s = ring + (size_t)s * 2 * tile + tid;
+      const float* b_s = la_s + tile;
       const int n = min(p.depth, a.S - t * p.depth);
       int i = 0;
       for (; i + kBatch <= n; i += kBatch) {
         float la8[kBatch], b8[kBatch];
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
-          la8[k] = la_s[(i + k) * p.bw];
-          b8[k] = b_s[(i + k) * p.bw];
+          la8[k] = la_s[(i + k) * a.r_block];
+          b8[k] = b_s[(i + k) * a.r_block];
         }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
@@ -193,125 +147,73 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap tm_la,
         }
       }
       for (; i < n; ++i) {
-        h = fmaf(expf(la_s[i * p.bw]), h, b_s[i * p.bw]);
+        h = fmaf(expf(la_s[i * a.r_block]), h, b_s[i * a.r_block]);
         *out = h;
         out += a.R;
       }
     }
-    if (kFill == kTma) {
-      __syncwarp();
-      if ((tid & 31) == 0) hopper::mbar_arrive(&empty[s]);
-    } else if (t + p.stages < ntiles) {
-      issue(t + p.stages);
-    }
+    if (t + p.stages < ntiles) issue(t + p.stages);
   }
   if (live) a.h_last[(size_t)bi * a.R + r] = h;
 }
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// The plan of a launch. fill: kAuto (TMA where the tensors allow it), kTma
-// (an error where they do not) or kCpAsync; aligned: log_a's and b's bases
-// are 16-byte aligned.
-cudaError_t make_plan(int S, int R, int chunk, int r_block, int fill,
-                      bool aligned, Plan* p) {
-  if (S < 1 || R < 1 || chunk < 1 || r_block < 1 || r_block > kMaxThreads ||
-      fill < kAuto || fill > kCpAsync)
+// The plan of a launch: the chunk (no deeper than S) in k equal tiles, k as
+// small as fits kMinStages tiles and their barriers; then as many stages as
+// fill kRingBytes, within kMinStages..kMaxStages and the tiles there are.
+cudaError_t make_plan(int S, int R, int chunk, int r_block, Plan* p) {
+  if (S < 1 || R < 1 || chunk < 1 || r_block < 1 || r_block > kMaxThreads)
     return cudaErrorInvalidValue;
-  p->consumers = round_up(r_block, 32);
-  const bool tma = R % 4 == 0 && r_block % 4 == 0 && aligned &&
-                   p->consumers + 32 <= kMaxThreads;
-  if (fill == kTma && !tma) return cudaErrorInvalidValue;
-  p->fill = fill == kCpAsync || !tma ? kCpAsync : kTma;
-  p->threads = p->consumers + (p->fill == kTma ? 32 : 0);
-  if (p->fill == kTma) {
-    p->nbox = (r_block + kMaxBox - 1) / kMaxBox;
-    p->bw = round_up((r_block + p->nbox - 1) / p->nbox, 4);
-  } else {
-    p->nbox = 1;
-    p->bw = r_block;
-  }
-  // The chunk (no deeper than S or a box) in k equal tiles, k as small as
-  // fits kMinStages tiles and the barriers.
-  const int c = std::min(std::min(chunk, S), kMaxBox);
+  p->threads = round_up(r_block, 32);
+  const int c = std::min(chunk, S);
   for (int k = 1;; ++k) {
     p->depth = (c + k - 1) / k;
-    p->box_bytes = round_up(p->depth * p->bw * 4, 128);
-    if (128 + kMinStages * (stage_bytes(*p) + 16) <= kMaxSmem ||
+    if (kMinStages * (stage_bytes(p->depth, r_block) + 8) <= kMaxSmem ||
         p->depth == 1)
       break;
   }
+  const int sb = stage_bytes(p->depth, r_block);
   const int ntiles = (S + p->depth - 1) / p->depth;
-  p->stages = std::max(kMinStages,
-                       std::min(kMaxStages, kRingBytes / stage_bytes(*p)));
+  p->stages = std::max(kMinStages, std::min(kMaxStages, kRingBytes / sb));
   p->stages = std::min(p->stages, ntiles);
-  p->smem = 128 + p->stages * (stage_bytes(*p) + 16);
+  p->smem = p->stages * (sb + 8);
   return p->smem <= kMaxSmem ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// log_a or b (B, S, R) as (R, S, B); boxes of bw columns x depth steps.
-cudaError_t map_steps(CUtensorMap* map, const float* base, const Args& a,
-                      const Plan& p) {
-  const uint64_t dims[3] = {(uint64_t)a.R, (uint64_t)a.S, (uint64_t)a.B};
-  const uint64_t strides[2] = {(uint64_t)a.R, (uint64_t)a.S * a.R};
-  const uint32_t box[3] = {(uint32_t)p.bw, (uint32_t)p.depth, 1};
-  return hopper::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, 3,
-                        dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
-}
-
-template <int kFill>
-cudaError_t launch(const CUtensorMap& tm_la, const CUtensorMap& tm_b,
-                   const Args& a, const Plan& p, cudaStream_t st) {
-  if (p.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rglru_scan_kernel<kFill>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (err != cudaSuccess) return err;
-  }
-  rglru_scan_kernel<kFill><<<a.nr * a.B, p.threads, p.smem, st>>>(
-      tm_la, tm_b, a, p);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// h, h_last from log_a, b and h0 (nullptr: zeros); fill as make_plan's.
+// h, h_last from log_a, b and h0 (nullptr: zeros).
 extern "C" int rglru_fwd(const float* log_a, const float* b, const float* h0,
                          float* h, float* h_last, int B, int S, int R,
-                         int chunk, int r_block, int fill, void* stream) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(log_a) | reinterpret_cast<uintptr_t>(b))
-       & 15) == 0;
+                         int chunk, int r_block, void* stream) {
   Plan p;
-  cudaError_t err = make_plan(S, R, chunk, r_block, fill, aligned, &p);
+  cudaError_t err = make_plan(S, R, chunk, r_block, &p);
   if (err != cudaSuccess || B < 1) return static_cast<int>(
       err != cudaSuccess ? err : cudaErrorInvalidValue);
   Args a;
   a.log_a = log_a; a.b = b; a.h0 = h0; a.h = h; a.h_last = h_last;
   a.B = B; a.S = S; a.R = R; a.r_block = r_block;
   a.nr = (R + r_block - 1) / r_block;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap tm_la = {}, tm_b = {};
-  if (p.fill == kTma) {
-    err = map_steps(&tm_la, log_a, a, p);
-    if (err == cudaSuccess) err = map_steps(&tm_b, b, a, p);
+  if (p.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(rglru_scan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(launch<kTma>(tm_la, tm_b, a, p, st));
   }
-  return static_cast<int>(launch<kCpAsync>(tm_la, tm_b, a, p, st));
+  rglru_scan_kernel<<<a.nr * a.B, p.threads, p.smem,
+                      static_cast<cudaStream_t>(stream)>>>(a, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The plan rglru_fwd launches with for 16-byte aligned inputs: out[0..4] =
-// tile depth, stages, dynamic shared memory bytes, fill path (1 TMA, 2
-// cp.async), threads a block. Returns 0, or an error where it launches
-// nothing.
-extern "C" int rglru_plan(int S, int R, int chunk, int r_block, int fill,
-                          int* out) {
+// The plan rglru_fwd launches with: out[0..3] = tile depth, stages, dynamic
+// shared memory bytes, threads a block. Returns 0, or an error where it
+// launches nothing.
+extern "C" int rglru_plan(int S, int R, int chunk, int r_block, int* out) {
   Plan p;
-  const cudaError_t err = make_plan(S, R, chunk, r_block, fill, true, &p);
+  const cudaError_t err = make_plan(S, R, chunk, r_block, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = p.depth; out[1] = p.stages; out[2] = p.smem; out[3] = p.fill;
-  out[4] = p.threads;
+  out[0] = p.depth; out[1] = p.stages; out[2] = p.smem; out[3] = p.threads;
   return 0;
 }
 

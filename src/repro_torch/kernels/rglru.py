@@ -11,8 +11,8 @@ dtype are cast to fp32 first, as the reference's kernel does at load).
   ``repro_torch.kernels.build``) on the current stream, or raises. There is
   no fallback. One call is one CUDA launch of B5: a single pass over time,
   each block carrying h for ``r_block`` channels through a shared-memory
-  ring of tiles of ``chunk`` steps, filled by TMA or cp.async (see the
-  source's header); ``plan`` says what a launch will use.
+  ring of tiles of ``chunk`` steps that its threads fill by cp.async (see
+  the source's header); ``plan`` says what a launch will use.
 * On CPU tensors it runs ``rglru_reference``, the plain PyTorch version of
   ``repro.kernels.ref.rglru_ref``: an associative scan with h0 folded into
   the first step.
@@ -27,8 +27,6 @@ import torch
 
 launches = 0
 _fns = {}
-_FILLS = {None: 0, "tma": 1, "cp_async": 2}
-_MAX_THREADS = 1024         # threads a block may have
 
 
 def rglru_reference(log_a, b, h0=None):
@@ -56,9 +54,9 @@ def _kernel():
         from repro_torch.kernels import build
         lib = build.load("rglru")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rglru_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        lib.rglru_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.rglru_fwd.restype = i32
-        lib.rglru_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        lib.rglru_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
         lib.rglru_plan.restype = i32
         lib.rglru_error_string.argtypes = [i32]
         lib.rglru_error_string.restype = ctypes.c_char_p
@@ -67,57 +65,45 @@ def _kernel():
     return _fns
 
 
-def _fill_code(R, r_block, fill, aligned=True):
-    """The C entry points' fill argument; raises where the kernel cannot
-    take the shape by the fill asked for (None: TMA where it can)."""
-    if fill not in _FILLS:
-        raise ValueError(f"fill {fill!r}: one of {list(_FILLS)}")
-    if not 1 <= r_block <= _MAX_THREADS:
+def _check_r_block(r_block):
+    if not 1 <= r_block <= 1024:
         raise ValueError(f"r_block {r_block}: a block holds 1..1024 channels")
-    consumers = -(-r_block // 32) * 32
-    if fill == "tma" and (R % 4 or r_block % 4 or not aligned
-                          or consumers + 32 > _MAX_THREADS):
-        raise ValueError(f"R={R}, r_block={r_block}: TMA needs R and r_block "
-                         "multiples of 4, 16-byte aligned inputs and room "
-                         "for a producer warp (r_block <= 992)")
-    return _FILLS[fill]
 
 
-def plan(S, R, chunk, r_block, fill=None):
-    """The launch plan of the kernel for a shape and config, on 16-byte
-    aligned inputs: {"depth": steps of a ring tile, "stages", "smem": bytes
-    of shared memory a block, "fill": "tma" or "cp_async", "threads"}."""
-    code = _fill_code(R, r_block, fill)
+def plan(S, R, chunk, r_block):
+    """The launch plan of the kernel for a shape and config: {"depth": steps
+    of a ring tile, "stages", "smem": bytes of shared memory a block,
+    "threads"}."""
+    _check_r_block(r_block)
     fns = _kernel()
-    out = (ctypes.c_int * 5)()
-    rc = fns["plan"](S, R, chunk, r_block, code, out)
+    out = (ctypes.c_int * 4)()
+    rc = fns["plan"](S, R, chunk, r_block, out)
     if rc != 0:
         raise ValueError(f"rglru plan for S={S} R={R} chunk={chunk} "
                          f"r_block={r_block}: {fns['err'](rc).decode()}")
     return {"depth": out[0], "stages": out[1], "smem": out[2],
-            "fill": {1: "tma", 2: "cp_async"}[out[3]], "threads": out[4]}
+            "threads": out[3]}
 
 
-def _launch(log_a, b, h0, chunk, r_block, fill=None):
+def _launch(log_a, b, h0, chunk, r_block):
     global launches
     B, S, R = log_a.shape
     dev = log_a.device
     if b.device != dev or (h0 is not None and h0.device != dev):
         raise ValueError("rglru_scan: log_a, b and h0 must be on one device")
-    la = log_a.float().contiguous()
-    bb = b.float().contiguous()
-    code = _fill_code(R, r_block, fill,
-                      aligned=(la.data_ptr() | bb.data_ptr()) % 16 == 0)
+    _check_r_block(r_block)
     if dev.type != "cuda":
         raise ValueError(f"the rglru kernel runs on CUDA tensors, not {dev}")
     fns = _kernel()
+    la = log_a.float().contiguous()
+    bb = b.float().contiguous()
     h0c = None if h0 is None else h0.float().contiguous()
     h = torch.empty((B, S, R), dtype=torch.float32, device=dev)
     h_last = torch.empty((B, R), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fns["fwd"](la.data_ptr(), bb.data_ptr(),
                     None if h0c is None else h0c.data_ptr(), h.data_ptr(),
-                    h_last.data_ptr(), B, S, R, chunk, r_block, code, stream)
+                    h_last.data_ptr(), B, S, R, chunk, r_block, stream)
     if rc != 0:
         raise RuntimeError(f"rglru kernel launch failed: "
                            f"{fns['err'](rc).decode()} ({rc})")
