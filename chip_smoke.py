@@ -77,7 +77,22 @@ Phases (any failure raises, and the script exits non-zero):
      library time), and at every config of the grid, B5's output there
      held against its plain version; each B5 time with its plan and the
      TB/s it reached, beside an elementwise ``torch.add`` that moves the
-     same bytes (the memory rate a streaming call reaches).
+     same bytes (the memory rate a streaming call reaches);
+ 10. the tuning loop on the paper's Table-3 workloads (lenet-mnist,
+     lenet-fashion, cnn-news20, lstm-news20) through ``TorchRealBackend``,
+     with every launch counter set to 0 just before and read just after
+     (none of B1-B5 may launch: no TPU kernel is on this path): print the
+     energy model's P_IDLE/P_DYN beside the card's idle power.draw; hold
+     one fp32 epoch on the card against the same epoch on the CPU, step by
+     step (``CARD_CPU_TOL``), where an LSTM without its +1.0 forget bias on
+     the card side must fail; train one epoch under each of the 12 configs
+     of the "real" sys space on each workload (finite losses, bf16 within
+     ``BF16_LOSS_TOL`` of fp32) and print ms/step, compile_s and the final
+     loss; profile 3 steps of each (device busy against wall time); run
+     Table 2 (``benchmarks/table2.py`` quick: Arbitrary, TuneV1, TuneV2 and
+     PipeTune through ``Experiment``; PipeTune's best accuracy within
+     ``TABLE2_ACC_TOL`` of TuneV1's); and run ``launch.tune.main`` with its
+     defaults on each workload.
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
@@ -159,6 +174,28 @@ GOLDEN = Path("build") / "chip_smoke" / "kernel_golden.json"
 # in another order, so |err| <= HOPPER_TOL * max|ref|; a wrong descriptor
 # or swizzle puts whole rows or columns out of place, an error of O(1).
 HOPPER_TOL = 1e-4
+
+# The tuning loop (paper Table 3 workloads through TorchRealBackend). The
+# launcher's backend sizes; a trial's hyperparameters for the checks below.
+PAPER_WORKLOADS = ("lenet-mnist", "lenet-fashion", "cnn-news20",
+                   "lstm-news20")
+LOOP_SIZES = dict(n_train=1024, n_eval=256, steps_per_epoch=8)
+LOOP_HPARAMS = {"batch_size": 64, "learning_rate": 0.05, "dropout": 0.0}
+LOOP_DEFAULT_SYS = {"remat": "none", "microbatches": 1, "precision": "fp32"}
+# Card against CPU, one fp32 epoch from the same weights and batches:
+# |loss_card - loss_cpu| <= CARD_CPU_TOL * (1 + |loss_cpu|) at every step;
+# step and eval accuracy within 1.5 samples (a tied argmax may flip one).
+# On an NVIDIA H100 80GB HBM3 (700 W) the worst step over the four
+# workloads read 1.2e-7 (TF32 off); an LSTM without its +1.0 forget bias
+# reads 3.7e-3.
+CARD_CPU_TOL = 1e-6
+# bf16 against fp32 on the card, same remat and microbatches: the epoch's
+# last loss within BF16_LOSS_TOL * (1 + |loss_fp32|); the same card read
+# at most 1.9e-3 over the four workloads and six configs.
+BF16_LOSS_TOL = 1e-2
+# Table 2 (benchmarks/table2.py, quick): PipeTune's best accuracy within
+# this of TuneV1's (the paper: PipeTune matches V1's accuracy).
+TABLE2_ACC_TOL = 0.05
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
@@ -1252,6 +1289,221 @@ def phase_recurrent_timing(build, ml, rg, summaries, card):
     return rows
 
 
+def power_draw_w() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.draw", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def record_steps(be, ts, sys_cfg):
+    """Log (loss, accuracy) of every step ``run_epoch`` takes: the backend's
+    cached train step for ``sys_cfg`` is wrapped in place."""
+    (step, ev), _ = be.get_step(ts, sys_cfg)
+    step = getattr(step, "inner", step)
+    log = []
+
+    def recorded(*args):
+        out = step(*args)
+        log.append((float(out[2]), float(out[3])))
+        return out
+    recorded.inner = step
+    be._step_cache[be._step_key(ts, be._effective_sys(ts, sys_cfg))] = \
+        (recorded, ev)
+    return log
+
+
+def loop_epoch(be, name, sys_cfg, fault=False):
+    """One epoch of a fresh trial (seed 0): (per-step log, EpochResult).
+    ``fault`` drops the LSTM's +1.0 forget bias (b's f slice less 1)."""
+    ts = be.init_trial(name, LOOP_HPARAMS, seed=0)
+    if fault:
+        H = ts.cfg.hidden
+        ts.params["b"][H:2 * H] -= 1.0
+    log = record_steps(be, ts, sys_cfg)
+    _, res = be.run_epoch(ts, sys_cfg)
+    return log, res
+
+
+def card_cpu_distance(cpu, card, batch):
+    """(worst |loss diff| / (1 + |loss_cpu|) over the steps, worst step
+    accuracy diff in samples, eval accuracy diff in samples)."""
+    (clog, cres), (glog, gres) = cpu, card
+    loss = max(abs(g[0] - c[0]) / (1 + abs(c[0])) for c, g in zip(clog, glog))
+    acc = max(abs(g[1] - c[1]) for c, g in zip(clog, glog)) * batch
+    ev = abs(gres.accuracy - cres.accuracy) * LOOP_SIZES["n_eval"]
+    return loss, acc, ev
+
+
+def profile_steps(be, name, steps=3):
+    """Device busy time against wall time over ``steps`` train steps of a
+    warm trial at the default config (torch.profiler): (wall ms, busy ms,
+    launches, the kernel with the most device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ts = be.init_trial(name, LOOP_HPARAMS, seed=0)
+    (train_step, _), _ = be.get_step(ts, LOOP_DEFAULT_SYS)
+    batch = be._to_device({k: v[:LOOP_HPARAMS["batch_size"]]
+                           for k, v in next(ts.data.epoch(0)).items()})
+    state = [ts.params, ts.opt_state]
+
+    def run():
+        state[0], state[1], _, _ = train_step(state[0], state[1], 0, batch,
+                                              0)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = max(kernels, key=lambda e: e.self_device_time_total)
+    return wall, busy, sum(e.count for e in kernels), top
+
+
+def phase_tuneloop(counters, card, idle_w):
+    """PipeTune's own loop on the paper's Table-3 workloads: card against
+    CPU per step (with a planted fault), the whole "real" sys space, Table
+    2 through Experiment, the tuning launcher; no B1-B5 launch."""
+    import numpy as np
+    from repro_torch.api import Experiment, registry
+    from repro_torch.core import energy
+    from repro_torch.core.backends import TorchRealBackend
+    from repro_torch.core.groundtruth import GroundTruth
+    from repro_torch.core.job import HPTJob, Param, SearchSpace
+    from repro_torch.launch import tune as tune_launch
+    t_phase = time.perf_counter()
+    reset_all(counters)
+    print(f"[tuneloop] {card} | energy model: P_IDLE_W {energy.P_IDLE_W:.2f}"
+          f" W, P_DYN_W {energy.P_DYN_W:.2f} W; this card's power.draw at "
+          f"the start of the run (idle) {idle_w:.2f} W", flush=True)
+
+    # 1. card against CPU, one fp32 epoch of each workload
+    cpu_be = TorchRealBackend(**LOOP_SIZES, device="cpu")
+    card_be = TorchRealBackend(**LOOP_SIZES, device="cuda")
+    bs = LOOP_HPARAMS["batch_size"]
+    for name in PAPER_WORKLOADS:
+        cpu = loop_epoch(cpu_be, name, LOOP_DEFAULT_SYS)
+        got = card_cpu_distance(cpu, loop_epoch(card_be, name,
+                                                LOOP_DEFAULT_SYS), bs)
+        print(f"[tuneloop] card vs CPU {name}: {len(cpu[0])} steps, loss "
+              f"{cpu[0][0][0]:.4f} -> {cpu[0][-1][0]:.4f}, worst step loss "
+              f"distance {got[0]:.3e} (limit {CARD_CPU_TOL:.0e}), step "
+              f"accuracy {got[1]:.1f} samples, eval accuracy {got[2]:.1f} "
+              f"samples (limit 1.5)", flush=True)
+        check(got[0] <= CARD_CPU_TOL and got[1] <= 1.5 and got[2] <= 1.5,
+              f"{name}: the card's epoch differs from the CPU's: {got}")
+        if name == "lstm-news20":
+            bad = card_cpu_distance(cpu, loop_epoch(card_be, name,
+                                                    LOOP_DEFAULT_SYS,
+                                                    fault=True), bs)
+            print(f"[tuneloop] planted fault (LSTM without the +1.0 forget "
+                  f"bias, card side only): worst step loss distance "
+                  f"{bad[0]:.3e}", flush=True)
+            check(bad[0] > CARD_CPU_TOL,
+                  "the card-vs-CPU check misses the dropped forget bias")
+
+    # 2. the whole "real" sys space on the card
+    space = registry.default_sys_space("real", device="cuda").configs()
+    check(len(space) == 12, f"the real sys space has {len(space)} configs")
+    for name in PAPER_WORKLOADS:
+        be = TorchRealBackend(**LOOP_SIZES, device="cuda")
+        last = {}
+        for cfg in space:
+            _, res = loop_epoch(be, name, cfg)
+            key = (cfg["remat"], cfg["microbatches"])
+            last[key, cfg["precision"]] = res.loss
+            print(f"[tuneloop] {card} | {name} remat={cfg['remat']} "
+                  f"microbatches={cfg['microbatches']} "
+                  f"{cfg['precision']}: {np.median(res.step_times) * 1e3:.3f}"
+                  f" ms/step (median of {len(res.step_times)}), compile_s "
+                  f"{res.compile_s:.3f}, final loss {res.loss:.4f}",
+                  flush=True)
+            check(all(np.isfinite([res.loss, res.accuracy])),
+                  f"{name} {cfg}: loss {res.loss}")
+        worst = max(abs(last[k, "bf16"] - last[k, "fp32"])
+                    / (1 + abs(last[k, "fp32"])) for k, _ in last)
+        print(f"[tuneloop] {name}: bf16 against fp32, worst final-loss "
+              f"distance {worst:.3e} (limit {BF16_LOSS_TOL})", flush=True)
+        check(worst <= BF16_LOSS_TOL, f"{name}: bf16 ends {worst} from fp32")
+
+    # where a trial epoch's time goes: device busy against wall
+    be = TorchRealBackend(**LOOP_SIZES, device="cuda")
+    for name in PAPER_WORKLOADS:
+        wall, busy, n, top = profile_steps(be, name)
+        print(f"[tuneloop] {card} | profile {name} (3 steps, remat none, 1 "
+              f"microbatch, fp32): wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, {n} kernel "
+              f"launches; top kernel {top.key[:60]} "
+              f"{top.self_device_time_total / 1e3:.3f} ms x{top.count}",
+              flush=True)
+
+    # 3. Table 2 on the card (benchmarks/table2.py, quick)
+    job = HPTJob(workload="lenet-mnist", space=SearchSpace([
+        Param("batch_size", "choice", choices=(32, 64)),
+        Param("dropout", "float", 0.0, 0.5),
+        Param("learning_rate", "log", 0.001, 0.1)]), max_epochs=6, seed=0)
+    sizes = dict(n_train=768, n_eval=192, steps_per_epoch=6)
+
+    def backend():
+        return TorchRealBackend(**sizes, device="cuda")
+    rows = {}
+    arb = Experiment(job).with_tuner("v1").with_backend(backend())
+    rec = arb.build_runner().run_trial(
+        "lenet-mnist", "arbitrary",
+        {"batch_size": 64, "learning_rate": 0.08, "dropout": 0.45}, 6)
+    rows["Arbitrary"] = (rec.accuracy, rec.train_time, 0.0, rec.energy, "")
+    for label, tuner in (("TuneV1", "v1"), ("TuneV2", "v2"),
+                         ("PipeTune", "pipetune")):
+        t0 = time.perf_counter()
+        exp = (Experiment(job)
+               .with_tuner(tuner, **({"max_probes": 4}
+                                     if tuner == "pipetune" else {}))
+               .with_backend(backend())
+               .with_sys_space(registry.default_sys_space(
+                   "real", device="cuda"))
+               .with_scheduler("random", n_trials=6))
+        if tuner == "pipetune":
+            exp = exp.with_groundtruth(GroundTruth())
+        res = exp.run()
+        gt = (f", ground truth {res.gt_hits} hits / {res.gt_misses} misses"
+              if tuner == "pipetune" else "")
+        rows[label] = (res.best_accuracy, res.best_train_time,
+                       res.tuning_time_s, res.energy_j,
+                       f", {len(res.records)} trials, wall "
+                       f"{time.perf_counter() - t0:.2f} s{gt}")
+    for label, (acc, train_s, tune_s, e, extra) in rows.items():
+        print(f"[tuneloop] {card} | table2 lenet-mnist {label}: accuracy "
+              f"{acc:.4f}, training time {train_s:.3f} s, tuning time "
+              f"{tune_s:.3f} s, modeled energy {e:.1f} J{extra}", flush=True)
+    gap = abs(rows["PipeTune"][0] - rows["TuneV1"][0])
+    check(gap <= TABLE2_ACC_TOL,
+          f"PipeTune's accuracy is {gap:.4f} from TuneV1's")
+
+    # 4. the tuning launcher with its defaults
+    for name in PAPER_WORKLOADS:
+        t0 = time.perf_counter()
+        res = tune_launch.main(["--workload", name])
+        print(f"[tuneloop] {card} | launcher {name}: best accuracy "
+              f"{res.best_accuracy:.4f}, tuning time {res.tuning_time_s:.3f} "
+              f"s, {len(res.records)} trials, ground truth {res.gt_hits} / "
+              f"{res.gt_misses}, wall {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        check(len(res.records) > 0 and np.isfinite(res.best_accuracy),
+              f"launcher {name}: {res.best_accuracy}")
+
+    counts = read_all(counters)
+    print(f"[tuneloop] launches of B1-B5 over the phase: {counts}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(not any(counts.values()), "the tuning loop launched a kernel")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1276,6 +1528,7 @@ def main() -> int:
     from repro_torch.launch import serve, steps, train
 
     card = card_line()
+    idle_w = power_draw_w()
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
@@ -1312,6 +1565,7 @@ def main() -> int:
     summaries, tune_counts = phase_tuner(counters, ml, rg, tune, findb, ops,
                                          groundtruth)
     rec_timing = phase_recurrent_timing(build, ml, rg, summaries, card)
+    phase_tuneloop(counters, card, idle_w)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs = bwd_errs["train"]

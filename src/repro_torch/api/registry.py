@@ -2,29 +2,38 @@
 as in ``repro.api.registry``, holding what the port has:
 
     schedulers  grid, random, hyperband, asha, asha-async, pbt
-    backends    kernel-tune
-    tuners      v1 (tunev1)
+    backends    real (TorchRealBackend), kernel-tune
+    tuners      v1 (tunev1), v2 (tunev2), pipetune
     executors   serial
 
 A name the reference registers and the port does not yet (``sim``,
-``real``, ``v2``, ``pipetune``, ``parallel``, ...) raises a ``KeyError``
-that lists the registered names and the ROADMAP item that brings it.
-Third-party code extends the port by registering a factory.
+``numeric``, ``parallel``, ...) raises a ``KeyError`` that lists the
+registered names and the ROADMAP item that brings it. Third-party code
+extends the port by registering a factory:
+
+    from repro_torch.api import register_backend
+    register_backend("my-cluster", MyBackend, sys_space=my_system_space)
 
 Factory conventions
 -------------------
 scheduler factory(job: HPTJob, **kw) -> AskTellScheduler
 backend   factory(**kw)              -> Backend
-tuner     factory(backend, **kw)     -> TrialRunner
+          sys_space(**kw)            -> SystemSpace, called with the
+                                        backend's keyword arguments (the
+                                        "real" space depends on its device)
+tuner     factory(backend, sys_space=None, groundtruth=None, **kw)
+                                     -> TrialRunner
 executor  factory(**kw)              -> object with run_wave
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+from repro_torch import device as device_lib
+from repro_torch.core.backends import TorchRealBackend
 from repro_torch.core.executor import SerialTrialExecutor
-from repro_torch.core.job import HPTJob
-from repro_torch.core.pipetune import TrialRunner, TuneV1
+from repro_torch.core.job import HPTJob, SystemSpace
+from repro_torch.core.pipetune import PipeTune, TrialRunner, TuneV1, TuneV2
 from repro_torch.core.schedulers import (ASHA, AskTellScheduler, AsyncASHA,
                                          GridSearch, HyperBand, PBT,
                                          RandomSearch)
@@ -33,27 +42,24 @@ __all__ = [
     "register_scheduler", "register_backend", "register_tuner",
     "register_executor",
     "make_scheduler", "make_backend", "make_tuner", "make_executor",
-    "available_schedulers", "available_backends",
+    "default_sys_space", "available_schedulers", "available_backends",
     "available_tuners", "available_executors",
 ]
 
 _SCHEDULERS: Dict[str, Callable[..., AskTellScheduler]] = {}
-_BACKENDS: Dict[str, Callable[..., Any]] = {}
+_BACKENDS: Dict[str, Dict[str, Any]] = {}
 _TUNERS: Dict[str, Callable[..., TrialRunner]] = {}
 _EXECUTORS: Dict[str, Callable[..., Any]] = {}
 
 # names the reference registers that the port does not have yet, and the
 # ROADMAP item (queue A) that brings each
 _LATER = {
-    "backend": {"real": "2b (RealBackend)",
-                "sim": "2b (SimBackend, the cluster simulation)",
+    "backend": {"sim": "2b (iii) (SimBackend, the cluster simulation)",
                 "numeric": "9 (Type-III numeric workloads)"},
-    "tuner": {"v2": "2b (TuneV2)", "tunev2": "2b (TuneV2)",
-              "pipetune": "2b (PipeTune)"},
-    "executor": {"parallel": "2b (the parallel executor)",
-                 "cluster": "2b (the cluster executor)",
-                 "sharded": "2b (the sharded executor)",
-                 "workers": "2b (the worker-pool executors)"},
+    "executor": {"parallel": "2b (iii) (the parallel executor)",
+                 "cluster": "2b (iii) (the cluster executor)",
+                 "sharded": "2b (iii) (the sharded executor)",
+                 "workers": "2b (iii) (the worker-pool executors)"},
 }
 
 
@@ -75,8 +81,13 @@ def register_scheduler(name: str,
     _SCHEDULERS[name] = factory
 
 
-def register_backend(name: str, factory: Callable[..., Any]) -> None:
-    _BACKENDS[name] = factory
+def register_backend(name: str, factory: Callable[..., Any],
+                     sys_space: Optional[Callable[..., SystemSpace]] = None
+                     ) -> None:
+    """`sys_space` builds the system-parameter space this backend's knobs
+    live in, from the backend's keyword arguments; tuners that probe system
+    configs (PipeTune, TuneV2) use it when the caller doesn't supply one."""
+    _BACKENDS[name] = {"factory": factory, "sys_space": sys_space}
 
 
 def register_tuner(name: str, factory: Callable[..., TrialRunner]) -> None:
@@ -94,11 +105,20 @@ def make_scheduler(name: str, job: HPTJob, **kw) -> AskTellScheduler:
 
 
 def make_backend(name: str, **kw):
-    return _lookup(_BACKENDS, "backend", name)(**kw)
+    return _lookup(_BACKENDS, "backend", name)["factory"](**kw)
 
 
-def make_tuner(name: str, backend, **kw) -> TrialRunner:
-    return _lookup(_TUNERS, "tuner", name)(backend, **kw)
+def default_sys_space(name: str, **backend_kw) -> Optional[SystemSpace]:
+    """The registered system space of backend `name`, for a backend built
+    with `backend_kw` (None if it registered none)."""
+    maker = _lookup(_BACKENDS, "backend", name)["sys_space"]
+    return maker(**backend_kw) if maker is not None else None
+
+
+def make_tuner(name: str, backend, sys_space=None, groundtruth=None,
+               **kw) -> TrialRunner:
+    return _lookup(_TUNERS, "tuner", name)(
+        backend, sys_space=sys_space, groundtruth=groundtruth, **kw)
 
 
 def make_executor(name: str, **kw):
@@ -143,9 +163,43 @@ def _make_kernel_tune_backend(**kw):
     return KernelTuneBackend(**kw)
 
 
+def _real_sys_space(device=None, **_):
+    """remat none/block x microbatches 1/2/4 x precision: fp32 only on the
+    CPU, as the reference registers it (there bf16 is emulated in software,
+    a host artifact the tuner should not learn), fp32 and bf16 on a card."""
+    on_card = device_lib.resolve(device).type == "cuda"
+    return SystemSpace(remat=("none", "block"), microbatches=(1, 2, 4),
+                       precision=("fp32", "bf16") if on_card else ("fp32",))
+
+
+register_backend("real", TorchRealBackend, sys_space=_real_sys_space)
 # trials time kernel variants (see repro_torch.kernels.tune)
 register_backend("kernel-tune", _make_kernel_tune_backend)
-register_tuner("v1", TuneV1)
-register_tuner("tunev1", TuneV1)
+
+
+def _make_v1(backend, sys_space=None, groundtruth=None, **kw):
+    return TuneV1(backend, **kw)
+
+
+def _make_v2(backend, sys_space=None, groundtruth=None, **kw):
+    if sys_space is None:
+        raise ValueError("tuner 'v2' needs a sys_space (use a registered "
+                         "backend with a default, or .with_sys_space())")
+    return TuneV2(backend, sys_space, **kw)
+
+
+def _make_pipetune(backend, sys_space=None, groundtruth=None, **kw):
+    if sys_space is None:
+        raise ValueError("tuner 'pipetune' needs a sys_space (use a "
+                         "registered backend with a default, or "
+                         ".with_sys_space())")
+    return PipeTune(backend, sys_space, groundtruth=groundtruth, **kw)
+
+
+register_tuner("v1", _make_v1)
+register_tuner("tunev1", _make_v1)
+register_tuner("v2", _make_v2)
+register_tuner("tunev2", _make_v2)
+register_tuner("pipetune", _make_pipetune)
 
 register_executor("serial", SerialTrialExecutor)

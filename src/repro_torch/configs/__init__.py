@@ -3,13 +3,18 @@
 ``get_config(name)`` returns the full published config and
 ``get_reduced(name)`` the family-preserving smoke-test config, as in the
 reference. Only the archs whose family is ported resolve; the others raise,
-naming the ROADMAP.md item (queue A) that brings them.
+naming the ROADMAP.md item (queue A) that brings them. The paper's own
+workloads (``PAPER_WORKLOADS``, Table 3) return their ``SmallConfig`` from
+both, as in the reference.
 """
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"qwen3-0.6b": "qwen3_0_6b"}
+PAPER_WORKLOADS = ["lenet-mnist", "lenet-fashion", "cnn-news20", "lstm-news20"]
+
+_MODULES = {"qwen3-0.6b": "qwen3_0_6b",
+            **{name: "paper_workloads" for name in PAPER_WORKLOADS}}
 
 _NOT_PORTED = {   # arch -> (ROADMAP.md queue A item, its title)
     "mixtral-8x22b": ("3", "MoE and sliding window"),
@@ -36,11 +41,17 @@ def _mod(name: str):
 
 
 def get_config(name: str):
-    return _mod(name).CONFIG
+    m = _mod(name)
+    if name in PAPER_WORKLOADS:
+        return m.CONFIGS[name]
+    return m.CONFIG
 
 
 def get_reduced(name: str):
-    return _mod(name).REDUCED
+    m = _mod(name)
+    if name in PAPER_WORKLOADS:
+        return m.CONFIGS[name]
+    return m.REDUCED
 
 
 def get(name: str):

@@ -10,7 +10,7 @@ The reference runs the serial executor as a pool of one in-process worker;
 with one worker and one executor the port runs the wave directly. The
 worker protocol and pool, and the parallel, cluster, sharded and elastic
 executors, wait for the slice that ports a second executor (ROADMAP queue
-A, 2b); on the card the kernel tuner times one variant at a time anyway, as
+A, 2b (iii)); on the card the kernel tuner times one variant at a time anyway, as
 the reference serializes its timings under one lock.
 """
 from __future__ import annotations

@@ -1,18 +1,20 @@
-"""Epoch-level workload profiles (paper §5.3): ``EpochProfile`` and the
-58-event vector it is read as, copied from ``repro.core.profiler``.
+"""Epoch-level workload profiles (paper §5.3): ``EpochProfile``, the
+58-event vector it is read as, and the ``Profiler`` that builds one per
+(trial, epoch), copied from ``repro.core.profiler``.
 
 Like the paper, a profile is a fixed-length event vector
 (``PROFILE_EVENTS``) averaged over the epoch window; only execution-level
-counters enter it, nothing model- or data-identifying. The ``Profiler``
-that fills the compiled-program and memory events waits for the
-tuning-loop slice (ROADMAP queue A, 2b); the kernel tuner fills the
-runtime events itself.
+counters enter it, nothing model- or data-identifying. The vector feeds the
+k-means ground-truth store (``core.groundtruth.GroundTruth``). The
+reference's memory fraction divides by a TPU's 16 GiB; here it divides by
+the device's own memory.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -68,3 +70,94 @@ class EpochProfile:
             # counters span 1e0..1e15, log1p keeps k-means distances sane.
             v[i] = math.log1p(abs(x)) * (1 if x >= 0 else -1)
         return v
+
+
+def device_memory_bytes(device=None) -> int:
+    """Total memory of ``device``: the card's ``total_memory`` for a CUDA
+    device, the host's physical memory for the CPU."""
+    import torch
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(dev).total_memory)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+class Profiler:
+    """Collects one EpochProfile per (trial, epoch)."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self.records: List[EpochProfile] = []
+
+    def build(self, *, hlo_cost=None, memory: Optional[dict] = None,
+              step_times: Optional[List[float]] = None,
+              sys_config=None, workload_meta: Optional[dict] = None,
+              loss_start: float = 0.0, loss_end: float = 0.0,
+              power_w: float = 0.0, compile_time: float = 0.0,
+              tokens_per_step: float = 0.0) -> EpochProfile:
+        ev: Dict[str, float] = {}
+        if hlo_cost is not None:
+            f = max(hlo_cost.flops, 1.0)
+            ev["hlo.flops"] = hlo_cost.flops
+            ev["hlo.bytes"] = hlo_cost.bytes
+            ev["hlo.transcendentals"] = hlo_cost.transcendentals
+            ev["hlo.arith_intensity"] = hlo_cost.flops / max(hlo_cost.bytes, 1)
+            ev["coll.all_reduce"] = hlo_cost.coll.get("all-reduce", 0)
+            ev["coll.all_gather"] = hlo_cost.coll.get("all-gather", 0)
+            ev["coll.reduce_scatter"] = hlo_cost.coll.get("reduce-scatter", 0)
+            ev["coll.all_to_all"] = hlo_cost.coll.get("all-to-all", 0)
+            ev["coll.collective_permute"] = hlo_cost.coll.get(
+                "collective-permute", 0)
+            ev["coll.total"] = hlo_cost.coll_bytes
+            ev["coll.count"] = hlo_cost.coll_count
+            ev["coll.bytes_per_flop"] = hlo_cost.coll_bytes / f
+            ev["coll.ar_frac"] = ev["coll.all_reduce"] / max(ev["coll.total"], 1)
+            ev["coll.ag_frac"] = ev["coll.all_gather"] / max(ev["coll.total"], 1)
+            if tokens_per_step:
+                ev["hlo.flops_per_token"] = hlo_cost.flops / tokens_per_step
+                ev["hlo.bytes_per_token"] = hlo_cost.bytes / tokens_per_step
+        if memory:
+            ev["mem.args_bytes"] = memory.get("argument_size_in_bytes", 0)
+            ev["mem.temp_bytes"] = memory.get("temp_size_in_bytes", 0)
+            ev["mem.out_bytes"] = memory.get("output_size_in_bytes", 0)
+            ev["mem.code_bytes"] = memory.get("generated_code_size_in_bytes", 0)
+            total = device_memory_bytes(self.device)
+            ev["mem.peak_frac"] = (ev["mem.args_bytes"]
+                                   + ev["mem.temp_bytes"]) / total
+            ev["mem.params_bytes"] = memory.get("params_bytes", 0)
+            ev["mem.opt_bytes"] = memory.get("opt_bytes", 0)
+            ev["mem.acts_bytes"] = memory.get("acts_bytes", 0)
+        if step_times:
+            st = np.asarray(step_times, np.float64)
+            ev["rt.step_time_mean"] = st.mean()
+            ev["rt.step_time_std"] = st.std()
+            ev["rt.step_time_min"] = st.min()
+            ev["rt.step_time_max"] = st.max()
+            ev["rt.step_time_p50"] = float(np.percentile(st, 50))
+            ev["rt.step_time_p90"] = float(np.percentile(st, 90))
+            ev["rt.steps_per_epoch"] = len(st)
+            ev["rt.epoch_time"] = st.sum()
+            if tokens_per_step:
+                ev["rt.throughput"] = tokens_per_step / max(st.mean(), 1e-9)
+        ev["rt.power"] = power_w
+        ev["rt.energy"] = power_w * ev.get("rt.epoch_time", 0.0)
+        ev["rt.loss_start"] = loss_start
+        ev["rt.loss_end"] = loss_end
+        ev["rt.loss_delta"] = loss_start - loss_end
+        ev["rt.compile_time"] = compile_time
+        if sys_config is not None:
+            ev["shape.microbatches"] = sys_config.microbatches
+            ev["shape.dp"] = sys_config.dp
+            ev["shape.tp"] = sys_config.tp
+            ev["shape.remat"] = {"none": 0, "dots": 1, "block": 2}.get(
+                sys_config.remat, 0)
+            ev["shape.precision_bits"] = (16 if sys_config.precision == "bf16"
+                                          else 32)
+            ev["shape.chips"] = sys_config.chips
+        if workload_meta:
+            for k in ("batch", "seq_or_dim", "params", "layers", "d_model",
+                      "vocab"):
+                ev[f"shape.{k}"] = workload_meta.get(k, 0)
+        prof = EpochProfile(ev)
+        self.records.append(prof)
+        return prof

@@ -17,7 +17,8 @@ with CUDA events on the current stream, on the CPU with the host clock (the
 CPU runs the plain versions, so its times say nothing of the kernels). The
 flash-attention workloads parse (their shape keys are the reference's) but
 do not tune: the port's B1-B3 have no ``q_block``/``kv_block`` (ROADMAP
-queue A, item 8). ``train_step`` waits for ``RealBackend`` (item 2b), and
+queue A, item 8). ``train_step`` (the trainer's system parameters, which
+``TorchRealBackend`` reads from the find-db) waits for item 8 too, and
 the service-backed sources (``--store``, ``--journal``, ``import``) for the
 service package (item 8).
 
@@ -99,8 +100,8 @@ _NOT_YET = {
                            "no q_block/kv_block to tune; their tile choices "
                            "come with their redesign (ROADMAP queue A, "
                            "item 8)",
-    "train_step": "train_step workloads need RealBackend, which the port "
-                  "does not have yet (ROADMAP queue A, 2b)",
+    "train_step": "train_step workloads are not ported yet (ROADMAP queue "
+                  "A, item 8)",
 }
 
 

@@ -1,5 +1,6 @@
-"""Nested dicts of tensors as trees: the port's counterpart of ``jax.tree``
-for the parameter, gradient and optimizer-state dicts it passes around."""
+"""Nested dicts (and lists) of tensors as trees: the port's counterpart of
+``jax.tree`` for the parameter, gradient and optimizer-state dicts it passes
+around. Lists are nodes too, as for TextCNN's ``convs``."""
 from __future__ import annotations
 
 
@@ -8,6 +9,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -15,4 +19,6 @@ def tree_leaves(tree):
     """The leaves in ``tree_map``'s order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]

@@ -2,14 +2,18 @@
 
 The port keeps the reference's parameter layout (dense weights ``(in, out)``
 used as ``x @ W``, layers stacked on a leading axis), so a leaf carries over
-as it is. ``leaf_shapes`` is the layout map: every leaf path the port knows,
-with its shape. ``from_jax`` accepts exactly those paths and raises on an
-unknown, missing or misshapen leaf; ``state_from_jax`` carries a whole train
-state (parameters, optimizer moments, step) over the same map.
+as it is, but for the small workloads' conv weights
+(``models/small.py``): the reference's HWIO (LeNet) and WIO (TextCNN) become
+OIHW and OIW, the layouts of ``F.conv2d``/``F.conv1d``. ``leaf_shapes`` is
+the layout map: every leaf path the port knows, with its shape in the
+port. ``from_jax`` accepts exactly the reference's paths and shapes and
+raises on an unknown, missing or misshapen leaf; ``state_from_jax`` carries
+a whole train state (parameters, optimizer moments such as SGD's ``mu``,
+step) over the same map.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,8 +21,49 @@ import torch
 from repro_torch.models.transformer import require_dense
 
 
+def _small_layout(cfg) -> Dict[str, Tuple[Tuple[int, ...],
+                                          Optional[Tuple[int, ...]]]]:
+    """Leaf path -> (the reference's shape, the permutation of its axes
+    into the port's layout, or None), for ``models/small.py``."""
+    C, E, H = cfg.n_classes, cfg.embed_dim, cfg.hidden
+    if cfg.kind == "lenet":
+        hwio_to_oihw = (3, 2, 0, 1)
+        layout = {"c1/w": ((5, 5, 1, 6), hwio_to_oihw), "c1/b": ((6,), None),
+                  "c2/w": ((5, 5, 6, 16), hwio_to_oihw),
+                  "c2/b": ((16,), None),
+                  "f1/w": ((16 * 4 * 4, 120), None), "f1/b": ((120,), None),
+                  "f2/w": ((120, 84), None), "f2/b": ((84,), None)}
+        feat = 84
+    elif cfg.kind == "textcnn":
+        layout = {"embed": ((cfg.vocab, E), None)}
+        for i, k in enumerate((3, 4, 5)):
+            layout[f"convs/{i}/w"] = ((k, E, H), (2, 1, 0))   # WIO -> OIW
+            layout[f"convs/{i}/b"] = ((H,), None)
+        feat = 3 * H
+    elif cfg.kind == "lstm":
+        layout = {"embed": ((cfg.vocab, E), None), "w_ih": ((E, 4 * H), None),
+                  "w_hh": ((H, 4 * H), None), "b": ((4 * H,), None)}
+        feat = H
+    else:
+        raise ValueError(f"unknown small model kind {cfg.kind!r}")
+    layout.update({"out/w": ((feat, C), None), "out/b": ((C,), None)})
+    return layout
+
+
+def _layout(cfg):
+    if getattr(cfg, "family", None) == "small":
+        return _small_layout(cfg)
+    return {p: (s, None) for p, s in _dense_shapes(cfg).items()}
+
+
 def leaf_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
-    """Leaf path ("a/b/c") -> shape, for the dense family."""
+    """Leaf path ("a/b/c") -> shape in the port, for the dense family and
+    the small workloads."""
+    return {p: s if perm is None else tuple(s[i] for i in perm)
+            for p, (s, perm) in _layout(cfg).items()}
+
+
+def _dense_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     require_dense(cfg)
     L, d, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
     K, D = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -40,7 +85,10 @@ def leaf_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, object]:
-    """Nested dicts -> {"a/b/c": leaf}."""
+    """Nested dicts and lists -> {"a/b/c": leaf}; a list's items are keyed
+    by their index ("convs/0/w")."""
+    if isinstance(tree, list):
+        tree = {str(i): v for i, v in enumerate(tree)}
     if not isinstance(tree, dict):
         return {prefix: tree}
     out = {}
@@ -49,8 +97,19 @@ def flatten(tree, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+def _lists(node):
+    """Dicts keyed "0".."n-1" back into lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def unflatten(flat):
-    """{"a/b/c": leaf} -> nested dicts (the inverse of ``flatten``)."""
+    """{"a/b/c": leaf} -> nested dicts and lists (the inverse of
+    ``flatten``)."""
     tree = {}
     for path, leaf in flat.items():
         *parents, last = path.split("/")
@@ -58,7 +117,7 @@ def unflatten(flat):
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
-    return tree
+    return _lists(tree)
 
 
 def from_jax(params_np, cfg, device, dtype=None):
@@ -68,9 +127,9 @@ def from_jax(params_np, cfg, device, dtype=None):
     float32, which holds them exactly.
     """
     flat = flatten(params_np)
-    expected = leaf_shapes(cfg)
-    unknown = sorted(set(flat) - set(expected))
-    missing = sorted(set(expected) - set(flat))
+    layout = _layout(cfg)
+    unknown = sorted(set(flat) - set(layout))
+    missing = sorted(set(layout) - set(flat))
     if unknown or missing:
         raise KeyError(f"leaf paths not in the layout map: {unknown}; "
                        f"missing: {missing}")
@@ -78,9 +137,11 @@ def from_jax(params_np, cfg, device, dtype=None):
     out = {}
     for path, leaf in flat.items():
         arr = np.asarray(leaf)
-        if arr.shape != expected[path]:
-            raise ValueError(f"{path}: shape {arr.shape}, expected "
-                             f"{expected[path]}")
+        shape, perm = layout[path]
+        if arr.shape != shape:
+            raise ValueError(f"{path}: shape {arr.shape}, expected {shape}")
+        if perm is not None:
+            arr = arr.transpose(perm)
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         out[path] = t.to(device=device, dtype=dtype)
     return unflatten(out)

@@ -5,7 +5,8 @@ Every scheduler, fed the same seeded scores in both packages, proposes the
 same waves and picks the same best; ``Experiment`` + ``TuneV1`` + the
 serial executor over a deterministic stub backend gives the reference's
 records; ``clone_trial`` shares no tensor between source and clone; names
-the port lacks raise and name their ROADMAP item.
+the port lacks raise and name their ROADMAP item, and the names the
+tuning-loop slice brought build.
 """
 import math
 
@@ -174,18 +175,33 @@ def test_clone_trial_shares_no_tensor():
     assert copy_tree(None) is None and copy_tree((1, "a")) == (1, "a")
 
 
+# The cases of names that the tuning-loop slice brought (real, pipetune,
+# v2) keep their ids and now assert that the name builds.
 @pytest.mark.parametrize("kind,name,item", [
-    ("backend", "sim", "2b"), ("backend", "real", "2b"),
-    ("backend", "numeric", "9"), ("tuner", "pipetune", "2b"),
-    ("tuner", "v2", "2b"), ("executor", "parallel", "2b")])
+    ("backend", "sim", "2b"),
+    pytest.param("backend", "real", None, id="backend-real-2b"),
+    ("backend", "numeric", "9"),
+    pytest.param("tuner", "pipetune", None, id="tuner-pipetune-2b"),
+    pytest.param("tuner", "v2", None, id="tuner-v2-2b"),
+    ("executor", "parallel", "2b")])
 def test_missing_names_list_registered_and_roadmap_item(kind, name, item):
     from repro_torch.api import registry
-    make = {"backend": lambda: registry.make_backend(name),
-            "tuner": lambda: registry.make_tuner(name, None),
+    space = tjob.SystemSpace(remat=("none",), microbatches=(1,),
+                             precision=("fp32",))
+    make = {"backend": lambda: registry.make_backend(name, device="cpu"),
+            "tuner": lambda: registry.make_tuner(
+                name, StubBackend("port"), sys_space=space),
             "executor": lambda: registry.make_executor(name)}[kind]
-    with pytest.raises(KeyError) as err:
-        make()
-    msg = str(err.value)
-    assert f"item {item}" in msg and "available" in msg
+    if item is None:
+        built = make()
+        assert type(built).__name__ == {"real": "TorchRealBackend",
+                                        "pipetune": "PipeTune",
+                                        "v2": "TuneV2"}[name]
+        assert name in getattr(registry, f"available_{kind}s")()
+    else:
+        with pytest.raises(KeyError) as err:
+            make()
+        msg = str(err.value)
+        assert f"item {item}" in msg and "available" in msg
     assert set(registry.available_schedulers()) == {
         "grid", "random", "hyperband", "asha", "asha-async", "pbt"}
