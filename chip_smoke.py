@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --lane-probe [REPS]   # the [parallel] lanes only
 
 Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
@@ -92,13 +93,41 @@ Phases (any failure raises, and the script exits non-zero):
      Table 2 (``benchmarks/table2.py`` quick: Arbitrary, TuneV1, TuneV2 and
      PipeTune through ``Experiment``; PipeTune's best accuracy within
      ``TABLE2_ACC_TOL`` of TuneV1's); and run ``launch.tune.main`` with its
-     defaults on each workload.
+     defaults on each workload;
+ 11. trials run concurrently (``[parallel]``), counters set to 0 just
+     before and read just after (none of B1-B5 may launch): (a) TuneV1's
+     policy at remat none, 1 microbatch, fp32 over random search
+     (``PAR_TRIALS`` x ``PAR_EPOCHS``, batch 64, the launcher's sizes) on
+     lenet-mnist and lstm-news20, serially and on
+     ``ParallelTrialExecutor`` at 2 and 4 thread lanes (one CUDA stream
+     each): the same hparams, every step's loss within ``PAR_LOSS_TOL`` of
+     the serial run's and eval accuracy within ``PAR_ACC_SAMPLES``; wall
+     time, trial time, speedup and ms/step over the waves before the last
+     (the trials go one epoch a wave, so they may change lanes between
+     epochs), and the device's busy time and idle share over the last
+     wave (torch.profiler, device activity only, overlapping activities
+     counted once; it runs over the last wave alone); (c) a planted
+     lane fault (one trial's batches in a wave-mate's order) must fail
+     that check; (b) ``launch.tune.main`` with PipeTune +
+     hyperband on lenet-mnist (``PAR_EPOCHS`` epochs), serially and at
+     ``--parallelism 4``: hits + misses equal the trials, accuracy within
+     ``TABLE2_ACC_TOL``; (d) the sim launcher at ``--parallelism 1``,
+     ``4`` and ``--executor cluster``: the same printed numbers, a
+     makespan only on the cluster; the phase within
+     ``PAR_PHASE_LIMIT_S``.
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
-``{"ok": true, "device": {...}}``. Without CUDA, or without the repo's
+``{"ok": true, "device": {...}}``.
+
+``--lane-probe [REPS]`` builds nothing and runs (a) alone, REPS times
+(``PAR_PROBE_REPS``) in each of two processes: one with the profiler off
+(serial, 2 and 4 lanes), one with the profiler started from another thread
+``PAR_MIDWAVE_S`` into a last wave on 4 lanes. It prints each process's
+exit code, so a crash is put down to the lanes or to the profiler. Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -196,6 +225,35 @@ BF16_LOSS_TOL = 1e-2
 # Table 2 (benchmarks/table2.py, quick): PipeTune's best accuracy within
 # this of TuneV1's (the paper: PipeTune matches V1's accuracy).
 TABLE2_ACC_TOL = 0.05
+
+# Concurrent trials (the [parallel] phase): TuneV1's policy (hyperparameters
+# only, one fixed system config: LOOP_DEFAULT_SYS, the config [tuneloop]
+# profiles) over random search on two Table-3 workloads at the launcher's
+# sizes, serially and on 2 and 4 thread lanes, each lane on its own CUDA
+# stream. Every trial's per-step loss within PAR_LOSS_TOL * (1 + |loss|) of
+# the serial run's (the card against CPU limit above), eval accuracy within
+# PAR_ACC_SAMPLES samples. The busy time and idle share come from
+# torch.profiler (device activity only) over the end of each run.
+PAR_WORKLOADS = ("lenet-mnist", "lstm-news20")
+PAR_LANES = (1, 2, 4)
+PAR_TRIALS, PAR_EPOCHS = 4, 3
+PAR_LOSS_TOL = CARD_CPU_TOL
+PAR_ACC_SAMPLES = 1.5
+PAR_PHASE_LIMIT_S = 60.0
+# torch.profiler holds each (a) run's last epoch (its last wave: the
+# random search's trials are released one epoch a wave). It starts between
+# waves, when no lane is launching, and stops after the run, so its stop,
+# which holds the GIL while it reads the trace back, stalls no lane. A
+# whole LSTM run's ~200k device activities take it 6-9 s to read back on
+# the card, which the phase's limit cannot hold. Wall time, speedup and
+# ms/step are read over the waves before it, which run unprofiled.
+# ``--lane-probe`` repeats (a) with the profiler off, and then with it
+# started PAR_MIDWAVE_S into a last wave while lanes launch, each mode in
+# a process of its own, PAR_PROBE_REPS times.
+PAR_MIDWAVE_S = 0.05
+PAR_PROBE_REPS = 5
+SIM_LAUNCH = ["--backend", "sim", "--system", "pipetune", "--scheduler",
+              "hyperband", "--epochs", "9"]
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
@@ -1504,6 +1562,375 @@ def phase_tuneloop(counters, card, idle_w):
     check(not any(counts.values()), "the tuning loop launched a kernel")
 
 
+def busy_union_ms(prof):
+    """(device busy ms, device activities) over a torch.profiler window:
+    the union of the intervals of every device activity (kernels, copies,
+    sets), so that kernels of two lanes that overlap count once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6, len(spans)
+
+
+def logged_backend(fault=False):
+    """A card ``TorchRealBackend`` at the launcher's sizes that logs every
+    step's loss per trial (``.losses[id(TrialState)]``). ``fault`` plants a
+    lane fault: the first trial it starts draws its batches in another
+    order (the batch generator of the next seed, a wave-mate's stream)."""
+    import dataclasses
+    from repro_torch.core.backends import TorchRealBackend
+
+    class Logged(TorchRealBackend):
+        def __init__(self):
+            super().__init__(**LOOP_SIZES, device="cuda")
+            self.losses = {}
+            self.planted = None
+
+        def init_trial(self, workload, hparams, seed=0):
+            ts = super().init_trial(workload, hparams, seed=seed)
+            if fault and self.planted is None:
+                self.planted = id(ts)
+                ts.data = dataclasses.replace(ts.data, seed=ts.data.seed + 1)
+            return ts
+
+        def get_step(self, ts, sys_cfg):
+            (step, ev), dt = super().get_step(ts, sys_cfg)
+            log = self.losses.setdefault(id(ts), [])
+
+            def logged(*args):
+                out = step(*args)
+                log.append(float(out[2]))
+                return out
+            return (logged, ev), dt
+    return Logged()
+
+
+class EpochWaves:
+    """Ask/tell scheduler over fixed trials: releases every trial one epoch
+    at a time (wave e trains them all to epoch e), so a trial's epochs may
+    land on different lanes; ``on_last_wave`` runs before the last wave is
+    released. The best trial is the best final score."""
+
+    def __init__(self, proposals, epochs, on_last_wave):
+        self.proposals, self.epochs = proposals, epochs
+        self.on_last_wave = on_last_wave
+        self.epoch, self.waiting, self.scores = 0, set(), {}
+
+    def suggest(self):
+        from repro_torch.core.schedulers import TrialProposal
+        if self.waiting or self.epoch == self.epochs:
+            return []
+        self.epoch += 1
+        if self.epoch == self.epochs:
+            self.on_last_wave()
+        self.waiting = {p.trial_id for p in self.proposals}
+        return [TrialProposal(p.trial_id, p.hparams, self.epoch)
+                for p in self.proposals]
+
+    def report(self, trial_id, score):
+        self.waiting.discard(trial_id)
+        self.scores[trial_id] = score
+
+    def best(self):
+        tid = max(self.scores, key=self.scores.get)
+        return next(p.hparams for p in self.proposals
+                    if p.trial_id == tid), self.scores[tid]
+
+
+def par_run(name, lanes, fault=False, prof_mode="last"):
+    """TuneV1's policy at LOOP_DEFAULT_SYS over PAR_TRIALS random-search
+    trials (batch 64) trained to PAR_EPOCHS, one epoch a wave
+    (``EpochWaves``), on ``lanes`` thread lanes (1: the serial executor).
+    ``prof_mode`` places torch.profiler (device activity only): "last"
+    starts it before the last wave is released, "midwave" from a thread
+    of its own PAR_MIDWAVE_S into the last wave, "off" runs none. Returns
+    (result, {trial: step losses}, wall s, wall s of the waves before the
+    last, (window s, busy ms, device activities) or None)."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import make_executor
+    from repro_torch.core.job import HPTJob, Param, SearchSpace
+    from repro_torch.core.pipetune import TuneV1
+    from repro_torch.core.schedulers import RandomSearch
+    import torch
+
+    class FixedSysV1(TuneV1):
+        def sys_for_epoch(self, record, state, epoch, prev):
+            return dict(LOOP_DEFAULT_SYS)
+    space = SearchSpace([
+        Param("batch_size", "choice", choices=(64,)),
+        Param("learning_rate", "log", 0.001, 0.1),
+        Param("dropout", "float", 0.0, 0.5)])
+    job = HPTJob(workload=name, space=space, max_epochs=PAR_EPOCHS, seed=0)
+    prof = None if prof_mode == "off" else \
+        profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+
+    def start():
+        prof.start()
+        window["t0"] = time.perf_counter()
+
+    def midwave(done):
+        # starts and stops the profiler on a thread of its own
+        if not done.wait(PAR_MIDWAVE_S):
+            start()
+            done.wait()
+            prof.stop()
+
+    def last_wave():
+        window["last"] = time.perf_counter()
+        if prof_mode == "last":
+            start()
+        elif prof_mode == "midwave":
+            window["done"] = threading.Event()
+            window["thread"] = threading.Thread(target=midwave,
+                                                args=(window["done"],))
+            window["thread"].start()
+    sched = EpochWaves(RandomSearch(space, n_trials=PAR_TRIALS,
+                                    epochs=PAR_EPOCHS, seed=0).suggest(),
+                       PAR_EPOCHS, last_wave)
+    be = logged_backend(fault)
+    runner = FixedSysV1(be)
+    ex = make_executor(lanes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = runner.run_job(job, scheduler=sched, executor=ex)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        ex.close()
+        if "thread" in window:
+            window["done"].set()
+            window["thread"].join()
+        elif "t0" in window:
+            prof.stop()
+    spans = (end - window["t0"], *busy_union_ms(prof)) \
+        if "t0" in window else None
+    losses = {tid: be.losses[id(st)] for tid, st in runner.states.items()}
+    return res, losses, end - t0, window["last"] - t0, spans
+
+
+def prof_text(window):
+    if window is None:
+        return "profiler off"
+    span, busy, n = window
+    return (f"over its last wave ({span:.3f} s): device busy {busy:.1f} "
+            f"ms, idle share {1 - busy / (span * 1e3):.3f}, {n} device "
+            "activities")
+
+
+def par_distance(res, losses, ref, ref_losses):
+    """(worst per-step loss distance, worst eval accuracy distance in
+    samples, hparams equal) of a run against the serial one."""
+    worst, acc = 0.0, 0.0
+    for tid, rec in ref.records.items():
+        got = losses[tid]
+        want = ref_losses[tid]
+        if len(got) != len(want):
+            return float("inf"), float("inf"), False
+        worst = max([worst] + [abs(g - w) / (1 + abs(w))
+                               for g, w in zip(got, want)])
+        acc = max([acc] + [abs(a.accuracy - b.accuracy)
+                           * LOOP_SIZES["n_eval"] for a, b in
+                           zip(res.records[tid].epochs, rec.epochs)])
+    same_hp = {t: r.hparams for t, r in res.records.items()} == \
+        {t: r.hparams for t, r in ref.records.items()}
+    return worst, acc, same_hp
+
+
+def par_text(run, base, what):
+    """One (a) run's readings against the serial run ``base``, checked:
+    the same hparams, every step's loss within PAR_LOSS_TOL and eval
+    accuracy within PAR_ACC_SAMPLES of serial. Wall time, speedup and
+    ms/step are those of the waves before the last (no profiler ran)."""
+    import numpy as np
+    res, losses, wall, early, window = run
+    steps = [t for r in res.records.values() for e in r.epochs[:-1]
+             for t in e.step_times]
+    trial_s = sum(e.duration_s for r in res.records.values()
+                  for e in r.epochs[:-1])
+    dist = par_distance(res, losses, base[0], base[1])
+    check(dist[2] and dist[0] <= PAR_LOSS_TOL
+          and dist[1] <= PAR_ACC_SAMPLES,
+          f"{what} differs from serial: {dist}")
+    speed = "" if run is base else \
+        f", speedup over serial {base[3] / early:.3f}x"
+    return (f"waves 1-{PAR_EPOCHS - 1} (no profiler): wall {early:.3f} s, "
+            f"trial time {trial_s:.3f} s, {len(steps)} steps at "
+            f"{np.median(steps) * 1e3:.3f} ms/step median (p90 "
+            f"{np.percentile(steps, 90) * 1e3:.3f}){speed}; whole run "
+            f"{wall:.3f} s, tuning time {res.tuning_time_s:.3f} s; "
+            f"{prof_text(window)}; against serial: worst step loss "
+            f"{dist[0]:.3e} (limit {PAR_LOSS_TOL:.0e}), eval accuracy "
+            f"{dist[1]:.1f} samples (limit {PAR_ACC_SAMPLES})")
+
+
+def lane_probe(mode, reps, card):
+    """``--lane-probe``'s child: (a)'s runs ``reps`` times in one process,
+    with the profiler off ("off": serial, 2 and 4 lanes on each workload)
+    or started mid-wave ("midwave": 4 lanes, held against a serial run
+    with the profiler off). A crash ends the process. "serial" times
+    ``reps`` epochs of one trial at LOOP_HPARAMS on the main thread, no
+    executor: the step that (a) starts from, which a tree without lanes
+    runs too."""
+    import numpy as np
+    if mode == "serial":
+        for name in PAR_WORKLOADS:
+            be = logged_backend()
+            ts = be.init_trial(name, LOOP_HPARAMS)
+            for rep in range(reps + 1):         # the first epoch warms up
+                ts, r = be.run_epoch(ts, LOOP_DEFAULT_SYS)
+                if rep:
+                    print(f"[probe] {card} | serial {name} epoch {rep}/"
+                          f"{reps} at {LOOP_HPARAMS} on the main thread: "
+                          f"{np.median(r.step_times) * 1e3:.3f} ms/step "
+                          f"median of {len(r.step_times)}", flush=True)
+        return
+    for name in PAR_WORKLOADS:
+        be = logged_backend()
+        be.run_epoch(be.init_trial(name, LOOP_HPARAMS), LOOP_DEFAULT_SYS)
+    for rep in range(reps):
+        for name in PAR_WORKLOADS:
+            base = par_run(name, 1, prof_mode="off")
+            lanes = PAR_LANES[1:] if mode == "off" else PAR_LANES[-1:]
+            for n in (1, *lanes):
+                run = base if n == 1 else par_run(name, n, prof_mode=mode)
+                what = f"{mode} rep {rep + 1}/{reps} {name} on {n} lane(s)"
+                print(f"[probe] {card} | {what}: {par_text(run, base, what)}",
+                      flush=True)
+
+
+def run_lane_probe(card, reps):
+    """Each profiler mode in a process of its own, so that a crash in one
+    is told apart from the other; prints each child's exit code."""
+    codes = {}
+    for mode in ("off", "midwave"):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, __file__, "--lane-probe-child",
+                              mode, str(reps)], timeout=900)
+        codes[mode] = out.returncode
+        print(f"[probe] {card} | mode {mode}: exit {out.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"lane_probe": codes, "reps": reps}))
+    return 0 if not any(codes.values()) else 1
+
+
+def phase_parallel(counters, card):
+    """Trials run concurrently: TuneV1 serially and on 2 and 4 thread
+    lanes (one CUDA stream each) against the serial run, step by step,
+    with a planted lane fault; PipeTune + hyperband on 4 lanes through the
+    launcher; the sim launcher on the serial, parallel and cluster
+    executors; no B1-B5 launch."""
+    import io
+    import numpy as np
+    from repro_torch.launch import tune as tune_launch
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    reset_all(counters)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        pass                    # the profiler's one-time set-up, untimed
+
+    # (a) serial against lanes, with the card's busy share over each run
+    serial = {}
+    for name in PAR_WORKLOADS:
+        be = logged_backend()                    # warm the config's kernels
+        _, warm = be.run_epoch(be.init_trial(name, LOOP_HPARAMS),
+                               LOOP_DEFAULT_SYS)
+        print(f"[parallel] {card} | {name} warm-up epoch at "
+              f"{LOOP_HPARAMS} on the main thread: "
+              f"{len(warm.step_times)} steps at "
+              f"{np.median(warm.step_times) * 1e3:.3f} ms/step median",
+              flush=True)
+        for lanes in PAR_LANES:
+            run = par_run(name, lanes)
+            serial.setdefault(name, run)
+            print(f"[parallel] {card} | {name} TuneV1 random "
+                  f"{PAR_TRIALS}x{PAR_EPOCHS} (an epoch a wave) at remat "
+                  f"none, 1 microbatch, fp32 on {lanes} lane(s): "
+                  f"{par_text(run, serial[name], f'{name} on {lanes}')}",
+                  flush=True)
+
+    # (c) a planted lane fault must fail (a)'s check
+    # (c) a planted lane fault must fail (a)'s check
+    name = PAR_WORKLOADS[0]
+    print(f"[parallel] (a) {time.perf_counter() - t_phase:.1f} s into the "
+          "phase", flush=True)
+    bad = par_run(name, PAR_LANES[-1], fault=True, prof_mode="off")
+    dist = par_distance(bad[0], bad[1], *serial[name][:2])
+    print(f"[parallel] planted fault (one trial on {PAR_LANES[-1]} lanes "
+          f"draws its batches in a wave-mate's order): worst step loss "
+          f"{dist[0]:.3e}", flush=True)
+    check(dist[0] > PAR_LOSS_TOL, "the lane check misses a planted fault")
+
+    print(f"[parallel] (c) {time.perf_counter() - t_phase:.1f} s into the "
+          "phase", flush=True)
+
+    # (b) PipeTune + hyperband through the launcher, serial and 4 lanes
+    got = {}
+    for flags in ([], ["--parallelism", "4"]):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = tune_launch.main(["--workload", "lenet-mnist", "--epochs",
+                                    str(PAR_EPOCHS), *flags])
+        got[len(flags)] = res
+        print(f"[parallel] {card} | launcher lenet-mnist pipetune "
+              f"hyperband {PAR_EPOCHS} epochs {' '.join(flags) or 'serial'}: "
+              f"best accuracy "
+              f"{res.best_accuracy:.4f}, tuning time {res.tuning_time_s:.3f}"
+              f" s, {len(res.records)} trials, ground truth {res.gt_hits} / "
+              f"{res.gt_misses}, wall {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        check(res.gt_hits + res.gt_misses == len(res.records),
+              f"hits + misses != trials: {res.gt_hits} + {res.gt_misses} "
+              f"!= {len(res.records)}")
+    gap = abs(got[2].best_accuracy - got[0].best_accuracy)
+    check(gap <= TABLE2_ACC_TOL,
+          f"PipeTune on 4 lanes is {gap:.4f} from serial in accuracy")
+
+    print(f"[parallel] (b) {time.perf_counter() - t_phase:.1f} s into the "
+          "phase", flush=True)
+
+    # (d) the sim launcher: the same numbers on every executor
+    printed = {}
+    for flags in ([], ["--parallelism", "4"], ["--executor", "cluster"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tune_launch.main(SIM_LAUNCH + flags)
+        lines = out.getvalue().splitlines()
+        printed[" ".join(flags) or "serial"] = lines
+        for line in lines:
+            print(f"[parallel] sim {' '.join(flags) or 'serial'}: {line}",
+                  flush=True)
+    body = {k: [ln for ln in v[1:] if "makespan" not in ln]
+            for k, v in printed.items()}
+    check(len({tuple(v) for v in body.values()}) == 1,
+          f"the sim launcher's numbers differ between executors: {body}")
+    spans = {k: [ln for ln in v if "makespan" in ln]
+             for k, v in printed.items()}
+    check(bool(spans["--executor cluster"]) and not spans["serial"]
+          and not spans["--parallelism 4"],
+          f"only the cluster executor prints a makespan: {spans}")
+
+    # (e) no TPU kernel on this path
+    counts = read_all(counters)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[parallel] launches of B1-B5 over the phase: {counts}; phase "
+          f"{phase_s:.1f} s (limit {PAR_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(not any(counts.values()), "the parallel phase launched a kernel")
+    check(phase_s < PAR_PHASE_LIMIT_S,
+          f"the parallel phase took {phase_s:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1528,6 +1955,14 @@ def main() -> int:
     from repro_torch.launch import serve, steps, train
 
     card = card_line()
+    if sys.argv[1:2] == ["--lane-probe"]:
+        print(f"[card] {card}", flush=True)
+        return run_lane_probe(card, int(sys.argv[2]) if sys.argv[2:]
+                              else PAR_PROBE_REPS)
+    if sys.argv[1:2] == ["--lane-probe-child"]:
+        device_lib.resolve("cuda")
+        lane_probe(sys.argv[2], int(sys.argv[3]), card)
+        return 0
     idle_w = power_draw_w()
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1566,6 +2001,7 @@ def main() -> int:
                                          groundtruth)
     rec_timing = phase_recurrent_timing(build, ml, rg, summaries, card)
     phase_tuneloop(counters, card, idle_w)
+    phase_parallel(counters, card)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs = bwd_errs["train"]

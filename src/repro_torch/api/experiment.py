@@ -12,14 +12,16 @@ point for an HPT job.
               .with_tuner("pipetune", max_probes=4)
               .with_backend("real", device="cuda")
               .with_scheduler("hyperband")
-              .run())
+              .run(parallelism=4))
 
 Names resolve through ``repro_torch.api.registry``; instances (a custom
-backend, a pre-built scheduler) are accepted anywhere a name is. ``run``
-returns the runner's ``JobResult``; trials run on the serial executor, the
-port's only one, unless ``run`` is handed another. The reference's
-``with_executor``, ``run(parallelism)`` and ``remote_runner_spec`` wait for
-the parallel and remote executors (ROADMAP queue A, 2b (iii) and item 12).
+backend, a pre-built scheduler, an executor) are accepted anywhere a name
+is. ``run`` returns the runner's ``JobResult``. Trials run on the serial
+executor, on N thread lanes (``run(parallelism=N)``; on the card each lane
+has its own CUDA stream), on the simulated cluster
+(``with_executor("cluster")``) or on any executor given by name or
+instance. The reference's ``remote_runner_spec`` (the recipe remote workers
+mirror the runner from) is ROADMAP queue A, item 12.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ __all__ = ["Experiment"]
 class Experiment:
     """Fluent configuration of one tuning run over an ``HPTJob``.
 
-    Defaults, as in the reference: TuneV1 tuner, sim backend (not ported
-    yet: pass ``with_backend``), hyperband scheduler.
+    Defaults, as in the reference: TuneV1 tuner, sim backend, hyperband
+    scheduler, serial execution — the cheapest configuration that runs
+    anywhere (the sim backend touches no device).
     """
 
     def __init__(self, job: HPTJob):
@@ -47,6 +50,8 @@ class Experiment:
         self._backend: Tuple[Union[str, Any], Dict[str, Any]] = ("sim", {})
         self._scheduler: Tuple[Union[str, AskTellScheduler],
                                Dict[str, Any]] = ("hyperband", {})
+        self._executor: Optional[Tuple[Union[str, Any], Dict[str, Any]]] = \
+            None
         self._sys_space: Optional[SystemSpace] = None
         self._groundtruth = None
         self._runner_config_set: list = []   # with_* calls a tuner instance
@@ -61,8 +66,9 @@ class Experiment:
         return self
 
     def with_backend(self, backend: Union[str, Any], **kw) -> "Experiment":
-        """Registry name ('real'/'kernel-tune'/...) or a backend instance;
-        `kw` forwards to the backend factory (e.g. n_train, device)."""
+        """Registry name ('real'/'sim'/'kernel-tune'/...) or a backend
+        instance; `kw` forwards to the backend factory (e.g. n_train,
+        device)."""
         self._backend = (backend, kw)
         self._runner_config_set.append("with_backend")
         return self
@@ -73,6 +79,13 @@ class Experiment:
         AskTellScheduler instance; `kw` forwards to the scheduler factory
         (e.g. n_trials)."""
         self._scheduler = (scheduler, kw)
+        return self
+
+    def with_executor(self, executor: Union[str, Any], **kw) -> "Experiment":
+        """Registry name ('serial'/'parallel'/'cluster'/'workers'/...) or an
+        executor instance; `kw` forwards to the executor factory (e.g.
+        parallelism, n_nodes, straggler_prob)."""
+        self._executor = (executor, kw)
         return self
 
     def with_sys_space(self, sys_space: SystemSpace) -> "Experiment":
@@ -119,11 +132,30 @@ class Experiment:
                                    sys_space=self.resolved_sys_space(),
                                    groundtruth=self._groundtruth, **kw)
 
+    def build_executor(self, parallelism: int = 1):
+        """Resolve the configured executor: ``with_executor`` name/instance,
+        falling back to serial (or thread lanes for `parallelism` > 1)."""
+        if self._executor is None:
+            return registry.make_executor(parallelism)
+        executor, kw = self._executor
+        if isinstance(executor, str):
+            return registry.make_executor(executor, **kw)
+        if kw:
+            raise ValueError("executor kwargs require a registry name, "
+                             "not an instance")
+        return executor
+
     # -- execution ---------------------------------------------------------
-    def run(self, executor=None) -> JobResult:
-        """Execute the experiment on `executor` (the serial executor by
-        default). Scores merge in wave order, so on a deterministic backend
-        the result is reproducible."""
+    def run(self, parallelism: int = 1, executor=None) -> JobResult:
+        """Execute the experiment; `parallelism` > 1 runs each scheduler
+        wave through a ParallelTrialExecutor, and ``with_executor`` (or the
+        `executor` argument — a registry name or instance) picks any other
+        execution substrate, e.g. "cluster" for the discrete-event
+        simulated cluster. Scores merge in wave order, so on a
+        deterministic backend results equal serial ones for runners
+        without cross-trial shared state (TuneV1/TuneV2); PipeTune's shared
+        ground-truth store makes its hit counts and locked system configs
+        timing-dependent (see ``repro_torch.core.executor``)."""
         runner = self.build_runner()
         scheduler, kw = self._scheduler
         if not isinstance(scheduler, str):
@@ -135,5 +167,18 @@ class Experiment:
                     "scheduler instance is already exhausted (a previous "
                     "run() consumed it) — pass a fresh instance or use a "
                     "registry name, which rebuilds per run")
-        return runner.run_job(self.job, scheduler=scheduler,
-                              executor=executor, **kw)
+        owned = False       # close executors nobody else holds a handle to
+        if executor is None:
+            owned = self._executor is None or \
+                isinstance(self._executor[0], str)
+            executor = self.build_executor(parallelism)
+        elif isinstance(executor, str):
+            executor = registry.make_executor(executor)
+            owned = True
+        try:
+            return runner.run_job(self.job, scheduler=scheduler,
+                                  executor=executor, **kw)
+        finally:
+            close = getattr(executor, "close", None)
+            if owned and close is not None:
+                close()

@@ -2,13 +2,13 @@
 as in ``repro.api.registry``, holding what the port has:
 
     schedulers  grid, random, hyperband, asha, asha-async, pbt
-    backends    real (TorchRealBackend), kernel-tune
+    backends    real (TorchRealBackend), sim (SimBackend), kernel-tune
     tuners      v1 (tunev1), v2 (tunev2), pipetune
-    executors   serial
+    executors   serial, parallel, cluster, workers (local members)
 
-A name the reference registers and the port does not yet (``sim``,
-``numeric``, ``parallel``, ...) raises a ``KeyError`` that lists the
-registered names and the ROADMAP item that brings it. Third-party code
+A name the reference registers and the port does not yet (``numeric``,
+``sharded``) raises a ``KeyError`` that lists the registered names and the
+ROADMAP item that brings it. Third-party code
 extends the port by registering a factory:
 
     from repro_torch.api import register_backend
@@ -23,15 +23,22 @@ backend   factory(**kw)              -> Backend
                                         "real" space depends on its device)
 tuner     factory(backend, sys_space=None, groundtruth=None, **kw)
                                      -> TrialRunner
-executor  factory(**kw)              -> object with run_wave
+executor  factory(**kw)              -> object with run_wave (and optionally
+                                        drive, for event-driven execution)
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 from repro_torch import device as device_lib
+from repro_torch.cluster.executor import ClusterTrialExecutor
+from repro_torch.cluster.sim import (SIM_SYS_DEFAULT, SimBackend,
+                                     SimSystemSpace)
 from repro_torch.core.backends import TorchRealBackend
-from repro_torch.core.executor import SerialTrialExecutor
+from repro_torch.core.executor import (ParallelTrialExecutor,
+                                       SerialTrialExecutor)
+from repro_torch.core.executor import \
+    make_executor as _executor_for_parallelism
 from repro_torch.core.job import HPTJob, SystemSpace
 from repro_torch.core.pipetune import PipeTune, TrialRunner, TuneV1, TuneV2
 from repro_torch.core.schedulers import (ASHA, AskTellScheduler, AsyncASHA,
@@ -54,12 +61,8 @@ _EXECUTORS: Dict[str, Callable[..., Any]] = {}
 # names the reference registers that the port does not have yet, and the
 # ROADMAP item (queue A) that brings each
 _LATER = {
-    "backend": {"sim": "2b (iii) (SimBackend, the cluster simulation)",
-                "numeric": "9 (Type-III numeric workloads)"},
-    "executor": {"parallel": "2b (iii) (the parallel executor)",
-                 "cluster": "2b (iii) (the cluster executor)",
-                 "sharded": "2b (iii) (the sharded executor)",
-                 "workers": "2b (iii) (the worker-pool executors)"},
+    "backend": {"numeric": "9 (Type-III numeric workloads)"},
+    "executor": {"sharded": "12 (Tuning service and wire protocol)"},
 }
 
 
@@ -121,7 +124,14 @@ def make_tuner(name: str, backend, sys_space=None, groundtruth=None,
         backend, sys_space=sys_space, groundtruth=groundtruth, **kw)
 
 
-def make_executor(name: str, **kw):
+def make_executor(name: Union[str, int], **kw):
+    """Resolve an executor by registry name ("serial" / "parallel" /
+    "cluster" / "workers" / ...), or by a parallelism count (an int), as
+    the reference does."""
+    if isinstance(name, int):
+        if kw:
+            raise ValueError("kwargs require a registry name, not an int")
+        return _executor_for_parallelism(name)
     return _lookup(_EXECUTORS, "executor", name)(**kw)
 
 
@@ -173,6 +183,8 @@ def _real_sys_space(device=None, **_):
 
 
 register_backend("real", TorchRealBackend, sys_space=_real_sys_space)
+# modeled epochs: no device, the paper's chips x memory space
+register_backend("sim", SimBackend, sys_space=lambda **_: SimSystemSpace())
 # trials time kernel variants (see repro_torch.kernels.tune)
 register_backend("kernel-tune", _make_kernel_tune_backend)
 
@@ -202,4 +214,46 @@ register_tuner("v2", _make_v2)
 register_tuner("tunev2", _make_v2)
 register_tuner("pipetune", _make_pipetune)
 
-register_executor("serial", SerialTrialExecutor)
+def _make_cluster_executor(cluster=None, default_sys=None, **kw):
+    # trials dispatched onto simulated nodes default to the sim backend's
+    # node shape, so trial-level resource reallocation gets charged; pass
+    # default_sys={} to charge only epoch-boundary switches
+    if default_sys is None:
+        default_sys = SIM_SYS_DEFAULT
+    return ClusterTrialExecutor(cluster=cluster, default_sys=default_sys,
+                                **kw)
+
+
+def _make_workers_executor(workers=None, sticky=True, coordinator=None):
+    """Composable pool of local workers: each entry of `workers` is a
+    Worker instance, ``"inproc"``, or a backend registry name (an
+    in-process shard pinned to a backend built with its defaults). Remote
+    members (``tcp://HOST:PORT``) and the elastic ``coordinator`` are
+    ROADMAP queue A, item 12."""
+    from repro_torch.core.worker import InprocWorker, WorkerPoolExecutor
+    item12 = ("ROADMAP queue A, item 12 (Tuning service and wire "
+              "protocol)")
+    if coordinator is not None:
+        raise NotImplementedError(
+            f"the elastic coordinator is not ported yet: {item12}")
+    resolved = []
+    for spec in (workers if workers is not None else ["inproc"]):
+        if not isinstance(spec, str):
+            resolved.append(spec)                       # a Worker instance
+        elif spec.startswith("tcp://"):
+            raise NotImplementedError(
+                f"remote worker {spec!r}: remote workers are not ported "
+                f"yet: {item12}")
+        elif spec == "inproc":
+            resolved.append(InprocWorker())
+        else:
+            resolved.append(InprocWorker(backend=make_backend(spec),
+                                         tag=spec))
+    return WorkerPoolExecutor(resolved, sticky=sticky)
+
+
+register_executor("serial", lambda: SerialTrialExecutor())
+register_executor("parallel",
+                  lambda parallelism=4: ParallelTrialExecutor(parallelism))
+register_executor("cluster", _make_cluster_executor)
+register_executor("workers", _make_workers_executor)

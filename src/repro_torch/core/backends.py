@@ -9,12 +9,13 @@ TorchRealBackend — trains the paper's small workloads (Table 3) for real on
                    one device, epoch at a time, with per-epoch switchable
                    system parameters (microbatching, remat, precision);
                    registered as ``"real"``.
-``repro_torch.kernels.tune.KernelTuneBackend`` times kernel variants.
-The simulated backend waits for ROADMAP queue A, 2b (iii).
+``repro_torch.kernels.tune.KernelTuneBackend`` times kernel variants;
+``repro_torch.cluster.sim.SimBackend`` models epochs (same interface).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -128,9 +129,9 @@ class TorchRealBackend:
       microbatches; ``precision="bf16"`` casts the parameters and float
       inputs inside the loss, with fp32 masters. The reference's donation
       is the in-place update of the parameters.
-    - Step times are host wall time around the step, ended by
-      ``torch.cuda.synchronize()`` on the card; the batch moves to the
-      device before the timer starts.
+    - Step times are host wall time around the step, ended by a
+      synchronise of the lane's own CUDA stream on the card (see below);
+      the batch moves to the device before the timer starts.
     - Eager PyTorch has nothing to compile off the critical path, so
       ``capabilities()`` declares ``async_precompile=False`` (PipeTune's
       precompile branch is never taken); ``compile_s`` holds the step's
@@ -138,6 +139,38 @@ class TorchRealBackend:
       (``_strip_first_step``).
     - Step times are host-noisy, so runs are not bit-reproducible
       (``deterministic=False``), and epochs are executed, not modeled.
+
+    Concurrent trials (``ParallelTrialExecutor``'s lanes, one host thread
+    each) share one backend:
+    - The step cache is locked, and a step is built once per key.
+    - On the card each lane trains on a CUDA stream of its own
+      (``lane_stream``: the caller's current stream on the main thread, so
+      a serial run is what it was; a new stream on every other thread).
+      PyTorch's current stream is per thread, so a lane's stream context
+      does not leak into the others. A step's timer ends with a
+      synchronise of that stream alone, so a trial's step time does not
+      wait for its neighbours' kernels. It does still wait for them on the
+      host: every lane dispatches its ops under the one GIL, so under
+      lanes a step's time, the epoch's ``duration_s`` and ``energy_j``,
+      ``JobResult.tuning_time_s`` and PipeTune's duration-based probes
+      (which pick the system config) measure the trial together with its
+      wave-mates' hold-ups, not the trial alone. Tune system parameters
+      on a serial run.
+    - A trial may move between lanes at an epoch boundary (a HyperBand
+      rung resume lands on whichever lane is free). Its params and
+      optimizer state were allocated on another stream, so at the start of
+      each epoch the lane marks them with ``Tensor.record_stream``: when
+      the lane frees one (the optimizer replaces its state every step), the
+      caching allocator waits for the lane's queued kernels before it hands
+      the block out again. The lane also waits for the default stream,
+      where a lane thread makes a trial's initial weights (outside
+      ``run_epoch`` a lane runs on it) and the thread running the job a
+      PBT clone's copies.
+    - Randomness is explicit (weights from a CPU generator seeded by the
+      trial, batches from the trial's numpy generator, dropout from a
+      generator seeded per step); nothing touches the global RNG.
+    - The device, and with it the process's TF32 flags, is resolved once,
+      here.
     """
 
     def __init__(self, n_train: int = 2048, n_eval: int = 512,
@@ -146,6 +179,8 @@ class TorchRealBackend:
         self.n_train, self.n_eval = n_train, n_eval
         self.steps_per_epoch = steps_per_epoch
         self._step_cache: Dict[tuple, Any] = {}
+        self._lock = threading.Lock()       # the step cache
+        self._lanes = threading.local()     # a lane's own CUDA stream
         self.profiler = Profiler(self.device)
 
     def capabilities(self) -> BackendCapabilities:
@@ -295,23 +330,61 @@ class TorchRealBackend:
 
     def get_step(self, ts: TrialState, sys_cfg: dict):
         """(train_step, eval_step), building if needed; and the build's
-        seconds (0 on a cache hit)."""
+        seconds (0 on a cache hit). Lanes asking for the same key at once
+        get one build: it runs under the cache's lock (a build only makes
+        closures)."""
         sys_cfg = self._effective_sys(ts, sys_cfg)
         key = self._step_key(ts, sys_cfg)
-        if key in self._step_cache:
-            return self._step_cache[key], 0.0
-        t0 = time.perf_counter()
-        pair = self._build_step(ts.cfg, ts.hparams, sys_cfg)
-        self._step_cache[key] = pair
+        with self._lock:
+            if key in self._step_cache:
+                return self._step_cache[key], 0.0
+            t0 = time.perf_counter()
+            pair = self._build_step(ts.cfg, ts.hparams, sys_cfg)
+            self._step_cache[key] = pair
         return pair, time.perf_counter() - t0
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    # ----------------------------------------------------------------- lanes
+    def lane_stream(self):
+        """The CUDA stream the calling thread's epochs run on (None on the
+        CPU): the current stream on the main thread, a stream of the
+        thread's own on any other."""
+        if self.device.type != "cuda":
+            return None
+        if threading.current_thread() is threading.main_thread():
+            return torch.cuda.current_stream(self.device)
+        stream = getattr(self._lanes, "stream", None)
+        if stream is None:
+            stream = self._lanes.stream = torch.cuda.Stream(self.device)
+        return stream
+
+    def _claim(self, ts: TrialState, stream) -> None:
+        """Make ``stream`` safe to run ``ts`` on (see the class doc): wait
+        for the default stream and mark the state's tensors as used here."""
+        default = torch.cuda.default_stream(self.device)
+        if stream == default:
+            return
+        stream.wait_stream(default)
+        for t in tree_leaves([ts.params, ts.opt_state]):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(stream)
+
+    @staticmethod
+    def _sync(stream):
+        if stream is not None:
+            stream.synchronize()
 
     # ----------------------------------------------------------------- epoch
     def run_epoch(self, ts: TrialState, sys_cfg: dict, collect_profile=True
                   ) -> Tuple[TrialState, EpochResult]:
+        stream = self.lane_stream()
+        if stream is None:
+            return self._run_epoch(ts, sys_cfg, collect_profile, None)
+        with torch.cuda.stream(stream):
+            self._claim(ts, stream)
+            return self._run_epoch(ts, sys_cfg, collect_profile, stream)
+
+    def _run_epoch(self, ts: TrialState, sys_cfg: dict, collect_profile,
+                   stream) -> Tuple[TrialState, EpochResult]:
         sys_cfg = self._effective_sys(ts, sys_cfg)
         (train_step, eval_step), compile_s = self.get_step(ts, sys_cfg)
         n_micro = int(sys_cfg.get("microbatches", 1))
@@ -326,11 +399,11 @@ class TorchRealBackend:
             b = self._to_device({k: v[:bs] for k, v in batch.items()})
             # dropout seed of this step: (trial seed, epoch, step)
             rng = (ts.seed * 7919 + ts.epoch) * 1000003 + n_steps
-            self._sync()
+            self._sync(stream)
             t0 = time.perf_counter()
             params, opt_state, loss, acc = train_step(
                 params, opt_state, ts.step, b, rng)
-            self._sync()
+            self._sync(stream)
             step_times.append(time.perf_counter() - t0)
             losses.append(float(loss))
             accs.append(float(acc))

@@ -14,16 +14,21 @@ Trial execution modes:
 
 All three share TrialRunner (so HyperBand rung-resume works identically) and
 a backend; PipeTune additionally takes a GroundTruth store and SystemSpace.
-Trials run on the serial executor; the reference's per-trial backend
-binding, remote records and hook lock belong to the parallel, sharded and
-remote executors (ROADMAP queue A, 2b (iii) and item 12).
+Trials run on any executor of ``repro_torch.core.executor`` or
+``repro_torch.cluster``: the hook lock serializes the runner's bookkeeping
+when lanes run trials concurrently, ``trial_epochs`` lets the cluster
+executor charge each epoch to a simulated node as it happens, and the
+per-trial backend binding keeps a trial on a pinned backend (a local
+shard). ``install_record`` (records from remote workers) is ROADMAP queue
+A, item 12.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 import time
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -32,7 +37,7 @@ from repro_torch.core import probing
 from repro_torch.core.backends import (BackendCapabilities, EpochResult,
                                        SYS_DEFAULT, TrialState,
                                        backend_capabilities)
-from repro_torch.core.executor import SerialTrialExecutor
+from repro_torch.core.executor import make_executor
 from repro_torch.core.groundtruth import GroundTruth
 from repro_torch.core.job import HPTJob, SystemSpace
 from repro_torch.core.schedulers import AskTellScheduler
@@ -79,8 +84,8 @@ class JobResult:
     records: Dict[str, TrialRecord]
     gt_hits: int = 0
     gt_misses: int = 0
-    sim_time_s: float = 0.0         # simulated makespan on an event-driven
-    #                                 executor (2b (iii)); 0 on the serial one
+    sim_time_s: float = 0.0         # simulated makespan when the job ran on
+    #                                 an event-driven executor (0 otherwise)
 
     @property
     def best_accuracy(self):
@@ -110,6 +115,8 @@ def copy_tree(tree):
 class TrialRunner:
     """Executes trials for a scheduler; caches trial state for rung resume."""
 
+    overlap_reconfig = False          # PipeTune compiles async (paper §5.2)
+
     def __init__(self, backend, objective: str = "accuracy", seed: int = 0):
         self.backend = backend
         self.capabilities: BackendCapabilities = backend_capabilities(backend)
@@ -117,6 +124,14 @@ class TrialRunner:
         self.seed = seed
         self.states: Dict[str, TrialState] = {}
         self.records: Dict[str, TrialRecord] = {}
+        # per-trial backend binding: a trial pinned to a backend (a local
+        # shard) keeps returning to the backend that owns its state across
+        # rung resumes
+        self._trial_backends: Dict[str, Any] = {}
+        # serializes runner bookkeeping (record/state dicts, policy hooks,
+        # ground-truth store) when an executor runs trials concurrently;
+        # backend.run_epoch — the expensive part — stays outside the lock
+        self._hook_lock = threading.RLock()
 
     # -- per-trial system-config policy -------------------------------------
     def sys_for_epoch(self, record: TrialRecord, state: TrialState,
@@ -130,40 +145,71 @@ class TrialRunner:
     def finish_trial(self, record: TrialRecord, state: TrialState):
         pass
 
+    def backend_for(self, trial_id: str):
+        """The backend bound to `trial_id` (the runner's own by default)."""
+        return self._trial_backends.get(trial_id, self.backend)
+
+    def trial_epochs(self, workload: str, trial_id: str, hparams: dict,
+                     total_epochs: int, backend=None):
+        """Generator form of ``run_trial``: runs one backend epoch per
+        iteration and yields its ``EpochResult``, so a discrete-event
+        executor can charge each epoch to a simulated node clock as it
+        happens. ``finish_trial`` fires when the generator is exhausted;
+        the completed record is ``self.records[trial_id]``.
+
+        `backend` pins the trial to a specific backend (a local shard); the
+        binding sticks, so rung-resumed epochs hit the same backend that
+        holds the trial's state."""
+        with self._hook_lock:
+            if backend is not None:
+                self._trial_backends[trial_id] = backend
+            be = self.backend_for(trial_id)
+            state = self.states.get(trial_id)
+            if state is None:
+                state = be.init_trial(workload, hparams, seed=self.seed)
+                self.states[trial_id] = state
+                self.records[trial_id] = TrialRecord(trial_id, dict(hparams))
+            elif state.hparams != dict(hparams):
+                # PBT explore: continue the same state under perturbed
+                # hparams
+                state.hparams = dict(hparams)
+                self.records[trial_id].hparams = dict(hparams)
+            record = self.records[trial_id]
+        prev = record.epochs[-1] if record.epochs else None
+        while state.epoch < total_epochs:
+            with self._hook_lock:
+                sys_cfg = self.sys_for_epoch(record, state, state.epoch, prev)
+                record.sys_history.append(dict(sys_cfg))
+            state, res = be.run_epoch(state, sys_cfg)
+            with self._hook_lock:
+                record.epochs.append(res)
+                self.after_epoch(record, state, res)
+            prev = res
+            yield res
+        with self._hook_lock:
+            self.finish_trial(record, state)
+
     def run_trial(self, workload: str, trial_id: str, hparams: dict,
                   total_epochs: int) -> TrialRecord:
         """Run the trial on to ``total_epochs``, one backend epoch at a
         time, resuming its cached state; the policy hooks fire around each
         epoch and ``finish_trial`` at the end."""
-        state = self.states.get(trial_id)
-        if state is None:
-            state = self.backend.init_trial(workload, hparams, seed=self.seed)
-            self.states[trial_id] = state
-            self.records[trial_id] = TrialRecord(trial_id, dict(hparams))
-        elif state.hparams != dict(hparams):
-            # PBT explore: continue the same state under perturbed hparams
-            state.hparams = dict(hparams)
-            self.records[trial_id].hparams = dict(hparams)
-        record = self.records[trial_id]
-        prev = record.epochs[-1] if record.epochs else None
-        while state.epoch < total_epochs:
-            sys_cfg = self.sys_for_epoch(record, state, state.epoch, prev)
-            record.sys_history.append(dict(sys_cfg))
-            state, prev = self.backend.run_epoch(state, sys_cfg)
-            record.epochs.append(prev)
-            self.after_epoch(record, state, prev)
-        self.finish_trial(record, state)
-        return record
+        for _ in self.trial_epochs(workload, trial_id, hparams, total_epochs):
+            pass
+        return self.records[trial_id]
 
     # -- job level -----------------------------------------------------------
     def run_job(self, job: HPTJob,
                 scheduler: Union[str, AskTellScheduler] = "hyperband",
-                executor=None, **sched_kw) -> JobResult:
-        """Drive one HPT job: suggest a wave, run it on ``executor`` (the
-        serial one by default), report the scores.
+                executor=None, parallelism: int = 1, **sched_kw) -> JobResult:
+        """Drive one HPT job: suggest a wave, execute it, report the scores.
 
         ``scheduler`` is a registry name (with ``sched_kw`` forwarded to its
-        factory) or an AskTellScheduler instance.
+        factory) or an AskTellScheduler instance. ``executor`` runs each
+        wave; by default a serial executor, or a thread-lane one when
+        ``parallelism > 1`` (proposals within a wave are independent by the
+        scheduler contract, so this is the paper's trial-level
+        parallelism).
         """
         t0 = time.monotonic()
         if isinstance(scheduler, str):
@@ -174,27 +220,47 @@ class TrialRunner:
             sched = make_scheduler(scheduler, job, **sched_kw)
         else:
             sched = scheduler
-        executor = executor if executor is not None else SerialTrialExecutor()
-        while True:
-            wave = sched.suggest()
-            if not wave:
-                break
-            for proposal, score in executor.run_wave(self, job.workload,
-                                                     wave):
-                sched.report(proposal.trial_id, score)
-        best_hp, best_score = sched.best()
-        best_rec = max(self.records.values(),
-                       key=lambda r: r.score(self.objective), default=None)
-        gt = getattr(self, "groundtruth", None)
-        return JobResult(
-            best_hparams=best_hp or {}, best_score=best_score,
-            best_record=best_rec,
-            tuning_time_s=sum(r.train_time for r in self.records.values()),
-            wall_time_s=time.monotonic() - t0,
-            energy_j=sum(r.energy for r in self.records.values()),
-            records=dict(self.records),
-            gt_hits=gt.hits if gt is not None else 0,
-            gt_misses=gt.misses if gt is not None else 0)
+        executor_owned = executor is None
+        executor = executor if executor is not None \
+            else make_executor(parallelism)
+        try:
+            drive = getattr(executor, "drive", None)
+            if drive is not None:
+                # event-driven executors own the ask/tell loop: they
+                # dispatch proposals the moment the scheduler releases them
+                # and report each trial at its *simulated* completion time,
+                # which is what lets AsyncASHA promote past straggling
+                # wave-mates
+                drive(self, job.workload, sched)
+            else:
+                while True:
+                    wave = sched.suggest()
+                    if not wave:
+                        break
+                    for proposal, score in executor.run_wave(
+                            self, job.workload, wave):
+                        sched.report(proposal.trial_id, score)
+            best_hp, best_score = sched.best()
+            best_rec = max(self.records.values(),
+                           key=lambda r: r.score(self.objective),
+                           default=None)
+            gt = getattr(self, "groundtruth", None)
+            return JobResult(
+                best_hparams=best_hp or {}, best_score=best_score,
+                best_record=best_rec,
+                tuning_time_s=sum(r.train_time
+                                  for r in self.records.values()),
+                wall_time_s=time.monotonic() - t0,
+                energy_j=sum(r.energy for r in self.records.values()),
+                records=dict(self.records),
+                gt_hits=gt.hits if gt is not None else 0,
+                gt_misses=gt.misses if gt is not None else 0,
+                sim_time_s=float(getattr(executor, "sim_now", 0.0)))
+        finally:
+            if executor_owned:
+                close = getattr(executor, "close", None)
+                if close is not None:
+                    close()
 
     def clone_trial(self, dst_id: str, src_id: str):
         """PBT exploit: copy trial state (params/opt/epoch) src -> dst.
@@ -202,19 +268,22 @@ class TrialRunner:
         Buffers are materially copied, not aliased (``copy_tree``): the
         clone trains in place without touching the source's tensors.
         """
-        src_state = self.states.get(src_id)
-        if src_state is None:
-            return
-        st = copy.copy(src_state)
-        st.hparams = dict(src_state.hparams)
-        st.params = copy_tree(src_state.params)
-        st.opt_state = copy_tree(src_state.opt_state)
-        self.states[dst_id] = st
-        rec = self.records.get(src_id)
-        if rec is not None:
-            self.records[dst_id] = TrialRecord(
-                dst_id, dict(rec.hparams), epochs=list(rec.epochs),
-                sys_history=list(rec.sys_history))
+        with self._hook_lock:
+            src_state = self.states.get(src_id)
+            if src_state is None:
+                return
+            st = copy.copy(src_state)
+            st.hparams = dict(src_state.hparams)
+            st.params = copy_tree(src_state.params)
+            st.opt_state = copy_tree(src_state.opt_state)
+            self.states[dst_id] = st
+            if src_id in self._trial_backends:      # stay on the same shard
+                self._trial_backends[dst_id] = self._trial_backends[src_id]
+            rec = self.records.get(src_id)
+            if rec is not None:
+                self.records[dst_id] = TrialRecord(
+                    dst_id, dict(rec.hparams), epochs=list(rec.epochs),
+                    sys_history=list(rec.sys_history))
 
 
 class TuneV1(TrialRunner):
@@ -256,6 +325,8 @@ class PipeTune(TrialRunner):
     item 12).
     """
 
+    overlap_reconfig = True
+
     def __init__(self, backend, sys_space: SystemSpace,
                  groundtruth: Optional[GroundTruth] = None,
                  objective: str = "accuracy", probe_objective: str = "duration",
@@ -282,7 +353,7 @@ class PipeTune(TrialRunner):
             cfg = plan.next_config()
             # async-compile the next candidate off the critical path
             if not plan.done and self.capabilities.async_precompile:
-                self.backend.precompile_async(
+                self.backend_for(tid).precompile_async(
                     state, plan.configs[plan.next_idx])
             return dict(cfg)
         return dict(SYS_DEFAULT)
@@ -308,7 +379,8 @@ class PipeTune(TrialRunner):
                     accuracy=result.accuracy, loss=result.loss))
                 self._plans[tid] = plan
                 if self.capabilities.async_precompile and plan.configs:
-                    self.backend.precompile_async(state, plan.configs[0])
+                    self.backend_for(tid).precompile_async(
+                        state, plan.configs[0])
             return
         plan = self._plans.get(tid)
         if plan is not None and tid not in self._locked:

@@ -2,19 +2,24 @@
 counterpart of ``repro.launch.tune``.
 
     PYTHONPATH=src python -m repro_torch.launch.tune --workload lenet-mnist \\
-        --system pipetune --scheduler hyperband --epochs 6 [--device cpu]
+        --system pipetune --scheduler hyperband --epochs 6 [--device cpu] \\
+        [--parallelism 4 | --executor cluster --cluster-nodes 4]
+    PYTHONPATH=src python -m repro_torch.launch.tune --backend sim \\
+        --system pipetune --scheduler hyperband --epochs 9 --parallelism 4
 
 Tuners, backends, and schedulers resolve through the ``repro_torch.api``
 registries — ``--system``/``--backend``/``--scheduler`` accept anything
 registered there, including third-party plugins imported via ``--plugin``.
 The defaults are the reference's (PipeTune, hyperband, 6 epochs, the real
 backend at n_train 1024, n_eval 256, 8 steps an epoch), and so is the
-printout. ``--device`` (cuda by default; without a GPU the command raises
-unless ``--device cpu`` is given) goes to the backend. PipeTune tunes
-against a fresh in-process ground-truth store. Not ported yet:
-``--kernel-db`` (ROADMAP queue A, item 8) and the store flags ``--store``,
-``--gt-store`` and ``--store-reset`` (item 12), and every executor but the
-serial one (2b (iii)).
+printout, with the cluster makespan when the job ran on the simulated
+cluster. ``--device`` (cuda by default; without a GPU the command raises
+unless ``--device cpu`` is given) goes to the real backend; ``--backend
+sim`` models the epochs and touches no device. The executor flags are
+``launch.sysargs``'s. PipeTune tunes against a fresh in-process
+ground-truth store. Not ported yet: ``--kernel-db`` (ROADMAP queue A, item
+8) and the store flags ``--store``, ``--gt-store`` and ``--store-reset``
+(item 12).
 """
 from __future__ import annotations
 
@@ -43,10 +48,10 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
     ap.add_argument("--epochs", type=int, default=6)
     ap.add_argument("--backend", default="real",
                     help=f"backend name; registered: {available_backends()}")
-    add_executor_args(ap)   # --executor / --parallelism
+    add_executor_args(ap)   # --executor / --parallelism / --cluster-nodes
     ap.add_argument("--device", default=None,
-                    help="device the backend trains on: cuda (default) or "
-                         "cpu")
+                    help="device the real backend trains on: cuda "
+                         "(default) or cpu; sim touches no device")
     ap.add_argument("--plugin", action="append", default=[],
                     help="module to import for register_* side effects")
     ap.add_argument("--out", default=None)
@@ -65,6 +70,9 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
     backend_kw = {"n_train": 1024, "n_eval": 256, "steps_per_epoch": 8} \
         if args.backend == "real" else {}
     if args.device is not None:
+        if args.backend == "sim":
+            raise ValueError("--device: the sim backend models its epochs "
+                             "and touches no device")
         backend_kw["device"] = args.device
     tuner_kw = {"max_probes": 4} if args.system == "pipetune" else {}
     sched_kw = {"n_trials": 6} if args.scheduler == "random" else {}
@@ -77,7 +85,10 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
         # only attach a store when the tuner consumes one
         exp = exp.with_groundtruth(GroundTruth())
     executor = executor_from_args(args)
-    res = exp.run(executor=executor)
+    try:
+        res = exp.run(executor=executor)
+    finally:
+        executor.close()
 
     print(f"workload={args.workload} system={args.system} "
           f"scheduler={args.scheduler} "

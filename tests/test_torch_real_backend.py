@@ -195,11 +195,27 @@ def test_tune_launcher_on_cpu(monkeypatch, capsys, tmp_path):
     assert res.gt_hits + res.gt_misses > 0 and out.exists()
 
 
-def test_tune_launcher_needs_a_gpu_or_device_cpu(monkeypatch):
+def test_tune_launcher_needs_a_gpu_or_device_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tune_launch.main(["--epochs", "1"])
-    with pytest.raises(ValueError, match="2b"):
-        tune_launch.main(["--device", "cpu", "--parallelism", "2"])
-    with pytest.raises(KeyError, match="2b"):
-        tune_launch.main(["--device", "cpu", "--executor", "parallel"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tune_launch.main(["--epochs", "1", "--parallelism", "2"])
+    # the parallel executor now runs a real PipeTune job on the CPU
+    tiny = {"factory": lambda **kw: TorchRealBackend(
+        n_train=64, n_eval=32, steps_per_epoch=2, **kw),
+        "sys_space": registry._real_sys_space}
+    monkeypatch.setitem(registry._BACKENDS, "tiny-real", tiny)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # two lanes; keep their teams small
+    try:
+        for flags in (["--parallelism", "2"], ["--executor", "parallel"]):
+            res = tune_launch.main(["--backend", "tiny-real", "--device",
+                                    "cpu", "--epochs", "2", *flags])
+            assert "executor=ParallelTrialExecutor" in \
+                capsys.readouterr().out
+            assert res.gt_hits + res.gt_misses == len(res.records) > 0
+            assert all(len(r.epochs) >= 1 and np.isfinite(r.epochs[-1].loss)
+                       for r in res.records.values())
+    finally:
+        torch.set_num_threads(n_threads)

@@ -175,29 +175,53 @@ def test_clone_trial_shares_no_tensor():
     assert copy_tree(None) is None and copy_tree((1, "a")) == (1, "a")
 
 
-# The cases of names that the tuning-loop slice brought (real, pipetune,
-# v2) keep their ids and now assert that the name builds.
+# The cases of names that the tuning-loop slice (real, pipetune, v2) and
+# the parallel-execution slice (sim, parallel) brought keep their ids and
+# now assert that the name builds; sim and parallel also run one wave.
 @pytest.mark.parametrize("kind,name,item", [
-    ("backend", "sim", "2b"),
+    pytest.param("backend", "sim", None, id="backend-sim-2b"),
     pytest.param("backend", "real", None, id="backend-real-2b"),
     ("backend", "numeric", "9"),
     pytest.param("tuner", "pipetune", None, id="tuner-pipetune-2b"),
     pytest.param("tuner", "v2", None, id="tuner-v2-2b"),
-    ("executor", "parallel", "2b")])
+    pytest.param("executor", "parallel", None, id="executor-parallel-2b"),
+    ("executor", "sharded", "12")])
 def test_missing_names_list_registered_and_roadmap_item(kind, name, item):
     from repro_torch.api import registry
     space = tjob.SystemSpace(remat=("none",), microbatches=(1,),
                              precision=("fp32",))
-    make = {"backend": lambda: registry.make_backend(name, device="cpu"),
+    kw = {"real": {"device": "cpu"}}.get(name, {})
+    make = {"backend": lambda: registry.make_backend(name, **kw),
             "tuner": lambda: registry.make_tuner(
                 name, StubBackend("port"), sys_space=space),
             "executor": lambda: registry.make_executor(name)}[kind]
     if item is None:
         built = make()
         assert type(built).__name__ == {"real": "TorchRealBackend",
+                                        "sim": "SimBackend",
+                                        "parallel": "ParallelTrialExecutor",
                                         "pipetune": "PipeTune",
                                         "v2": "TuneV2"}[name]
         assert name in getattr(registry, f"available_{kind}s")()
+        if name in ("sim", "parallel"):
+            # one wave of two trials: the sim backend under the serial
+            # executor, the stub backend on two lanes
+            runner = TuneV1(built if name == "sim" else StubBackend("port"))
+            ex = built if name == "parallel" else registry.make_executor(1)
+            wave = [tsched.TrialProposal(f"t{i}", hp, 2) for i, hp in
+                    enumerate(({"x": 0.2, "lr": 0.01, "width": 3,
+                                "act": "relu", "batch_size": 64},
+                               {"x": 0.7, "lr": 0.05, "width": 5,
+                                "act": "gelu", "batch_size": 32}))]
+            try:
+                got = ex.run_wave(runner, "lenet-mnist" if name == "sim"
+                                  else "stub", wave)
+            finally:
+                ex.close()
+            assert [p.trial_id for p, _ in got] == ["t0", "t1"]
+            assert all(len(runner.records[p.trial_id].epochs) == 2 and
+                       score == runner.records[p.trial_id].accuracy
+                       for p, score in got)
     else:
         with pytest.raises(KeyError) as err:
             make()
