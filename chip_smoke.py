@@ -21,7 +21,9 @@ Phases (any failure raises, and the script exits non-zero):
      train shape and at ragged, windowed, non-causal, fp32 and other
      group-size shapes, the Hopper tiles' edge cases among them (G = 8 with
      ragged S; B1 at G = 64; B3 at G = 80, with out and lse from the plain
-     forward). A planted fault (one kv tile hidden from the later rows in
+     forward), and in fp32 at the LM phase's shapes (8 x 64 tokens in 1, 2
+     or 4 microbatches, at full-width qwen3-0.6b and at the LM example's
+     width). A planted fault (one kv tile hidden from the later rows in
      the forward; in the backward, the dk/dv contribution of the same rows
      to the same keys left out) must fail each check. The whole autograd op
      (B1 forward, B2 and B3 backward) is held against autograd through fp32
@@ -114,7 +116,46 @@ Phases (any failure raises, and the script exits non-zero):
      ``TABLE2_ACC_TOL``; (d) the sim launcher at ``--parallelism 1``,
      ``4`` and ``--executor cluster``: the same printed numbers, a
      makespan only on the cluster; the phase within
-     ``PAR_PHASE_LIMIT_S``.
+     ``PAR_PHASE_LIMIT_S``;
+ 12. the Type-III workloads (``[typeiii]``: jacobi, spkmeans and bfs at
+     their published sizes through ``TorchNumericBackend``), counters set
+     to 0 just before and read just after (none of B1-B5 may launch): four
+     fp32 epochs on the card held against the CPU per epoch
+     (``TYPEIII_TOL``: jacobi's x, spkmeans' centroids and assignments,
+     bfs's visited flags exactly), where an epoch with one sweep or one
+     Lloyd step dropped, or bfs's first epoch skipped, must fail; bf16
+     accuracy within ``TYPEIII_BF16_ACC`` of fp32; ms per epoch at
+     fp32/bf16 x 1/2 microbatches; the idle share of one epoch
+     (torch.profiler); the reference's Fig-12 run (TuneV1 against
+     PipeTune with a shared ``GroundTruth``, random 3 trials x 6 epochs
+     each) with the tuning times and ``tune_ratio_mean``; and
+     ``launch.tune.main`` with ``--backend numeric`` on the card's default
+     device;
+ 13. PipeTune over the LM train step (``[lmtune]``,
+     ``examples/torch_tune_llm_sysparams.py``'s ``LMBackend``): one epoch
+     of its tune-lm width on the card against the CPU (on one thread) per
+     step at remat none and block (``LM_CARD_CPU_TOL``; the card trial one
+     batch on must fail); its ``main()`` on the card; then PipeTune
+     (random 3 trials x 2 epochs) at full-width qwen3-0.6b through a
+     subclass overriding ``_cfg()``. In both, every epoch's B1, B2 and
+     B3 launches equal what it implies (per step: layers x microbatches
+     of B2 and of B3, and of B1 twice that under remat, the recompute),
+     printed per sys config
+     with ms/step; the launch counters over each run equal the epochs'
+     sum; then (``[lmprofile]``) one full-width step at each of those two
+     sys configs under torch.profiler (device activity): ms/step, busy
+     time, idle share and the three kernels with the most device time;
+ 14. the kernel tuner's train_step workload (``[trainstep]``):
+     ``train-smoke`` runs 6 trials, its winner (or the baseline, if the
+     winner does not beat it by more than the baseline's own spread) goes
+     to a golden table under the card's hardware key, a warm rerun runs
+     none;
+     ``launch.tune.main`` and ``launch.train.main`` with ``--kernel-db``
+     install its row; a ``TorchRealBackend`` epoch with no sys keys runs
+     the tuned config (and a planted find-db's other config); then
+     ``examples/torch_quickstart.py`` on the card. The tuner, the tuning
+     launcher and the quickstart launch none of B1-B5. Each of the last
+     four phases prints its wall time and must end within its 60 s limit.
 Then it prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -254,6 +295,61 @@ PAR_MIDWAVE_S = 0.05
 PAR_PROBE_REPS = 5
 SIM_LAUNCH = ["--backend", "sim", "--system", "pipetune", "--scheduler",
               "hyperband", "--epochs", "9"]
+
+# The Type-III workloads (paper Fig 12, the Rodinia suite) through
+# TorchNumericBackend at their published sizes: jacobi 128 x 128, 20 sweeps
+# an epoch; spkmeans 2,048 points x 16 dims, k = 8, 5 Lloyd steps; bfs
+# 1,024 nodes of average degree 8, 2 levels. Card against CPU, fp32, every
+# epoch of TYPEIII_EPOCHS: jacobi's x and spkmeans' centroids within
+# TYPEIII_TOL * max|CPU value|, every spkmeans assignment and every bfs
+# visited flag equal. The two sides add, roll and divide by 4 alike in IEEE
+# fp32 (jacobi), and sum 16 squares and each cluster's points in another
+# order (spkmeans); the limit is the CPU parity tolerance against the
+# reference.
+TYPEIII = ("jacobi-rodinia", "spkmeans-rodinia", "bfs-rodinia")
+TYPEIII_EPOCHS = 4
+TYPEIII_SYS = {"remat": "none", "microbatches": 1, "precision": "fp32"}
+TYPEIII_TOL = 1e-5
+TYPEIII_BF16_ACC = 2e-2
+TYPEIII_PHASE_LIMIT_S = 60.0
+# The reference's Fig-12 run (benchmarks/run.py, bench_fig12_real_typeIII):
+# TuneV1 against PipeTune (2 probes, one GroundTruth for all workloads)
+# over random search, 3 trials x 6 epochs, on each workload.
+FIG12_TRIALS, FIG12_EPOCHS, FIG12_PROBES = 3, 6, 2
+
+# PipeTune over the LM train step (examples/torch_tune_llm_sysparams.py):
+# card against CPU, one epoch (6 steps) of the example's tune-lm width from
+# the same weights, at one sys config per remat value; every step's loss
+# within LM_CARD_CPU_TOL * (1 + |loss_cpu|). fp32 on both sides; the card
+# runs B1-B3 in fp32 where the CPU runs their plain versions, summing in
+# another order, and adamw's m / sqrt(v) carries those differences into
+# the later steps. The CPU side runs on one thread, where its epoch is the
+# same in every process; on the default threads it varies within 1.3e-7
+# (tools/probe_cpu_exp.py on the card's host: lm-1 24 of 24 runs equal,
+# lm 13 distinct sequences in 16 runs). The card's epoch was the same in
+# 16 of 16 fresh processes. On an NVIDIA H100 80GB HBM3 (700 W) the worst
+# step of six reads 5.859e-7 (none/1) and 2.604e-7 (block/2), lr 2e-3; a
+# trial one batch on reads 1.658e-2. One run of an earlier version of the
+# phase alone read 1.699e-5: not reproduced, cause unknown.
+LM_SYS = ({"remat": "none", "microbatches": 1, "precision": "fp32"},
+          {"remat": "block", "microbatches": 2, "precision": "fp32"})
+LM_CARD_CPU_TOL = 1e-5
+# B1-B3's fp32 shapes on the LM phase's path (8 x 64 tokens, split into 1,
+# 2 or 4 microbatches; full-width qwen3-0.6b and tune-lm): (name, B, K, D)
+# at S = T = 64, G = 2, causal. Phase 2 holds each against the plain
+# versions at OUT_TOL and GRAD_TOL.
+LM_ATTN_SHAPES = [(f"lm_{w}_b{b}", b, k, d)
+                  for w, k, d in (("full", 8, 128), ("tune", 2, 32))
+                  for b in (8, 4, 2)]
+LM_FULL_ARCH = "qwen3-0.6b"
+LM_FULL_TRIALS, LM_FULL_EPOCHS = 3, 2
+LM_PHASE_LIMIT_S = 60.0
+
+# The kernel tuner's train_step workload (train-smoke: lenet-mnist at batch
+# 64) and --kernel-db in the launchers.
+TRAIN_WORKLOAD = "train-smoke"
+TRAIN_GOLDEN = Path("build") / "chip_smoke" / "train_step_golden.json"
+TRAINSTEP_PHASE_LIMIT_S = 60.0
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
@@ -563,6 +659,8 @@ def phase_kernels(fa):
         ("fp32_g3_d72", 1, 333, 333, 2, 3, 72, torch.float32, False, 64),
         ("g8_ragged", 2, 1000, 1000, 2, 8, 128, torch.bfloat16, True, None),
         ("g64_d64", 2, 256, 256, 1, 64, 64, torch.bfloat16, True, None),
+        *[(n, b, 64, 64, k, 2, d, torch.float32, True, None)
+          for n, b, k, d in LM_ATTN_SHAPES],
     ]
     errs = {}
     for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(shapes):
@@ -610,6 +708,8 @@ BWD_SHAPES = [  # name, B, S, T, K, G, D, dtype, causal, window
     ("g8_ragged", 2, 1000, 1000, 2, 8, 128, "bfloat16", True, None),
     # B1 takes at most 64 heads a group: out and lse from the plain forward
     ("g80_d64", 1, 128, 128, 1, 80, 64, "bfloat16", True, None),
+    *[(n, b, 64, 64, k, 2, d, "float32", True, None)
+      for n, b, k, d in LM_ATTN_SHAPES],
 ]
 
 
@@ -1175,9 +1275,10 @@ def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
     groundtruth.export_golden(db.rows(), str(GOLDEN))
     for smry, want in zip(summaries, (4, 16)):
         print(f"[tune] {smry['workload']}: {smry['trials']} trials, winner "
-              f"{smry['config']} against default "
-              f"{tune.BASELINES[smry['kernel']]}: default "
-              f"{smry['default_s'] * 1e3:.4f} ms, tuned "
+              f"{smry['winner']} at {smry['winner_s'] * 1e3:.4f} ms against "
+              f"default {tune.BASELINES[smry['kernel']]} at "
+              f"{smry['default_s'] * 1e3:.4f} ms (spread "
+              f"{smry['spread']:.2%}); stored {smry['config']} at "
               f"{smry['tuned_s'] * 1e3:.4f} ms, speedup "
               f"{smry['speedup']:.3f}x, hardware {smry['hardware']}, "
               f"tuning {smry['tuning_time_s']:.3f} s of kernel time in "
@@ -1190,7 +1291,7 @@ def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
               and "h100" in smry["hardware"],
               f"hardware key {smry['hardware']}")
         check(db.get(smry["kernel"], smry["shape"], smry["hardware"])
-              == smry["config"], "the winner is not in the find-db")
+              == smry["config"], "the stored config is not in the find-db")
     calls = {"mlstm": summaries[0]["kernel_calls"]["mlstm"],
              "rglru": summaries[1]["kernel_calls"]["rglru"]}
     print(f"[tune] launches over the tuner run: {counts}; kernel calls the "
@@ -1931,6 +2032,575 @@ def phase_parallel(counters, card):
           f"the parallel phase took {phase_s:.1f} s")
 
 
+def load_example(name):
+    """An example script of the repo (``examples/<name>.py``) as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dropped(cfg):
+    """The planted Type-III fault, as an fp32 epoch function: one jacobi
+    sweep or one Lloyd step fewer an epoch; bfs skips its first epoch."""
+    import dataclasses
+    import torch
+    from repro_torch.models import numeric
+    if cfg.kind == "jacobi":
+        return numeric._epoch_fn(dataclasses.replace(
+            cfg, sweeps_per_epoch=cfg.sweeps_per_epoch - 1), torch.float32)
+    if cfg.kind == "spkmeans":                   # sweeps // 4 Lloyd steps
+        return numeric._epoch_fn(dataclasses.replace(
+            cfg, sweeps_per_epoch=cfg.sweeps_per_epoch - 4), torch.float32)
+    run, calls = numeric._epoch_fn(cfg, torch.float32), []
+
+    def epoch(state):
+        calls.append(None)
+        if len(calls) == 1:
+            return state, state["visited"].sum()
+        return run(state)
+    return epoch
+
+
+def typeiii_epochs(name, device, fault=False):
+    """TYPEIII_EPOCHS fp32 epochs of a fresh trial (seed 0) through
+    TorchNumericBackend: per epoch, what the check holds (jacobi's x,
+    spkmeans' centroids and assignments, bfs's visited) on the CPU, and the
+    epoch's accuracy. ``fault`` runs ``dropped``'s epoch function."""
+    import torch
+    from repro_torch.core.numeric_backend import TorchNumericBackend
+    from repro_torch.models import numeric
+    be = TorchNumericBackend(device=device)
+    cfg = numeric.CONFIGS[name]
+    run = dropped(cfg) if fault else numeric._epoch_fn(cfg, torch.float32)
+    auxes = []
+
+    def epoch(state):
+        state, aux = run(state)
+        auxes.append(aux)
+        return state, aux
+    be._cache[(cfg.name, str(torch.float32))] = epoch
+    ts = be.init_trial(name, {})
+    out = []
+    for _ in range(TYPEIII_EPOCHS):
+        ts, res = be.run_epoch(ts, TYPEIII_SYS)
+        held = {"jacobi": ("x",), "spkmeans": ("cents",),
+                "bfs": ("visited",)}[cfg.kind]
+        held = [ts.params[k] for k in held] + \
+            ([auxes[-1]] if cfg.kind == "spkmeans" else [])
+        out.append(([t.cpu() for t in held], res.accuracy))
+    return out
+
+
+def typeiii_distance(cpu, card):
+    """(worst max|delta| / max|CPU value| of jacobi's x or spkmeans'
+    centroids over the epochs, elements that differ among spkmeans'
+    assignments or bfs's visited flags, worst accuracy difference)."""
+    rel, mism, acc = 0.0, 0, 0.0
+    for (want, a_want), (got, a_got) in zip(cpu, card):
+        if want[0].is_floating_point():
+            scale = float(want[0].abs().max())
+            rel = max(rel, float((got[0] - want[0]).abs().max()) / scale)
+            rest = zip(got[1:], want[1:])
+        else:
+            rest = zip(got, want)
+        mism += sum(int((g != w).sum()) for g, w in rest)
+        acc = max(acc, abs(a_got - a_want))
+    return rel, mism, acc
+
+
+def numeric_epoch_profile(be, name):
+    """Device busy against wall time over one warm fp32 epoch
+    (torch.profiler, device activity only, so that the host's time is not
+    the profiler's; the union of device activity): (wall ms, busy ms,
+    device activities)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ts = be.init_trial(name, {})
+    ts, _ = be.run_epoch(ts, TYPEIII_SYS)                 # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.run_epoch(ts, TYPEIII_SYS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n = busy_union_ms(prof)
+    return wall, busy, n
+
+
+def phase_typeiii(counters, card):
+    """The Type-III workloads on the card: card against CPU per epoch (with
+    planted faults), bf16 against fp32, ms per epoch per sys config, the
+    idle share of an epoch, the reference's Fig-12 run through Experiment,
+    and the tuning launcher with --backend numeric; no B1-B5 launch."""
+    import io
+    import numpy as np
+    from repro_torch.api import Experiment
+    from repro_torch.core.groundtruth import GroundTruth
+    from repro_torch.core.job import HPTJob, Param, SearchSpace
+    from repro_torch.core.numeric_backend import TorchNumericBackend
+    from repro_torch.launch import tune as tune_launch
+    t_phase = time.perf_counter()
+    reset_all(counters)
+
+    # 1. card against CPU, every epoch, and the planted faults
+    for name in TYPEIII:
+        cpu = typeiii_epochs(name, "cpu")
+        got = typeiii_distance(cpu, typeiii_epochs(name, "cuda"))
+        bad = typeiii_distance(cpu, typeiii_epochs(name, "cuda", fault=True))
+        print(f"[typeiii] card vs CPU {name}: {TYPEIII_EPOCHS} fp32 epochs, "
+              f"accuracy {cpu[0][1]:.4f} -> {cpu[-1][1]:.4f}; worst "
+              f"relative distance {got[0]:.3e} (limit {TYPEIII_TOL:.0e}), "
+              f"{got[1]} assignments/flags differ, accuracy {got[2]:.3e}; "
+              f"planted fault (one sweep / Lloyd step dropped, bfs's "
+              f"first epoch skipped): "
+              f"{bad[0]:.3e}, {bad[1]} differ", flush=True)
+        check(got[0] <= TYPEIII_TOL and got[1] == 0 and got[2] <= 1e-6,
+              f"{name}: the card's epochs differ from the CPU's: {got}")
+        check(bad[0] > TYPEIII_TOL or bad[1] > 0,
+              f"{name}: the card-vs-CPU check misses the planted fault")
+
+    # 2. bf16 against fp32, and ms per epoch at each sys config
+    be = TorchNumericBackend(device="cuda")
+    for name in TYPEIII:
+        accs = {}
+        for prec in ("fp32", "bf16"):
+            for mb in (1, 2):
+                sys_cfg = {"remat": "none", "microbatches": mb,
+                           "precision": prec}
+                ts = be.init_trial(name, {})
+                runs = []
+                for _ in range(TYPEIII_EPOCHS):
+                    ts, res = be.run_epoch(ts, sys_cfg)
+                    runs += res.step_times
+                    accs.setdefault((prec, mb), []).append(res.accuracy)
+                print(f"[typeiii] {card} | {name} microbatches={mb} {prec}: "
+                      f"{np.median(runs) * 1e3:.3f} ms per epoch-function "
+                      f"run (median of {len(runs)}; first "
+                      f"{runs[0] * 1e3:.3f}), {res.duration_s * 1e3:.3f} ms "
+                      f"the last epoch, accuracy {res.accuracy:.4f}",
+                      flush=True)
+        gap = max(abs(b - f) for b, f in zip(accs["bf16", 1],
+                                             accs["fp32", 1]))
+        print(f"[typeiii] {name}: bf16 against fp32, worst epoch accuracy "
+              f"distance {gap:.3e} (limit {TYPEIII_BF16_ACC})", flush=True)
+        check(gap <= TYPEIII_BF16_ACC, f"{name}: bf16 {gap} from fp32")
+        wall, busy, n = numeric_epoch_profile(be, name)
+        print(f"[typeiii] {card} | profile {name} (one warm epoch, fp32, 1 "
+              f"microbatch): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share {1 - busy / wall:.3f}, {n} device activities",
+              flush=True)
+
+    # 3. the reference's Fig-12 run: TuneV1 against PipeTune
+    space = SearchSpace([Param("block", "choice", choices=(1, 2))])
+    gt = GroundTruth()
+    ratios = []
+    for name in TYPEIII:
+        job = HPTJob(workload=name, space=space, max_epochs=FIG12_EPOCHS)
+        runs = {}
+        for tuner, kw in (("v1", {}), ("pipetune",
+                                       {"max_probes": FIG12_PROBES})):
+            exp = (Experiment(job).with_tuner(tuner, **kw)
+                   .with_backend("numeric", device="cuda")
+                   .with_scheduler("random", n_trials=FIG12_TRIALS))
+            if tuner == "pipetune":
+                exp = exp.with_groundtruth(gt)
+            t0 = time.perf_counter()
+            runs[tuner] = (exp.run(), time.perf_counter() - t0)
+        (r1, w1), (rp, wp) = runs["v1"], runs["pipetune"]
+        ratios.append(rp.tuning_time_s / max(r1.tuning_time_s, 1e-9))
+        print(f"[typeiii] {card} | fig12 {name}: TuneV1 tuning time "
+              f"{r1.tuning_time_s:.4f} s (accuracy {r1.best_accuracy:.4f}, "
+              f"wall {w1:.2f} s), PipeTune {rp.tuning_time_s:.4f} s "
+              f"(accuracy {rp.best_accuracy:.4f}, wall {wp:.2f} s, ground "
+              f"truth {rp.gt_hits} hits / {rp.gt_misses} misses), ratio "
+              f"{ratios[-1]:.3f}", flush=True)
+        check(len(r1.records) == len(rp.records) == FIG12_TRIALS,
+              f"fig12 {name}: {len(r1.records)}, {len(rp.records)} trials")
+    print(f"[typeiii] {card} | fig12 tune_ratio_mean={np.mean(ratios):.3f}",
+          flush=True)
+
+    # 4. the tuning launcher, on the card by default
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = tune_launch.main(["--backend", "numeric", "--workload",
+                                "jacobi-rodinia", "--scheduler", "random"])
+    for line in out.getvalue().splitlines():
+        print(f"[typeiii] launcher: {line}", flush=True)
+    print(f"[typeiii] launcher wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(len(res.records) > 0 and res.best_accuracy > 0.3,
+          f"the numeric launcher's best accuracy is {res.best_accuracy}")
+
+    counts = read_all(counters)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[typeiii] launches of B1-B5 over the phase: {counts}; phase "
+          f"{phase_s:.1f} s (limit {TYPEIII_PHASE_LIMIT_S:.0f} s)",
+          flush=True)
+    check(not any(counts.values()), "the Type-III phase launched a kernel")
+    check(phase_s < TYPEIII_PHASE_LIMIT_S,
+          f"the Type-III phase took {phase_s:.1f} s")
+
+
+def counted_lm_backend(example, fa, fa_bwd):
+    """The example's LMBackend, recording per epoch (layers, sys config,
+    steps, B1/B2/B3 launches) in ``log``."""
+    class Counted(example.LMBackend):
+        log = []
+
+        def run_epoch(self, ts, sys_cfg, collect_profile=True):
+            before = (fa.launches, fa_bwd.launches_dq, fa_bwd.launches_dkv)
+            ts, res = super().run_epoch(ts, sys_cfg, collect_profile)
+            after = (fa.launches, fa_bwd.launches_dq, fa_bwd.launches_dkv)
+            self.log.append((ts.cfg.n_layers, dict(res.sys_config),
+                             len(res.step_times),
+                             tuple(a - b for a, b in zip(after, before)),
+                             res.step_times))
+            return ts, res
+    return Counted
+
+
+def lm_launches(log, what, card):
+    """Print B1-B3 launches and ms/step per sys config over ``log`` and
+    check each epoch against what it implies: per step, L x M launches of
+    B2 and of B3, and of B1 once more under remat (the recompute)."""
+    import numpy as np
+    per = {}
+    for layers, sys_cfg, steps, got, times in log:
+        m = int(sys_cfg["microbatches"])
+        fwd = 2 if sys_cfg["remat"] != "none" else 1
+        want = (layers * m * fwd * steps, layers * m * steps,
+                layers * m * steps)
+        check(got == want, f"{what} {sys_cfg}: B1-B3 launched {got} in "
+              f"{steps} steps, expected {want}")
+        key = (sys_cfg["remat"], m, sys_cfg["precision"])
+        ent = per.setdefault(key, [0, 0, 0, 0, []])
+        for i in range(3):
+            ent[i] += got[i]
+        ent[3] += 1
+        ent[4] += list(times)
+    for (remat, m, prec), (b1, b2, b3, epochs, times) in sorted(per.items()):
+        print(f"[lmtune] {card} | {what} remat={remat} microbatches={m} "
+              f"{prec}: {epochs} epochs, {len(times)} steps at "
+              f"{np.median(times) * 1e3:.3f} ms/step median; launches B1 "
+              f"{b1}, B2 {b2}, B3 {b3} (as the epochs imply)", flush=True)
+    return per
+
+
+def lm_epoch(be, sys_cfg, init=None, fault=False):
+    """Per-step losses of one epoch of a fresh tune-lm trial (seed 0,
+    learning rate 2e-3), and its initial train state (a copy on the CPU).
+    ``init`` replaces the trial's initial state with a copy of that one,
+    moved to the backend's device; ``fault`` starts the trial one batch on:
+    a neighbour's batches."""
+    from repro_torch.tree import tree_map
+    ts = be.init_trial("tune-lm", {"learning_rate": 2e-3}, seed=0)
+    state, opt = ts.params
+    if init is not None:
+        state = {"params": tree_map(lambda a: a.to(be.device, copy=True),
+                                    init["params"]),
+                 "opt": tree_map(lambda a: a.to(be.device, copy=True),
+                                 init["opt"]), "step": init["step"]}
+        ts.params = (state, opt)
+    start = {"params": tree_map(lambda a: a.to("cpu", copy=True),
+                                state["params"]),
+             "opt": tree_map(lambda a: a.to("cpu", copy=True), state["opt"]),
+             "step": state["step"]}
+    if fault:
+        ts.step = 1
+    log = []
+    key = ("step", str(sys_cfg), 2e-3)
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.transformer import SystemConfig
+    step = steps_lib.make_train_step(
+        ts.cfg, SystemConfig(microbatches=sys_cfg["microbatches"],
+                             remat=sys_cfg["remat"],
+                             precision=sys_cfg["precision"]), ts.params[1])
+
+    def logged(state, batch):
+        state, m = step(state, batch)
+        log.append(float(m["loss"]))
+        return state, m
+    be._cache[key] = logged
+    be.run_epoch(ts, sys_cfg)
+    return log, start
+
+
+def lm_step_profile(be, sys_cfg, steps=2):
+    """Device busy against wall time over ``steps`` warm train steps of a
+    fresh trial (torch.profiler, device activity only): (wall ms a step,
+    busy ms a step, the three kernels with the most device time as (name,
+    ms a step, launches a step))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    be.steps_per_epoch = steps
+    ts = be.init_trial(LM_FULL_ARCH, {"learning_rate": 1e-3})
+    ts, _ = be.run_epoch(ts, sys_cfg)                    # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.run_epoch(ts, sys_cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, _ = busy_union_ms(prof)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:3]
+    top = [(e.key[:48], e.self_device_time_total / 1e3 / steps,
+            e.count / steps) for e in kernels]
+    return wall / steps, busy / steps, top
+
+
+def phase_lmtune(counters, card, fa, fa_bwd):
+    """PipeTune over the LM train step (the example's LMBackend): card
+    against CPU per step with a planted fault; the example's main() on the
+    card; PipeTune at full-width qwen3-0.6b through a subclass overriding
+    _cfg(). B1-B3 launch as the epochs imply."""
+    import io
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.api import Experiment, registry
+    from repro_torch.core.groundtruth import GroundTruth
+    from repro_torch.core.job import HPTJob, Param, SearchSpace
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    example = load_example("torch_tune_llm_sysparams")
+
+    # 1. card against CPU, one epoch at one config per remat value, from
+    # the CPU trial's initial state
+    threads = torch.get_num_threads()
+    for sys_cfg in LM_SYS:
+        torch.set_num_threads(1)                  # see LM_CARD_CPU_TOL
+        try:
+            cpu, init = lm_epoch(example.LMBackend(device="cpu"), sys_cfg)
+        finally:
+            torch.set_num_threads(threads)
+        got, _ = lm_epoch(example.LMBackend(device="cuda"), sys_cfg, init)
+        bad, _ = lm_epoch(example.LMBackend(device="cuda"), sys_cfg, init,
+                          fault=True)
+        steps = [abs(g - c) / (1 + abs(c)) for g, c in zip(got, cpu)]
+        dist = max(steps)
+        fdist = max(abs(g - c) / (1 + abs(c)) for g, c in zip(bad, cpu))
+        print(f"[lmtune] card vs CPU tune-lm {sys_cfg}: {len(cpu)} steps, "
+              f"loss {cpu[0]:.4f} -> {cpu[-1]:.4f}, step loss distances "
+              f"{' '.join(f'{d:.1e}' for d in steps)}, worst {dist:.3e} "
+              f"(limit {LM_CARD_CPU_TOL:.0e}); planted fault (the card "
+              f"trial one batch on): {fdist:.3e}", flush=True)
+        check(len(got) == len(cpu) == 6 and dist <= LM_CARD_CPU_TOL,
+              f"tune-lm {sys_cfg}: the card's steps differ from the CPU's")
+        check(fdist > LM_CARD_CPU_TOL, "the LM card-vs-CPU check misses "
+              "the planted fault")
+    print(f"[lmtune] (1) {time.perf_counter() - t_phase:.1f} s into the "
+          "phase", flush=True)
+
+    # 2. the example's main() on the card (its backend counted)
+    Counted = counted_lm_backend(example, fa, fa_bwd)
+    space = registry.default_sys_space("lm")     # as the example registered
+    registry.register_backend("lm", Counted, sys_space=lambda **_: space)
+    reset_all(counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = example.main([])
+    wall = time.perf_counter() - t0
+    counts = read_all(counters)
+    for line in out.getvalue().splitlines():
+        print(f"[lmtune] main: {line}", flush=True)
+    per = lm_launches(Counted.log, "main tune-lm", card)
+    total = tuple(sum(v[i] for v in per.values()) for i in range(3))
+    print(f"[lmtune] {card} | main: best lr "
+          f"{res.best_hparams['learning_rate']:.3e}, {len(res.records)} "
+          f"trials, tuning time {res.tuning_time_s:.3f} s, wall {wall:.2f} "
+          f"s, ground truth {res.gt_hits} / {res.gt_misses}, locked "
+          f"{res.best_record.sys_history[-1]}; launches {counts}",
+          flush=True)
+    check(total == (counts["B1"], counts["B2"], counts["B3"])
+          and total[0] > 0 and counts["B4"] == counts["B5"] == 0,
+          f"main's launches {counts} differ from its epochs' {total}")
+    print(f"[lmtune] (2) {time.perf_counter() - t_phase:.1f} s into the "
+          "phase", flush=True)
+
+    # 3. full-width qwen3-0.6b: PipeTune through a subclass's _cfg()
+    class FullWidth(Counted):
+        log = []
+
+        def _cfg(self):
+            return configs.get(LM_FULL_ARCH)
+    job = HPTJob(workload=LM_FULL_ARCH, space=SearchSpace(
+        [Param("learning_rate", "log", 1e-4, 1e-2)]),
+        max_epochs=LM_FULL_EPOCHS)
+    reset_all(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = (Experiment(job).with_tuner("pipetune", max_probes=4)
+            .with_backend(FullWidth(device="cuda"))
+            .with_sys_space(space)
+            .with_groundtruth(GroundTruth())
+            .with_scheduler("random", n_trials=LM_FULL_TRIALS).run())
+    wall = time.perf_counter() - t0
+    counts = read_all(counters)
+    per = lm_launches(FullWidth.log, f"full-width {LM_FULL_ARCH}", card)
+    total = tuple(sum(v[i] for v in per.values()) for i in range(3))
+    losses = [e.loss for r in full.records.values() for e in r.epochs]
+    print(f"[lmtune] {card} | full-width {LM_FULL_ARCH} PipeTune random "
+          f"{LM_FULL_TRIALS} x {LM_FULL_EPOCHS} epochs: best final loss "
+          f"{-full.best_accuracy:.4f}, tuning time {full.tuning_time_s:.3f} "
+          f"s, wall {wall:.2f} s, locked {full.best_record.sys_history[-1]}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; launches {counts}", flush=True)
+    check(all(np.isfinite(losses)), f"full-width losses {losses}")
+    check(total == (counts["B1"], counts["B2"], counts["B3"])
+          and total[0] > 0 and counts["B4"] == counts["B5"] == 0,
+          f"full width: launches {counts} differ from the epochs' {total}")
+    del full
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lmtune] phase {phase_s:.1f} s (limit {LM_PHASE_LIMIT_S:.0f} s)",
+          flush=True)
+    check(phase_s < LM_PHASE_LIMIT_S, f"the LM phase took {phase_s:.1f} s")
+    return total
+
+
+def phase_lmprofile(card):
+    """Where a full-width LM example step's time goes, at each remat value
+    of LM_SYS (torch.profiler, device activity only); within
+    LM_PHASE_LIMIT_S."""
+    import torch
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    example = load_example("torch_tune_llm_sysparams")
+
+    class FullWidth(example.LMBackend):
+        def _cfg(self):
+            return configs.get(LM_FULL_ARCH)
+    for sys_cfg in LM_SYS:
+        wall, busy, top = lm_step_profile(FullWidth(device="cuda"), sys_cfg)
+        print(f"[lmprofile] {card} | full-width {LM_FULL_ARCH} {sys_cfg}: "
+              f"{wall:.3f} ms/step, device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.3f}; top kernels "
+              + "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, ms, n in top),
+              flush=True)
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lmprofile] phase {phase_s:.1f} s (limit "
+          f"{LM_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < LM_PHASE_LIMIT_S,
+          f"the LM profile phase took {phase_s:.1f} s")
+
+
+def phase_trainstep(counters, card, tune, findb, groundtruth):
+    """The kernel tuner's train_step workload on the card, its golden table
+    through --kernel-db in both launchers, TorchRealBackend picking the
+    tuned config up, and the port's quickstart; no B1-B5 launch in the
+    tuner, the tuning launcher or the quickstart."""
+    import io
+    from repro_torch.core.backends import TorchRealBackend
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch import tune as tune_launch
+    t_phase = time.perf_counter()
+    db = groundtruth.KernelConfigDB()
+    reset_all(counters)
+    smry = tune.tune_kernel(TRAIN_WORKLOAD, db=db, device="cuda")
+    print(f"[trainstep] {card} | {smry['workload']} ({smry['shape']}): "
+          f"{smry['trials']} trials, winner {smry['winner']} at "
+          f"{smry['winner_s'] * 1e3:.3f} ms/step against "
+          f"{tune.BASELINES['train_step']} at "
+          f"{smry['default_s'] * 1e3:.3f} ms/step (spread "
+          f"{smry['spread']:.2%}); stored {smry['config']} at "
+          f"{smry['tuned_s'] * 1e3:.3f} ms/step, speedup "
+          f"{smry['speedup']:.3f}x, tuning {smry['tuning_time_s']:.3f} s in "
+          f"{smry['wall_time_s']:.2f} s, {smry['kernel_calls']['train_step']}"
+          f" steps, hardware {smry['hardware']}", flush=True)
+    check(smry["source"] == "tuned" and smry["trials"] == 6,
+          f"train_step: {smry['trials']} trials")
+    check(smry["hardware"].startswith("cuda/") and "h100" in
+          smry["hardware"], f"hardware key {smry['hardware']}")
+    TRAIN_GOLDEN.parent.mkdir(parents=True, exist_ok=True)
+    groundtruth.export_golden(db.rows(), str(TRAIN_GOLDEN))
+    warm = tune.tune_kernel(TRAIN_WORKLOAD, db=db, device="cuda")
+    print(f"[trainstep] warm rerun: {warm['source']}, {warm['trials']} "
+          f"trials, {warm['config']}", flush=True)
+    check(warm["source"] == "find-db" and warm["trials"] == 0
+          and warm["config"] == smry["config"], "the warm run re-tuned")
+
+    # --kernel-db in the tuning launcher, then in the train launcher
+    prev = findb.set_find_db(groundtruth.KernelConfigDB())
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tune_launch.main(["--workload", "lenet-mnist", "--system", "v1",
+                              "--scheduler", "random", "--epochs", "1",
+                              "--kernel-db", str(TRAIN_GOLDEN)])
+        first = out.getvalue().splitlines()[0]
+        print(f"[trainstep] launch.tune --kernel-db: {first}", flush=True)
+        check(first.startswith("kernel find-db: 1 tuned configs"), first)
+        # a TorchRealBackend epoch with no sys keys runs the tuned config
+        be = TorchRealBackend(**LOOP_SIZES, device="cuda")
+        _, res = be.run_epoch(be.init_trial("lenet-mnist",
+                                            {"batch_size": 64}), {})
+        print(f"[trainstep] TorchRealBackend epoch with no sys keys ran "
+              f"{res.sys_config}", flush=True)
+        check(res.sys_config == smry["config"],
+              f"the epoch ran {res.sys_config}, not the tuned config")
+        # and a find-db of another config: the epoch follows it
+        other = {"remat": "block", "microbatches": 4, "precision": "fp32"}
+        if smry["config"] == other:
+            other = {**other, "microbatches": 2}
+        planted = groundtruth.KernelConfigDB()
+        planted.put("train_step", smry["shape"], other,
+                    hardware=smry["hardware"])
+        findb.set_find_db(planted)
+        _, res = be.run_epoch(be.init_trial("lenet-mnist",
+                                            {"batch_size": 64}), {})
+        print(f"[trainstep] with a find-db of {other}: ran "
+              f"{res.sys_config}", flush=True)
+        check(res.sys_config == other, "the epoch ignored the find-db")
+        counts = read_all(counters)
+        check(not any(counts.values()), f"the train_step tuner and the "
+              f"tuning launcher launched a kernel: {counts}")
+        findb.set_find_db(groundtruth.KernelConfigDB())
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tres = train_launch.main(["--arch", "qwen3-0.6b-reduced",
+                                      "--steps", "2", "--kernel-db",
+                                      str(TRAIN_GOLDEN)])
+        first = out.getvalue().splitlines()[0]
+        print(f"[trainstep] launch.train --kernel-db: {first} "
+              f"({tres.kernel_db_rows} rows; final loss "
+              f"{tres.losses[-1]:.4f})", flush=True)
+        check(tres.kernel_db_rows == 1 and first.startswith(
+            "kernel find-db: 1 tuned configs"), first)
+    finally:
+        findb.set_find_db(prev)
+
+    # the port's quickstart, on the card by default
+    quick = load_example("torch_quickstart")
+    reset_all(counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        qres = quick.main([])
+    for line in out.getvalue().splitlines():
+        print(f"[trainstep] quickstart: {line}", flush=True)
+    counts = read_all(counters)
+    print(f"[trainstep] {card} | quickstart: best accuracy "
+          f"{qres.best_accuracy:.4f}, tuning time {qres.tuning_time_s:.3f} "
+          f"s, wall {time.perf_counter() - t0:.2f} s; launches {counts}",
+          flush=True)
+    check(len(qres.records) == 4 and not any(counts.values()),
+          f"quickstart: {len(qres.records)} trials, launches {counts}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[trainstep] phase {phase_s:.1f} s (limit "
+          f"{TRAINSTEP_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < TRAINSTEP_PHASE_LIMIT_S,
+          f"the train_step phase took {phase_s:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2002,6 +2672,10 @@ def main() -> int:
     rec_timing = phase_recurrent_timing(build, ml, rg, summaries, card)
     phase_tuneloop(counters, card, idle_w)
     phase_parallel(counters, card)
+    phase_typeiii(counters, card)
+    lm_counts = phase_lmtune(counters, card, fa, fa_bwd)
+    phase_lmprofile(card)
+    phase_trainstep(counters, card, tune, findb, groundtruth)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs = bwd_errs["train"]
@@ -2009,16 +2683,18 @@ def main() -> int:
         {"name": "flash_attention", "id": "B1", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:28",
-         "launches": launches, "max_abs_err": errs["serve"], **timing},
+         "launches": launches, "launches_lmtune": lm_counts[0],
+         "max_abs_err": errs["serve"], **timing},
         {"name": "flash_attention_bwd_dq", "id": "B2", "route": "cuda",
          "source": src_bwd,
          "replaces": "src/repro/kernels/flash_attention_bwd.py:43",
-         "launches": train_counts[1], "max_abs_err": train_errs[0][0],
+         "launches": train_counts[1], "launches_lmtune": lm_counts[1],
+         "max_abs_err": train_errs[0][0],
          **bwd_timing["dq"]},
         {"name": "flash_attention_bwd_dkv", "id": "B3", "route": "cuda",
          "source": src_bwd,
          "replaces": "src/repro/kernels/flash_attention_bwd.py:87",
-         "launches": train_counts[2],
+         "launches": train_counts[2], "launches_lmtune": lm_counts[2],
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),
          **bwd_timing["dkv"]},
         {"name": "mlstm", "id": "B4", "route": "cuda",

@@ -2,12 +2,13 @@
 as in ``repro.api.registry``, holding what the port has:
 
     schedulers  grid, random, hyperband, asha, asha-async, pbt
-    backends    real (TorchRealBackend), sim (SimBackend), kernel-tune
+    backends    real (TorchRealBackend), sim (SimBackend), numeric
+                (TorchNumericBackend), kernel-tune
     tuners      v1 (tunev1), v2 (tunev2), pipetune
     executors   serial, parallel, cluster, workers (local members)
 
-A name the reference registers and the port does not yet (``numeric``,
-``sharded``) raises a ``KeyError`` that lists the registered names and the
+A name the reference registers and the port does not yet (``sharded``)
+raises a ``KeyError`` that lists the registered names and the
 ROADMAP item that brings it. Third-party code
 extends the port by registering a factory:
 
@@ -40,6 +41,7 @@ from repro_torch.core.executor import (ParallelTrialExecutor,
 from repro_torch.core.executor import \
     make_executor as _executor_for_parallelism
 from repro_torch.core.job import HPTJob, SystemSpace
+from repro_torch.core.numeric_backend import TorchNumericBackend
 from repro_torch.core.pipetune import PipeTune, TrialRunner, TuneV1, TuneV2
 from repro_torch.core.schedulers import (ASHA, AskTellScheduler, AsyncASHA,
                                          GridSearch, HyperBand, PBT,
@@ -61,7 +63,6 @@ _EXECUTORS: Dict[str, Callable[..., Any]] = {}
 # names the reference registers that the port does not have yet, and the
 # ROADMAP item (queue A) that brings each
 _LATER = {
-    "backend": {"numeric": "9 (Type-III numeric workloads)"},
     "executor": {"sharded": "12 (Tuning service and wire protocol)"},
 }
 
@@ -183,6 +184,10 @@ def _real_sys_space(device=None, **_):
 
 
 register_backend("real", TorchRealBackend, sys_space=_real_sys_space)
+# the Type-III workloads: fp32 only, as the reference registers them
+register_backend("numeric", TorchNumericBackend, sys_space=lambda **_:
+                 SystemSpace(remat=("none",), microbatches=(1, 2),
+                             precision=("fp32",)))
 # modeled epochs: no device, the paper's chips x memory space
 register_backend("sim", SimBackend, sys_space=lambda **_: SimSystemSpace())
 # trials time kernel variants (see repro_torch.kernels.tune)

@@ -3,8 +3,9 @@ and TuneV2 (``pipetune``), the trial schedulers, the executors and the
 worker pool (``executor``, ``worker``), the ground-truth and find-db
 stores (``groundtruth``), probing, the epoch profiler, the energy model
 and the backends (``TorchRealBackend`` trains the paper's Table-3
-workloads; ``repro_torch.cluster.sim.SimBackend`` models them). The
-metrics store waits for the rest of ROADMAP queue A, 2b (ii).
+workloads, ``TorchNumericBackend`` the Type-III ones;
+``repro_torch.cluster.sim.SimBackend`` models them) and the metrics store
+(``store.MetricsStore``).
 
 Public surface, as in ``repro.core``:
     PipeTune           — Algorithm 1 trial runner + HPT job driver
@@ -22,6 +23,7 @@ from repro_torch.core.schedulers import (  # noqa: F401
     TrialProposal)
 from repro_torch.core.backends import (  # noqa: F401
     BackendCapabilities, backend_capabilities)
+from repro_torch.core.numeric_backend import TorchNumericBackend  # noqa: F401
 from repro_torch.core.pipetune import (  # noqa: F401
     JobResult, PipeTune, TrialRunner, TuneV1, TuneV2)
 from repro_torch.core.job import HPTJob, SearchSpace, SystemSpace  # noqa: F401

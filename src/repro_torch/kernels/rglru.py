@@ -29,6 +29,17 @@ launches = 0
 _fns = {}
 
 
+def _exp(x):
+    """exp of an fp32 tensor. On the CPU it is taken in float64 and rounded
+    once: PyTorch's fp32 CPU exp has returned one intra-op thread's share
+    of a large tensor with relative errors up to 1.5e-4 on the first call
+    in a process run on several threads (tools/probe_cpu_exp.py, torch
+    2.13: fp32 33 of 240 fresh processes, on one thread 0, float64 0)."""
+    if x.device.type == "cpu":
+        return torch.exp(x.double()).to(x.dtype)
+    return torch.exp(x)
+
+
 def rglru_reference(log_a, b, h0=None):
     """Plain version: h_t = exp(log_a_t) * h_{t-1} + b_t in fp32.
 
@@ -38,11 +49,11 @@ def rglru_reference(log_a, b, h0=None):
     """
     la, h = log_a.float(), b.float()
     if h0 is not None:
-        h = torch.cat([h[:, :1] + torch.exp(la[:, :1]) * h0.float()[:, None],
+        h = torch.cat([h[:, :1] + _exp(la[:, :1]) * h0.float()[:, None],
                        h[:, 1:]], dim=1)
     S, d = la.shape[1], 1
     while d < S:
-        h = torch.cat([h[:, :d], torch.exp(la[:, d:]) * h[:, :-d] + h[:, d:]],
+        h = torch.cat([h[:, :d], _exp(la[:, d:]) * h[:, :-d] + h[:, d:]],
                       dim=1)
         la = torch.cat([la[:, :d], la[:, d:] + la[:, :-d]], dim=1)
         d *= 2

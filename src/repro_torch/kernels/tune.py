@@ -4,12 +4,15 @@ PipeTune's thesis is that system parameters deserve the same tuning loop
 as hyperparameters. This module, the port of ``repro.kernels.tune``, closes
 that loop on the port itself: a ``Backend``-protocol implementation whose
 "trials" time kernel variants — ``chunk`` for the mLSTM kernel (B4),
-``chunk`` and ``r_block`` for the RG-LRU kernel (B5) — per workload shape,
-through the port's own ask/tell schedulers, ``TrialRunner`` and serial
-executor (``repro_torch.api.Experiment``). Winning configs land in a
+``chunk`` and ``r_block`` for the RG-LRU kernel (B5), ``remat`` and
+``microbatches`` for a Table-3 train step — per workload shape, through the
+port's own ask/tell schedulers, ``TrialRunner`` and serial executor
+(``repro_torch.api.Experiment``). Winning configs land in a
 :class:`KernelConfigDB` find-db keyed by ``(kernel, shape_key,
 hardware_key)``, where ``ops.mlstm``/``ops.rglru`` resolve them through
-``repro_torch.kernels.findb.lookup_or_default``.
+``repro_torch.kernels.findb.lookup_or_default`` and
+``TorchRealBackend._effective_sys`` fills the sys-config keys its caller
+left unset.
 
 Differences from the reference: ``device`` (``cuda`` unless the caller asks
 for ``cpu``) takes the place of ``interpret``; on the card each rep is timed
@@ -17,10 +20,15 @@ with CUDA events on the current stream, on the CPU with the host clock (the
 CPU runs the plain versions, so its times say nothing of the kernels). The
 flash-attention workloads parse (their shape keys are the reference's) but
 do not tune: the port's B1-B3 have no ``q_block``/``kv_block`` (ROADMAP
-queue A, item 8). ``train_step`` (the trainer's system parameters, which
-``TorchRealBackend`` reads from the find-db) waits for item 8 too, and
-the service-backed sources (``--store``, ``--journal``, ``import``) for the
-service package (item 8).
+queue A, item 8). A ``train_step`` config's time is the median step time of
+one epoch of a ``TorchRealBackend`` trial kept per config, as in the
+reference, after ``warmup`` untimed epochs of a new config (the reference
+times its first epoch). The default and the trials' winner are re-timed
+in three interleaved rounds, not two, and the winner is persisted only if
+it beats the default by more than the default's spread over them (the
+reference persists it whatever the margin). The service-backed sources
+(``--store``, ``--journal``, ``import``) wait for the service package
+(item 12).
 
 Workload specs
 --------------
@@ -28,12 +36,14 @@ Workload specs
 
     mlstm@B=8,S=2048,H=4,D=512     # xlstm-350m width
     rglru@B=8,S=2048,R=4096        # recurrentgemma-9b width
+    train_step@arch=lenet-mnist,batch=64      # hillclimb system dims
 
 CLI::
 
     python -m repro_torch.kernels.tune tune --workload mlstm-smoke
     python -m repro_torch.kernels.tune tune --workload mlstm-smoke \\
         --device cpu --golden golden.json
+    python -m repro_torch.kernels.tune tune --workload train-smoke
     python -m repro_torch.kernels.tune show --golden golden.json
     python -m repro_torch.kernels.tune export --golden golden.json --out copy.json
 """
@@ -55,6 +65,7 @@ from repro_torch.core.backends import (BackendCapabilities, EpochResult,
 from repro_torch.core.groundtruth import (GroundTruthError, KernelConfigDB,
                                           export_golden, load_golden)
 from repro_torch.core.job import HPTJob, Param, SearchSpace
+from repro_torch.core.pipetune import TuneV1
 from repro_torch.core.profiler import EpochProfile
 from repro_torch.kernels import findb
 
@@ -84,12 +95,20 @@ KERNEL_KEYS = {
 }
 
 # the hand-picked config each kernel ran on before autotuning — what a
-# variant's speedup is measured against
+# variant's speedup is measured against. train_step spells out the
+# TorchRealBackend fallbacks explicitly so the baseline never resolves
+# through the find-db it is trying to beat.
 BASELINES = dict(findb.DEFAULTS)
 BASELINES["train_step"] = {"remat": "none", "microbatches": 1,
                            "precision": "fp32"}
 
+# rounds of the default and the trials' winner, interleaved, behind the
+# stored config and the summary's times
+HEADLINE_ROUNDS = 3
+
 _INT_KEYS = ("q_block", "kv_block", "chunk", "r_block", "microbatches")
+
+_ITEM12 = "ROADMAP queue A, item 12 (Tuning service and wire protocol)"
 
 # kernels the port cannot time yet, and why
 _NOT_YET = {
@@ -100,8 +119,6 @@ _NOT_YET = {
                            "no q_block/kv_block to tune; their tile choices "
                            "come with their redesign (ROADMAP queue A, "
                            "item 8)",
-    "train_step": "train_step workloads are not ported yet (ROADMAP queue "
-                  "A, item 8)",
 }
 
 
@@ -217,7 +234,9 @@ class KernelTuneBackend:
     ``compile_s``, as the reference charges the jit compile; then
     ``warmup`` untimed calls, then ``reps`` timed ones. ``kernel_calls``
     counts every kernel call the backend made, per kernel, so a run can
-    hold the kernels' launch counters against it.
+    hold the kernels' launch counters against it (for ``train_step``, the
+    train steps it ran). A ``train_step`` variant's time is the median step
+    of one epoch instead (``_time_train_step``).
     """
 
     def __init__(self, reps: int = 3, warmup: int = 1,
@@ -225,10 +244,13 @@ class KernelTuneBackend:
         self.reps = max(1, int(reps))
         self.warmup = max(0, int(warmup))
         self.device = device_lib.resolve(device)
-        self.kernel_calls: Dict[str, int] = {"mlstm": 0, "rglru": 0}
+        self.kernel_calls: Dict[str, int] = {"mlstm": 0, "rglru": 0,
+                                             "train_step": 0}
         self._baselines: Dict[str, float] = {}
         self._variants: Dict[tuple, Any] = {}
         self._inputs: Dict[tuple, dict] = {}
+        self._real = None                      # lazy TorchRealBackend
+        self._real_states: Dict[tuple, TrialState] = {}
 
     def capabilities(self) -> BackendCapabilities:
         return BackendCapabilities(async_precompile=False, simulated=False,
@@ -250,7 +272,7 @@ class KernelTuneBackend:
         kernel, dims = ts.cfg["kernel"], ts.cfg["dims"]
         cfg = variant_config(kernel, ts.hparams, sys_cfg)
         base_s = self._baseline_time(ts)
-        med, times, extra_s = self._time_call(ts, cfg)
+        med, times, extra_s = self._time_config(ts, cfg)
         ts.epoch += 1
         ts.step += len(times)
         ts.loss_last = med
@@ -270,6 +292,8 @@ class KernelTuneBackend:
     def _make_inputs(self, kernel: str, dims: Dict[str, Any], seed: int):
         """The reference's inputs for the same seed (the same numpy draws in
         the same order), made once per workload and seed and kept."""
+        if kernel == "train_step":
+            return {"train": True}
         key = (kernel, workload_shape_key(kernel, dims), seed)
         if key in self._inputs:
             return self._inputs[key]
@@ -342,6 +366,48 @@ class KernelTuneBackend:
         # call, so the fastest rep is the best cost estimate
         return float(np.min(times)), times, build_s
 
+    def _time_train_step(self, ts: TrialState, cfg: dict
+                         ) -> Tuple[float, List[float], float]:
+        """One epoch of a ``TorchRealBackend`` trial at ``cfg``: the median
+        step time (each step ends with a synchronise of the backend's
+        stream), the step times and the epoch's compile_s. Each config keeps
+        its own trial, which trains on from epoch to epoch. A config's first
+        ``warmup`` epochs go untimed, their time to compile_s: on the card
+        the first steps of a new config set up cuBLAS, cuDNN and the
+        allocator over more than the one step the compile strip covers (the
+        reference times the first epoch)."""
+        from repro_torch.core.backends import TorchRealBackend
+        dims = ts.cfg["dims"]
+        if self._real is None:
+            self._real = TorchRealBackend(steps_per_epoch=int(dims["steps"]),
+                                          device=self.device)
+        key = (ts.workload, findb.shape_key(**cfg))
+        inner = self._real_states.get(key)
+        build_s = 0.0
+        if inner is None:
+            inner = self._real.init_trial(
+                dims["arch"], {"batch_size": int(dims["batch"])},
+                seed=ts.seed)
+            t0 = time.perf_counter()
+            for _ in range(self.warmup):
+                inner, res = self._real.run_epoch(inner, dict(cfg),
+                                                  collect_profile=False)
+                self.kernel_calls["train_step"] += len(res.step_times)
+            build_s = time.perf_counter() - t0
+        inner, res = self._real.run_epoch(inner, dict(cfg),
+                                          collect_profile=False)
+        self._real_states[key] = inner
+        self.kernel_calls["train_step"] += len(res.step_times)
+        med = (float(np.median(res.step_times)) if res.step_times
+               else res.duration_s)
+        return med, list(res.step_times), res.compile_s + build_s
+
+    def _time_config(self, ts: TrialState, cfg: dict
+                     ) -> Tuple[float, List[float], float]:
+        if ts.cfg["kernel"] == "train_step":
+            return self._time_train_step(ts, cfg)
+        return self._time_call(ts, cfg)
+
     def _baseline_time(self, ts: TrialState) -> float:
         """Time of the kernel's hand-picked default config, measured once
         per workload and cached — the denominator of every variant's
@@ -349,9 +415,21 @@ class KernelTuneBackend:
         base = self._baselines.get(ts.workload)
         if base is None:
             cfg = variant_config(ts.cfg["kernel"], {}, {})
-            base, _, _ = self._time_call(ts, cfg)
+            base, _, _ = self._time_config(ts, cfg)
             self._baselines[ts.workload] = base
         return base
+
+
+class VariantTuneV1(TuneV1):
+    """TuneV1 that runs each variant as its hparams spell it: it passes no
+    system config. TuneV1's fixed default (``SYS_DEFAULT``: remat block, 4
+    microbatches) would override a ``train_step`` variant's keys in
+    ``variant_config``, so that every trial timed that one config, as the
+    reference's ``tune_kernel`` does. The kernels' variants read no system
+    key, so their trials are the same either way."""
+
+    def sys_for_epoch(self, record, state, epoch, prev):
+        return {}
 
 
 # ---------------------------------------------------------------------------
@@ -369,8 +447,11 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
     trials. A miss runs the variant space through the standard
     ``Experiment`` machinery, persists the winner in ``db`` under the
     device's hardware key, and reports tuned-vs-default time (seconds).
-    ``kernel_calls`` in the summary is the number of kernel calls the
-    backend made (0 on a hit).
+    A winner that does not beat the default by more than the default's
+    spread (``HEADLINE_ROUNDS`` re-timings) is not persisted: the default
+    is, and ``config`` is the default; ``winner``, ``winner_s`` and
+    ``spread`` say what the trials found. ``kernel_calls`` in the summary
+    is the number of kernel calls the backend made (0 on a hit).
     """
     dev = device_lib.resolve(device)
     db = db if db is not None else findb.get_find_db()
@@ -394,28 +475,36 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
     sch_kw = {}
     if trials is not None and scheduler == "random":
         sch_kw["n_trials"] = int(trials)
-    res = (Experiment(job).with_tuner("v1").with_backend(backend)
+    res = (Experiment(job).with_tuner(VariantTuneV1(backend))
            .with_scheduler(scheduler, **sch_kw).run())
     best = res.best_record
     if best is None or not best.epochs:
         raise RuntimeError(f"kernel tuning produced no trials for "
                            f"{workload!r}")
-    cfg = variant_config(kernel, best.hparams, {})
+    winner = variant_config(kernel, best.hparams, {})
     # headline numbers: re-time default and winner back to back (warm,
     # interleaved, min of all) so the reported speedup never compares
-    # measurements taken under different load
+    # measurements taken under different load. The winner is stored only if
+    # it beats the default by more than the default's own spread over these
+    # rounds; otherwise the default is, so that a win by noise slows no
+    # caller that reads the find-db.
     base_cfg = variant_config(kernel, {}, {})
     ts = backend.init_trial(PRESETS.get(workload, workload), {}, seed=seed)
     d_times, t_times = [], []
-    for _ in range(2):
-        d_times.append(backend._time_call(ts, base_cfg)[0])
-        t_times.append(backend._time_call(ts, cfg)[0])
-    default_s, tuned_s = min(d_times), min(t_times)
+    for _ in range(HEADLINE_ROUNDS):
+        d_times.append(backend._time_config(ts, base_cfg)[0])
+        t_times.append(backend._time_config(ts, winner)[0])
+    default_s, winner_s = min(d_times), min(t_times)
+    spread = max(d_times) / max(default_s, 1e-12) - 1.0
+    cfg, tuned_s = winner, winner_s
+    if default_s <= winner_s * (1.0 + spread):
+        cfg, tuned_s = base_cfg, default_s
     db.put(kernel, skey, cfg, hardware=hw, objective=tuned_s)
     return {"workload": workload, "kernel": kernel, "shape": skey,
             "hardware": hw, "source": "tuned", "trials": len(res.records),
             "config": cfg, "default_s": default_s, "tuned_s": tuned_s,
             "speedup": default_s / max(tuned_s, 1e-12),
+            "winner": winner, "winner_s": winner_s, "spread": spread,
             "tuning_time_s": res.tuning_time_s,
             "wall_time_s": res.wall_time_s,
             "kernel_calls": dict(backend.kernel_calls)}
@@ -424,13 +513,23 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
 def install_kernel_db(spec: str,
                       db: Optional[KernelConfigDB] = None) -> int:
     """Prime a find-db (the process-wide one by default) from a golden
-    table JSON at ``spec``. Returns the number of rows installed."""
+    table JSON at ``spec``. Returns the number of rows installed. A
+    service journal or a ``tcp://`` store raises: both need the service
+    package."""
     db = db if db is not None else findb.get_find_db()
     if spec.startswith("tcp://"):
         raise NotImplementedError(
-            "a live store (tcp://) needs the service package, which the port "
-            "does not have yet (ROADMAP queue A, item 8); use a golden table")
-    return db.merge_rows(load_golden(spec))
+            f"{spec}: a live store (tcp://) needs the service package, "
+            f"which the port does not have yet ({_ITEM12}); use a golden "
+            "table")
+    try:
+        rows = load_golden(spec)
+    except GroundTruthError as e:
+        raise NotImplementedError(
+            f"{e}. A service journal needs the service package, which the "
+            f"port does not have yet ({_ITEM12}); use a golden table") \
+            from None
+    return db.merge_rows(rows)
 
 
 def main(argv=None) -> int:
@@ -486,7 +585,7 @@ def main(argv=None) -> int:
     if not args.golden:
         raise SystemExit("need a source: --golden PATH (--store and "
                          "--journal need the service package, which the "
-                         "port does not have yet)")
+                         f"port does not have yet: {_ITEM12})")
     rows = load_golden(args.golden)
     if args.cmd == "export":
         n = export_golden(rows, args.out)

@@ -1,15 +1,18 @@
-"""Command-line flags for the system parameters and the trial executor:
-the counterpart of ``add_system_args``/``system_config_from_args`` and
-``add_executor_args``/``executor_from_args`` in ``repro.launch.sysargs``,
-with the reference's defaults. The executor flags resolve through
-``repro_torch.api.registry``: ``--executor parallel`` (or ``--parallelism
-N > 1``) runs a wave's trials on N thread lanes, ``--executor cluster``
-drops the job onto the discrete-event simulated cluster, and ``--workers``
-composes a pool of local members. The reference's ``--backends``,
-``--shard-capacity``, ``--coordinator`` and ``--wire`` (the sharded
-executor, remote workers and the wire protocol: ROADMAP queue A, item 12)
-and ``--trace`` (item 13) are accepted and raise a clear error when given.
-The store flags and ``--kernel-db`` are left out (items 12 and 8).
+"""Command-line flags for the system parameters, the trial executor and the
+kernel find-db: the counterpart of ``add_system_args``/
+``system_config_from_args``, ``add_executor_args``/``executor_from_args``
+and ``add_kernel_db_arg``/``install_kernel_db_from_args`` in
+``repro.launch.sysargs``, with the reference's defaults. The executor flags
+resolve through ``repro_torch.api.registry``: ``--executor parallel`` (or
+``--parallelism N > 1``) runs a wave's trials on N thread lanes,
+``--executor cluster`` drops the job onto the discrete-event simulated
+cluster, and ``--workers`` composes a pool of local members. The
+reference's ``--backends``, ``--shard-capacity``, ``--coordinator`` and
+``--wire`` (the sharded executor, remote workers and the wire protocol:
+ROADMAP queue A, item 12) and ``--trace`` (item 13) are accepted and raise
+a clear error when given. ``--kernel-db`` takes a golden table; a service
+journal or a ``tcp://`` store raises naming item 12, which also brings the
+store flags.
 """
 from __future__ import annotations
 
@@ -18,6 +21,30 @@ import argparse
 from repro_torch.models.transformer import SystemConfig
 
 SYSTEM_ARG_NAMES = ("microbatches", "remat", "precision")
+
+
+def add_kernel_db_arg(ap: argparse.ArgumentParser
+                      ) -> argparse.ArgumentParser:
+    """``--kernel-db``: prime the process-wide kernel find-db before the
+    first step, so tuned configs from a previous ``python -m
+    repro_torch.kernels.tune`` run take effect here."""
+    ap.add_argument("--kernel-db", default=None, metavar="SPEC",
+                    help="prime the kernel config find-db from a golden "
+                         "table JSON (`repro_torch.kernels.tune export`); "
+                         "a service journal or tcp://HOST:PORT needs the "
+                         "service package: ROADMAP item 12")
+    return ap
+
+
+def install_kernel_db_from_args(args: argparse.Namespace) -> int:
+    """Apply ``--kernel-db`` (no-op when unset). Returns rows installed."""
+    spec = getattr(args, "kernel_db", None)
+    if not spec:
+        return 0
+    from repro_torch.kernels.tune import install_kernel_db
+    n = install_kernel_db(spec)
+    print(f"kernel find-db: {n} tuned configs from {spec}")
+    return n
 
 
 def add_system_args(ap: argparse.ArgumentParser,

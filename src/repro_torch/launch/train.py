@@ -3,7 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 6 --batch 4 --seq 2048 --precision bf16 \\
-        [--microbatches 1] [--remat none|block|dots] [--device cpu]
+        [--microbatches 1] [--remat none|block|dots] [--device cpu] \\
+        [--kernel-db golden.json]
 
 As in the reference: adamw over ``warmup_cosine(lr, 10, steps)`` with weight
 decay 0.01, tokens from ``make_lm_dataset(0, batch * seq * 32, vocab)``, the
@@ -14,8 +15,9 @@ defaults to True, so its command line always trains the reduced config;
 here ``--arch`` names the config, as in ``repro_torch.launch.serve``:
 ``qwen3-0.6b`` is full width, ``qwen3-0.6b-reduced`` the smoke config.
 Weights come from ``transformer.init`` on a ``torch.Generator`` seeded with
-0. Checkpointing (``--ckpt``) and ``--kernel-db`` are not ported yet
-(ROADMAP.md queue A, items 'Checkpoint' and 'Kernel tuner').
+0. ``--kernel-db`` primes the kernel find-db from a golden table before the
+first step, as in the reference. Checkpointing (``--ckpt``) is not ported
+yet (ROADMAP.md queue A, item 'Checkpoint').
 
 Step times are CUDA events on the card (the host clock on the CPU); the
 first step is left out of the mean. Without a GPU the command raises unless
@@ -34,7 +36,9 @@ from repro_torch import configs
 from repro_torch import device as device_lib
 from repro_torch.data import synthetic
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.sysargs import add_system_args, system_config_from_args
+from repro_torch.launch.sysargs import (add_kernel_db_arg, add_system_args,
+                                        install_kernel_db_from_args,
+                                        system_config_from_args)
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers
 
@@ -49,6 +53,7 @@ class TrainResult:
     tokens_per_step: int
     peak_memory_bytes: Optional[int]   # None on the CPU
     device_name: str
+    kernel_db_rows: int = 0         # rows --kernel-db installed
 
     @property
     def ms_per_step(self) -> float:
@@ -70,6 +75,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
     add_system_args(ap)
+    add_kernel_db_arg(ap)   # tuned kernel configs from a prior tune run
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap
 
@@ -78,6 +84,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     args = parser().parse_args(argv)
     dev = device_lib.resolve(args.device)
     cfg = configs.get(args.arch)
+    kernel_db_rows = install_kernel_db_from_args(args)
     sys = system_config_from_args(args)
     opt = optimizers.adamw(
         optimizers.warmup_cosine(args.lr, 10, args.steps), weight_decay=0.01)
@@ -108,7 +115,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     res = TrainResult(cfg=cfg, sys=sys, losses=losses, accuracies=accs,
                       step_ms=step_ms, tokens_per_step=args.batch * args.seq,
-                      peak_memory_bytes=peak, device_name=name)
+                      peak_memory_bytes=peak, device_name=name,
+                      kernel_db_rows=kernel_db_rows)
     print(f"done: final loss {losses[-1] if losses else float('nan'):.4f}")
     if losses:
         print(f"trained {cfg.name} on {name}: {args.steps} steps of "

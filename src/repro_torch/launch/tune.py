@@ -6,6 +6,8 @@ counterpart of ``repro.launch.tune``.
         [--parallelism 4 | --executor cluster --cluster-nodes 4]
     PYTHONPATH=src python -m repro_torch.launch.tune --backend sim \\
         --system pipetune --scheduler hyperband --epochs 9 --parallelism 4
+    PYTHONPATH=src python -m repro_torch.launch.tune --backend numeric \\
+        --workload jacobi-rodinia --scheduler random [--device cpu]
 
 Tuners, backends, and schedulers resolve through the ``repro_torch.api``
 registries — ``--system``/``--backend``/``--scheduler`` accept anything
@@ -14,12 +16,14 @@ The defaults are the reference's (PipeTune, hyperband, 6 epochs, the real
 backend at n_train 1024, n_eval 256, 8 steps an epoch), and so is the
 printout, with the cluster makespan when the job ran on the simulated
 cluster. ``--device`` (cuda by default; without a GPU the command raises
-unless ``--device cpu`` is given) goes to the real backend; ``--backend
-sim`` models the epochs and touches no device. The executor flags are
-``launch.sysargs``'s. PipeTune tunes against a fresh in-process
-ground-truth store. Not ported yet: ``--kernel-db`` (ROADMAP queue A, item
-8) and the store flags ``--store``, ``--gt-store`` and ``--store-reset``
-(item 12).
+unless ``--device cpu`` is given) goes to the real and numeric backends;
+``--backend sim`` models the epochs and touches no device. The executor
+flags and ``--kernel-db`` (installed before the first trial, so the real
+backend's trials pick up tuned ``train_step`` configs for the sys keys a
+tuner leaves unset) are ``launch.sysargs``'s. PipeTune tunes against a
+fresh in-process ground-truth store. Not ported yet: the store flags
+``--store``, ``--gt-store`` and ``--store-reset`` (ROADMAP queue A, item
+12).
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ from repro_torch.api import (Experiment, available_backends,
 from repro_torch.core.groundtruth import GroundTruth
 from repro_torch.core.job import HPTJob, Param, SearchSpace
 from repro_torch.core.pipetune import JobResult
-from repro_torch.launch.sysargs import add_executor_args, executor_from_args
+from repro_torch.launch.sysargs import (add_executor_args, add_kernel_db_arg,
+                                        executor_from_args,
+                                        install_kernel_db_from_args)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> JobResult:
@@ -49,9 +55,10 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
     ap.add_argument("--backend", default="real",
                     help=f"backend name; registered: {available_backends()}")
     add_executor_args(ap)   # --executor / --parallelism / --cluster-nodes
+    add_kernel_db_arg(ap)   # --kernel-db: tuned kernel configs
     ap.add_argument("--device", default=None,
-                    help="device the real backend trains on: cuda "
-                         "(default) or cpu; sim touches no device")
+                    help="device the real and numeric backends run on: "
+                         "cuda (default) or cpu; sim touches no device")
     ap.add_argument("--plugin", action="append", default=[],
                     help="module to import for register_* side effects")
     ap.add_argument("--out", default=None)
@@ -59,6 +66,7 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
 
     for mod in args.plugin:
         importlib.import_module(mod)
+    install_kernel_db_from_args(args)
 
     space = SearchSpace([
         Param("batch_size", "choice", choices=(32, 64, 128)),

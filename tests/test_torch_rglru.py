@@ -67,12 +67,16 @@ def test_reference_matches_oracle_and_loop(B, S, R, with_h0):
         None if h0 is None else torch.from_numpy(h0), chunk=32, r_block=32)
     assert got_h.dtype == torch.float32 and tuple(got_h.shape) == (B, S, R)
     assert tuple(got_last.shape) == (B, R)
+    # each comparison names its pair, so that a failure says which side
+    # moved: the port against ref.rglru_ref, or against the float64 loop
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=1e-5,
-                               atol=1e-5)
+                               atol=1e-5, err_msg="h: port vs rglru_ref")
     np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last),
-                               rtol=1e-5, atol=1e-5)
+                               rtol=1e-5, atol=1e-5,
+                               err_msg="h_last: port vs rglru_ref")
     np.testing.assert_allclose(got_h.numpy(), _sequential(la, b, h0),
-                               rtol=1e-5, atol=1e-5)
+                               rtol=1e-5, atol=1e-5,
+                               err_msg="h: port vs float64 loop")
 
 
 def test_cpu_wrapper_reads_find_db_and_launches_nothing(monkeypatch):

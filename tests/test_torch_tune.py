@@ -31,6 +31,16 @@ SPECS = ["mlstm-smoke", "rglru-smoke", "flash-fwd-smoke", "flash-bwd-smoke",
 GT = {"reference": jgt, "port": tgt}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The train_step cases train LeNet on the CPU; a thread each keeps the
+    suite's workers from crowding each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("spec", SPECS)
 def test_workload_parsing_matches_reference(spec):
     kernel, dims = tune.parse_workload(spec)
@@ -201,15 +211,63 @@ def test_kernel_tune_backend_is_registered():
     assert isinstance(be, tune.KernelTuneBackend) and be.reps == 2
 
 
+# train_step tunes since the tuner's train_step workload was ported (its
+# case keeps its id and now runs the grid: 6 trials, then 0 when warm)
 @pytest.mark.parametrize("spec,match", [
     ("flash-fwd-smoke", "item 8"), ("flash-bwd-smoke", "item 8"),
-    # train_step no longer waits for 2b, only for item 8; the id is kept
-    pytest.param("train-smoke", "item 8", id="train-smoke-2b")])
-def test_untunable_workloads_name_their_roadmap_item(spec, match):
-    with pytest.raises(ValueError, match=match):
-        tune.tune_kernel(spec, db=tgt.KernelConfigDB(), device="cpu")
-    with pytest.raises(NotImplementedError, match="service"):
+    pytest.param("train-smoke", None, id="train-smoke-2b")])
+def test_untunable_workloads_name_their_roadmap_item(spec, match,
+                                                    monkeypatch):
+    if match is None:
+        db = tgt.KernelConfigDB()
+        runs = _spy_runs(monkeypatch, texperiment)
+        got = tune.tune_kernel(spec, db=db, device="cpu")
+        assert got["source"] == "tuned" and got["trials"] == 6
+        # each trial timed its own remat x microbatches variant
+        ran = [(r.hparams["remat"], r.hparams["microbatches"],
+                r.epochs[0].sys_config) for r in runs[0].records.values()]
+        assert sorted((rm, mb) for rm, mb, _ in ran) == sorted(
+            (rm, mb) for rm in ("none", "block") for mb in (1, 2, 4))
+        assert all(cfg == {"remat": rm, "microbatches": mb,
+                           "precision": "fp32"} for rm, mb, cfg in ran)
+        assert got["hardware"] == "cpu/cpu"
+        assert set(got["config"]) == {"remat", "microbatches", "precision"}
+        assert db.get("train_step", got["shape"], "cpu/cpu") == got["config"]
+        warm = tune.tune_kernel(spec, db=db, device="cpu")
+        assert warm["source"] == "find-db" and warm["trials"] == 0
+        assert warm["config"] == got["config"]
+    else:
+        with pytest.raises(ValueError, match=match):
+            tune.tune_kernel(spec, db=tgt.KernelConfigDB(), device="cpu")
+    with pytest.raises(NotImplementedError, match="service.*item 12"):
         tune.install_kernel_db("tcp://127.0.0.1:1")
+
+
+# the default (chunk 128 here) re-times at 1.00 and 1.05 in turn: a spread
+# of 5%. A winner 2% faster is noise and the default is stored; one twice
+# as fast is stored.
+@pytest.mark.parametrize("winner_s,stored", [(0.98, 128), (0.5, 64)])
+def test_a_win_within_the_defaults_spread_stores_the_default(
+        winner_s, stored, monkeypatch):
+    base = tune.variant_config("mlstm", {}, {})
+    assert base == {"chunk": 128}
+    calls = []
+
+    def time_config(self, ts, cfg):
+        if cfg == base:
+            calls.append(cfg)
+            t = 1.0 + 0.05 * (len(calls) % 2 == 0)
+        else:
+            t = winner_s if cfg["chunk"] == 64 else 2.0
+        return t, [t], 0.0
+    monkeypatch.setattr(tune.KernelTuneBackend, "_time_config", time_config)
+    db = tgt.KernelConfigDB()
+    got = tune.tune_kernel("mlstm-smoke", db=db, device="cpu")
+    assert got["winner"] == {"chunk": 64} and got["winner_s"] == winner_s
+    assert got["spread"] == pytest.approx(0.05)
+    assert got["config"] == {"chunk": stored}
+    assert db.get("mlstm", got["shape"], "cpu/cpu") == {"chunk": stored}
+    assert got["tuned_s"] == (1.0 if stored == 128 else winner_s)
 
 
 def test_hardware_key(monkeypatch):
@@ -252,3 +310,76 @@ def test_cli_without_gpu_raises_unless_cpu(monkeypatch):
         tune.main(["tune", "--workload", "mlstm-smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tune.KernelTuneBackend()
+
+
+def _train_step_golden(path, config):
+    db = tgt.KernelConfigDB()
+    db.put("train_step", findb.train_step_shape_key(arch="lenet-mnist",
+                                                    batch=64),
+           config, hardware="cpu/cpu")
+    tgt.export_golden(db.rows(), str(path))
+
+
+TUNED = {"remat": "block", "microbatches": 2, "precision": "fp32"}
+
+
+def test_train_step_baseline_spells_out_every_key(monkeypatch):
+    """The baseline runs at the untuned config even with a tuned row in the
+    find-db: explicit keys win in ``_effective_sys``."""
+    db = tgt.KernelConfigDB()
+    db.put("train_step", "arch=lenet-mnist,batch=64", TUNED,
+           hardware="cpu/cpu")
+    monkeypatch.setattr(findb, "_active_db", db)
+    be = tune.KernelTuneBackend(device="cpu")
+    ts = be.init_trial("train-smoke", {})
+    _, res = be.run_epoch(ts, {})
+    assert res.sys_config == tune.BASELINES["train_step"]
+    assert list(be._real_states) == [
+        ("train-smoke", "microbatches=1,precision=fp32,remat=none")]
+    # the baseline's warm-up epoch and timed epoch, then the variant's
+    # (the same config: its trial trains on, with no warm-up)
+    assert be.kernel_calls["train_step"] == 4 + 4 + 4
+
+
+def test_kernel_db_flag_installs_a_golden_table(tmp_path, monkeypatch,
+                                                capsys):
+    """--kernel-db in both launchers installs the golden table's rows into
+    the process-wide find-db before the first step; a TorchRealBackend
+    epoch that leaves the sys keys unset then runs the tuned config."""
+    from repro_torch.core.backends import TorchRealBackend
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch import tune as tune_launch
+    golden = tmp_path / "golden.json"
+    _train_step_golden(golden, TUNED)
+    monkeypatch.setattr(findb, "_active_db", tgt.KernelConfigDB())
+    res = train_launch.main(["--arch", "qwen3-0.6b-reduced", "--steps", "1",
+                             "--batch", "2", "--seq", "16", "--device", "cpu",
+                             "--kernel-db", str(golden)])
+    assert res.kernel_db_rows == 1
+    assert f"kernel find-db: 1 tuned configs from {golden}" in \
+        capsys.readouterr().out
+    monkeypatch.setattr(findb, "_active_db", tgt.KernelConfigDB())
+    tune_launch.main(["--backend", "sim", "--system", "v1", "--scheduler",
+                      "random", "--epochs", "2", "--kernel-db", str(golden)])
+    assert f"kernel find-db: 1 tuned configs from {golden}" in \
+        capsys.readouterr().out
+    be = TorchRealBackend(n_train=128, n_eval=32, steps_per_epoch=2,
+                          device="cpu")
+    _, epoch = be.run_epoch(be.init_trial("lenet-mnist", {}), {})
+    assert epoch.sys_config == TUNED
+    _, explicit = be.run_epoch(be.init_trial("lenet-mnist", {}),
+                               {"microbatches": 1})
+    assert explicit.sys_config == {**TUNED, "microbatches": 1}
+
+
+def test_kernel_db_flag_refuses_a_journal_and_a_live_store(tmp_path,
+                                                           monkeypatch):
+    from repro_torch.launch import train as train_launch
+    monkeypatch.setattr(findb, "_active_db", tgt.KernelConfigDB())
+    journal = tmp_path / "journal.jsonl"
+    journal.write_text(json.dumps({"op": "kernel_put"}) + "\n")
+    for spec in (str(journal), "tcp://127.0.0.1:1"):
+        with pytest.raises(NotImplementedError, match="service.*item 12"):
+            train_launch.main(["--arch", "qwen3-0.6b-reduced", "--steps",
+                               "1", "--device", "cpu", "--kernel-db", spec])
+    assert findb.get_find_db().rows() == []

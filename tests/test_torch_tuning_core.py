@@ -175,13 +175,14 @@ def test_clone_trial_shares_no_tensor():
     assert copy_tree(None) is None and copy_tree((1, "a")) == (1, "a")
 
 
-# The cases of names that the tuning-loop slice (real, pipetune, v2) and
-# the parallel-execution slice (sim, parallel) brought keep their ids and
-# now assert that the name builds; sim and parallel also run one wave.
+# The cases of names that the tuning-loop slice (real, pipetune, v2), the
+# parallel-execution slice (sim, parallel) and the Type-III slice (numeric)
+# brought keep their ids and now assert that the name builds; sim and
+# parallel also run one wave.
 @pytest.mark.parametrize("kind,name,item", [
     pytest.param("backend", "sim", None, id="backend-sim-2b"),
     pytest.param("backend", "real", None, id="backend-real-2b"),
-    ("backend", "numeric", "9"),
+    pytest.param("backend", "numeric", None, id="backend-numeric-9"),
     pytest.param("tuner", "pipetune", None, id="tuner-pipetune-2b"),
     pytest.param("tuner", "v2", None, id="tuner-v2-2b"),
     pytest.param("executor", "parallel", None, id="executor-parallel-2b"),
@@ -190,7 +191,8 @@ def test_missing_names_list_registered_and_roadmap_item(kind, name, item):
     from repro_torch.api import registry
     space = tjob.SystemSpace(remat=("none",), microbatches=(1,),
                              precision=("fp32",))
-    kw = {"real": {"device": "cpu"}}.get(name, {})
+    kw = {"real": {"device": "cpu"}, "numeric": {"device": "cpu"}}.get(
+        name, {})
     make = {"backend": lambda: registry.make_backend(name, **kw),
             "tuner": lambda: registry.make_tuner(
                 name, StubBackend("port"), sys_space=space),
@@ -198,6 +200,7 @@ def test_missing_names_list_registered_and_roadmap_item(kind, name, item):
     if item is None:
         built = make()
         assert type(built).__name__ == {"real": "TorchRealBackend",
+                                        "numeric": "TorchNumericBackend",
                                         "sim": "SimBackend",
                                         "parallel": "ParallelTrialExecutor",
                                         "pipetune": "PipeTune",

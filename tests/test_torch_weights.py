@@ -82,7 +82,9 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) >= 3
+    files += examples + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     banned = {"jax", "jaxlib", "flax", "repro"}
     for f in files:
