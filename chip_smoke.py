@@ -21,13 +21,16 @@ Phases (any failure raises, and the script exits non-zero):
      train shape and at ragged, windowed, non-causal, fp32 and other
      group-size shapes, the Hopper tiles' edge cases among them (G = 8 with
      ragged S; B1 at G = 64; B3 at G = 80, with out and lse from the plain
-     forward), and in fp32 at the LM phase's shapes (8 x 64 tokens in 1, 2
+     forward), in fp32 at the LM phase's shapes (8 x 64 tokens in 1, 2
      or 4 microbatches, at full-width qwen3-0.6b and at the LM example's
-     width). A planted fault (one kv tile hidden from the later rows in
-     the forward; in the backward, the dk/dv contribution of the same rows
-     to the same keys left out) must fail each check. The whole autograd op
-     (B1 forward, B2 and B3 backward) is held against autograd through fp32
-     dense attention at the train shape;
+     width), and B1 at the [archs] shapes (G = 6, 7, 1 with K = 16, window
+     4096 at S = 8192) and at examples/torch_serve_lm.py's prefill (bf16,
+     8 x 64 tokens, K 2, G 2, D 64). A planted fault (one kv tile hidden
+     from the later rows in the forward; in the backward, the dk/dv
+     contribution of the same rows to the same keys left out) must fail
+     each check (B1's at the serve, the [archs] and the example's shapes). The whole autograd op (B1 forward,
+     B2 and B3 backward) is held against autograd through fp32 dense
+     attention at the train shape;
   3. serve full-width qwen3-0.6b (seeded bf16 weights, 8 requests of 2048
      prompt tokens, 32 generated) through ``repro_torch.launch.serve.main``,
      with every launch counter set to 0 just before and read just after; the
@@ -36,6 +39,22 @@ Phases (any failure raises, and the script exits non-zero):
      attention path (``use_pallas=False``) in bf16 and in fp32, and hold both
      bf16 paths against the fp32 one (``LOGITS_RATIO``); the planted forward
      fault must fail this check;
+ 3b. ``[archs]``: serve the dense and moe archs of ROADMAP queue A 2c and
+     3 at their published widths (``ARCHS_RUNS``: qwen2-moe-a2.7b and
+     qwen2-1.5b whole through ``serve.main``, mixtral-8x22b, yi-34b and
+     deepseek-coder-33b cut to 4 layers through ``serve.serve``), counters
+     set to 0 just before each run and read just after: B1 once per layer
+     and prefill, no backward kernel; finite logits and tokens in range;
+     the prefill logits held as in 3 (where the prompt passes the window,
+     the planted fault lies inside the last row's window); tok/s, peak
+     memory, B1's share of one prefill's device time (torch.profiler) and,
+     for the moe archs, the share of tokens x layers whose top-k experts
+     the bf16 and fp32 routers agree on. Then the int8 KV cache on
+     full-width qwen2-1.5b: ``INT8_TOKENS`` tokens decoded from position 0
+     into an int8 and a bf16 cache, the logits within ``INT8_MAX_ERR`` and
+     ``INT8_MIN_AGREE`` of each other, which a zeroed k_scale row must
+     break; both caches' decode ms a step and peak memory printed. Last, ``examples/torch_serve_lm.py`` with its defaults (B1
+     once per layer and prefill). Within ``ARCHS_PHASE_LIMIT_S``;
   4. train full-width qwen3-0.6b (fp32 masters, bf16 compute, 4 x 2048
      tokens, 6 steps) through ``repro_torch.launch.train.main``, counters set
      to 0 just before: B1, B2 and B3 must each have run 28 times a step, and
@@ -99,7 +118,7 @@ Phases (any failure raises, and the script exits non-zero):
  11. trials run concurrently (``[parallel]``), counters set to 0 just
      before and read just after (none of B1-B5 may launch): (a) TuneV1's
      policy at remat none, 1 microbatch, fp32 over random search
-     (``PAR_TRIALS`` x ``PAR_EPOCHS``, batch 64, the launcher's sizes) on
+     (``PAR_TRIALS`` x ``PAR_EPOCHS``, batch 64, ``PAR_SIZES``) on
      lenet-mnist and lstm-news20, serially and on
      ``ParallelTrialExecutor`` at 2 and 4 thread lanes (one CUDA stream
      each): the same hparams, every step's loss within ``PAR_LOSS_TOL`` of
@@ -136,7 +155,8 @@ Phases (any failure raises, and the script exits non-zero):
      of its tune-lm width on the card against the CPU (on one thread) per
      step at remat none and block (``LM_CARD_CPU_TOL``; the card trial one
      batch on must fail); its ``main()`` on the card; then PipeTune
-     (random 3 trials x 2 epochs) at full-width qwen3-0.6b through a
+     (random 3 trials x 2 epochs of ``LM_FULL_STEPS`` steps) at
+     full-width qwen3-0.6b through a
      subclass overriding ``_cfg()``. In both, every epoch's B1, B2 and
      B3 launches equal what it implies (per step: layers x microbatches
      of B2 and of B3, and of B1 twice that under remat, the recompute),
@@ -197,6 +217,13 @@ LOGITS_RATIO = 2.0
 # A planted fault that both checks must catch: keys 64..127 (one kv tile)
 # hidden from query rows >= 1024, as a kernel that skipped a tile would do.
 FAULT = (1024, 64, 128)
+# B1's rows that are also held against a planted fault, and the fault of
+# each: FAULT at the serve shape and the [archs] phase's shapes; at the
+# example's 64-token prompt, where FAULT's rows lie past the end, keys 0..15
+# hidden from rows >= 32.
+FAULT_ROWS = {"serve": FAULT, "g6_qwen2": FAULT, "g7_yi": FAULT,
+              "g1_k16": FAULT, "mixtral_window": FAULT,
+              "serve_lm": (32, 0, 16)}
 # B2/B3 against their plain version, per gradient tensor: |err| <= a *
 # max|ref| + r * |ref|, r about a bf16 step. Both sum in fp32 and round the
 # result to the input dtype once; in bf16 the kernels also round p and dS to
@@ -278,6 +305,12 @@ TABLE2_ACC_TOL = 0.05
 PAR_WORKLOADS = ("lenet-mnist", "lstm-news20")
 PAR_LANES = (1, 2, 4)
 PAR_TRIALS, PAR_EPOCHS = 4, 3
+# The launcher's data sizes at half its steps an epoch (4 of 8). The phase
+# is bound by the host (the LSTM's lanes), whose speed varies from one
+# machine to the next: at 8 steps it read 35.4-44.2 s of its limit on an
+# NVIDIA H100 80GB HBM3 (700 W), and the LM phase, as host-bound, once
+# read 63.7 s where it had read 35.2-48.8 s.
+PAR_SIZES = dict(LOOP_SIZES, steps_per_epoch=4)
 PAR_LOSS_TOL = CARD_CPU_TOL
 PAR_ACC_SAMPLES = 1.5
 PAR_PHASE_LIMIT_S = 60.0
@@ -343,6 +376,11 @@ LM_ATTN_SHAPES = [(f"lm_{w}_b{b}", b, k, d)
                   for b in (8, 4, 2)]
 LM_FULL_ARCH = "qwen3-0.6b"
 LM_FULL_TRIALS, LM_FULL_EPOCHS = 3, 2
+# Steps an epoch of the full-width run: half the example's 6. Its steps
+# are bound by the host (8 x 64 tokens, 0.5-0.7 s a step at block/2 and
+# 1.1-1.4 s at block/4 on an NVIDIA H100 80GB HBM3, 700 W); at 6 the phase
+# read 35.2-48.8 s, and once 63.7 s, of LM_PHASE_LIMIT_S.
+LM_FULL_STEPS = 3
 LM_PHASE_LIMIT_S = 60.0
 
 # The kernel tuner's train_step workload (train-smoke: lenet-mnist at batch
@@ -350,6 +388,34 @@ LM_PHASE_LIMIT_S = 60.0
 TRAIN_WORKLOAD = "train-smoke"
 TRAIN_GOLDEN = Path("build") / "chip_smoke" / "train_step_golden.json"
 TRAINSTEP_PHASE_LIMIT_S = 60.0
+
+# [archs]: the dense and moe archs of ROADMAP queue A 2c and 3 served at
+# their published widths through serve.serve (qwen2-moe-a2.7b and qwen2-1.5b
+# at full depth through serve.main; the others at 4 layers, whose weights
+# fit beside the cache: mixtral-8x22b's 56 layers are about 263 GiB in bf16,
+# yi-34b's and deepseek-coder-33b's about 64 GiB). mixtral's 8192-token
+# prompts pass its 4096 window, so B1's window mask and the rolled ring
+# cache both act. Name, layers (None: all), requests, prompt tokens.
+ARCHS_RUNS = [("qwen2-moe-a2.7b", None, 8, 2048),
+              ("mixtral-8x22b", 4, 2, 8192),
+              ("qwen2-1.5b", None, 8, 2048),
+              ("yi-34b", 4, 8, 2048),
+              ("deepseek-coder-33b", 4, 8, 2048)]
+ARCHS_GEN = 32
+# The int8 KV cache on full-width qwen2-1.5b: INT8_TOKENS prompt tokens
+# decoded one by one from position 0 into an int8 and a bf16 cache (bf16
+# compute). Limits on the int8 path's logits against the bf16 cache path's
+# (max |diff| over all steps, and the share of (step, request) argmaxes
+# that agree); a cache whose slot-0 k_scale row is zeroed after the first
+# step must break one of them. On an NVIDIA H100 80GB HBM3 (700 W) the
+# int8 cache read max|diff| 0.1581 (max|logit| 5.680) and agreement
+# 0.9336; the fault 2.4899 and 0.4297. The limits leave about 3x on the
+# distance and 0.13 on the agreement (random weights: many near-tied
+# argmaxes), and sit well inside the fault's readings.
+INT8_ARCH, INT8_TOKENS = "qwen2-1.5b", 64
+INT8_MAX_ERR = 0.5
+INT8_MIN_AGREE = 0.8
+ARCHS_PHASE_LIMIT_S = 90.0
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
@@ -492,6 +558,21 @@ def dense_attention(q, k, v, causal, window=None, drop=None):
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.to(q.dtype), lse.permute(0, 3, 1, 2)
+
+
+def dense_attention_sliced(q, k, v, causal, window=None, drop=None):
+    """``dense_attention`` one (batch row, kv head) at a time: the same
+    function in a fraction of the memory, for the long prompts."""
+    import torch
+    outs, lses = [], []
+    for b in range(q.shape[0]):
+        parts = [dense_attention(q[b:b + 1, :, h:h + 1],
+                                 k[b:b + 1, :, h:h + 1],
+                                 v[b:b + 1, :, h:h + 1], causal, window, drop)
+                 for h in range(q.shape[2])]
+        outs.append(torch.cat([o for o, _ in parts], dim=2))
+        lses.append(torch.cat([lse for _, lse in parts], dim=2))
+    return torch.cat(outs), torch.cat(lses)
 
 
 def compare(out, lse, ref_out, ref_lse):
@@ -661,6 +742,16 @@ def phase_kernels(fa):
         ("g64_d64", 2, 256, 256, 1, 64, 64, torch.bfloat16, True, None),
         *[(n, b, 64, 64, k, 2, d, torch.float32, True, None)
           for n, b, k, d in LM_ATTN_SHAPES],
+        # the [archs] prefills: qwen2-1.5b and mixtral (G = 6), yi-34b and
+        # deepseek-coder-33b (G = 7), qwen2-moe-a2.7b (G = 1, K = 16), and
+        # mixtral's window at its prompt length
+        ("g6_qwen2", 8, 2048, 2048, 2, 6, 128, torch.bfloat16, True, None),
+        ("g7_yi", 8, 2048, 2048, 8, 7, 128, torch.bfloat16, True, None),
+        ("g1_k16", 8, 2048, 2048, 16, 1, 128, torch.bfloat16, True, None),
+        ("mixtral_window", 2, 8192, 8192, 8, 6, 128, torch.bfloat16, True,
+         4096),
+        # examples/torch_serve_lm.py's prefill (serve-lm: K 2, G 2, D 64)
+        ("serve_lm", 8, 64, 64, 2, 2, 64, torch.bfloat16, True, None),
     ]
     errs = {}
     for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(shapes):
@@ -680,12 +771,14 @@ def phase_kernels(fa):
               f"({limits}) {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"flash_attention disagrees with its plain version at "
                   f"{name}")
-        if name == "serve":
-            f_out, f_lse = dense_attention(q, k, v, causal, window, FAULT)
+        if name in FAULT_ROWS:
+            drop = FAULT_ROWS[name]
+            f_out, f_lse = dense_attention_sliced(q, k, v, causal, window,
+                                                  drop)
             caught, f_eo, f_el = compare(f_out, f_lse, ref_out, ref_lse)[:3]
             caught = not caught
-            print(f"[kernel] planted fault at {name} (keys {FAULT[1]}.."
-                  f"{FAULT[2] - 1} hidden from rows >= {FAULT[0]}): "
+            print(f"[kernel] planted fault at {name} (keys {drop[1]}.."
+                  f"{drop[2] - 1} hidden from rows >= {drop[0]}): "
                   f"max|out err|={f_eo:.3e} max|lse err|={f_el:.3e} "
                   f"({limits}) {'caught' if caught else 'MISSED'}",
                   flush=True)
@@ -860,6 +953,259 @@ def phase_serve(fa, fa_bwd, serve, steps):
     check(ok, "kernel-path logits disagree with the plain path")
     check(caught, "the logits check misses a dropped kv tile")
     return res, launches
+
+
+def archs_fault(prompt_len, window):
+    """The planted fault of an [archs] run: FAULT, or where the prompt
+    passes the window, the same kind of fault (one kv tile hidden from the
+    later rows) at the window's left edge, so that it lies inside the window
+    of the last row, whose logits prefill returns: FAULT's keys 64..127 are
+    outside it."""
+    if window is None or prompt_len <= window:
+        return FAULT
+    row = prompt_len - window
+    return (row, row + 64, row + 128)
+
+
+def faulty_flash(drop):
+    """A stand-in for ``fa.flash_attention`` with a planted fault: keys
+    drop[1]..drop[2]-1 hidden from rows >= drop[0]."""
+    return (lambda q, k, v, *, causal=True, window=None, **_:
+            dense_attention_sliced(q, k, v, causal, window, drop)[0])
+
+
+@contextlib.contextmanager
+def routing_recorded(moe_lib, log):
+    """Append each MoE layer's top-k experts (sorted per token) to ``log``
+    while the block runs."""
+    gating = moe_lib._top_k_gating
+
+    def recorded(logits, cfg):
+        weights, idx, aux = gating(logits, cfg)
+        log.append(idx.sort(-1).values)
+        return weights, idx, aux
+    moe_lib._top_k_gating = recorded
+    try:
+        yield log
+    finally:
+        moe_lib._top_k_gating = gating
+
+
+def b1_share(prof):
+    """(B1's device ms, device busy ms) over a torch.profiler window."""
+    from torch.autograd import DeviceType
+    b1 = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "fa_fwd" in e.key)
+    return b1 / 1e3, busy_union_ms(prof)[0]
+
+
+def serve_arch(serve, T, configs, arch, layers, requests, prompt_len):
+    """One [archs] run: serve.main at full depth, else serve.serve on the
+    config cut to ``layers`` layers (seeded bf16 weights, numpy prompts, as
+    serve.setup makes them)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    argv = ["--arch", arch, "--requests", str(requests), "--prompt-len",
+            str(prompt_len), "--gen", str(ARCHS_GEN), "--seed", "0"]
+    if layers is None:
+        return serve.main(argv)
+    sys_ = T.SystemConfig()
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers,
+                              dtype=sys_.compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init(gen, cfg, "cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (requests, prompt_len))).to("cuda")
+    return serve.serve(params, prompts, cfg, sys_, ARCHS_GEN)
+
+
+def int8_decode(res, steps, T, quant, fault=False):
+    """Decode the first INT8_TOKENS prompt tokens of ``res`` one by one from
+    position 0 into a fresh cache: (logits (B, INT8_TOKENS, V), ms a step
+    over steps 1.. (CUDA events), peak bytes allocated above the start).
+    With ``fault``, the int8 cache's slot-0 k_scale row is zeroed after the
+    first step in every layer."""
+    import torch
+    B = res.prompts.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cache = T.init_cache(res.cfg, B, INT8_TOKENS, quant=quant, device="cuda")
+    decode = steps.make_decode_step(res.cfg, res.sys)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = []
+    for t in range(INT8_TOKENS):
+        if t == 1:
+            start.record()
+        logits, cache = decode(res.params, cache, res.prompts[:, t:t + 1], t)
+        out.append(logits[:, 0])
+        if fault and t == 0:
+            cache["k_scale"][:, :, 0] = 0
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (INT8_TOKENS - 1)
+    peak = torch.cuda.max_memory_allocated() - base
+    return torch.stack(out, dim=1), ms, peak
+
+
+def phase_int8(res, steps, T, card):
+    """The int8 KV cache against the bf16 cache on full-width INT8_ARCH."""
+    ref, ms_bf16, peak_bf16 = int8_decode(res, steps, T, quant=False)
+
+    def distance(logits):
+        return (float((logits - ref).abs().max()),
+                float((logits.argmax(-1) == ref.argmax(-1)).float().mean()))
+    logits, ms_int8, peak_int8 = int8_decode(res, steps, T, quant=True)
+    err, agree = distance(logits)
+    f_err, f_agree = distance(int8_decode(res, steps, T, quant=True,
+                                          fault=True)[0])
+    ok = err <= INT8_MAX_ERR and agree >= INT8_MIN_AGREE
+    caught = f_err > INT8_MAX_ERR or f_agree < INT8_MIN_AGREE
+    B = res.prompts.shape[0]
+    print(f"[archs] {card} | int8 KV cache, {res.cfg.name} full width, "
+          f"{B} x {INT8_TOKENS} tokens decoded from position 0, against the "
+          f"bf16 cache (max|logit| {float(ref.abs().max()):.3f}): max|diff| "
+          f"{err:.4f}, argmax agreement {agree:.4f} (limits "
+          f"{INT8_MAX_ERR:g}, {INT8_MIN_AGREE:g}) {'ok' if ok else 'FAIL'}; "
+          f"planted fault (slot-0 k_scale zeroed after step 0): max|diff| "
+          f"{f_err:.4f}, agreement {f_agree:.4f} "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    print(f"[archs] {card} | int8 KV cache decode (eager: each layer "
+          f"dequantizes its whole cache to fp32 every step): "
+          f"{ms_int8:.3f} ms a step against the bf16 cache's "
+          f"{ms_bf16:.3f} (steps 1..{INT8_TOKENS - 1}); peak above the "
+          f"start {peak_int8 / 2**20:.3f} against {peak_bf16 / 2**20:.3f} "
+          f"MiB", flush=True)
+    check(ok, "the int8 KV cache strays from the bf16 cache")
+    check(caught, "the int8 check misses a zeroed k_scale row")
+
+
+def phase_archs(fa, fa_bwd, serve, steps, card):
+    """Queue A 2c/3/6 on the card: every run's prefills go through B1, its
+    logits held against the plain and fp32 paths (the planted fault must
+    break that limit), the MoE routers' bf16/fp32 agreement, tok/s, peak
+    memory and B1's share of a prefill's device time; then the int8 cache.
+    Returns B1's launches over the served runs."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    total = 0
+    for arch, layers, requests, prompt_len in ARCHS_RUNS:
+        t_run = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, fa_bwd)
+        res = serve_arch(serve, T, configs, arch, layers, requests,
+                         prompt_len)
+        launches, dq, dkv = read_counts(fa, fa_bwd)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        cfg = res.cfg
+        total += launches
+        want = cfg.n_layers * res.prefills
+        print(f"[archs] {arch}: {cfg.n_layers} layers, flash_attention "
+              f"launches {launches} over {res.prefills} prefills (want "
+              f"{want}); backward {dq} dq, {dkv} dkv", flush=True)
+        check(launches == want, f"{arch}: expected {want} B1 launches, got "
+                                f"{launches}")
+        check(dq == dkv == 0, f"{arch}: serving launched a backward kernel")
+        V = cfg.padded_vocab
+        check(tuple(res.prefill_logits.shape) == (requests, 1, V)
+              and bool(torch.isfinite(res.prefill_logits).all()),
+              f"{arch}: prefill logits wrong in shape or not finite")
+        check(tuple(res.tokens.shape) == (requests, ARCHS_GEN)
+              and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < V,
+              f"{arch}: generated tokens out of range")
+
+        def prefill_logits(**change):
+            sys_ = dataclasses.replace(res.sys, **change)
+            step = steps.make_prefill_step(cfg, sys_,
+                                           max_len=prompt_len + ARCHS_GEN)
+            logits = step(res.params, {"tokens": res.prompts})[0]
+            torch.cuda.synchronize()
+            return logits
+
+        routes_bf16, routes_fp32 = [], []
+        with routing_recorded(moe_lib, routes_bf16), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prefill_logits()
+        b1_ms, busy_ms = b1_share(prof)
+        del prof
+        plain = prefill_logits(use_pallas=False)
+        with routing_recorded(moe_lib, routes_fp32):
+            exact = prefill_logits(use_pallas=False, precision="fp32")
+        drop = archs_fault(prompt_len, cfg.window)
+        kernel_fn = fa.flash_attention
+        fa.flash_attention = faulty_flash(drop)
+        try:
+            fault = prefill_logits()
+        finally:
+            fa.flash_attention = kernel_fn
+
+        def err(logits):
+            return float((logits - exact).abs().max())
+        e_kernel, e_plain, e_fault = (err(res.prefill_logits), err(plain),
+                                      err(fault))
+        ok = e_kernel <= LOGITS_RATIO * e_plain
+        caught = e_fault > LOGITS_RATIO * e_plain
+        routing = ""
+        if cfg.family == "moe":
+            same = [(a == b).all(-1).float()
+                    for a, b in zip(routes_bf16, routes_fp32)]
+            routing = (f"; top-{cfg.top_k} experts of bf16 and fp32 routers "
+                       f"agree for {float(torch.stack(same).mean()):.4f} of "
+                       f"tokens x layers (layer 0: "
+                       f"{float(same[0].mean()):.4f})")
+        B, S = res.prompts.shape
+        print(f"[archs] {card} | {arch} ({cfg.n_layers} layers) {B}x{S} + "
+              f"{ARCHS_GEN}: prefill {res.prefill_tok_s:.1f} tok/s "
+              f"({res.prefill_ms:.3f} ms), decode {res.decode_tok_s:.1f} "
+              f"tok/s ({res.decode_ms / (ARCHS_GEN - 1):.3f} ms/step), peak "
+              f"memory {peak:.3f} GiB; B1 {b1_ms:.3f} ms of {busy_ms:.3f} ms "
+              f"device busy in one prefill (share {b1_ms / busy_ms:.4f})"
+              f"{routing}", flush=True)
+        print(f"[archs] {arch} prefill logits against the fp32 plain path "
+              f"(max|logit| {float(exact.abs().max()):.3f}): bf16 kernel "
+              f"path {e_kernel:.3e}, bf16 plain path {e_plain:.3e}, limit "
+              f"{LOGITS_RATIO:g}x the plain path's {'ok' if ok else 'FAIL'}; "
+              f"planted fault (keys {drop[1]}..{drop[2] - 1} hidden from rows "
+              f">= {drop[0]}) {e_fault:.3e} ({e_fault / e_plain:.2f}x) "
+              f"{'caught' if caught else 'MISSED'}; run "
+              f"{time.perf_counter() - t_run:.1f} s", flush=True)
+        check(ok, f"{arch}: kernel-path logits disagree with the plain path")
+        check(caught, f"{arch}: the logits check misses a dropped kv tile")
+        del plain, exact, fault, routes_bf16, routes_fp32
+        if arch == INT8_ARCH:
+            phase_int8(res, steps, T, card)
+        del res
+        torch.cuda.empty_cache()
+    # examples/torch_serve_lm.py (the reference example's serve-lm config:
+    # 4 layers, head_dim 64) on the card with its defaults
+    reset_counts(fa, fa_bwd)
+    with contextlib.redirect_stdout(sys.stderr):
+        ex = load_example("torch_serve_lm").main([])
+    launches, dq, dkv = read_counts(fa, fa_bwd)
+    want = ex.cfg.n_layers * ex.prefills
+    print(f"[archs] {card} | examples/torch_serve_lm.py: prefill "
+          f"{ex.prefill_tok_s:.1f} tok/s, decode {ex.decode_tok_s:.1f} "
+          f"tok/s; B1 launches {launches} (want {want}), backward {dq} dq, "
+          f"{dkv} dkv", flush=True)
+    check(launches == want and dq == dkv == 0,
+          "examples/torch_serve_lm.py: B1 launches wrong")
+    check(bool(torch.isfinite(ex.prefill_logits).all())
+          and int(ex.tokens.max()) < ex.cfg.padded_vocab,
+          "examples/torch_serve_lm.py: bad logits or tokens")
+    total += launches
+    del ex
+    phase_s = time.perf_counter() - t_phase
+    print(f"[archs] phase {phase_s:.1f} s (limit {ARCHS_PHASE_LIMIT_S:.0f} "
+          f"s); B1 launches over the served runs {total}", flush=True)
+    check(phase_s < ARCHS_PHASE_LIMIT_S,
+          f"the archs phase took {phase_s:.1f} s")
+    return total
 
 
 def phase_train(fa, fa_bwd, train, card):
@@ -1683,7 +2029,7 @@ def busy_union_ms(prof):
 
 
 def logged_backend(fault=False):
-    """A card ``TorchRealBackend`` at the launcher's sizes that logs every
+    """A card ``TorchRealBackend`` at ``PAR_SIZES`` that logs every
     step's loss per trial (``.losses[id(TrialState)]``). ``fault`` plants a
     lane fault: the first trial it starts draws its batches in another
     order (the batch generator of the next seed, a wave-mate's stream)."""
@@ -1692,7 +2038,7 @@ def logged_backend(fault=False):
 
     class Logged(TorchRealBackend):
         def __init__(self):
-            super().__init__(**LOOP_SIZES, device="cuda")
+            super().__init__(**PAR_SIZES, device="cuda")
             self.losses = {}
             self.planted = None
 
@@ -1842,7 +2188,7 @@ def par_distance(res, losses, ref, ref_losses):
         worst = max([worst] + [abs(g - w) / (1 + abs(w))
                                for g, w in zip(got, want)])
         acc = max([acc] + [abs(a.accuracy - b.accuracy)
-                           * LOOP_SIZES["n_eval"] for a, b in
+                           * PAR_SIZES["n_eval"] for a, b in
                            zip(res.records[tid].epochs, rec.epochs)])
     same_hp = {t: r.hparams for t, r in res.records.items()} == \
         {t: r.hparams for t, r in ref.records.items()}
@@ -2438,7 +2784,8 @@ def phase_lmtune(counters, card, fa, fa_bwd):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     full = (Experiment(job).with_tuner("pipetune", max_probes=4)
-            .with_backend(FullWidth(device="cuda"))
+            .with_backend(FullWidth(steps_per_epoch=LM_FULL_STEPS,
+                                    device="cuda"))
             .with_sys_space(space)
             .with_groundtruth(GroundTruth())
             .with_scheduler("random", n_trials=LM_FULL_TRIALS).run())
@@ -2448,7 +2795,8 @@ def phase_lmtune(counters, card, fa, fa_bwd):
     total = tuple(sum(v[i] for v in per.values()) for i in range(3))
     losses = [e.loss for r in full.records.values() for e in r.epochs]
     print(f"[lmtune] {card} | full-width {LM_FULL_ARCH} PipeTune random "
-          f"{LM_FULL_TRIALS} x {LM_FULL_EPOCHS} epochs: best final loss "
+          f"{LM_FULL_TRIALS} x {LM_FULL_EPOCHS} epochs of {LM_FULL_STEPS} "
+          f"steps: best final loss "
           f"{-full.best_accuracy:.4f}, tuning time {full.tuning_time_s:.3f} "
           f"s, wall {wall:.2f} s, locked {full.best_record.sys_history[-1]}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
@@ -2658,6 +3006,7 @@ def main() -> int:
           f"ms/step at batch {REQUESTS})", flush=True)
     del res
     torch.cuda.empty_cache()
+    archs_launches = phase_archs(fa, fa_bwd, serve, steps, card)
     _, train_counts = phase_train(fa, fa_bwd, train, card)
     phase_grad(fa_bwd)
     timing = phase_timing(fa, card)
@@ -2683,7 +3032,8 @@ def main() -> int:
         {"name": "flash_attention", "id": "B1", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:28",
-         "launches": launches, "launches_lmtune": lm_counts[0],
+         "launches": launches, "launches_archs": archs_launches,
+         "launches_lmtune": lm_counts[0],
          "max_abs_err": errs["serve"], **timing},
         {"name": "flash_attention_bwd_dq", "id": "B2", "route": "cuda",
          "source": src_bwd,

@@ -2,10 +2,10 @@
 
 ``get_config(name)`` returns the full published config and
 ``get_reduced(name)`` the family-preserving smoke-test config, as in the
-reference. Only the archs whose family is ported resolve; the others raise,
-naming the ROADMAP.md item (queue A) that brings them. The paper's own
-workloads (``PAPER_WORKLOADS``, Table 3) return their ``SmallConfig`` from
-both, as in the reference.
+reference. The dense and moe archs resolve; the others (hybrid, ssm, vlm,
+audio) raise, naming the ROADMAP.md item (queue A) that brings them. The
+paper's own workloads (``PAPER_WORKLOADS``, Table 3) return their
+``SmallConfig`` from both, as in the reference.
 """
 from __future__ import annotations
 
@@ -14,14 +14,14 @@ import importlib
 PAPER_WORKLOADS = ["lenet-mnist", "lenet-fashion", "cnn-news20", "lstm-news20"]
 
 _MODULES = {"qwen3-0.6b": "qwen3_0_6b",
+            "qwen2-1.5b": "qwen2_1_5b",
+            "yi-34b": "yi_34b",
+            "deepseek-coder-33b": "deepseek_coder_33b",
+            "mixtral-8x22b": "mixtral_8x22b",
+            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
             **{name: "paper_workloads" for name in PAPER_WORKLOADS}}
 
 _NOT_PORTED = {   # arch -> (ROADMAP.md queue A item, its title)
-    "mixtral-8x22b": ("3", "MoE and sliding window"),
-    "qwen2-moe-a2.7b": ("3", "MoE and sliding window"),
-    "yi-34b": ("2c", "Other dense archs"),
-    "qwen2-1.5b": ("2c", "Other dense archs"),
-    "deepseek-coder-33b": ("2c", "Other dense archs"),
     "internvl2-26b": ("7", "Encoder-decoder and VLM"),
     "whisper-small": ("7", "Encoder-decoder and VLM"),
     "recurrentgemma-9b": ("4", "Griffin (hybrid) family"),

@@ -112,13 +112,11 @@ _ITEM12 = "ROADMAP queue A, item 12 (Tuning service and wire protocol)"
 
 # kernels the port cannot time yet, and why
 _NOT_YET = {
-    "flash_attention": "the port's flash-attention kernels (B1-B3) have no "
-                       "q_block/kv_block to tune; their tile choices come "
-                       "with their redesign (ROADMAP queue A, item 8)",
-    "flash_attention_bwd": "the port's flash-attention kernels (B1-B3) have "
-                           "no q_block/kv_block to tune; their tile choices "
-                           "come with their redesign (ROADMAP queue A, "
-                           "item 8)",
+    kernel: "the port's flash-attention kernels (B1-B3) take no "
+            "q_block/kv_block yet; their tile choices come with or after "
+            "ROADMAP section B 2, the second round on those kernels "
+            "(ROADMAP queue A, item 8)"
+    for kernel in ("flash_attention", "flash_attention_bwd")
 }
 
 

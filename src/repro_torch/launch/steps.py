@@ -1,4 +1,5 @@
-"""Step builders: the counterpart of ``repro.launch.steps``, dense only.
+"""Step builders: the counterpart of ``repro.launch.steps`` for the dense
+and moe families.
 
 ``make_train_state``, ``make_train_step``, ``make_prefill_step`` and
 ``make_decode_step`` keep the reference's signatures, less the mesh (the
@@ -38,7 +39,7 @@ def make_train_step(cfg, sys: SystemConfig,
     place and ``state`` is returned updated: the counterpart of the
     reference's donated state.
     """
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     n_micro = sys.microbatches
 
     def grads_of(params, batch):
@@ -88,7 +89,7 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
 
     max_len sizes the (full-attention) decode cache; default = prompt length.
     """
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
 
     @torch.inference_mode()
     def prefill(params, batch):
@@ -102,7 +103,7 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
 
 def make_decode_step(cfg, sys: SystemConfig) -> Callable:
     """decode(params, cache, tokens, pos) -> (logits, cache)."""
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
 
     @torch.inference_mode()
     def decode(params, cache, tokens, pos):

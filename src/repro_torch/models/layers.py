@@ -15,8 +15,12 @@ same conventions:
   version of the flash kernel (``repro_torch.kernels.flash_attention``) is
   built on the same recurrence.
 
-Not ported yet: layernorm, the GELU MLP and int8 KV quantisation; they come
-with the slices that need them (ROADMAP.md, queue A).
+* The int8 KV cache (``init_kv_cache(quant=True)``, ``quantize_kv``,
+  ``dequantize_kv``) keeps int8 values with one bf16 scale per (token, kv
+  head), as the reference does.
+
+Not ported yet: layernorm and the GELU MLP; they come with the encoder-decoder
+slice (ROADMAP.md, queue A, item 7).
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ def dense_init(gen: torch.Generator, shape, in_axis_size=None,
     std = 1.0 / math.sqrt(max(1, fan_in))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
@@ -283,24 +287,31 @@ def attn_out(out, wo):
 def apply_attention_decode(params, x, cfg: AttnConfig, cache, pos: int):
     """Single-token decode with a (possibly ring-buffered) KV cache.
 
-    x: (B, 1, d); cache: {"k": (B, W, K, D), "v": ...}; pos: number of tokens
-    already in context. Returns (out, cache). Unlike the reference, which
-    returns a fresh cache, the new k/v row is written into ``cache`` in
-    place: a copy of every layer's cache per token would move the whole
+    x: (B, 1, d); cache: {"k": (B, W, K, D), "v": ...}, plus "k_scale" and
+    "v_scale" (B, W, K) for an int8 cache; pos: number of tokens already in
+    context. Returns (out, cache). Unlike the reference, which returns a
+    fresh cache, the new k/v row (and its scales) is written into ``cache``
+    in place: a copy of every layer's cache per token would move the whole
     cache for one row.
     """
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per sequence, got {S}")
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "int8 KV cache: ROADMAP.md queue A, item 'int8 KV cache'")
     W = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attention_qkv(params, x, cfg, positions)
     slot = pos % W                                        # ring buffer for SWA
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        for name, new in (("k", k), ("v", v)):
+            values, scale = quantize_kv(new[:, 0])
+            cache[name][:, slot] = values
+            cache[name + "_scale"][:, slot] = scale
+        ck = dequantize_kv(cache["k"], cache["k_scale"])
+        cv = dequantize_kv(cache["v"], cache["v_scale"])
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
     # validity + causality via explicit per-slot positions
     idx = torch.arange(W, device=x.device)
     slot_pos = torch.where(idx <= slot, pos - slot + idx, pos - slot - W + idx)
@@ -308,24 +319,46 @@ def apply_attention_decode(params, x, cfg: AttnConfig, cache, pos: int):
     if cfg.window is not None:
         valid &= slot_pos > (pos - cfg.window)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    s = torch.einsum("bskgh,btkh->bkgst", q.float(),
-                     cache["k"].float()) * scale
+    s = torch.einsum("bskgh,btkh->bkgst", q.float(), ck.float()) * scale
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", p.float(),
-                       cache["v"].to(x.dtype).float()).to(x.dtype)
+                       cv.to(x.dtype).float()).to(x.dtype)
     return attn_out(out, params["wo"]), cache
 
 
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, quant: bool = False, device=None):
-    if quant:
-        raise NotImplementedError(
-            "int8 KV cache: ROADMAP.md queue A, item 'int8 KV cache'")
+    """{"k", "v"}: (B, W, K, D) zeros, W the window or ``max_len``. With
+    ``quant``: int8 values and bf16 per-(token, head) scales "k_scale",
+    "v_scale" (B, W, K). That halves the cache's memory, not decode's
+    traffic: ``apply_attention_decode`` dequantizes the whole cache to fp32
+    copies every step before it reads them."""
     W = max_len if cfg.window is None else min(cfg.window, max_len)
     shape = (batch, W, cfg.n_kv_heads, cfg.head_dim)
+    if quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def quantize_kv(x):
+    """(..., D) -> (int8 values, per-row bf16 scale): the row's max |x| over
+    127 (plus 1e-8), values rounded half to even and clipped to ±127."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0 + 1e-8
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale):
+    """int8 values and their bf16 scales -> fp32."""
+    return q.float() * scale[..., None].float()
 
 
 # ---------------------------------------------------------------------------

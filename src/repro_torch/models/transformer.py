@@ -1,10 +1,14 @@
-"""TransformerLM, dense family: ``forward``, ``loss_fn`` and ``decode_step``.
+"""TransformerLM, dense and moe families: ``forward``, ``loss_fn`` and
+``decode_step``.
 
-PyTorch counterpart of ``repro.models.transformer`` for the dense family.
+PyTorch counterpart of ``repro.models.transformer`` for the dense and moe
+families (attention blocks whose MLP is a SwiGLU or ``models.moe``).
 Parameters stay stacked on a leading layer axis as in the reference, and a
 loop over the layers takes the place of its ``lax.scan``. Parameters are
 fp32 masters; ``forward`` casts them to the compute dtype, so their
-gradients arrive in fp32, as in the reference.
+gradients arrive in fp32, as in the reference. A cast that widens the
+leaves (bf16 weights run at fp32) goes one layer at a time, so that no fp32
+copy of the whole model is held (``_stacked_layers``).
 
 The other families raise ``NotImplementedError`` naming the ROADMAP.md item
 (queue A) that ports them.
@@ -22,19 +26,21 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as device_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
-from repro_torch.tree import tree_map
+from repro_torch.models import moe as moe_lib
+from repro_torch.tree import tree_leaves, tree_map
+
+PORTED_FAMILIES = ("dense", "moe")
 
 _ROADMAP_ITEM = {   # family -> (ROADMAP.md queue A item, its title)
-    "moe": ("3", "MoE and sliding window"),
     "hybrid": ("4", "Griffin (hybrid) family"),
     "ssm": ("5", "xLSTM (ssm) family"),
     "vlm": ("7", "Encoder-decoder and VLM"),
 }
 
 
-def require_dense(cfg) -> None:
-    """Raise unless ``cfg`` is of the dense family, the one ported."""
-    if cfg.family != "dense":
+def require_ported(cfg) -> None:
+    """Raise unless ``cfg``'s family is one the port has (dense, moe)."""
+    if cfg.family not in PORTED_FAMILIES:
         item = _ROADMAP_ITEM.get(cfg.family)
         if item is None:
             raise ValueError(f"unknown family {cfg.family}")
@@ -95,6 +101,13 @@ class ModelConfig:
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta,
             window=window if window is not None else self.window)
+
+    def moe_cfg(self) -> moe_lib.MoEConfig:
+        return moe_lib.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+            top_k=self.top_k, n_shared=self.n_shared,
+            capacity_factor=self.capacity_factor,
+            dropless=self.moe_dropless)
 
     @property
     def sub_quadratic(self) -> bool:
@@ -216,13 +229,22 @@ def _remat(fn, sys: SystemConfig):
 
 
 def _init_attn_block(gen, cfg: ModelConfig, window=None):
-    return {"attn_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
-                                             gen.device),
-            "attn": layers.init_attention(gen, cfg.attn_cfg(window),
-                                          cfg.dtype),
-            "mlp_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
-                                            gen.device),
-            "mlp": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)}
+    p = {"attn_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype, gen.device),
+         "attn": layers.init_attention(gen, cfg.attn_cfg(window), cfg.dtype),
+         "mlp_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype, gen.device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg.moe_cfg(), cfg.dtype)
+    else:
+        p["mlp"] = layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    return p
+
+
+def _apply_ffn(p, h, cfg: ModelConfig):
+    """The block's MLP or MoE: (y, aux loss fp32)."""
+    if "moe" in p:
+        return moe_lib.apply_moe(p["moe"], h, cfg.moe_cfg())
+    return (layers.apply_swiglu(p["mlp"], h),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
@@ -243,7 +265,8 @@ def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
         out = layers.attention(q, k, v, causal=True, window=acfg.window)
     x = x + layers.attn_out(out, p["attn"]["wo"])
     h = layers.rmsnorm(p["mlp_norm"], x)
-    x = x + layers.apply_swiglu(p["mlp"], h)
+    y, aux = _apply_ffn(p, h, cfg)
+    x = x + y
     cache = None
     if collect_cache:
         # Ring invariant: position p lives at slot p % W (decode relies on
@@ -251,7 +274,7 @@ def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
         # SWA: keep the last W positions and roll so slot = p % W.
         cache = {"k": _ring_layout(k, S, acfg.window, max_cache),
                  "v": _ring_layout(v, S, acfg.window, max_cache)}
-    return x, cache
+    return x, aux, cache
 
 
 def _ring_layout(kv, S, window, max_cache):
@@ -272,7 +295,7 @@ def _apply_attn_block_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
     out, cache = layers.apply_attention_decode(p["attn"], h, acfg, cache, pos)
     x = x + out
     h = layers.rmsnorm(p["mlp_norm"], x)
-    return x + layers.apply_swiglu(p["mlp"], h), cache
+    return x + _apply_ffn(p, h, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -291,16 +314,30 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     dev = device_lib.resolve(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
-    require_dense(cfg)
+    require_ported(cfg)
     V = cfg.padded_vocab
     params = {"final_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype, dev)}
     params["embed"] = layers.embed_init(gen, (V, cfg.d_model), cfg.dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, (cfg.d_model, V),
                                               dtype=cfg.dtype)
-    params["layers"] = _tree_stack(
-        [_init_attn_block(gen, cfg) for _ in range(cfg.n_layers)])
+    params["layers"] = _stack_init(lambda: _init_attn_block(gen, cfg),
+                                   cfg.n_layers)
     return params
+
+
+def _stack_init(make, n):
+    """``n`` trees from ``make()``, drawn in order, stacked on a new leading
+    axis. Each is copied into the stacked leaves as soon as it is drawn, so
+    the peak is the stack plus one layer, not twice the stack."""
+    layer = make()
+    stacked = tree_map(lambda a: a.new_empty((n,) + a.shape), layer)
+    for i in range(n):
+        if i:
+            layer = make()
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        del layer
+    return stacked
 
 
 # ---------------------------------------------------------------------------
@@ -340,25 +377,46 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
     collect_cache. last_only projects the LM head on the final position only
     (prefill).
     """
-    require_dense(cfg)
-    cparams = _cast(params, sys.compute_dtype)
+    require_ported(cfg)
+    dtype = sys.compute_dtype
+    cparams = _cast(_outside_layers(params), dtype)
     x = cparams["embed"][batch["tokens"]]
 
     def body(lp, x):
-        return _apply_attn_block(lp, x, cfg, sys, collect_cache=collect_cache,
+        return _apply_attn_block(_cast(lp, dtype), x, cfg, sys,
+                                 collect_cache=collect_cache,
                                  max_cache=max_cache)
     body = _remat(body, sys)
-    caches = []
-    for lp in _unstack(cparams["layers"], cfg.n_layers):
-        x, cache = body(lp, x)
+    caches, auxs = [], []
+    for lp in _unstack(_stacked_layers(params, dtype), cfg.n_layers):
+        x, aux, cache = body(lp, x)
+        auxs.append(aux)
         caches.append(cache)
     if last_only:
         x = x[:, -1:]
     logits = _lm_head(params, cparams, x, cfg)
-    aux_total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    aux_total = torch.stack(auxs).sum()
     if collect_cache:
         return logits, aux_total, _tree_stack(caches)
     return logits, aux_total
+
+
+def _outside_layers(params):
+    return {k: v for k, v in params.items() if k != "layers"}
+
+
+def _stacked_layers(params, dtype):
+    """The stacked layer leaves, cast to ``dtype`` at once unless that
+    widens a leaf: then they stay as they are and each layer is cast as it
+    runs (``_cast`` of a leaf already at ``dtype`` copies nothing). At once
+    takes one cast per stacked leaf, where per layer takes one per layer and
+    leaf: fewer launches in a train step, whose backward keeps the casts
+    anyway."""
+    stacked = params["layers"]
+    widens = any(a.is_floating_point() and a.element_size()
+                 < torch.empty((), dtype=dtype).element_size()
+                 for a in tree_leaves(stacked))
+    return stacked if widens else _cast(stacked, dtype)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
@@ -377,7 +435,8 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
     loss = ((lse - gold) * mask).sum() / n
     with torch.no_grad():
         accuracy = ((logits.argmax(-1) == labels).float() * mask).sum() / n
-    metrics = {"loss": loss.detach(), "aux_loss": aux, "tokens": mask.sum(),
+    metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
+               "tokens": mask.sum(),
                "accuracy": accuracy}
     return loss + aux, metrics
 
@@ -389,8 +448,9 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, quant: bool = False, device=None):
-    """The decode cache, stacked on the layer axis: (L, B, W, K, D) each."""
-    require_dense(cfg)
+    """The decode cache, stacked on the layer axis: (L, B, W, K, D) each;
+    with ``quant``, int8 "k"/"v" and bf16 "k_scale"/"v_scale" (L, B, W, K)."""
+    require_ported(cfg)
     dev = device_lib.resolve(device)
     one = layers.init_kv_cache(cfg.attn_cfg(), batch, max_len, dtype,
                                quant=quant, device=dev)
@@ -406,11 +466,13 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
     (logits (B, 1, V) fp32, cache); the cache is updated in place
     (see ``layers.apply_attention_decode``).
     """
-    require_dense(cfg)
+    require_ported(cfg)
     pos = int(pos)
-    cparams = _cast(params, sys.compute_dtype)
+    dtype = sys.compute_dtype
+    cparams = _cast(_outside_layers(params), dtype)
     x = cparams["embed"][tokens]
+    stacked = _stacked_layers(params, dtype)
     for i in range(cfg.n_layers):
-        x, _ = _apply_attn_block_decode(_layer(cparams["layers"], i), x, cfg,
-                                        _layer(cache, i), pos)
+        x, _ = _apply_attn_block_decode(_cast(_layer(stacked, i), dtype), x,
+                                        cfg, _layer(cache, i), pos)
     return _lm_head(params, cparams, x, cfg), cache

@@ -18,7 +18,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import require_dense
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.transformer import require_ported
 
 
 def _small_layout(cfg) -> Dict[str, Tuple[Tuple[int, ...],
@@ -57,14 +58,14 @@ def _layout(cfg):
 
 
 def leaf_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
-    """Leaf path ("a/b/c") -> shape in the port, for the dense family and
-    the small workloads."""
+    """Leaf path ("a/b/c") -> shape in the port, for the dense and moe
+    families and the small workloads."""
     return {p: s if perm is None else tuple(s[i] for i in perm)
             for p, (s, perm) in _layout(cfg).items()}
 
 
 def _dense_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
-    require_dense(cfg)
+    require_ported(cfg)
     L, d, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
     K, D = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // K
@@ -73,8 +74,19 @@ def _dense_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
         shapes["lm_head"] = (d, V)
     layer = {"attn_norm/scale": (d,), "mlp_norm/scale": (d,),
              "attn/wq": (d, K, G, D), "attn/wk": (d, K, D),
-             "attn/wv": (d, K, D), "attn/wo": (K, G, D, d),
-             "mlp/w_gate": (d, F), "mlp/w_up": (d, F), "mlp/w_down": (F, d)}
+             "attn/wv": (d, K, D), "attn/wo": (K, G, D, d)}
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        layer.update({"moe/router": (d, E), "moe/w_gate": (E, d, F),
+                      "moe/w_up": (E, d, F), "moe/w_down": (E, F, d)})
+        if cfg.n_shared:
+            sf = moe_lib.shared_d_ff(cfg.moe_cfg())
+            layer.update({"moe/shared/w_gate": (d, sf),
+                          "moe/shared/w_up": (d, sf),
+                          "moe/shared/w_down": (sf, d)})
+    else:
+        layer.update({"mlp/w_gate": (d, F), "mlp/w_up": (d, F),
+                      "mlp/w_down": (F, d)})
     if cfg.qkv_bias:
         layer.update({"attn/bq": (K, G, D), "attn/bk": (K, D),
                       "attn/bv": (K, D)})
@@ -120,10 +132,14 @@ def unflatten(flat):
     return _lists(tree)
 
 
+_FP32_LEAVES = ("layers/moe/router",)
+
+
 def from_jax(params_np, cfg, device, dtype=None):
     """The reference's parameter tree (numpy leaves) -> the port's tensors.
 
-    dtype defaults to ``cfg.dtype``. bf16 leaves (ml_dtypes) pass through
+    dtype defaults to ``cfg.dtype``, but for the MoE router, which stays fp32
+    as the reference's init keeps it. bf16 leaves (ml_dtypes) pass through
     float32, which holds them exactly.
     """
     flat = flatten(params_np)
@@ -133,7 +149,6 @@ def from_jax(params_np, cfg, device, dtype=None):
     if unknown or missing:
         raise KeyError(f"leaf paths not in the layout map: {unknown}; "
                        f"missing: {missing}")
-    dtype = cfg.dtype if dtype is None else dtype
     out = {}
     for path, leaf in flat.items():
         arr = np.asarray(leaf)
@@ -143,7 +158,9 @@ def from_jax(params_np, cfg, device, dtype=None):
         if perm is not None:
             arr = arr.transpose(perm)
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        out[path] = t.to(device=device, dtype=dtype)
+        leaf_dtype = dtype or (torch.float32 if path in _FP32_LEAVES
+                               else cfg.dtype)
+        out[path] = t.to(device=device, dtype=leaf_dtype)
     return unflatten(out)
 
 

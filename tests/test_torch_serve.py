@@ -124,16 +124,10 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 # Every arch and family that is not ported, with the ROADMAP.md queue A item
 # (number, title) that brings it.
 UNPORTED = {
-    ("arch", "mixtral-8x22b"): ("3", "MoE and sliding window"),
-    ("arch", "qwen2-moe-a2.7b"): ("3", "MoE and sliding window"),
-    ("arch", "yi-34b"): ("2c", "Other dense archs"),
-    ("arch", "qwen2-1.5b"): ("2c", "Other dense archs"),
-    ("arch", "deepseek-coder-33b"): ("2c", "Other dense archs"),
     ("arch", "internvl2-26b"): ("7", "Encoder-decoder and VLM"),
     ("arch", "whisper-small"): ("7", "Encoder-decoder and VLM"),
     ("arch", "recurrentgemma-9b"): ("4", "Griffin (hybrid) family"),
     ("arch", "xlstm-350m"): ("5", "xLSTM (ssm) family"),
-    ("family", "moe"): ("3", "MoE and sliding window"),
     ("family", "hybrid"): ("4", "Griffin (hybrid) family"),
     ("family", "ssm"): ("5", "xLSTM (ssm) family"),
     ("family", "vlm"): ("7", "Encoder-decoder and VLM"),
