@@ -25,10 +25,15 @@ Phases (any failure raises, and the script exits non-zero):
      or 4 microbatches, at full-width qwen3-0.6b and at the LM example's
      width), and B1 at the [archs] shapes (G = 6, 7, 1 with K = 16, window
      4096 at S = 8192) and at examples/torch_serve_lm.py's prefill (bf16,
-     8 x 64 tokens, K 2, G 2, D 64). A planted fault (one kv tile hidden
+     8 x 64 tokens, K 2, G 2, D 64); B1-B3 at recurrentgemma-9b's attention
+     (``rg_shapes``: head_dim 256, K = 1, G = 16, window 2048, at the
+     [hybrid] serve and train shapes, a ragged S = 2047 in fp32, D = 192
+     and K = 2). A planted fault (one kv tile hidden
      from the later rows in the forward; in the backward, the dk/dv
      contribution of the same rows to the same keys left out) must fail
-     each check (B1's at the serve, the [archs] and the example's shapes). The whole autograd op (B1 forward,
+     each check (B1's at the serve, the [archs], the example's and the
+     head_dim 256 shapes; B2/B3's at the train and the head_dim 256
+     shapes). The whole autograd op (B1 forward,
      B2 and B3 backward) is held against autograd through fp32 dense
      attention at the train shape;
   3. serve full-width qwen3-0.6b (seeded bf16 weights, 8 requests of 2048
@@ -55,6 +60,23 @@ Phases (any failure raises, and the script exits non-zero):
      ``INT8_MIN_AGREE`` of each other, which a zeroed k_scale row must
      break; both caches' decode ms a step and peak memory printed. Last, ``examples/torch_serve_lm.py`` with its defaults (B1
      once per layer and prefill). Within ``ARCHS_PHASE_LIMIT_S``;
+ 3c. ``[hybrid]``: recurrentgemma-9b at full width through the step
+     functions (``launch.serve`` refuses a hybrid: the reference's prefill
+     hands decode no recurrent state). Served at full depth: a warm-up and
+     a timed prefill of ``HYBRID_SERVE`` (B1 once per group and prefill,
+     B2/B3 never), ``HYBRID_GEN`` tokens decoded from ``init_cache`` (no
+     kernel launch; the last position's logits against the fp32 plain
+     forward of those tokens within ``HYBRID_DECODE_RATIO`` of the bf16
+     kernel-path prefill's distance), the prefill logits held as in 3
+     (planted fault ``HYBRID_FAULT``), tok/s, peak memory, and one
+     profiled prefill's device time split into B1, the plain RG-LRU scan
+     and GEMMs. Trained cut to ``HYBRID_TRAIN_LAYERS`` layers at
+     ``HYBRID_TRAIN`` tokens (fp32 masters, bf16 compute, adamw):
+     ``HYBRID_TRAIN_STEPS`` steps and one at remat block with 2
+     microbatches, B1 = B2 = B3 = groups x microbatches a step (B1 twice
+     under remat), finite losses, peak memory; then its loss gradients
+     held against the fp32 plain path leaf by leaf as in 5, with the
+     planted backward fault. Within ``HYBRID_PHASE_LIMIT_S``;
   4. train full-width qwen3-0.6b (fp32 masters, bf16 compute, 4 x 2048
      tokens, 6 steps) through ``repro_torch.launch.train.main``, counters set
      to 0 just before: B1, B2 and B3 must each have run 28 times a step, and
@@ -65,11 +87,17 @@ Phases (any failure raises, and the script exits non-zero):
      the bf16 kernel path against those of the fp32 plain path: per leaf no
      further than ``GRAD_RATIO`` times the bf16 plain path's distance. The
      planted backward fault must fail this check;
-  6. time each kernel at its main path's shape beside its bound, its plain
+  6. time B1, B2 and B3 (``time_attention``) at the serve shape (B1's
+     reading), the train shape (B2's and B3's) and the [hybrid] serve shape
+     (head_dim 256, MQA, window 2048), each beside its bound, its plain
      version and one PyTorch library call of the same function
-     (``scaled_dot_product_attention`` and its backward, with the kv heads
-     expanded and the flash backend pinned, timed here only: the port never
-     calls it), and B2 + B3 back to back beside SDPA's whole backward. Every
+     (``scaled_dot_product_attention`` with ``enable_gqa`` and its
+     backward, the flash backend pinned, timed here only: the port never
+     calls it; what the backward picks unpinned is printed as
+     information), and B2 + B3 back to back beside SDPA's whole backward;
+     then the fp32 variants at the [lmtune] shapes and at the [hybrid]
+     shape beside their bounds, plain versions and SDPA (unpinned: flash
+     takes no fp32; the backend it picked is printed). Every
      time is the median of 5 windows after 5 warm-up calls, printed with its
      spread;
   7. hold B4 (mLSTM) against its plain version at the xlstm-350m width
@@ -217,10 +245,40 @@ LOGITS_RATIO = 2.0
 # A planted fault that both checks must catch: keys 64..127 (one kv tile)
 # hidden from query rows >= 1024, as a kernel that skipped a tile would do.
 FAULT = (1024, 64, 128)
+
+
+def hybrid_attention():
+    """recurrentgemma-9b's attention from its config: (K, G, D, window)."""
+    from repro_torch import configs
+    cfg = configs.get(HYBRID_ARCH)
+    K = cfg.n_kv_heads
+    return K, cfg.n_heads // K, cfg.resolved_head_dim, cfg.window
+
+
+def rg_shapes():
+    """B1-B3's rows at recurrentgemma-9b's attention (head_dim 256, MQA:
+    K = 1, G = 16, window 2048), each held against the plain version with
+    its planted fault (for B2/B3: that fault's rows left out of dk/dv): the
+    [hybrid] serve and train shapes (at S = 4096 the window cuts), a ragged
+    S in fp32, D = 192 (padded to 256) and K = 2. FAULT's keys lie inside
+    every row's window; at S = 1000 the fault takes rows >= 256. Rows:
+    name, B, S, K, G, D, dtype, window, fault (S = T, causal)."""
+    K, G, D, window = hybrid_attention()
+    (b_serve, s_serve), (b_train, s_train) = HYBRID_SERVE, HYBRID_TRAIN
+    return [
+        ("rg_serve", b_serve, s_serve, K, G, D, "bfloat16", window, FAULT),
+        ("rg_train", b_train, s_train, K, G, D, "bfloat16", window, FAULT),
+        ("rg_fp32_ragged", 1, s_serve - 1, K, G, D, "float32", window,
+         FAULT),
+        ("rg_d192", 2, 1000, K, G, 192, "bfloat16", 512, (256, 0, 64)),
+        ("rg_k2", 2, 1024, 2, G, D, "bfloat16", None, (512, 64, 128)),
+    ]
+
+
 # B1's rows that are also held against a planted fault, and the fault of
 # each: FAULT at the serve shape and the [archs] phase's shapes; at the
 # example's 64-token prompt, where FAULT's rows lie past the end, keys 0..15
-# hidden from rows >= 32.
+# hidden from rows >= 32; and every row of rg_shapes.
 FAULT_ROWS = {"serve": FAULT, "g6_qwen2": FAULT, "g7_yi": FAULT,
               "g1_k16": FAULT, "mixtral_window": FAULT,
               "serve_lm": (32, 0, 16)}
@@ -417,6 +475,36 @@ INT8_MAX_ERR = 0.5
 INT8_MIN_AGREE = 0.8
 ARCHS_PHASE_LIMIT_S = 90.0
 
+# [hybrid]: recurrentgemma-9b (head_dim 256, MQA G = 16, window 2048) at
+# full width through launch.steps. Served at full depth (38 layers,
+# 10.4 B parameters, bf16): HYBRID_SERVE prompts prefilled (B1 once per
+# group and prefill), then HYBRID_GEN tokens decoded from init_cache, as the
+# reference decodes a hybrid. Trained cut to HYBRID_TRAIN_LAYERS layers (1
+# group + 1 tail block; the untied 256,000-row embedding and head keep
+# most of its 2.99 B parameters) at HYBRID_TRAIN tokens a step.
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_SERVE = (8, 2048)
+HYBRID_GEN = 32
+HYBRID_TRAIN_LAYERS = 4
+HYBRID_TRAIN = (1, 4096)
+HYBRID_TRAIN_STEPS = 3
+# Decode from init_cache against the fp32 plain forward of the same
+# HYBRID_GEN tokens, at the last position: at most this times the distance
+# of the bf16 kernel path's prefill of those tokens (on an NVIDIA H100 80GB
+# HBM3 at 700 W: 3.058e-1 against 3.057e-1).
+HYBRID_DECODE_RATIO = 2.0
+# The planted fault of the prefill logits check: the later half of the
+# window's keys hidden from the later rows. One dropped tile (FAULT) moved
+# the last position's logits 1.26x the bf16 plain path's distance on the
+# same card: the bf16 rounding of 26 recurrent layers (0.30 at max|logit|
+# 5.0) hides it there, where B1's own check (rg_serve) catches it.
+HYBRID_FAULT = (1024, 1024, 2048)
+# The phase read 30.2 s on that card within the whole script.
+HYBRID_PHASE_LIMIT_S = 90.0
+# Kernel names of the library GEMMs (cuBLAS), for the prefill breakdown.
+HYBRID_GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+HYBRID_SCAN_RANGE = "hybrid.plain_rglru_scan"
+
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
@@ -453,7 +541,8 @@ def demangled_kernel(mangled):
             n = int(mangled[i:run.end()])
             name = mangled[run.end():run.end() + n]
             if re.fullmatch(r"(?:fa|mlstm|rglru|hopper)_\w+_kernel", name):
-                rest = re.match(r"I\w+?E", mangled[run.end() + n:])
+                rest = re.match(r"I(?:13__nv_bfloat16|6__half|f|Li\d+E)+E",
+                                mangled[run.end() + n:])
                 return name, rest.group(0) if rest else ""
     return mangled, ""
 
@@ -752,7 +841,10 @@ def phase_kernels(fa):
          4096),
         # examples/torch_serve_lm.py's prefill (serve-lm: K 2, G 2, D 64)
         ("serve_lm", 8, 64, 64, 2, 2, 64, torch.bfloat16, True, None),
+        *[(n, b, s_, s_, k, g, d, getattr(torch, dt), True, w)
+          for n, b, s_, k, g, d, dt, w, _ in rg_shapes()],
     ]
+    fault_rows = {**FAULT_ROWS, **{n: f for n, *_, f in rg_shapes()}}
     errs = {}
     for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(shapes):
         q, k, v = attention_inputs(B, S, T, K, G, D, dt, seed=i)
@@ -771,8 +863,8 @@ def phase_kernels(fa):
               f"({limits}) {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"flash_attention disagrees with its plain version at "
                   f"{name}")
-        if name in FAULT_ROWS:
-            drop = FAULT_ROWS[name]
+        if name in fault_rows:
+            drop = fault_rows[name]
             f_out, f_lse = dense_attention_sliced(q, k, v, causal, window,
                                                   drop)
             caught, f_eo, f_el = compare(f_out, f_lse, ref_out, ref_lse)[:3]
@@ -807,11 +899,16 @@ BWD_SHAPES = [  # name, B, S, T, K, G, D, dtype, causal, window
 
 
 def phase_bwd_kernels(fa, fa_bwd):
-    """B2/B3 against their plain version; the planted backward fault."""
+    """B2/B3 against their plain version (BWD_SHAPES, then rg_shapes'
+    rows); the planted backward fault at the train shape and rg_shapes'."""
     import torch
+    rg = rg_shapes()
+    shapes = BWD_SHAPES + [(n, b, s_, s_, k, g, d, dt, True, w)
+                           for n, b, s_, k, g, d, dt, w, _ in rg]
+    faults = {"train": FAULT, **{n: f for n, *_, f in rg}}
     errs = {}
     for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(
-            BWD_SHAPES):
+            shapes):
         dtype = getattr(torch, dt)
         q, k, v = attention_inputs(B, S, T, K, G, D, dtype, seed=200 + i)
         do = attention_inputs(B, S, S, K, G, D, dtype, seed=300 + i)[0]
@@ -836,13 +933,14 @@ def phase_bwd_kernels(fa, fa_bwd):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"flash_attention_bwd disagrees with its plain version at "
                   f"{name}")
-        if name == "train":
-            fault = dense_attention_bwd(q, k, v, do, causal, window, FAULT)
+        if name in faults:
+            drop = faults[name]
+            fault = dense_attention_bwd(q, k, v, do, causal, window, drop)
             passed, fe, fneed = compare_grads(fault, ref, GRAD_TOL[dt])
             caught = not passed
             print(f"[kernel] planted backward fault at {name} (the dk/dv "
-                  f"contribution of rows >= {FAULT[0]} to keys {FAULT[1]}.."
-                  f"{FAULT[2] - 1} left out): max|err| "
+                  f"contribution of rows >= {drop[0]} to keys {drop[1]}.."
+                  f"{drop[2] - 1} left out): max|err| "
                   f"{grad_line(fe, fneed, GRAD_TOL[dt])} "
                   f"{'caught' if caught else 'MISSED'}", flush=True)
             check(caught, "the backward check misses a dropped tile")
@@ -1208,6 +1306,463 @@ def phase_archs(fa, fa_bwd, serve, steps, card):
     return total
 
 
+def hybrid_prefill_shares(prof):
+    """(B1 ms, plain-scan ms, GEMM ms, device busy ms, the top kernels)
+    over a profiled prefill: B1 by its kernel's name; the plain RG-LRU
+    scan as the device span of its ``HYBRID_SCAN_RANGE`` ranges (from the
+    first kernel launched inside one to the end of its last: the stream
+    runs them in order); GEMMs by the library's kernel names."""
+    from torch.autograd import DeviceType
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if e.key != HYBRID_SCAN_RANGE]
+    b1 = sum(e.self_device_time_total for e in kernels if "fa_fwd" in e.key)
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(w in e.key.lower() for w in HYBRID_GEMM_NAMES))
+    scan = sum(e.self_device_time_total for e in device
+               if e.key == HYBRID_SCAN_RANGE)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return (b1 / 1e3, scan / 1e3, gemm / 1e3,
+            busy_union_ms(prof, skip=(HYBRID_SCAN_RANGE,))[0],
+            [(e.key[:60], e.self_device_time_total / 1e3) for e in top])
+
+
+@contextlib.contextmanager
+def scan_annotated(rec_lib):
+    """Run the hybrid's plain RG-LRU scan inside a profiler range named
+    ``HYBRID_SCAN_RANGE``."""
+    import torch
+    scan = rec_lib.rglru_reference
+
+    def annotated(*args):
+        with torch.profiler.record_function(HYBRID_SCAN_RANGE):
+            return scan(*args)
+    rec_lib.rglru_reference = annotated
+    try:
+        yield
+    finally:
+        rec_lib.rglru_reference = scan
+
+
+def hybrid_serve(fa, fa_bwd, steps, card):
+    """Full-width, full-depth recurrentgemma-9b: prefill through
+    make_prefill_step (warm-up, then timed), decode from init_cache through
+    make_decode_step, the prefill logits against the plain and fp32 paths
+    with a planted fault, and where one prefill's device time goes. Returns
+    B1's launches as counted over the two prefills and the decode."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch import device as device_lib
+    from repro_torch.models import recurrent as rec_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    sys_ = T.SystemConfig()
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH),
+                              dtype=sys_.compute_dtype)
+    B, S = HYBRID_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    weights_gib = sum(a.numel() * a.element_size()
+                      for a in tree_leaves(params)) / 2 ** 30
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S))).to("cuda")
+    prefill = steps.make_prefill_step(cfg, sys_)
+    decode = steps.make_decode_step(cfg, sys_)
+
+    reset_counts(fa, fa_bwd)
+    prefill(params, {"tokens": prompts})                    # warm-up
+    with device_lib.Timer(dev) as t_prefill:
+        logits, cache = prefill(params, {"tokens": prompts})
+    prefill_counts = read_counts(fa, fa_bwd)
+    G, V = cfg.hybrid_groups, cfg.padded_vocab
+    want = (2 * G, 0, 0)
+    print(f"[hybrid] {HYBRID_ARCH}: {cfg.n_layers} layers ({G} groups of "
+          f"{cfg.rec_per_attn} recurrent + 1 attention, {cfg.hybrid_tail} "
+          f"tail), {n_params / 1e9:.3f} B parameters ({weights_gib:.3f} GiB "
+          f"bf16 with fp32 Lambda); launches over 2 prefills: B1 "
+          f"{prefill_counts[0]}, dq {prefill_counts[1]}, dkv "
+          f"{prefill_counts[2]} (want {want})",
+          flush=True)
+    check(prefill_counts == want,
+          f"hybrid prefill launches {prefill_counts}, want {want}")
+    D = cfg.resolved_head_dim
+    check(tuple(logits.shape) == (B, 1, V)
+          and bool(torch.isfinite(logits).all()),
+          "hybrid prefill logits wrong in shape or not finite")
+    check(tuple(cache["k"].shape) == (G, B, cfg.window, 1, D),
+          f"hybrid prefill cache {tuple(cache['k'].shape)}")
+    del cache
+    prefill_tok_s = B * S / (t_prefill.ms / 1e3)
+
+    # decode HYBRID_GEN prompt tokens from init_cache (the reference's
+    # prefill hands decode no recurrent state)
+    reset_counts(fa, fa_bwd)
+    cache = T.init_cache(cfg, B, S, device="cuda")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    dec = []
+    for t in range(HYBRID_GEN):
+        if t == 1:
+            start.record()
+        step_logits, cache = decode(params, cache, prompts[:, t:t + 1], t)
+        dec.append(step_logits[:, 0])
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (HYBRID_GEN - 1)
+    decode_counts = read_counts(fa, fa_bwd)
+    dec = torch.stack(dec, dim=1)
+    check(decode_counts == (0, 0, 0),
+          f"hybrid decode launched kernels {decode_counts}")
+    check(bool(torch.isfinite(dec).all()), "hybrid decode logits not finite")
+    del cache
+
+    def prefill_logits(tokens, **change):
+        step = steps.make_prefill_step(cfg, dataclasses.replace(sys_,
+                                                                **change))
+        out = step(params, {"tokens": tokens})[0]
+        torch.cuda.synchronize()
+        return out
+
+    # decode against the parallel forward: the first HYBRID_GEN tokens
+    # prefilled on the kernel path and on the fp32 plain path
+    head = prompts[:, :HYBRID_GEN]
+    short_kernel = prefill_logits(head)[:, 0]
+    short_exact = prefill_logits(head, use_pallas=False,
+                                 precision="fp32")[:, 0]
+    e_dec = float((dec[:, -1] - short_exact).abs().max())
+    e_short = float((short_kernel - short_exact).abs().max())
+    dec_ok = e_dec <= HYBRID_DECODE_RATIO * e_short
+    print(f"[hybrid] {card} | decode from init_cache, {B} x {HYBRID_GEN} "
+          f"tokens: {decode_ms:.3f} ms a step ({B / (decode_ms / 1e3):.1f} "
+          f"tok/s, steps 1..{HYBRID_GEN - 1}); B1-B3 launches 0; position "
+          f"{HYBRID_GEN - 1}'s logits against the fp32 plain forward of the "
+          f"same {HYBRID_GEN} tokens: decode {e_dec:.3e}, bf16 kernel-path "
+          f"prefill {e_short:.3e} (limit {HYBRID_DECODE_RATIO:g}x it) "
+          f"{'ok' if dec_ok else 'FAIL'}", flush=True)
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with scan_annotated(rec_lib), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill_logits(prompts)
+    b1_ms, scan_ms, gemm_ms, busy_ms, top = hybrid_prefill_shares(prof)
+    del prof
+    plain = prefill_logits(prompts, use_pallas=False)
+    exact = prefill_logits(prompts, use_pallas=False, precision="fp32")
+
+    def err(x):
+        return float((x - exact).abs().max())
+
+    def fault_err(drop):
+        kernel_fn = fa.flash_attention
+        fa.flash_attention = faulty_flash(drop)
+        try:
+            return err(prefill_logits(prompts))
+        finally:
+            fa.flash_attention = kernel_fn
+    e_kernel, e_plain = err(logits), err(plain)
+    e_fault, e_tile = fault_err(HYBRID_FAULT), fault_err(FAULT)
+    ok = e_kernel <= LOGITS_RATIO * e_plain
+    caught = e_fault > LOGITS_RATIO * e_plain
+    print(f"[hybrid] {card} | {HYBRID_ARCH} {B}x{S}: prefill "
+          f"{prefill_tok_s:.1f} tok/s ({t_prefill.ms:.3f} ms), decode "
+          f"{B / (decode_ms / 1e3):.1f} tok/s, peak memory {serve_peak:.3f} "
+          f"GiB (served run; {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+          f" with the fp32 checks); one profiled prefill: device busy "
+          f"{busy_ms:.3f} ms, B1 {b1_ms:.3f} ms (share "
+          f"{b1_ms / busy_ms:.4f}), plain RG-LRU scan {scan_ms:.3f} ms "
+          f"({scan_ms / busy_ms:.4f}), GEMMs {gemm_ms:.3f} ms "
+          f"({gemm_ms / busy_ms:.4f}); top kernels "
+          + "; ".join(f"{k} {ms:.3f}" for k, ms in top), flush=True)
+    print(f"[hybrid] prefill logits against the fp32 plain path (max|logit| "
+          f"{float(exact.abs().max()):.3f}): bf16 kernel path {e_kernel:.3e},"
+          f" bf16 plain path {e_plain:.3e}, limit {LOGITS_RATIO:g}x the plain "
+          f"path's {'ok' if ok else 'FAIL'}; planted fault (keys "
+          f"{HYBRID_FAULT[1]}..{HYBRID_FAULT[2] - 1} hidden from rows >= "
+          f"{HYBRID_FAULT[0]}) {e_fault:.3e} ({e_fault / e_plain:.2f}x) "
+          f"{'caught' if caught else 'MISSED'}; one tile (keys "
+          f"{FAULT[1]}..{FAULT[2] - 1} from rows >= {FAULT[0]}, not a "
+          f"check) {e_tile:.3e} ({e_tile / e_plain:.2f}x)", flush=True)
+    check(dec_ok, "hybrid decode strays from the forward")
+    check(ok, "hybrid kernel-path logits disagree with the plain path")
+    check(caught, "the hybrid logits check misses a dropped kv tile")
+    del params, logits, plain, exact, dec
+    torch.cuda.empty_cache()
+    return prefill_counts[0] + decode_counts[0]
+
+
+def hybrid_train(fa, fa_bwd, steps, card):
+    """The full-width cut to HYBRID_TRAIN_LAYERS layers (fp32 masters, bf16
+    compute, adamw as launch.train): steps at 1 x 4096 tokens and one at
+    remat block with 2 microbatches, launches counted; then the loss
+    gradients on the kernel path against the fp32 plain path, leaf by leaf,
+    with a planted backward fault. Returns (B1, B2, B3) launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH),
+                              n_layers=HYBRID_TRAIN_LAYERS)
+    G = cfg.hybrid_groups
+    B, S = HYBRID_TRAIN
+    n_steps = HYBRID_TRAIN_STEPS + 1
+    opt = optimizers.adamw(optimizers.warmup_cosine(3e-4, 10, n_steps),
+                           weight_decay=0.01)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.make_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, opt, "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(state["params"]))
+    toks = synthetic.make_lm_dataset(0, 2 * B * S * (n_steps + 1),
+                                     cfg.vocab)
+
+    def batch_of(i, rows):
+        chunk = toks[i * 2 * B * S:][:rows * S].reshape(rows, S)
+        return {"tokens": torch.from_numpy(chunk).to("cuda", torch.long),
+                "labels": torch.from_numpy(np.roll(chunk, -1, -1)).to(
+                    "cuda", torch.long)}
+
+    reset_counts(fa, fa_bwd)
+    step = steps.make_train_step(cfg, T.SystemConfig(precision="bf16"), opt)
+    losses, ms = [], []
+    for i in range(HYBRID_TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, metrics = step(state, batch_of(i, B))
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        ms.append(start.elapsed_time(end))
+    counts = read_counts(fa, fa_bwd)
+    want = (G * HYBRID_TRAIN_STEPS,) * 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[hybrid] {card} | train {HYBRID_ARCH} cut to {cfg.n_layers} "
+          f"layers ({G} group + {cfg.hybrid_tail} tail; {n_params / 1e9:.3f}"
+          f" B parameters, fp32 masters, adamw), {HYBRID_TRAIN_STEPS} steps "
+          f"of {B}x{S} tokens: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; ms/step "
+          f"{' '.join(f'{x:.3f}' for x in ms)}; peak memory {peak:.3f} GiB; "
+          f"launches B1 {counts[0]}, dq {counts[1]}, dkv {counts[2]} (want "
+          f"{want})", flush=True)
+    check(counts == want, f"hybrid train launches {counts}, want {want}")
+    check(all(math.isfinite(x) for x in losses), "non-finite hybrid loss")
+
+    reset_counts(fa, fa_bwd)
+    remat = steps.make_train_step(
+        cfg, T.SystemConfig(precision="bf16", remat="block", microbatches=2),
+        opt)
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = remat(state, batch_of(HYBRID_TRAIN_STEPS, 2 * B))
+    r_counts = read_counts(fa, fa_bwd)
+    r_want = (2 * G * 2, G * 2, G * 2)
+    r_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[hybrid] remat block, 2 microbatches of {B}x{S}: loss "
+          f"{float(metrics['loss']):.4f}, launches B1 {r_counts[0]}, dq "
+          f"{r_counts[1]}, dkv {r_counts[2]} (want {r_want}), peak memory "
+          f"{r_peak:.3f} GiB", flush=True)
+    check(r_counts == r_want, f"hybrid remat launches {r_counts}")
+    check(math.isfinite(float(metrics["loss"])), "non-finite remat loss")
+    total = tuple(a + b for a, b in zip(counts, r_counts))
+
+    # gradients at 1 x S: the kernel path, the bf16 plain path and a
+    # planted backward fault, each against the fp32 plain path, one set of
+    # gradients beside the fp32 one at a time
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    batch = batch_of(HYBRID_TRAIN_STEPS + 1, 1)
+
+    def grads(**kw):
+        out = loss_grads(params, batch, cfg, T.SystemConfig(**kw))
+        torch.cuda.synchronize()
+        return out
+
+    exact = grads(precision="fp32", use_pallas=False)
+
+    def dist(**kw):
+        g = grads(**kw)
+        return {p: float((g[p] - e).abs().max() / e.abs().max())
+                for p, e in exact.items()}
+
+    d_k = dist(precision="bf16")
+    d_p = dist(precision="bf16", use_pallas=False)
+    kernel_bwd = fa_bwd.flash_attention_bwd
+    fa_bwd.flash_attention_bwd = (
+        lambda q, k, v, out, lse, do, *, causal=True, window=None, **_:
+        dense_attention_bwd(q, k, v, do, causal, window, FAULT))
+    try:
+        d_f = dist(precision="bf16")
+    finally:
+        fa_bwd.flash_attention_bwd = kernel_bwd
+    ratio = {p: d_k[p] / d_p[p] for p in exact}
+    f_ratio = {p: d_f[p] / d_p[p] for p in exact}
+    worst = max(ratio, key=ratio.get)
+    worst_f = max(f_ratio, key=f_ratio.get)
+    for p in exact:
+        print(f"[hybrid] grad {p:28s} distance kernel {d_k[p]:.3e}, plain "
+              f"{d_p[p]:.3e} ({ratio[p]:.2f}x), fault {d_f[p]:.3e} "
+              f"({f_ratio[p]:.2f}x)", flush=True)
+    ok = ratio[worst] <= GRAD_RATIO
+    caught = f_ratio[worst_f] > GRAD_RATIO
+    print(f"[hybrid] loss gradients (1x{S}) against the fp32 plain path: "
+          f"worst leaf {worst} at {ratio[worst]:.2f}x the bf16 plain path's "
+          f"distance (limit {GRAD_RATIO:g}x) {'ok' if ok else 'FAIL'}; "
+          f"planted backward fault: worst leaf {worst_f} at "
+          f"{f_ratio[worst_f]:.2f}x {'caught' if caught else 'MISSED'}",
+          flush=True)
+    check(ok, "hybrid kernel-path gradients disagree with the plain path")
+    check(caught, "the hybrid gradient check misses a dropped tile")
+    del params, exact
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_hybrid(fa, fa_bwd, steps, card):
+    """[hybrid]: recurrentgemma-9b served at full width and depth and
+    trained at full width cut in depth, through launch.steps' functions
+    (launch.serve refuses a hybrid), within HYBRID_PHASE_LIMIT_S. Returns
+    (B1 launches serving, (B1, B2, B3) launches training)."""
+    t_phase = time.perf_counter()
+    serve_launches = hybrid_serve(fa, fa_bwd, steps, card)
+    train_launches = hybrid_train(fa, fa_bwd, steps, card)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[hybrid] phase {phase_s:.1f} s (limit "
+          f"{HYBRID_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < HYBRID_PHASE_LIMIT_S,
+          f"the hybrid phase took {phase_s:.1f} s")
+    return serve_launches, train_launches
+
+
+def sdpa_flash():
+    """The context that pins SDPA to its flash backend; a shape it refuses
+    raises instead of falling to another backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel(SDPBackend.FLASH_ATTENTION)
+
+
+def sdpa_gqa(q, k, v):
+    """Causal SDPA on the kernels' layouts, the kv heads shared through
+    ``enable_gqa``: (B, H, S, D)."""
+    import torch.nn.functional as F
+    B, S, K, G, D = q.shape
+    qh = q.reshape(B, S, K * G, D).transpose(1, 2)
+    kh, vh = (x.transpose(1, 2) for x in (k, v))
+    return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                          enable_gqa=True)
+
+
+def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
+    """B1, B2 and B3 at one causal shape: each kernel's ms beside its
+    bound, its plain version and SDPA with ``enable_gqa`` (timed here only:
+    the port never calls it), B1 against its forward, B2, B3 and B2 + B3
+    back to back against its whole backward. In bf16 SDPA has its flash
+    backend pinned, and what its backward picks unpinned is printed as
+    information; flash takes no fp32, so there SDPA runs unpinned and the
+    backend it picked is printed. Returns {id: row}."""
+    import torch
+    q, k, v = attention_inputs(B, S, S, K, G, D, dtype, seed=600)
+    do = attention_inputs(B, S, S, K, G, D, dtype, seed=601)[0]
+    size = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    pairs = B * K * G * visible_pairs(S, S, True, window)
+    # each input read once, each output written once: B1 reads q, k, v and
+    # writes out and lse (fp32); B2 and B3 read q, dO, k, v, lse and delta
+    # and write dq, or dk and dv
+    rows_ = B * S * K * G
+    io = size * (2 * q.numel() + 2 * k.numel())
+    fwd_bytes = io + 4 * rows_
+    dq_bytes = io + 8 * rows_ + size * q.numel()
+    dkv_bytes = io + 8 * rows_ + size * 2 * k.numel()
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+                                  return_lse=True)
+    delta = fa_bwd.attention_delta(out, do)
+    kw = dict(causal=True, window=window, scale=D ** -0.5)
+    args = (q, k, v, do, lse, delta)
+    bf16 = dtype == torch.bfloat16
+    iters = 20 if bf16 else 3
+    with sdpa_flash() if bf16 else contextlib.nullcontext():
+        lib_fwd = cuda_ms(lambda: sdpa_gqa(q, k, v), iters=iters)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out_h = sdpa_gqa(*leaves)
+    backend = type(out_h.grad_fn).__name__
+    if bf16:
+        check("Flash" in backend, f"SDPA's backward is {backend}, not flash")
+    elif "Attention" not in backend:    # the composite math path
+        backend = f"math ({backend})"
+    pinned = "flash pinned" if bf16 else "unpinned"
+    do_h = do.reshape(B, S, K * G, D).transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out_h, leaves, do_h, retain_graph=True), iters=iters)
+    if bf16:
+        # not the yardstick: what SDPA's backward picks unpinned
+        out_d = sdpa_gqa(*leaves)
+        default_ms = cuda_ms(lambda: torch.autograd.grad(
+            out_d, leaves, do_h, retain_graph=True), iters=iters)
+        print(f"[timing] {card} | {name}: SDPA unpinned (not the "
+              f"yardstick): backward {type(out_d.grad_fn).__name__} "
+              f"{default_ms:.4f} ms ({default_ms.spread()})", flush=True)
+        del out_d
+    rows = {}
+    for kid, kernel, plain, products, nbytes, lib in (
+            ("B1", lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window),
+             lambda: fa.flash_attention_reference(q, k, v, causal=True,
+                                                  window=window),
+             2, fwd_bytes, lib_fwd),
+            ("B2", lambda: fa_bwd.dq_kernel(*args, **kw),
+             lambda: fa_bwd.dq_reference(*args, **kw), 3, dq_bytes, lib_bwd),
+            ("B3", lambda: fa_bwd.dkv_kernel(*args, **kw),
+             lambda: fa_bwd.dkv_reference(*args, **kw), 4, dkv_bytes,
+             lib_bwd)):
+        ms = cuda_ms(kernel, iters=iters)
+        plain_ms = cuda_ms(plain, iters=1)
+        flops = 2.0 * D * products * pairs
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        what = "its forward" if kid == "B1" else f"{backend}: dq, dk, dv"
+        print(f"[timing] {card} | {kid} {name} B={B} S=T={S} K={K} G={G} "
+              f"D={D} {str(dtype)[6:]} causal window={window}: kernel "
+              f"{ms:.4f} ms ({ms.spread()}; {flops / ms / 1e9:.1f} TFLOP/s), "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops:.3e} FLOP, "
+              f"{nbytes:.3e} B), plain {plain_ms:.4f} ms "
+              f"({plain_ms.spread()}), library (SDPA, {pinned}, enable_gqa,"
+              f" {what}) {lib:.4f} ms ({lib.spread()})", flush=True)
+        rows[kid] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib)
+    both = cuda_ms(lambda: (fa_bwd.dq_kernel(*args, **kw),
+                            fa_bwd.dkv_kernel(*args, **kw)), iters=iters)
+    print(f"[timing] {card} | B2 + B3 {name} back to back {both:.4f} ms "
+          f"({both.spread()}) against SDPA's whole backward ({backend}) "
+          f"{lib_bwd:.4f} ms: {both / lib_bwd:.3f}x", flush=True)
+    del out_h, leaves
+    return rows
+
+
+def phase_hybrid_timing(fa, fa_bwd, card):
+    """B1-B3 at [hybrid]'s serve shape (head_dim 256, MQA, window 2048) in
+    bf16 against SDPA; their fp32 variants at the [lmtune] shapes and at
+    head_dim 256. Returns {"d256": rows, "fp32": {shape name: rows}}."""
+    import torch
+    shape = (*HYBRID_SERVE, *hybrid_attention())
+    out = {"d256": time_attention(fa, fa_bwd, card, "hybrid", *shape,
+                                  torch.bfloat16),
+           "fp32": {}}
+    for name, b, k, d in LM_ATTN_SHAPES:
+        out["fp32"][name] = time_attention(fa, fa_bwd, card, name, b, 64, k,
+                                           2, d, None, torch.float32)
+    out["fp32"]["hybrid_fp32"] = time_attention(
+        fa, fa_bwd, card, "hybrid_fp32", *shape, torch.float32)
+    return out
+
+
 def phase_train(fa, fa_bwd, train, card):
     """Full-width training through train.main, launches counted."""
     import torch
@@ -1333,113 +1888,6 @@ def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
-
-
-def expand_heads(q, k, v):
-    """(B, S, K, G, D) / (B, T, K, D) -> (B, H, S, D) each, kv heads
-    repeated over their group, for the library call."""
-    B, S, K, G, D = q.shape
-    T = k.shape[1]
-    qh = q.reshape(B, S, K * G, D).transpose(1, 2).contiguous()
-    kh, vh = (x[:, :, :, None].expand(B, T, K, G, D).reshape(B, T, K * G, D)
-              .transpose(1, 2).contiguous() for x in (k, v))
-    return qh, kh, vh
-
-
-def sdpa_flash():
-    """The context that pins SDPA to its flash backend; a shape it refuses
-    raises instead of falling to another backend."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    return sdpa_kernel(SDPBackend.FLASH_ATTENTION)
-
-
-def phase_timing(fa, card):
-    import torch.nn.functional as F
-    import torch
-    B, S, K, G, D = SERVE_SHAPE
-    H = K * G
-    q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=100)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=1)
-    qh, kh, vh = expand_heads(q, k, v)
-    with sdpa_flash():
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), iters=20)
-    flops = 4.0 * B * H * D * visible_pairs(S, S, True, None)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * S * H
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[timing] {card} | flash_attention B={B} S=T={S} H={H} K={K} "
-          f"D={D} bf16 causal: kernel {ms:.4f} ms ({ms.spread()}; "
-          f"{flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-          f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B), plain "
-          f"{plain_ms:.4f} ms ({plain_ms.spread()}), library (SDPA, backend "
-          f"FLASH_ATTENTION pinned, kv heads expanded) {library_ms:.4f} ms "
-          f"({library_ms.spread()})", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
-
-
-def phase_bwd_timing(fa, fa_bwd, card):
-    """B2 and B3 at the train shape; the library call is SDPA's backward
-    (flash backend pinned), which computes dq, dk and dv together, so it is
-    also set beside B2 + B3 launched back to back."""
-    import torch
-    import torch.nn.functional as F
-    B, S, K, G, D = TRAIN_SHAPE
-    H = K * G
-    q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=500)
-    do = attention_inputs(B, S, S, K, G, D, torch.bfloat16, seed=501)[0]
-    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    delta = fa_bwd.attention_delta(out, do)
-    kw = dict(causal=True, scale=D ** -0.5)
-    args = (q, k, v, do, lse, delta)
-    qh, kh, vh = (x.requires_grad_() for x in expand_heads(q, k, v))
-    with sdpa_flash():
-        out_h = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    backend = type(out_h.grad_fn).__name__
-    check("Flash" in backend, f"SDPA's backward is {backend}, not flash")
-    do_h = do.reshape(B, S, H, D).transpose(1, 2).contiguous()
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out_h, (qh, kh, vh), do_h, retain_graph=True), iters=20)
-    # Not the yardstick: what SDPA picks unpinned, which earlier readings
-    # of this phase timed without saying which backend it was.
-    out_d = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    default_ms = cuda_ms(lambda: torch.autograd.grad(
-        out_d, (qh, kh, vh), do_h, retain_graph=True), iters=20)
-    print(f"[timing] {card} | SDPA unpinned (not the yardstick): backward "
-          f"{type(out_d.grad_fn).__name__} {default_ms:.4f} ms "
-          f"({default_ms.spread()})", flush=True)
-    del out_d
-    pairs = B * H * visible_pairs(S, S, True, None)
-    stats = 4 * 2 * B * S * H                    # lse and delta, fp32
-    io = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, dO, k, v in bf16
-    rows = {}
-    for name, kernel, plain, products, outs in (
-            ("dq", fa_bwd.dq_kernel, fa_bwd.dq_reference, 3, q.numel()),
-            ("dkv", fa_bwd.dkv_kernel, fa_bwd.dkv_reference, 4,
-             k.numel() + v.numel())):
-        ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=1)
-        flops = 2.0 * D * products * pairs
-        nbytes = io + stats + 2 * outs
-        bound_ms, bound_by = bound(flops, nbytes)
-        print(f"[timing] {card} | flash_attention_bwd {name} B={B} S=T={S} "
-              f"H={H} K={K} D={D} bf16 causal: kernel {ms:.4f} ms "
-              f"({ms.spread()}; {flops / ms / 1e9:.1f} TFLOP/s), bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {flops:.3e} FLOP, "
-              f"{nbytes:.3e} B), plain {plain_ms:.4f} ms "
-              f"({plain_ms.spread()}), library (SDPA backward, {backend}, "
-              f"dq, dk and dv together, kv heads expanded) "
-              f"{library_ms:.4f} ms ({library_ms.spread()})", flush=True)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
-    both = cuda_ms(lambda: (fa_bwd.dq_kernel(*args, **kw),
-                            fa_bwd.dkv_kernel(*args, **kw)), iters=20)
-    print(f"[timing] {card} | flash_attention_bwd dq + dkv back to back "
-          f"{both:.4f} ms ({both.spread()}) against SDPA's whole backward "
-          f"({backend}) {library_ms:.4f} ms: {both / library_ms:.3f}x",
-          flush=True)
-    return rows
 
 
 def mlstm_inputs(B, S, H, D, dtype, seed, f_shift=0.0):
@@ -2009,14 +2457,16 @@ def phase_tuneloop(counters, card, idle_w):
     check(not any(counts.values()), "the tuning loop launched a kernel")
 
 
-def busy_union_ms(prof):
+def busy_union_ms(prof, skip=()):
     """(device busy ms, device activities) over a torch.profiler window:
     the union of the intervals of every device activity (kernels, copies,
-    sets), so that kernels of two lanes that overlap count once."""
+    sets), so that kernels of two lanes that overlap count once. Events
+    named in ``skip`` (a user range's span on the device) are left out."""
     from torch.autograd import DeviceType
     spans = sorted((e.start_ns(), e.end_ns())
                    for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+                   if e.device_type() == DeviceType.CUDA
+                   and e.name() not in skip)
     busy, end = 0, None
     for a, b in spans:
         if end is None or a > end:
@@ -3007,10 +3457,17 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     archs_launches = phase_archs(fa, fa_bwd, serve, steps, card)
+    hybrid_serve_b1, hybrid_train_counts = phase_hybrid(fa, fa_bwd, steps,
+                                                        card)
     _, train_counts = phase_train(fa, fa_bwd, train, card)
     phase_grad(fa_bwd)
-    timing = phase_timing(fa, card)
-    bwd_timing = phase_bwd_timing(fa, fa_bwd, card)
+    # B1 at the serve shape, B2 and B3 at the train shape (each call times
+    # all three)
+    timing = time_attention(fa, fa_bwd, card, "serve", *SERVE_SHAPE, None,
+                            torch.bfloat16)["B1"]
+    bwd_timing = time_attention(fa, fa_bwd, card, "train", *TRAIN_SHAPE,
+                                None, torch.bfloat16)
+    hybrid_timing = phase_hybrid_timing(fa, fa_bwd, card)
     mlstm_errs = phase_mlstm(ml)
     rglru_errs = phase_rglru(rg)
     counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
@@ -3027,26 +3484,38 @@ def main() -> int:
     phase_trainstep(counters, card, tune, findb, groundtruth)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
-    train_errs = bwd_errs["train"]
+    train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]
+
+    def hybrid_rows(kid, err):
+        """A kernel's [hybrid] readings: head_dim 256 at the serve shape
+        (bf16, beside SDPA) and its fp32 variant's times."""
+        return {"d256": {"max_abs_err": err, **hybrid_timing["d256"][kid]},
+                "fp32": {name: rows[kid]
+                         for name, rows in hybrid_timing["fp32"].items()}}
     kernels = [
         {"name": "flash_attention", "id": "B1", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:28",
          "launches": launches, "launches_archs": archs_launches,
          "launches_lmtune": lm_counts[0],
-         "max_abs_err": errs["serve"], **timing},
+         "launches_hybrid": hybrid_serve_b1 + hybrid_train_counts[0],
+         "max_abs_err": errs["serve"], **timing,
+         **hybrid_rows("B1", errs["rg_serve"])},
         {"name": "flash_attention_bwd_dq", "id": "B2", "route": "cuda",
          "source": src_bwd,
          "replaces": "src/repro/kernels/flash_attention_bwd.py:43",
          "launches": train_counts[1], "launches_lmtune": lm_counts[1],
+         "launches_hybrid": hybrid_train_counts[1],
          "max_abs_err": train_errs[0][0],
-         **bwd_timing["dq"]},
+         **bwd_timing["B2"], **hybrid_rows("B2", rg_errs[0][0])},
         {"name": "flash_attention_bwd_dkv", "id": "B3", "route": "cuda",
          "source": src_bwd,
          "replaces": "src/repro/kernels/flash_attention_bwd.py:87",
          "launches": train_counts[2], "launches_lmtune": lm_counts[2],
+         "launches_hybrid": hybrid_train_counts[2],
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),
-         **bwd_timing["dkv"]},
+         **bwd_timing["B3"],
+         **hybrid_rows("B3", max(rg_errs[1][0], rg_errs[2][0]))},
         {"name": "mlstm", "id": "B4", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mlstm.cu",
          "replaces": "src/repro/kernels/mlstm.py:27",

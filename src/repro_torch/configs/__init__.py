@@ -2,7 +2,7 @@
 
 ``get_config(name)`` returns the full published config and
 ``get_reduced(name)`` the family-preserving smoke-test config, as in the
-reference. The dense and moe archs resolve; the others (hybrid, ssm, vlm,
+reference. The dense, moe and hybrid archs resolve; the others (ssm, vlm,
 audio) raise, naming the ROADMAP.md item (queue A) that brings them. The
 paper's own workloads (``PAPER_WORKLOADS``, Table 3) return their
 ``SmallConfig`` from both, as in the reference.
@@ -19,12 +19,12 @@ _MODULES = {"qwen3-0.6b": "qwen3_0_6b",
             "deepseek-coder-33b": "deepseek_coder_33b",
             "mixtral-8x22b": "mixtral_8x22b",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+            "recurrentgemma-9b": "recurrentgemma_9b",
             **{name: "paper_workloads" for name in PAPER_WORKLOADS}}
 
 _NOT_PORTED = {   # arch -> (ROADMAP.md queue A item, its title)
     "internvl2-26b": ("7", "Encoder-decoder and VLM"),
     "whisper-small": ("7", "Encoder-decoder and VLM"),
-    "recurrentgemma-9b": ("4", "Griffin (hybrid) family"),
     "xlstm-350m": ("5", "xLSTM (ssm) family"),
 }
 

@@ -44,8 +44,19 @@
 // softmax with the other's products (ping-pong), a persistent scheduler,
 // and fp8.
 //
+// Head dim 256 (recurrentgemma-9b: MQA, G = 16, window 2048) has its own
+// tile plan (FwdPlan): O is 64 rows x 256 fp32, 128 registers a thread,
+// which with S and P does not fit the 168 registers ptxas gives a thread of
+// a 384-thread block. So a block is ONE consumer warpgroup of 64 rows and
+// the producer warpgroup (256 threads, up to 255 registers a thread), kv
+// tiles are 64 rows (S is 32 registers), and O += P V is one m64n256k16
+// chain. Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB. D = 129
+// to 255 is padded to 256 by the TMA boxes' zero fill. The price: one
+// consumer warpgroup an SM, with nothing to overlap its softmax with.
+//
 // fp32 inputs take a separate SIMT kernel (fp32 FMA, no tensor cores), so an
-// fp32 caller gets fp32 products and not TF32.
+// fp32 caller gets fp32 products and not TF32. At D > 128 its kv tile is 16
+// rows, so that K and V stay within the 48 KB of static shared memory.
 //
 // C entry points return cudaGetLastError() after the launch (or the error
 // of encoding a TMA map); they launch on the given stream and do not
@@ -109,69 +120,84 @@ __device__ __forceinline__ bool tile_unmasked(const Args& a, const Tile& t,
 
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int kRows = 128;       // flattened (position, head) rows a block
-constexpr int kBN = 128;         // kv rows a tile
 constexpr int kStages = 2;       // K/V ring
-constexpr int kThreads = 384;    // consumers: warpgroups 0, 1; producer: 2
-constexpr int kBox = 128 * 128;  // bytes of a 128-row box of 64 bf16 columns
+
+// The bf16 kernel's tiles for a padded head dim DP: two consumer warpgroups
+// of 64 flattened (position, head) rows and 128-row kv tiles up to DP = 128;
+// one consumer warpgroup and 64-row kv tiles at DP = 256 (see the header).
+// The producer is the warpgroup after the consumers.
+template <int DP>
+struct FwdPlan {
+  static constexpr int kConsumers = DP <= 128 ? 2 : 1;
+  static constexpr int kRows = 64 * kConsumers;   // flattened rows a block
+  static constexpr int kBN = DP <= 128 ? 128 : 64;   // kv rows a tile
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kQBox = kRows * 128;   // bytes of a Q box (64 columns)
+  static constexpr int kKVBox = kBN * 128;    // bytes of a K or V box
+};
 
 template <int DP>
 constexpr int fwd_smem_bytes() {
-  return (DP / 64) * kBox * (1 + 2 * kStages) + 8 * (1 + 2 * kStages) + 1024;
+  using P = FwdPlan<DP>;
+  return (DP / 64) * (P::kQBox + 2 * kStages * P::kKVBox) +
+         8 * (1 + 2 * kStages) + 1024;
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(FwdPlan<DP>::kThreads, 1)
 fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Args a) {
-  constexpr int kTile = (DP / 64) * kBox;       // bytes of a Q, K or V tile
+  using P = FwdPlan<DP>;
+  constexpr int kBN = P::kBN;
+  constexpr int kQTile = (DP / 64) * P::kQBox;    // bytes of the Q tile
+  constexpr int kKVTile = (DP / 64) * P::kKVBox;  // bytes of a K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);
-  unsigned char* sK = sQ + kTile;                // [kStages]
-  unsigned char* sV = sK + kStages * kTile;      // [kStages]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  unsigned char* sK = sQ + kQTile;               // [kStages]
+  unsigned char* sV = sK + kStages * kKVTile;    // [kStages]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kKVTile);
   uint64_t* full = q_full + 1;                   // [kStages]
   uint64_t* empty = full + kStages;              // [kStages]
 
   const int kh = blockIdx.y, b = blockIdx.z;
-  const Tile t = tile_of(a, kRows);
+  const Tile t = tile_of(a, P::kRows);
   const int n_tiles = t.kv_hi > t.kv_lo ? (t.kv_hi - t.kv_lo + kBN - 1) / kBN
                                         : 0;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);                   // one per consumer warp
+      mbar_init(&empty[s], 4 * P::kConsumers);   // one per consumer warp
     }
     fence_mbar_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == P::kConsumers) {
     // ------------------------------------------------------------ producer
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 256) {
+    if constexpr (P::kConsumers == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * P::kConsumers) {
       mbar_arrive_expect_tx(q_full, (DP / 64) * 128 * a.G * t.bq);
       for (int h = 0; h < DP / 64; ++h)
-        tma_load_5d(sQ + h * kBox, &tm_q, q_full, 64 * h, 0, kh, t.q0, b);
+        tma_load_5d(sQ + h * P::kQBox, &tm_q, q_full, 64 * h, 0, kh, t.q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         const int k0 = t.kv_lo + j * kBN;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        mbar_arrive_expect_tx(&full[s], 2 * kKVTile);
         for (int h = 0; h < DP / 64; ++h) {
-          tma_load_4d(sK + s * kTile + h * kBox, &tm_k, &full[s], 64 * h, kh,
-                      k0, b);
-          tma_load_4d(sV + s * kTile + h * kBox, &tm_v, &full[s], 64 * h, kh,
-                      k0, b);
+          tma_load_4d(sK + s * kKVTile + h * P::kKVBox, &tm_k, &full[s],
+                      64 * h, kh, k0, b);
+          tma_load_4d(sV + s * kKVTile + h * P::kKVBox, &tm_v, &full[s],
+                      64 * h, kh, k0, b);
         }
       }
     }
   } else {
     // ----------------------------------------------------------- consumers
-    setmaxnreg_inc<240>();
+    if constexpr (P::kConsumers == 2) setmaxnreg_inc<240>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int g4 = lane / 4, t4 = lane % 4;    // accumulator coordinates
     const int r0 = wg * 64 + warp * 16 + g4;   // this thread's rows: r0, +8
@@ -194,8 +220,8 @@ fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kStages;
       const int k0 = t.kv_lo + j * kBN;
-      const unsigned char* tK = sK + s * kTile;
-      const unsigned char* tV = sV + s * kTile;
+      const unsigned char* tK = sK + s * kKVTile;
+      const unsigned char* tV = sV + s * kKVTile;
       mbar_wait(&full[s], (j / kStages) & 1);
 
       // S = Q K^T: 64 rows x kBN columns, k16 steps over DP
@@ -205,8 +231,9 @@ fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const int off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_ss<0>(sc, desc_k(myQ + off), desc_k(tK + off), kk > 0);
+        const int in_box = (kk % 4) * 32;
+        wgmma_ss<0>(sc, desc_k(myQ + (kk / 4) * P::kQBox + in_box),
+                    desc_k(tK + (kk / 4) * P::kKVBox + in_box), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -266,7 +293,7 @@ fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // O += P V: P's accumulators of n-tiles 2 ks and 2 ks + 1 are the A
-      // fragment of k16 step ks; V is MN-major, a step 16 rows on
+      // fragment of k16 step ks; V is MN-major, a step 16 rows on; N = DP
       uint32_t pa[kBN / 16][4];
 #pragma unroll
       for (int ks = 0; ks < kBN / 16; ++ks) {
@@ -278,7 +305,7 @@ fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kBN / 16; ++ks)
-        wgmma_rs<1>(o, pa[ks], desc_mn(tV + ks * 16 * 128, kBox), 1);
+        wgmma_rs<1>(o, pa[ks], desc_mn(tV + ks * 16 * 128, P::kKVBox), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -325,11 +352,13 @@ fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int DP>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  const int bq = kRows / a.G;                  // positions a block
+  using P = FwdPlan<DP>;
+  static_assert(fwd_smem_bytes<DP>() <= 232448, "shared memory");
+  const int bq = P::kRows / a.G;               // positions a block
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, a.G, bq);
-  if (err == cudaSuccess) err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, kBN);
-  if (err == cudaSuccess) err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, kBN);
+  if (err == cudaSuccess) err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, P::kBN);
+  if (err == cudaSuccess) err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, P::kBN);
   if (err != cudaSuccess) return err;
   const int smem = fwd_smem_bytes<DP>();
   err = cudaFuncSetAttribute(fa_fwd_bf16_kernel<DP>,
@@ -337,23 +366,24 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
                              smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + bq - 1) / bq, a.K, a.B);
-  fa_fwd_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
-                                                           a);
+  fa_fwd_bf16_kernel<DP><<<grid, P::kThreads, smem, stream>>>(tm_q, tm_k,
+                                                              tm_v, a);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ fp32 path
 
 constexpr int kRowsF = 32;     // flattened rows per block, 4 threads per row
-constexpr int kBNF = 32;       // kv rows per tile
-constexpr int kDPF = 128;      // D padded
 constexpr int kThreadsF = kRowsF * 4;
 
+// DPF: D padded (128 or 256); BNF: kv rows a tile (32, or 16 at DPF = 256:
+// K and V then take 32 KB of static shared memory).
+template <int DPF, int BNF>
 __global__ void __launch_bounds__(kThreadsF)
 fa_fwd_f32_kernel(Args a) {
-  constexpr int PER = kDPF / 4;           // dims per thread: d = t4 + 4*i
-  __shared__ float sK[kBNF][kDPF];
-  __shared__ float sV[kBNF][kDPF];
+  constexpr int PER = DPF / 4;            // dims per thread: d = t4 + 4*i
+  __shared__ float sK[BNF][DPF];
+  __shared__ float sV[BNF][DPF];
 
   const int kh = blockIdx.y, b = blockIdx.z;
   const Tile t = tile_of(a, kRowsF);
@@ -375,9 +405,9 @@ fa_fwd_f32_kernel(Args a) {
   }
   float m = kNegInf, l = 0.f;
 
-  for (int k0 = t.kv_lo; k0 < t.kv_hi; k0 += kBNF) {
-    for (int c = threadIdx.x; c < kBNF * kDPF; c += kThreadsF) {
-      const int rr = c / kDPF, d = c % kDPF;
+  for (int k0 = t.kv_lo; k0 < t.kv_hi; k0 += BNF) {
+    for (int c = threadIdx.x; c < BNF * DPF; c += kThreadsF) {
+      const int rr = c / DPF, d = c % DPF;
       const int s = k0 + rr;
       const bool ok = s < t.kv_hi && d < a.D;
       const size_t off = (((size_t)b * a.T + s) * a.K + kh) * a.D + d;
@@ -386,10 +416,10 @@ fa_fwd_f32_kernel(Args a) {
     }
     __syncthreads();
 
-    float sc[kBNF];
+    float sc[BNF];
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kBNF; ++j) {
+    for (int j = 0; j < BNF; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < PER; ++i) part = fmaf(qr[i], sK[j][t4 + 4 * i], part);
@@ -405,7 +435,7 @@ fa_fwd_f32_kernel(Args a) {
     m = mn;
     float ls = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBNF; ++j) {
+    for (int j = 0; j < BNF; ++j) {
       sc[j] = expf(sc[j] - mn);
       ls += sc[j];
     }
@@ -414,7 +444,7 @@ fa_fwd_f32_kernel(Args a) {
     for (int i = 0; i < PER; ++i) {
       float x = acc[i] * corr;
 #pragma unroll
-      for (int j = 0; j < kBNF; ++j) x = fmaf(sc[j], sV[j][t4 + 4 * i], x);
+      for (int j = 0; j < BNF; ++j) x = fmaf(sc[j], sV[j][t4 + 4 * i], x);
       acc[i] = x;
     }
     __syncthreads();
@@ -434,7 +464,10 @@ fa_fwd_f32_kernel(Args a) {
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   const int bq = kRowsF / a.G;
   dim3 grid((a.S + bq - 1) / bq, a.K, a.B);
-  fa_fwd_f32_kernel<<<grid, kThreadsF, 0, stream>>>(a);
+  if (a.D <= 128)
+    fa_fwd_f32_kernel<128, 32><<<grid, kThreadsF, 0, stream>>>(a);
+  else
+    fa_fwd_f32_kernel<256, 16><<<grid, kThreadsF, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -462,8 +495,8 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // The Python wrapper checks shapes, dtypes, contiguity, alignment and the
-// limits below before calling: bf16 needs D % 8 == 0, D <= 128, G <= 64;
-// fp32 needs D <= 128, G <= 32.
+// limits below before calling: bf16 needs D % 8 == 0, D <= 256, G <= 64;
+// fp32 needs D <= 256, G <= 32.
 extern "C" int fa_fwd_bf16(const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int S, int T, int K,
                            int G, int D, float scale, int causal, int window,
@@ -471,8 +504,9 @@ extern "C" int fa_fwd_bf16(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, o, lse, B, S, T, K, G, D, scale, causal,
                            window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D <= 64 ? launch_bf16<64>(a, st)
-                                  : launch_bf16<128>(a, st));
+  return static_cast<int>(D <= 64    ? launch_bf16<64>(a, st)
+                          : D <= 128 ? launch_bf16<128>(a, st)
+                                     : launch_bf16<256>(a, st));
 }
 
 extern "C" int fa_fwd_f32(const void* q, const void* k, const void* v,

@@ -82,6 +82,25 @@
 //     dK and dV in one warpgroup (128 + 64 registers) spilled: ptxas of
 //     CUDA 12.8 allocates within that launch bound even under setmaxnreg
 //     240, and a smaller block (288 threads) is held to the same 168.
+// Head dim 256 (recurrentgemma-9b: MQA, G = 16, window 2048). The 64 x 256
+// fp32 accumulators take 128 registers a thread, past the 168 of a
+// 384-thread block once a 64 x 64 product sits beside them:
+//   * B2 (DqPlan) runs ONE consumer warpgroup of 64 query rows beside the
+//     producer warpgroup (256 threads, up to 255 registers a thread); dQ +=
+//     dS K is one m64n256k16 chain. Shared memory: Q and dO 64 KB, K and V
+//     2 x 64 KB, 192 KB in all;
+//   * B3 (DkvPlan) keeps its two consumer warpgroups and gives each block
+//     128 of the 256 columns of dK and dV: the grid has two blocks per kv
+//     tile (blockIdx.y = kv head x 2 + half), each computing S^T and dP^T
+//     over all of D and its half of dV += P^T dO and dK += dS^T Q. That
+//     costs 1.5x the products (S^T and dP^T twice), and doubles the grid,
+//     which at MQA (K = 1) has only T / 64 blocks a batch row. Shared
+//     memory: K, V, and 2 stages of Q and dO at 32 KB each, P^T 2 x 16 KB:
+//     231,752 bytes of the 232,448 a block may have.
+// D = 129 to 255 is padded to 256 by the TMA boxes' zero fill. The fp32
+// kernels at D > 128 give each row 8 threads (32 dims each) and walk tiles
+// of 16 rows, within static shared memory.
+//
 // Where they round: the reference keeps p and ds in fp32 for p^T dO, ds^T q
 // and ds k. Here p and ds are rounded to bf16 (round to nearest) as the A
 // operand of those three products; every sum is fp32 and dq, dk, dv are
@@ -179,33 +198,44 @@ __device__ __forceinline__ bool pairs_unmasked(const Args& a, int p0, int p1,
 
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int kWsThreads = 384;      // warpgroups 0, 1 consume; 2 produces
+constexpr int kWsThreads = 384;      // B3: warpgroups 0, 1 consume; 2 produces
 constexpr int kStages = 2;           // B2: K / V ring; B3: Q / dO ring
 constexpr int kBox64 = 64 * 128;     // bytes of a 64-row box of 64 columns
-constexpr int kBox128 = 128 * 128;   // bytes of a 128-row box of 64 columns
+constexpr int kSmemMax = 232448;     // dynamic shared memory a block may have
 
-// B2: dq. One block owns 128 flattened query rows (pb positions x gb heads
-// of one (batch, kv head)); warpgroups 0 and 1 own 64 of them each and the
-// first warp of warpgroup 2 is the producer.
-constexpr int kDqRows = 128;         // query rows a block (pb x gb used)
+// B2: dq. One block owns kRows flattened query rows (pb positions x gb
+// heads of one (batch, kv head)): up to DP = 128 warpgroups 0 and 1 own 64
+// of 128 each, at DP = 256 warpgroup 0 owns all 64 (see the header); the
+// first warp of the next warpgroup is the producer.
+template <int DP>
+struct DqPlan {
+  static constexpr int kConsumers = DP <= 128 ? 2 : 1;
+  static constexpr int kRows = 64 * kConsumers;   // query rows a block
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kQBox = kRows * 128;   // bytes of a Q or dO box
+};
 constexpr int kDqBN = 64;            // kv rows a tile
 
 template <int DP>
 constexpr int dq_smem_bytes() {
-  return (DP / 64) * (2 * kBox128 + 2 * kStages * kBox64) + 2 * kDqRows * 4 +
-         8 * (1 + 2 * kStages) + 1024;
+  using P = DqPlan<DP>;
+  return (DP / 64) * (2 * P::kQBox + 2 * kStages * kBox64) +
+         2 * P::kRows * 4 + 8 * (1 + 2 * kStages) + 1024;
 }
 
-// gb heads x pb positions make the block's rows: gb = min(G, 128),
-// pb = 128 / gb; with G > 128 the grid also steps over blocks of 128 heads.
+// gb heads x pb positions make the block's rows: gb = min(G, kRows),
+// pb = kRows / gb; with G > kRows the grid also steps over blocks of kRows
+// heads.
 template <int DP>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(DqPlan<DP>::kThreads, 1)
 fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, Args a,
                       int gb, int pb) {
-  constexpr int kQTile = (DP / 64) * kBox128;   // bytes of the Q or dO tile
+  using P = DqPlan<DP>;
+  constexpr int kDqRows = P::kRows;
+  constexpr int kQTile = (DP / 64) * P::kQBox;  // bytes of the Q or dO tile
   constexpr int kKTile = (DP / 64) * kBox64;    // bytes of a K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);
@@ -233,31 +263,32 @@ fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(q_full, 1 + 32);          // the TMA arrival, 32 cp.async lanes
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);          // one per consumer warp
+      mbar_init(&empty[s], 4 * P::kConsumers);   // one per consumer warp
     }
     fence_mbar_init();
   }
-  // Rows used..127 of Q and dO are never loaded; the products read them, so
-  // they must hold finite values: zeros.
+  // Rows used..kDqRows-1 of Q and dO are never loaded; the products read
+  // them, so they must hold finite values: zeros.
   const int pad = kDqRows - used;
-  for (int i = threadIdx.x; i < 2 * (DP / 64) * pad * 8; i += kWsThreads) {
+  for (int i = threadIdx.x; i < 2 * (DP / 64) * pad * 8; i += P::kThreads) {
     const int box = i / (pad * 8), c = i % (pad * 8);
-    *reinterpret_cast<uint4*>(sQ + box * kBox128 + (used + c / 8) * 128 +
+    *reinterpret_cast<uint4*>(sQ + box * P::kQBox + (used + c / 8) * 128 +
                               (c % 8) * 16) = make_uint4(0, 0, 0, 0);
   }
   fence_proxy_async();
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == P::kConsumers) {
     // ------------------------------------------------------ producer warp
-    if (threadIdx.x >= 256 + 32) return;
+    if (threadIdx.x >= 128 * P::kConsumers + 32) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
       mbar_arrive_expect_tx(q_full, 2 * (DP / 64) * 128 * used);
       for (int h = 0; h < DP / 64; ++h) {
-        tma_load_5d(sQ + h * kBox128, &tm_q, q_full, 64 * h, g0, kh, p0, b);
-        tma_load_5d(sdO + h * kBox128, &tm_do, q_full, 64 * h, g0, kh, p0, b);
+        tma_load_5d(sQ + h * P::kQBox, &tm_q, q_full, 64 * h, g0, kh, p0, b);
+        tma_load_5d(sdO + h * P::kQBox, &tm_do, q_full, 64 * h, g0, kh, p0,
+                    b);
       }
     }
     // lse and delta: (B, S, K, G) fp32 rows need not be 16-byte aligned, so
@@ -334,14 +365,14 @@ fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const int oq = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const int oq = (kk / 4) * P::kQBox + (kk % 4) * 32;
       const int okv = (kk / 4) * kBox64 + (kk % 4) * 32;
       wgmma_ss<0>(sc, desc_k(myQ + oq), desc_k(tK + okv), kk > 0);
     }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const int oq = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const int oq = (kk / 4) * P::kQBox + (kk % 4) * 32;
       const int okv = (kk / 4) * kBox64 + (kk % 4) * 32;
       wgmma_ss<0>(dp, desc_k(mydO + oq), desc_k(tV + okv), kk > 0);
     }
@@ -370,7 +401,7 @@ fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // dS = p (dP - delta) scale, in bf16 as the register A operand of
     // dQ += dS K (elements 8 ks .. 8 ks + 7 are its k16 step ks; K MN-major,
-    // 16 kv rows, 2048 bytes, a step)
+    // 16 kv rows, 2048 bytes, a step; N = DP)
     wgmma_wait<0>();
     fence_regs(dp);
     uint32_t da[kDqBN / 16][4];
@@ -417,6 +448,14 @@ constexpr int kWsRowsK = 64;         // kv rows a block
 constexpr int kWsBQ = 64;            // rows of a query tile (Pb x Gb used)
 constexpr int kPBytes = kWsRowsK * kWsBQ * 4;   // P^T of a tile, fp32
 
+// The columns of dK and dV a block computes: all of DP up to 128, one half
+// of 256 at DP = 256 (see the header); kSplit blocks share a kv tile.
+template <int DP>
+struct DkvPlan {
+  static constexpr int kDN = DP <= 128 ? DP : 128;
+  static constexpr int kSplit = DP / kDN;
+};
+
 template <int DP>
 constexpr int dkv_smem_bytes() {
   return (2 + 2 * kStages) * (DP / 64) * kBox64 + kStages * kPBytes +
@@ -433,6 +472,7 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v, Args a,
                        int gb, int pb) {
   constexpr int kTile = (DP / 64) * kBox64;    // bytes of a K, V, Q or dO tile
+  constexpr int kDN = DkvPlan<DP>::kDN;         // accumulator columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sK = align_1024(smem_raw);
   unsigned char* sV = sK + kTile;
@@ -448,7 +488,10 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* p_full = empty + kStages;          // [kStages] P^T handed over
   uint64_t* p_empty = p_full + kStages;        // [kStages]
 
-  const int kh = blockIdx.y, b = blockIdx.z;
+  // this block's kv head, and its columns c0 .. c0 + kDN - 1 of dK and dV
+  // (box c0 / 64 of the Q and dO tiles)
+  const int kh = blockIdx.y / DkvPlan<DP>::kSplit, b = blockIdx.z;
+  const int c0 = (blockIdx.y % DkvPlan<DP>::kSplit) * kDN;
   const KTile t = k_tile(a, kWsRowsK);
   const int p_lo = t.f_lo / a.G, p_hi = t.f_hi / a.G;
   const int n_hb = (a.G + gb - 1) / gb;         // head blocks
@@ -529,8 +572,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // ------------------------------------------------------------- consumers
-  // acc is this warpgroup's dV (warpgroup 0) or dK (1): 64 kv rows x DP.
-  // acc[4 i + 2 h + e] is kv row kpos[h], column 8 i + 2 t4 + e; the
+  // acc is this warpgroup's dV (warpgroup 0) or dK (1): 64 kv rows x kDN
+  // columns from c0. acc[4 i + 2 h + e] is kv row kpos[h], column
+  // c0 + 8 i + 2 t4 + e; the
   // products' accumulators st / dpt (64 kv rows x 64 query rows) follow the
   // same pattern with query rows for columns. P^T goes from warpgroup 0 to
   // warpgroup 1 through shared memory, in fp32, thread by thread:
@@ -538,9 +582,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g4 = lane / 4, t4 = lane % 4;      // accumulator coordinates
   const int kpos[2] = {t.k0 + warp * 16 + g4, t.k0 + warp * 16 + g4 + 8};
-  float acc[DP / 2];
+  float acc[kDN / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDN / 2; ++i) acc[i] = 0.f;
   mbar_wait(kv_full, 0);
 
   if (wg == 0) {
@@ -618,7 +662,7 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // dV += P^T dO: P^T in bf16 as the register A operand (elements
       // 8 ks .. 8 ks + 7 are its k16 step ks), dO MN-major (16 query rows,
-      // 2048 bytes, a step)
+      // 2048 bytes, a step) from column c0
       uint32_t pa[kWsBQ / 16][4];
 #pragma unroll
       for (int ks = 0; ks < kWsBQ / 16; ++ks)
@@ -628,7 +672,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kWsBQ / 16; ++ks)
-        wgmma_rs<1>(acc, pa[ks], desc_mn(tdO + ks * 16 * 128, kBox64), 1);
+        wgmma_rs<1>(acc, pa[ks],
+                    desc_mn(tdO + (c0 / 64) * kBox64 + ks * 16 * 128, kBox64),
+                    1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -681,7 +727,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kWsBQ / 16; ++ks)
-        wgmma_rs<1>(acc, da[ks], desc_mn(tQ + ks * 16 * 128, kBox64), 1);
+        wgmma_rs<1>(acc, da[ks],
+                    desc_mn(tQ + (c0 / 64) * kBox64 + ks * 16 * 128, kBox64),
+                    1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -697,8 +745,8 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (kpos[h] >= a.T) continue;
     const size_t row = krow(a, b, kh, kpos[h]) * a.D;
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const int col = i * 8 + 2 * t4;
+    for (int i = 0; i < kDN / 8; ++i) {
+      const int col = c0 + i * 8 + 2 * t4;
       if (col < a.D) {
         *reinterpret_cast<uint32_t*>(out + row + col) =
             pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
@@ -709,7 +757,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int DP>
 cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
-  const int gb = min(a.G, kDqRows), pb = kDqRows / gb;
+  using P = DqPlan<DP>;
+  static_assert(dq_smem_bytes<DP>() <= kSmemMax, "shared memory");
+  const int gb = min(a.G, P::kRows), pb = P::kRows / gb;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, gb, pb);
   if (err == cudaSuccess)
@@ -724,13 +774,14 @@ cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int n_hb = (a.G + gb - 1) / gb;
   dim3 grid((a.S + pb - 1) / pb * n_hb, a.K, a.B);
-  fa_bwd_dq_bf16_kernel<DP><<<grid, kWsThreads, smem, stream>>>(
+  fa_bwd_dq_bf16_kernel<DP><<<grid, P::kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, a, gb, pb);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
+  static_assert(dkv_smem_bytes<DP>() <= kSmemMax, "shared memory");
   const int gb = min(a.G, 64), pb = kWsBQ / gb;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, gb, pb);
@@ -746,7 +797,7 @@ cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.T + kWsRowsK - 1) / kWsRowsK, a.K, a.B);
+  dim3 grid((a.T + kWsRowsK - 1) / kWsRowsK, a.K * DkvPlan<DP>::kSplit, a.B);
   fa_bwd_dkv_bf16_kernel<DP><<<grid, kWsThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, a, gb, pb);
   return cudaGetLastError();
@@ -754,27 +805,37 @@ cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
 
 // ------------------------------------------------------------------ fp32 path
 
-constexpr int kRowsF = 32;     // rows per block, 4 threads per row
-constexpr int kTileF = 32;     // rows of the walked tile
-constexpr int kDPF = 128;      // D padded
-constexpr int kThreadsF = kRowsF * 4;
-constexpr int kPerF = kDPF / 4;   // dims per thread: d = t4 + 4*i
+constexpr int kThreadsF = 128;
 
-// Sum over the 4 lanes that share a row.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
+// The fp32 kernels' tiles: D padded to DPF, LPR threads a row (each holding
+// dims d = t4 + LPR * i), rows kThreadsF / LPR a block, TILE rows of the
+// walked side a step. <128, 4, 32> up to D = 128, <256, 8, 16> above.
+template <int DPF, int LPR, int TILE>
+struct F32Plan {
+  static constexpr int kRows = kThreadsF / LPR;
+  static constexpr int kPer = DPF / LPR;
+};
+
+// Sum over the LPR lanes that share a row.
+template <int LPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < LPR; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
+template <int DPF, int LPR, int TILE>
 __global__ void __launch_bounds__(kThreadsF)
 fa_bwd_dq_f32_kernel(Args a) {
+  constexpr int kRowsF = F32Plan<DPF, LPR, TILE>::kRows;
+  constexpr int kPerF = F32Plan<DPF, LPR, TILE>::kPer;
+  constexpr int kTileF = TILE, kDPF = DPF;
   __shared__ float sK[kTileF][kDPF];
   __shared__ float sV[kTileF][kDPF];
 
   const int kh = blockIdx.y, b = blockIdx.z;
   const QTile t = q_tile(a, kRowsF);
-  const int r = threadIdx.x / 4, t4 = threadIdx.x % 4;
+  const int r = threadIdx.x / LPR, t4 = threadIdx.x % LPR;
   const int f = t.f0 + r;
   const bool row_ok = f < t.f_end;
   const int qpos = f / a.G;
@@ -787,7 +848,7 @@ fa_bwd_dq_f32_kernel(Args a) {
   float qr[kPerF], dor[kPerF], acc[kPerF];
 #pragma unroll
   for (int i = 0; i < kPerF; ++i) {
-    const int d = t4 + 4 * i;
+    const int d = t4 + LPR * i;
     const bool ok = row_ok && d < a.D;
     qr[i] = ok ? q[row * a.D + d] : 0.f;
     dor[i] = ok ? dout[row * a.D + d] : 0.f;
@@ -811,16 +872,17 @@ fa_bwd_dq_f32_kernel(Args a) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < kPerF; ++i) {
-        s = fmaf(qr[i], sK[j][t4 + 4 * i], s);
-        dp = fmaf(dor[i], sV[j][t4 + 4 * i], dp);
+        s = fmaf(qr[i], sK[j][t4 + LPR * i], s);
+        dp = fmaf(dor[i], sV[j][t4 + LPR * i], dp);
       }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
+      s = row_sum<LPR>(s);
+      dp = row_sum<LPR>(dp);
       const bool vis = visible(qpos, k0 + j, a.T, a.causal, a.window);
       const float p = vis ? expf(s * a.scale - lse) : 0.f;
       const float ds = p * (dp - dlt) * a.scale;
 #pragma unroll
-      for (int i = 0; i < kPerF; ++i) acc[i] = fmaf(ds, sK[j][t4 + 4 * i], acc[i]);
+      for (int i = 0; i < kPerF; ++i)
+        acc[i] = fmaf(ds, sK[j][t4 + LPR * i], acc[i]);
     }
     __syncthreads();
   }
@@ -829,13 +891,17 @@ fa_bwd_dq_f32_kernel(Args a) {
   float* dq = static_cast<float*>(a.out0);
 #pragma unroll
   for (int i = 0; i < kPerF; ++i) {
-    const int d = t4 + 4 * i;
+    const int d = t4 + LPR * i;
     if (d < a.D) dq[row * a.D + d] = acc[i];
   }
 }
 
+template <int DPF, int LPR, int TILE>
 __global__ void __launch_bounds__(kThreadsF)
 fa_bwd_dkv_f32_kernel(Args a) {
+  constexpr int kRowsF = F32Plan<DPF, LPR, TILE>::kRows;
+  constexpr int kPerF = F32Plan<DPF, LPR, TILE>::kPer;
+  constexpr int kTileF = TILE, kDPF = DPF;
   __shared__ float sQ[kTileF][kDPF];
   __shared__ float sdO[kTileF][kDPF];
   __shared__ float sLse[kTileF];
@@ -843,7 +909,7 @@ fa_bwd_dkv_f32_kernel(Args a) {
 
   const int kh = blockIdx.y, b = blockIdx.z;
   const KTile t = k_tile(a, kRowsF);
-  const int r = threadIdx.x / 4, t4 = threadIdx.x % 4;
+  const int r = threadIdx.x / LPR, t4 = threadIdx.x % LPR;
   const int kpos = t.k0 + r;
   const bool k_ok = kpos < a.T;
   const size_t row = k_ok ? krow(a, b, kh, kpos) : 0;
@@ -855,7 +921,7 @@ fa_bwd_dkv_f32_kernel(Args a) {
   float kr[kPerF], vr[kPerF], dk[kPerF], dv[kPerF];
 #pragma unroll
   for (int i = 0; i < kPerF; ++i) {
-    const int d = t4 + 4 * i;
+    const int d = t4 + LPR * i;
     const bool ok = k_ok && d < a.D;
     kr[i] = ok ? k[row * a.D + d] : 0.f;
     vr[i] = ok ? v[row * a.D + d] : 0.f;
@@ -883,18 +949,18 @@ fa_bwd_dkv_f32_kernel(Args a) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < kPerF; ++i) {
-        s = fmaf(kr[i], sQ[j][t4 + 4 * i], s);
-        dp = fmaf(vr[i], sdO[j][t4 + 4 * i], dp);
+        s = fmaf(kr[i], sQ[j][t4 + LPR * i], s);
+        dp = fmaf(vr[i], sdO[j][t4 + LPR * i], dp);
       }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
+      s = row_sum<LPR>(s);
+      dp = row_sum<LPR>(dp);
       const bool vis = visible((f0 + j) / a.G, kpos, a.T, a.causal, a.window);
       const float p = vis ? expf(s * a.scale - sLse[j]) : 0.f;
       const float ds = p * (dp - sDelta[j]) * a.scale;
 #pragma unroll
       for (int i = 0; i < kPerF; ++i) {
-        dv[i] = fmaf(p, sdO[j][t4 + 4 * i], dv[i]);
-        dk[i] = fmaf(ds, sQ[j][t4 + 4 * i], dk[i]);
+        dv[i] = fmaf(p, sdO[j][t4 + LPR * i], dv[i]);
+        dk[i] = fmaf(ds, sQ[j][t4 + LPR * i], dk[i]);
       }
     }
     __syncthreads();
@@ -905,7 +971,7 @@ fa_bwd_dkv_f32_kernel(Args a) {
   float* dv_out = static_cast<float*>(a.out1);
 #pragma unroll
   for (int i = 0; i < kPerF; ++i) {
-    const int d = t4 + 4 * i;
+    const int d = t4 + LPR * i;
     if (d < a.D) {
       dk_out[row * a.D + d] = dk[i];
       dv_out[row * a.D + d] = dv[i];
@@ -913,15 +979,19 @@ fa_bwd_dkv_f32_kernel(Args a) {
   }
 }
 
+template <int DPF, int LPR, int TILE>
 cudaError_t launch_dq_f32(const Args& a, cudaStream_t stream) {
-  dim3 grid((a.S * a.G + kRowsF - 1) / kRowsF, a.K, a.B);
-  fa_bwd_dq_f32_kernel<<<grid, kThreadsF, 0, stream>>>(a);
+  constexpr int rows = F32Plan<DPF, LPR, TILE>::kRows;
+  dim3 grid((a.S * a.G + rows - 1) / rows, a.K, a.B);
+  fa_bwd_dq_f32_kernel<DPF, LPR, TILE><<<grid, kThreadsF, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int DPF, int LPR, int TILE>
 cudaError_t launch_dkv_f32(const Args& a, cudaStream_t stream) {
-  dim3 grid((a.T + kRowsF - 1) / kRowsF, a.K, a.B);
-  fa_bwd_dkv_f32_kernel<<<grid, kThreadsF, 0, stream>>>(a);
+  constexpr int rows = F32Plan<DPF, LPR, TILE>::kRows;
+  dim3 grid((a.T + rows - 1) / rows, a.K, a.B);
+  fa_bwd_dkv_f32_kernel<DPF, LPR, TILE><<<grid, kThreadsF, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -953,8 +1023,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // The Python wrapper checks shapes, dtypes, contiguity, alignment and the
-// limits below before calling: bf16 needs D % 8 == 0 and D <= 128; fp32
-// needs D <= 128. Every entry point takes the same arguments; dq (B2) writes
+// limits below before calling: bf16 needs D % 8 == 0 and D <= 256; fp32
+// needs D <= 256. Every entry point takes the same arguments; dq (B2) writes
 // out0 and ignores out1, dk and dv (B3) write out0 and out1.
 typedef cudaError_t (*Launch)(const Args&, cudaStream_t);
 
@@ -973,9 +1043,11 @@ extern "C" int fa_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               int B, int S, int T, int K, int G, int D,
                               float scale, int causal, int window,
                               void* stream) {
-  return run(D <= 64 ? &launch_dq_bf16<64> : &launch_dq_bf16<128>, q, k, v,
-             dout, lse, delta, out0, out1, B, S, T, K, G, D, scale, causal,
-             window, stream);
+  return run(D <= 64    ? &launch_dq_bf16<64>
+             : D <= 128 ? &launch_dq_bf16<128>
+                        : &launch_dq_bf16<256>,
+             q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
+             causal, window, stream);
 }
 
 extern "C" int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -984,9 +1056,11 @@ extern "C" int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                int B, int S, int T, int K, int G, int D,
                                float scale, int causal, int window,
                                void* stream) {
-  return run(D <= 64 ? &launch_dkv_bf16<64> : &launch_dkv_bf16<128>, q, k, v,
-             dout, lse, delta, out0, out1, B, S, T, K, G, D, scale, causal,
-             window, stream);
+  return run(D <= 64    ? &launch_dkv_bf16<64>
+             : D <= 128 ? &launch_dkv_bf16<128>
+                        : &launch_dkv_bf16<256>,
+             q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
+             causal, window, stream);
 }
 
 extern "C" int fa_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -995,8 +1069,10 @@ extern "C" int fa_bwd_dq_f32(const void* q, const void* k, const void* v,
                              int B, int S, int T, int K, int G, int D,
                              float scale, int causal, int window,
                              void* stream) {
-  return run(launch_dq_f32, q, k, v, dout, lse, delta, out0, out1, B, S, T,
-             K, G, D, scale, causal, window, stream);
+  return run(D <= 128 ? &launch_dq_f32<128, 4, 32>
+                      : &launch_dq_f32<256, 8, 16>,
+             q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
+             causal, window, stream);
 }
 
 extern "C" int fa_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -1005,8 +1081,10 @@ extern "C" int fa_bwd_dkv_f32(const void* q, const void* k, const void* v,
                               int B, int S, int T, int K, int G, int D,
                               float scale, int causal, int window,
                               void* stream) {
-  return run(launch_dkv_f32, q, k, v, dout, lse, delta, out0, out1, B, S, T,
-             K, G, D, scale, causal, window, stream);
+  return run(D <= 128 ? &launch_dkv_f32<128, 4, 32>
+                      : &launch_dkv_f32<256, 8, 16>,
+             q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
+             causal, window, stream);
 }
 
 extern "C" const char* fa_bwd_error_string(int err) {

@@ -69,8 +69,8 @@ def _launch(q, k, v, causal, window, scale):
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k, v")
-    if D > 128 or (q.dtype == torch.bfloat16 and D % 8):
-        raise ValueError(f"head_dim {D}: the kernel takes D <= 128 "
+    if D > 256 or (q.dtype == torch.bfloat16 and D % 8):
+        raise ValueError(f"head_dim {D}: the kernel takes D <= 256 "
                          "(a multiple of 8 in bf16)")
     if G > _MAX_G[q.dtype]:
         raise ValueError(f"{G} query heads per kv head; the kernel takes at "

@@ -179,8 +179,8 @@ def _check(q, k, v, do, lse, delta):
                          f"{tuple(q.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention_bwd needs contiguous tensors")
-    if D > 128 or (q.dtype == torch.bfloat16 and D % 8):
-        raise ValueError(f"head_dim {D}: the kernels take D <= 128 "
+    if D > 256 or (q.dtype == torch.bfloat16 and D % 8):
+        raise ValueError(f"head_dim {D}: the kernels take D <= 256 "
                          "(a multiple of 8 in bf16)")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("flash_attention_bwd needs 16-byte aligned tensors")

@@ -29,7 +29,7 @@ launches = 0
 _fns = {}
 
 
-def _exp(x):
+def exp_cpu_f64(x):
     """exp of an fp32 tensor. On the CPU it is taken in float64 and rounded
     once: PyTorch's fp32 CPU exp has returned one intra-op thread's share
     of a large tensor with relative errors up to 1.5e-4 on the first call
@@ -49,12 +49,12 @@ def rglru_reference(log_a, b, h0=None):
     """
     la, h = log_a.float(), b.float()
     if h0 is not None:
-        h = torch.cat([h[:, :1] + _exp(la[:, :1]) * h0.float()[:, None],
-                       h[:, 1:]], dim=1)
+        first = h[:, :1] + exp_cpu_f64(la[:, :1]) * h0.float()[:, None]
+        h = torch.cat([first, h[:, 1:]], dim=1)
     S, d = la.shape[1], 1
     while d < S:
-        h = torch.cat([h[:, :d], _exp(la[:, d:]) * h[:, :-d] + h[:, d:]],
-                      dim=1)
+        h = torch.cat(
+            [h[:, :d], exp_cpu_f64(la[:, d:]) * h[:, :-d] + h[:, d:]], dim=1)
         la = torch.cat([la[:, :d], la[:, d:] + la[:, :-d]], dim=1)
         d *= 2
     return h, h[:, -1]

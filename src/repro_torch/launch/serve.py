@@ -50,8 +50,24 @@ class ServeResult:
         return B * (gen - 1) / (self.decode_ms / 1e3) if gen > 1 else 0.0
 
 
+def require_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a hybrid config: the reference's
+    prefill hands decode only the attention caches, not the recurrent
+    states (ROADMAP.md §C), and the port adds no handover."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: serving a hybrid needs a prefill that hands its "
+            "recurrent states to decode; the reference's forward("
+            "collect_cache=True) returns only the attention caches, so its "
+            "decode starts from init_cache (ROADMAP.md §C, 'On the "
+            "reference side'). Run steps.make_prefill_step and "
+            "make_decode_step from init_cache instead")
+
+
 def serve(params, prompts, cfg, sys, gen: int) -> ServeResult:
-    """Warm up, then prefill ``prompts`` and decode ``gen`` tokens greedily."""
+    """Warm up, then prefill ``prompts`` and decode ``gen`` tokens greedily
+    (a hybrid raises first: ``require_servable``)."""
+    require_servable(cfg)
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = prompts.device
@@ -101,6 +117,7 @@ def setup(args):
     dev = device_lib.resolve(args.device)
     sys = T.SystemConfig()
     cfg = dataclasses.replace(configs.get(args.arch), dtype=sys.compute_dtype)
+    require_servable(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init(gen, cfg, dev)
     prompts = np.random.default_rng(args.seed).integers(

@@ -1,5 +1,7 @@
-"""Step builders: the counterpart of ``repro.launch.steps`` for the dense
-and moe families.
+"""Step functions: the counterpart of ``repro.launch.steps`` for the dense,
+moe and hybrid families. As in the reference, a hybrid's prefill returns
+only its attention caches (stacked over groups); its decode starts from
+``transformer.init_cache``.
 
 ``make_train_state``, ``make_train_step``, ``make_prefill_step`` and
 ``make_decode_step`` keep the reference's signatures, less the mesh (the

@@ -1,14 +1,17 @@
-"""TransformerLM, dense and moe families: ``forward``, ``loss_fn`` and
-``decode_step``.
+"""TransformerLM, dense, moe and hybrid families: ``forward``, ``loss_fn``
+and ``decode_step``.
 
 PyTorch counterpart of ``repro.models.transformer`` for the dense and moe
-families (attention blocks whose MLP is a SwiGLU or ``models.moe``).
-Parameters stay stacked on a leading layer axis as in the reference, and a
-loop over the layers takes the place of its ``lax.scan``. Parameters are
-fp32 masters; ``forward`` casts them to the compute dtype, so their
-gradients arrive in fp32, as in the reference. A cast that widens the
-leaves (bf16 weights run at fp32) goes one layer at a time, so that no fp32
-copy of the whole model is held (``_stacked_layers``).
+families (attention blocks whose MLP is a SwiGLU or ``models.moe``) and the
+hybrid (Griffin) family: groups of ``rec_per_attn`` recurrent blocks
+(``models.recurrent``) and one sliding-window attention block, then a tail
+of leftover recurrent blocks. Parameters stay stacked on a leading layer
+(or group) axis as in the reference, and a loop over the layers takes the
+place of its ``lax.scan``. Parameters are fp32 masters; ``forward`` casts
+them to the compute dtype, so their gradients arrive in fp32, as in the
+reference. A cast that widens the leaves (bf16 weights run at fp32) goes one
+layer at a time, so that no fp32 copy of the whole model is held
+(``_stacked``).
 
 The other families raise ``NotImplementedError`` naming the ROADMAP.md item
 (queue A) that ports them.
@@ -27,19 +30,20 @@ from repro_torch import device as device_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.tree import tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 
 _ROADMAP_ITEM = {   # family -> (ROADMAP.md queue A item, its title)
-    "hybrid": ("4", "Griffin (hybrid) family"),
     "ssm": ("5", "xLSTM (ssm) family"),
     "vlm": ("7", "Encoder-decoder and VLM"),
 }
 
 
 def require_ported(cfg) -> None:
-    """Raise unless ``cfg``'s family is one the port has (dense, moe)."""
+    """Raise unless ``cfg``'s family is one the port has (dense, moe,
+    hybrid)."""
     if cfg.family not in PORTED_FAMILIES:
         item = _ROADMAP_ITEM.get(cfg.family)
         if item is None:
@@ -108,6 +112,10 @@ class ModelConfig:
             top_k=self.top_k, n_shared=self.n_shared,
             capacity_factor=self.capacity_factor,
             dropless=self.moe_dropless)
+
+    def rec_cfg(self) -> rec_lib.RecurrentConfig:
+        return rec_lib.RecurrentConfig(d_model=self.d_model,
+                                       d_rnn=self.d_rnn or self.d_model)
 
     @property
     def sub_quadratic(self) -> bool:
@@ -298,6 +306,36 @@ def _apply_attn_block_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
     return x + _apply_ffn(p, h, cfg)[0], cache
 
 
+def _init_rec_block(gen, cfg: ModelConfig):
+    return {"rec_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
+                                            gen.device),
+            "rec": rec_lib.init_recurrent(gen, cfg.rec_cfg(), cfg.dtype),
+            "mlp_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
+                                            gen.device),
+            "mlp": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)}
+
+
+def _apply_rec_block(p, x, cfg: ModelConfig):
+    h = layers.rmsnorm(p["rec_norm"], x)
+    x = x + rec_lib.apply_recurrent(p["rec"], h, cfg.rec_cfg())
+    h = layers.rmsnorm(p["mlp_norm"], x)
+    return x + layers.apply_swiglu(p["mlp"], h)
+
+
+def _apply_rec_block_decode(p, x, cfg: ModelConfig, state):
+    """One token through a recurrent block; ``state``'s tensors ("h",
+    "conv") are overwritten with the new state in place, as the attention
+    cache is (see ``layers.apply_attention_decode``)."""
+    h = layers.rmsnorm(p["rec_norm"], x)
+    out, new = rec_lib.apply_recurrent_decode(p["rec"], h, cfg.rec_cfg(),
+                                              state)
+    for name, t in new.items():
+        state[name].copy_(t)
+    x = x + out
+    h = layers.rmsnorm(p["mlp_norm"], x)
+    return x + layers.apply_swiglu(p["mlp"], h)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -321,8 +359,20 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, (cfg.d_model, V),
                                               dtype=cfg.dtype)
-    params["layers"] = _stack_init(lambda: _init_attn_block(gen, cfg),
-                                   cfg.n_layers)
+    if cfg.family == "hybrid":
+        # groups of (rec_per_attn recurrent blocks, one attention block),
+        # then the tail's recurrent blocks, as the reference stacks them
+        def group():
+            return {"recs": _stack_init(lambda: _init_rec_block(gen, cfg),
+                                        cfg.rec_per_attn),
+                    "attn": _init_attn_block(gen, cfg, window=cfg.window)}
+        params["layers"] = _stack_init(group, cfg.hybrid_groups)
+        if cfg.hybrid_tail:
+            params["tail"] = _stack_init(lambda: _init_rec_block(gen, cfg),
+                                         cfg.hybrid_tail)
+    else:
+        params["layers"] = _stack_init(lambda: _init_attn_block(gen, cfg),
+                                       cfg.n_layers)
     return params
 
 
@@ -382,16 +432,33 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
     cparams = _cast(_outside_layers(params), dtype)
     x = cparams["embed"][batch["tokens"]]
 
-    def body(lp, x):
-        return _apply_attn_block(_cast(lp, dtype), x, cfg, sys,
-                                 collect_cache=collect_cache,
-                                 max_cache=max_cache)
+    if cfg.family == "hybrid":
+        def body(lp, x):
+            lp = _cast(lp, dtype)
+            for rp in _unstack(lp["recs"], cfg.rec_per_attn):
+                x = _apply_rec_block(rp, x, cfg)
+            return _apply_attn_block(lp["attn"], x, cfg, sys,
+                                     window=cfg.window,
+                                     collect_cache=collect_cache,
+                                     max_cache=max_cache)
+        n_blocks = cfg.hybrid_groups
+    else:
+        def body(lp, x):
+            return _apply_attn_block(_cast(lp, dtype), x, cfg, sys,
+                                     collect_cache=collect_cache,
+                                     max_cache=max_cache)
+        n_blocks = cfg.n_layers
     body = _remat(body, sys)
     caches, auxs = [], []
-    for lp in _unstack(_stacked_layers(params, dtype), cfg.n_layers):
+    for lp in _unstack(_stacked(params["layers"], dtype), n_blocks):
         x, aux, cache = body(lp, x)
         auxs.append(aux)
         caches.append(cache)
+    if "tail" in params:
+        tail_body = _remat(
+            lambda rp, x: _apply_rec_block(_cast(rp, dtype), x, cfg), sys)
+        for rp in _unstack(_stacked(params["tail"], dtype), cfg.hybrid_tail):
+            x = tail_body(rp, x)
     if last_only:
         x = x[:, -1:]
     logits = _lm_head(params, cparams, x, cfg)
@@ -402,17 +469,16 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
 
 
 def _outside_layers(params):
-    return {k: v for k, v in params.items() if k != "layers"}
+    return {k: v for k, v in params.items() if k not in ("layers", "tail")}
 
 
-def _stacked_layers(params, dtype):
-    """The stacked layer leaves, cast to ``dtype`` at once unless that
-    widens a leaf: then they stay as they are and each layer is cast as it
-    runs (``_cast`` of a leaf already at ``dtype`` copies nothing). At once
-    takes one cast per stacked leaf, where per layer takes one per layer and
-    leaf: fewer launches in a train step, whose backward keeps the casts
-    anyway."""
-    stacked = params["layers"]
+def _stacked(stacked, dtype):
+    """Stacked layer (or group) leaves, cast to ``dtype`` at once unless
+    that widens a leaf: then they stay as they are and each layer is cast as
+    it runs (``_cast`` of a leaf already at ``dtype`` copies nothing). At
+    once takes one cast per stacked leaf, where per layer takes one per
+    layer and leaf: fewer launches in a train step, whose backward keeps the
+    casts anyway."""
     widens = any(a.is_floating_point() and a.element_size()
                  < torch.empty((), dtype=dtype).element_size()
                  for a in tree_leaves(stacked))
@@ -446,16 +512,33 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
 # ---------------------------------------------------------------------------
 
 
+def _zeros_stacked(one, lead):
+    return {k: torch.zeros(lead + a.shape, dtype=a.dtype, device=a.device)
+            for k, a in one.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, quant: bool = False, device=None):
     """The decode cache, stacked on the layer axis: (L, B, W, K, D) each;
-    with ``quant``, int8 "k"/"v" and bf16 "k_scale"/"v_scale" (L, B, W, K)."""
+    with ``quant``, int8 "k"/"v" and bf16 "k_scale"/"v_scale" (L, B, W, K).
+
+    hybrid: {"recs": recurrent states (G, rec_per_attn, ...), "attn": the
+    attention caches (G, ...), "tail": recurrent states (tail, ...)}; a
+    recurrent state is "h" (B, d_rnn) fp32 and "conv" (B, 3, d_rnn) in
+    ``dtype``."""
     require_ported(cfg)
     dev = device_lib.resolve(device)
-    one = layers.init_kv_cache(cfg.attn_cfg(), batch, max_len, dtype,
-                               quant=quant, device=dev)
-    return {k: torch.zeros((cfg.n_layers,) + a.shape, dtype=a.dtype,
-                           device=dev) for k, a in one.items()}
+    attn = layers.init_kv_cache(cfg.attn_cfg(), batch, max_len, dtype,
+                                quant=quant, device=dev)
+    if cfg.family != "hybrid":
+        return _zeros_stacked(attn, (cfg.n_layers,))
+    state = rec_lib.init_recurrent_state(cfg.rec_cfg(), batch, dtype, dev)
+    g = cfg.hybrid_groups
+    cache = {"recs": _zeros_stacked(state, (g, cfg.rec_per_attn)),
+             "attn": _zeros_stacked(attn, (g,))}
+    if cfg.hybrid_tail:
+        cache["tail"] = _zeros_stacked(state, (cfg.hybrid_tail,))
+    return cache
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
@@ -471,8 +554,24 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
     dtype = sys.compute_dtype
     cparams = _cast(_outside_layers(params), dtype)
     x = cparams["embed"][tokens]
-    stacked = _stacked_layers(params, dtype)
-    for i in range(cfg.n_layers):
-        x, _ = _apply_attn_block_decode(_cast(_layer(stacked, i), dtype), x,
-                                        cfg, _layer(cache, i), pos)
+    stacked = _stacked(params["layers"], dtype)
+    if cfg.family != "hybrid":
+        for i in range(cfg.n_layers):
+            x, _ = _apply_attn_block_decode(_cast(_layer(stacked, i), dtype),
+                                            x, cfg, _layer(cache, i), pos)
+        return _lm_head(params, cparams, x, cfg), cache
+    for g in range(cfg.hybrid_groups):
+        lp = _cast(_layer(stacked, g), dtype)
+        states = _layer(cache["recs"], g)
+        for r in range(cfg.rec_per_attn):
+            x = _apply_rec_block_decode(_layer(lp["recs"], r), x, cfg,
+                                        _layer(states, r))
+        x, _ = _apply_attn_block_decode(lp["attn"], x, cfg,
+                                        _layer(cache["attn"], g), pos,
+                                        window=cfg.window)
+    if "tail" in params:
+        tail = _stacked(params["tail"], dtype)
+        for i in range(cfg.hybrid_tail):
+            x = _apply_rec_block_decode(_cast(_layer(tail, i), dtype), x,
+                                        cfg, _layer(cache["tail"], i))
     return _lm_head(params, cparams, x, cfg), cache

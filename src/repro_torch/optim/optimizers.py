@@ -7,9 +7,15 @@ An ``Optimizer`` is (init, update):
     updates, state = opt.update(grads, state, params, step)
     params = apply_updates(params, updates)
 
-``update`` is functional, as in the reference: it returns new moments and
-updates and changes none of its arguments (the train step then adds the
-updates to the parameters in place). The step is a Python int and a schedule
+``update`` returns the updates and the state, as in the reference (the
+train step then adds the updates to the parameters in place). Both
+optimizers write their new moments (adamw's m and v, sgd's mu) into the
+state's own tensors, leaf by leaf, and return that state: the counterpart
+of the reference's donated train state, which no caller reads again. With
+functional moments an adamw step would hold the old and the new m and v and
+a clipped copy of the gradients at once, five fp32 copies of the parameters
+beside them (about 60 GB more at 2.99 B parameters, more than an 80 GB
+card holds). The step is a Python int and a schedule
 maps it to a Python float, so a new learning rate needs no new tensor. The
 order of work is the reference's: clip by global norm, fp32 moments, bias
 correction, then weight decay on the parameter before the update.
@@ -57,11 +63,23 @@ def warmup_cosine(lr, warmup_steps, total_steps, final_frac=0.1):
     return f
 
 
-def clip_by_global_norm(grads, max_norm):
-    """(grads scaled to a global L2 norm of at most max_norm, the norm)."""
+def _clip_scale(grads, max_norm):
+    """(the factor that brings grads to a global L2 norm of at most
+    max_norm, the norm)."""
     gnorm = torch.sqrt(sum(g.float().square().sum()
                            for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), gnorm
+
+
+def _clipped(g, scale):
+    """One gradient leaf in fp32, scaled by ``_clip_scale``'s factor first
+    (``scale`` None: no clipping)."""
+    return (g if scale is None else g * scale).float()
+
+
+def clip_by_global_norm(grads, max_norm):
+    """(grads scaled to a global L2 norm of at most max_norm, the norm)."""
+    scale, gnorm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
@@ -73,23 +91,26 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
         return {"m": _zeros_like(params), "v": _zeros_like(params)}
 
     def update(grads, state, params, step, lr_scale=1.0):
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+        """The updates; state's m and v are overwritten in place, one leaf
+        at a time (module docstring)."""
+        scale = (_clip_scale(grads, clip_norm)[0] if clip_norm is not None
+                 else None)
         lr = schedule(step) * lr_scale
         t = float(step) + 1.0
-        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                     state["m"], grads)
-        v = tree_map(lambda v, g: b2 * v + (1 - b2) * g.float().square(),
-                     state["v"], grads)
         mhat_scale = 1.0 / (1.0 - b1 ** t)
         vhat_scale = 1.0 / (1.0 - b2 ** t)
 
-        def upd(p, m, v):
+        def upd(p, g, m, v):
+            g = _clipped(g, scale)
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g.square())
             u = (m * mhat_scale) / (torch.sqrt(v * vhat_scale) + eps)
             if weight_decay:
                 u = u + weight_decay * p.float()
             return (-lr * u).to(p.dtype)
-        return tree_map(upd, params, m, v), {"m": m, "v": v}
+        with torch.no_grad():
+            updates = tree_map(upd, params, grads, state["m"], state["v"])
+        return updates, state
 
     return Optimizer(init, update)
 
@@ -102,17 +123,20 @@ def sgd(schedule, momentum=0.9, nesterov=False,
         return {"mu": _zeros_like(params)}
 
     def update(grads, state, params, step, lr_scale=1.0):
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+        """The updates; state's mu is overwritten in place, one leaf at a
+        time (module docstring)."""
+        scale = (_clip_scale(grads, clip_norm)[0] if clip_norm is not None
+                 else None)
         lr = schedule(step) * lr_scale
-        mu = tree_map(lambda mu, g: momentum * mu + g.float(), state["mu"],
-                      grads)
-        if nesterov:
-            upd = tree_map(lambda g, mu: g.float() + momentum * mu, grads, mu)
-        else:
-            upd = mu
-        updates = tree_map(lambda p, u: (-lr * u).to(p.dtype), params, upd)
-        return updates, {"mu": mu}
+
+        def upd(p, g, mu):
+            g = _clipped(g, scale)
+            mu.copy_(momentum * mu + g)
+            u = g + momentum * mu if nesterov else mu
+            return (-lr * u).to(p.dtype)
+        with torch.no_grad():
+            updates = tree_map(upd, params, grads, state["mu"])
+        return updates, state
 
     return Optimizer(init, update)
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.transformer import require_ported
 
 
@@ -58,8 +59,8 @@ def _layout(cfg):
 
 
 def leaf_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
-    """Leaf path ("a/b/c") -> shape in the port, for the dense and moe
-    families and the small workloads."""
+    """Leaf path ("a/b/c") -> shape in the port, for the dense, moe and
+    hybrid families and the small workloads."""
     return {p: s if perm is None else tuple(s[i] for i in perm)
             for p, (s, perm) in _layout(cfg).items()}
 
@@ -92,7 +93,25 @@ def _dense_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
                       "attn/bv": (K, D)})
     if cfg.qk_norm:
         layer.update({"attn/q_norm/scale": (D,), "attn/k_norm/scale": (D,)})
-    shapes.update({f"layers/{p}": (L,) + s for p, s in layer.items()})
+    if cfg.family != "hybrid":
+        shapes.update({f"layers/{p}": (L,) + s for p, s in layer.items()})
+        return shapes
+    # hybrid: groups stack (rec_per_attn recurrent blocks, one attention
+    # block) as layers/recs/... and layers/attn/...; the tail's recurrent
+    # blocks stack as tail/...
+    g, n_rec, R = cfg.hybrid_groups, cfg.rec_per_attn, cfg.d_rnn or d
+    rec = {"rec_norm/scale": (d,), "mlp_norm/scale": (d,),
+           "rec/w_in_x": (d, R), "rec/w_in_gate": (d, R),
+           "rec/conv_w": (rec_lib.CONV_WIDTH, R), "rec/conv_b": (R,),
+           "rec/w_a": (R, R), "rec/b_a": (R,), "rec/w_x": (R, R),
+           "rec/b_x": (R,), "rec/Lambda": (R,), "rec/w_out": (R, d),
+           "mlp/w_gate": (d, F), "mlp/w_up": (d, F), "mlp/w_down": (F, d)}
+    shapes.update({f"layers/recs/{p}": (g, n_rec) + s
+                   for p, s in rec.items()})
+    shapes.update({f"layers/attn/{p}": (g,) + s for p, s in layer.items()})
+    if cfg.hybrid_tail:
+        shapes.update({f"tail/{p}": (cfg.hybrid_tail,) + s
+                       for p, s in rec.items()})
     return shapes
 
 
@@ -132,15 +151,16 @@ def unflatten(flat):
     return _lists(tree)
 
 
-_FP32_LEAVES = ("layers/moe/router",)
+_FP32_LEAVES = ("layers/moe/router", "layers/recs/rec/Lambda",
+                "tail/rec/Lambda")
 
 
 def from_jax(params_np, cfg, device, dtype=None):
     """The reference's parameter tree (numpy leaves) -> the port's tensors.
 
-    dtype defaults to ``cfg.dtype``, but for the MoE router, which stays fp32
-    as the reference's init keeps it. bf16 leaves (ml_dtypes) pass through
-    float32, which holds them exactly.
+    dtype defaults to ``cfg.dtype``, but for the MoE router and the RG-LRU's
+    ``Lambda``, which stay fp32 as the reference's init keeps them. bf16
+    leaves (ml_dtypes) pass through float32, which holds them exactly.
     """
     flat = flatten(params_np)
     layout = _layout(cfg)

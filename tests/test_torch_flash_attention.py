@@ -1,10 +1,11 @@
 """The port's flash attention (B1) on the CPU.
 
 The plain version ``flash_attention_reference`` is held against the JAX
-Pallas kernel in interpret mode on the sweep of tests/test_kernels.py and
-two group sizes of the Hopper kernel's tiles (G = 8 and G = 64, scaled down
-from chip_smoke.py's shapes), at that file's tolerances: fp32 2e-5, bf16
-2e-2, for out and LSE. The kernel itself runs only on the card
+Pallas kernel in interpret mode on the sweep of tests/test_kernels.py, two
+group sizes of the Hopper kernel's tiles (G = 8 and G = 64, scaled down
+from chip_smoke.py's shapes) and recurrentgemma-9b's head_dim 256 with MQA
+(K = 1, G = 16, with and without a window), at that file's tolerances:
+fp32 2e-5, bf16 2e-2, for out and LSE. The kernel itself runs only on the card
 (``chip_smoke.py`` holds it against the plain version there); on CPU
 tensors the wrapper runs the plain version.
 """
@@ -29,6 +30,8 @@ SWEEP = [  # tests/test_kernels.py: B, S, K, G, D, causal, window
     (1, 64, 8, 1, 128, True, 16),
     (1, 100, 2, 8, 128, True, None),       # G = 8, ragged (chip_smoke g8)
     (1, 64, 1, 64, 64, True, None),        # G = 64, B1's widest group
+    (1, 64, 1, 16, 256, True, None),       # D = 256, MQA G = 16
+    (1, 80, 1, 16, 256, True, 24),         # recurrentgemma-9b, window, ragged
 ]
 
 

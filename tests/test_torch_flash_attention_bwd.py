@@ -3,8 +3,10 @@
 ``flash_attention_bwd_reference`` is held against the JAX Pallas backward
 kernels in interpret mode on one set of inputs (q, k, v, dO and the forward's
 out and LSE, from the JAX forward kernel), sweeping causal, window,
-non-causal, ragged S, S != T, G in {1, 3, 8, 80} and D = 40 (G = 8 and
-G = 80 are chip_smoke.py's edge cases of the Hopper tiles, scaled down).
+non-causal, ragged S, S != T, G in {1, 3, 8, 16, 80} and D = 40 (G = 8 and
+G = 80 are chip_smoke.py's edge cases of the Hopper tiles, scaled down) and
+D = 256 at K = 1, G = 16 (recurrentgemma-9b's attention, with and without
+its window, scaled down).
 Tolerances: fp32 1e-4 (tests/test_kernels.py's fused-backward test), bf16
 2e-2. The port's differentiable ``ops.flash_attention`` is held against
 ``jax.grad`` of the reference's ``ops.flash_attention`` (backward through the
@@ -35,6 +37,8 @@ SWEEP = [  # B, S, T, K, G, D, causal, window
     (1, 40, 72, 1, 3, 40, True, 24),       # S != T, window, G = 3, D = 40
     (1, 50, 50, 2, 8, 64, True, None),     # G = 8, ragged (chip_smoke g8)
     (1, 32, 32, 1, 80, 32, True, None),    # G > 64: B3 walks head blocks
+    (1, 48, 48, 1, 16, 256, True, None),   # D = 256, MQA G = 16
+    (1, 40, 40, 1, 16, 256, True, 16),     # recurrentgemma-9b, window
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 

@@ -126,9 +126,7 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 UNPORTED = {
     ("arch", "internvl2-26b"): ("7", "Encoder-decoder and VLM"),
     ("arch", "whisper-small"): ("7", "Encoder-decoder and VLM"),
-    ("arch", "recurrentgemma-9b"): ("4", "Griffin (hybrid) family"),
     ("arch", "xlstm-350m"): ("5", "xLSTM (ssm) family"),
-    ("family", "hybrid"): ("4", "Griffin (hybrid) family"),
     ("family", "ssm"): ("5", "xLSTM (ssm) family"),
     ("family", "vlm"): ("7", "Encoder-decoder and VLM"),
 }
