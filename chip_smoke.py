@@ -28,12 +28,14 @@ Phases (any failure raises, and the script exits non-zero):
      8 x 64 tokens, K 2, G 2, D 64); B1-B3 at recurrentgemma-9b's attention
      (``rg_shapes``: head_dim 256, K = 1, G = 16, window 2048, at the
      [hybrid] serve and train shapes, a ragged S = 2047 in fp32, D = 192
-     and K = 2). A planted fault (one kv tile hidden
+     and K = 2); B1-B3 at internvl2-26b's attention (``vlm_shapes``: K 8,
+     G 6, D 128 at the [vlm] serve and train shapes, 8 and 2 x 2048). A
+     planted fault (one kv tile hidden
      from the later rows in the forward; in the backward, the dk/dv
      contribution of the same rows to the same keys left out) must fail
-     each check (B1's at the serve, the [archs], the example's and the
-     head_dim 256 shapes; B2/B3's at the train and the head_dim 256
-     shapes). The whole autograd op (B1 forward,
+     each check (B1's at the serve, the [archs], the example's, the
+     head_dim 256 and the [vlm] shapes; B2/B3's at the train, the head_dim
+     256 and the [vlm] shapes). The whole autograd op (B1 forward,
      B2 and B3 backward) is held against autograd through fp32 dense
      attention at the train shape;
   3. serve full-width qwen3-0.6b (seeded bf16 weights, 8 requests of 2048
@@ -77,6 +79,60 @@ Phases (any failure raises, and the script exits non-zero):
      under remat), finite losses, peak memory; then its loss gradients
      held against the fp32 plain path leaf by leaf as in 5, with the
      planted backward fault. Within ``HYBRID_PHASE_LIMIT_S``;
+ 3d. ``[vlm]``: internvl2-26b at full width through the step functions
+     (``launch.serve`` refuses a vlm: its prompts are patch embeddings).
+     Served at full depth (48 layers, 19.9 B parameters): a warm-up and a
+     timed prefill of ``VLM_SERVE`` seeded embeddings, then ``VLM_GEN``
+     tokens decoded greedily from the prefill's caches through embed @
+     adapter, counters set to 0 just before and read just after (B1 once
+     per layer and prefill, B2/B3 never); tok/s and peak memory. Cut to
+     ``VLM_CUT_LAYERS`` layers: the prefill logits held as in 3 (planted
+     fault ``FAULT``); card against CPU in fp32 (TF32 off), a prefill of
+     ``VLM_DECODE_PROMPT`` embeddings (its bf16 caches within one bf16
+     step) and ``VLM_DECODE`` decode steps from the card's caches within
+     ``VLM_CARD_CPU_TOL``, which a decode without the adapter must break;
+     trained (fp32 masters, bf16 compute, adamw) ``VLM_TRAIN_STEPS`` steps
+     at ``VLM_TRAIN`` and one at remat block with 2 microbatches, B1 = B2 =
+     B3 = layers x microbatches a step (B1 twice under remat), peak memory;
+     the loss gradients against the fp32 plain path leaf by leaf as in 5,
+     the unused embed's zero on every path, with the planted backward
+     fault. Within ``VLM_PHASE_LIMIT_S``;
+ 3e. ``[ssm]``: xlstm-350m at full width through the step functions
+     (``launch.serve`` refuses an ssm: its prefill returns no cache).
+     Served at full depth (24 layers): a warm-up and a timed prefill of
+     ``SSM_SERVE``, ``SSM_GEN`` tokens decoded from ``init_cache``, every
+     counter set to 0 just before and read just after (B1-B5 all 0: the
+     reference's xLSTM runs its plain chunkwise mLSTM, never B4); the last
+     position's decode logits against the fp32 forward of those tokens
+     within ``SSM_DECODE_RATIO`` of the bf16 prefill's distance; tok/s,
+     peak memory; the plain chunkwise mLSTM's and the sLSTM time loop's
+     device spans in a prefill (CUDA events around each call), and GEMMs,
+     device busy and the idle share over a prefill of ``SSM_PROFILE_S``
+     tokens a row (torch.profiler, device activity). Trained cut to
+     ``SSM_TRAIN_LAYERS`` layers (its host-bound sLSTM loop) at
+     ``SSM_TRAIN`` tokens: ``SSM_TRAIN_STEPS`` steps and one at remat
+     block with 2 microbatches, finite losses, ms a step, peak memory,
+     launches 0. One group (8 layers) card against CPU in fp32 (TF32 off)
+     at ``SSM_CHECK`` tokens (two mLSTM chunks): logits and every loss
+     gradient within ``SSM_LOGITS_TOL`` and ``SSM_GRAD_TOL``, which the
+     chunkwise mLSTM without its inter-chunk q C term must break. Within
+     ``SSM_PHASE_LIMIT_S``;
+ 3f. ``[encdec]``: whisper-small at full width and depth through the step
+     functions (``launch.serve`` refuses it: its prompts are frames plus
+     tokens): ``ENC_SERVE`` requests of 1500 seeded frames and
+     ``ENC_PROMPT`` tokens prefilled, ``ENC_GEN`` tokens decoded past the
+     prompt through the reference's handover (a prompt-long self cache:
+     the ring and the positions wrap), counters at 0 (no TPU kernel on the
+     path); encode + prefill ms, decode tok/s, peak memory. Trained
+     ``ENC_TRAIN_STEPS`` steps and one at remat block with 2 microbatches.
+     Card against CPU in fp32 (TF32 off), cut to ``ENC_CHECK_LAYERS`` +
+     ``ENC_CHECK_LAYERS`` layers, at 1 x (1500 frames, ``ENC_CHECK_TOKENS``
+     tokens): the forward logits, the teacher-forced decode from
+     ``init_cache`` with ``build_cross_cache`` and every loss gradient
+     within ``ENC_CARD_CPU_TOL``, the decode within ``ENC_DECODE_TOL`` of
+     the card's forward (tests/test_models.py's bound); the cross-attention
+     without the later half of the frames must break it. Within
+     ``ENC_PHASE_LIMIT_S``;
   4. train full-width qwen3-0.6b (fp32 masters, bf16 compute, 4 x 2048
      tokens, 6 steps) through ``repro_torch.launch.train.main``, counters set
      to 0 just before: B1, B2 and B3 must each have run 28 times a step, and
@@ -88,8 +144,9 @@ Phases (any failure raises, and the script exits non-zero):
      further than ``GRAD_RATIO`` times the bf16 plain path's distance. The
      planted backward fault must fail this check;
   6. time B1, B2 and B3 (``time_attention``) at the serve shape (B1's
-     reading), the train shape (B2's and B3's) and the [hybrid] serve shape
-     (head_dim 256, MQA, window 2048), each beside its bound, its plain
+     reading), the train shape (B2's and B3's), the [hybrid] serve shape
+     (head_dim 256, MQA, window 2048) and the [vlm] serve shape (K 8, G 6,
+     D 128, 8 x 2048), each beside its bound, its plain
      version and one PyTorch library call of the same function
      (``scaled_dot_product_attention`` with ``enable_gqa`` and its
      backward, the flash backend pinned, timed here only: the port never
@@ -204,7 +261,9 @@ Phases (any failure raises, and the script exits non-zero):
      ``examples/torch_quickstart.py`` on the card. The tuner, the tuning
      launcher and the quickstart launch none of B1-B5. Each of the last
      four phases prints its wall time and must end within its 60 s limit.
-Then it prints the ``{"kernels": [...]}`` line, the card line, and last
+Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
+``launches_vlm`` and ``vlm`` timing rows, B4 and B5 with their
+``launches_ssm``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 
 ``--lane-probe [REPS]`` builds nothing and runs (a) alone, REPS times
@@ -281,7 +340,19 @@ def rg_shapes():
 # hidden from rows >= 32; and every row of rg_shapes.
 FAULT_ROWS = {"serve": FAULT, "g6_qwen2": FAULT, "g7_yi": FAULT,
               "g1_k16": FAULT, "mixtral_window": FAULT,
-              "serve_lm": (32, 0, 16)}
+              "serve_lm": (32, 0, 16), "vlm_serve": FAULT, "vlm_train": FAULT}
+
+
+def vlm_shapes():
+    """B1-B3's rows at internvl2-26b's attention (K 8, G 6, D 128, causal,
+    no window) at the [vlm] serve and train shapes, each with FAULT: name,
+    B, S, K, G, D."""
+    from repro_torch import configs
+    cfg = configs.get(VLM_ARCH)
+    K = cfg.n_kv_heads
+    G, D = cfg.n_heads // K, cfg.resolved_head_dim
+    return [("vlm_serve", *VLM_SERVE, K, G, D),
+            ("vlm_train", *VLM_TRAIN, K, G, D)]
 # B2/B3 against their plain version, per gradient tensor: |err| <= a *
 # max|ref| + r * |ref|, r about a bf16 step. Both sum in fp32 and round the
 # result to the input dtype once; in bf16 the kernels also round p and dS to
@@ -504,6 +575,91 @@ HYBRID_PHASE_LIMIT_S = 90.0
 # Kernel names of the library GEMMs (cuBLAS), for the prefill breakdown.
 HYBRID_GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 HYBRID_SCAN_RANGE = "hybrid.plain_rglru_scan"
+
+# [ssm]: xlstm-350m (24 layers: 3 groups of 7 mLSTM + 1 sLSTM; d 1024, 4
+# heads of 512, d_inner 2048) at full width and depth through launch.steps
+# (launch.serve refuses an ssm: its prefill returns no cache). Served:
+# SSM_SERVE prompts prefilled, then SSM_GEN tokens decoded from init_cache;
+# trained at SSM_TRAIN tokens a step. No TPU kernel is on this path: the
+# reference's xLSTM runs its jnp chunkwise mLSTM, never B4.
+SSM_ARCH = "xlstm-350m"
+SSM_SERVE = (8, 2048)
+SSM_GEN = 32
+SSM_TRAIN = (4, 2048)
+SSM_TRAIN_STEPS = 3
+# Training is cut to one group (8 of 24 layers, full width): the sLSTM's
+# time loop is host-bound under autograd, and at full depth a step took
+# 8.9-12.0 s and the remat block step with 2 microbatches 51.0 s (NVIDIA
+# H100 80GB HBM3, 700 W), past the phase's limit.
+SSM_TRAIN_LAYERS = 8
+# Decode from init_cache against the fp32 forward of the same SSM_GEN
+# tokens, at the last position: at most this times the bf16 prefill's
+# distance from it, as in [hybrid].
+SSM_DECODE_RATIO = 2.0
+# Card against CPU in fp32 (TF32 off): one group (8 layers) at full width
+# on SSM_CHECK tokens, two mLSTM chunks, so the carried state acts. Logits
+# and every loss gradient as max|card - CPU| / max|CPU|. The model at
+# random init is ill-conditioned (exponential gates over 512 steps): on the
+# CPU, weights moved by one fp32 step (6e-8 relative noise) move the logits
+# 4.554e-4 and the worst gradient leaf 6.046e-3
+# (tools/probe_ssm_conditioning.py), and the card read 7.865e-5 and
+# 8.092e-4 (NVIDIA H100 80GB HBM3, 700 W). The limits sit above that
+# spread; the planted fault reads 1.243.
+SSM_CHECK = (1, 512)
+SSM_LOGITS_TOL, SSM_GRAD_TOL = 1e-3, 1e-2
+SSM_PHASE_LIMIT_S = 120.0
+# The profiled prefill's prompt length: a full 8 x 2048 prefill is about
+# 130,000 kernels, whose trace took the profiler over a minute to read back.
+SSM_PROFILE_S = 512
+
+# [vlm]: internvl2-26b (d 6144, 48 heads of 128 over 8 kv heads: G 6; d_ff
+# 16384, vocab 92553) at full width. Served at full depth (48 layers, 19.9 B
+# parameters, bf16): VLM_SERVE seeded patch embeddings prefilled (B1 once
+# per layer and prefill), then VLM_GEN tokens decoded from the prefill's
+# caches through embed @ adapter. Checked and trained cut to
+# VLM_CUT_LAYERS layers (2.74 B parameters, most of them in the embedding
+# and the head): the prefill logits as in phase 3, VLM_DECODE decode steps
+# card against CPU in fp32 after a VLM_DECODE_PROMPT-embedding prefill,
+# VLM_TRAIN tokens a step, and the loss gradients as in phase 5.
+VLM_ARCH = "internvl2-26b"
+VLM_SERVE = (8, 2048)
+VLM_GEN = 32
+VLM_CUT_LAYERS = 4
+VLM_TRAIN = (2, 2048)
+VLM_TRAIN_STEPS = 3
+VLM_DECODE_PROMPT, VLM_DECODE = 16, 4
+# Card against CPU, fp32: the prefill read 2.428e-6 and the decode steps
+# 7.490e-5 of max|logit| (NVIDIA H100 80GB HBM3, 700 W): each decode step
+# writes its token's k and v into the bf16 cache on each side, where an
+# fp32 difference in the last place can round a value to the neighbouring
+# bf16. The decode without the adapter reads 1.164.
+VLM_CARD_CPU_TOL = 1e-3
+# The prefill's bf16 caches: each value within one bf16 step (2**-7 of it)
+# of the CPU's, plus this share of the cache's largest value: a value near
+# zero, the difference of large fp32 sums, can round many of its own bf16
+# steps away (23 at one value on the card above).
+VLM_CACHE_TOL = 1e-5
+VLM_PHASE_LIMIT_S = 120.0
+
+# [encdec]: whisper-small (12 + 12 layers, d 768, 12 heads of 64, d_ff
+# 3072, 1500 frames) at full width and depth through launch.steps: ENC_SERVE
+# requests of 1500 seeded frames and ENC_PROMPT tokens, then ENC_GEN tokens
+# decoded past the prompt through the reference's handover (the self cache
+# is prompt-long, so the ring and the positions wrap); trained at
+# ENC_SERVE x (1500 frames, ENC_PROMPT tokens). Card against CPU in fp32 at
+# 1 request and ENC_CHECK_TOKENS tokens, cut to ENC_CHECK_LAYERS + as many
+# layers for the CPU side: the forward logits, the teacher-forced decode
+# from init_cache (and, as tests/test_models.py, within ENC_DECODE_TOL of
+# the forward), the loss gradients. No TPU kernel is on this path.
+ENC_ARCH = "whisper-small"
+ENC_SERVE, ENC_PROMPT, ENC_GEN = 8, 224, 32
+ENC_TRAIN_STEPS = 3
+ENC_CHECK_TOKENS, ENC_CHECK_LAYERS = 64, 2
+# The card read at most 1.4e-5 (a gradient leaf; logits 1.3e-6) on an
+# NVIDIA H100 80GB HBM3 at 700 W.
+ENC_CARD_CPU_TOL = 1e-4
+ENC_DECODE_TOL = 0.1
+ENC_PHASE_LIMIT_S = 90.0
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
@@ -841,6 +997,9 @@ def phase_kernels(fa):
          4096),
         # examples/torch_serve_lm.py's prefill (serve-lm: K 2, G 2, D 64)
         ("serve_lm", 8, 64, 64, 2, 2, 64, torch.bfloat16, True, None),
+        # the [vlm] prefill and train shapes (internvl2-26b: K 8, G 6)
+        *[(n, b, s_, s_, k, g, d, torch.bfloat16, True, None)
+          for n, b, s_, k, g, d in vlm_shapes()],
         *[(n, b, s_, s_, k, g, d, getattr(torch, dt), True, w)
           for n, b, s_, k, g, d, dt, w, _ in rg_shapes()],
     ]
@@ -899,13 +1058,17 @@ BWD_SHAPES = [  # name, B, S, T, K, G, D, dtype, causal, window
 
 
 def phase_bwd_kernels(fa, fa_bwd):
-    """B2/B3 against their plain version (BWD_SHAPES, then rg_shapes'
-    rows); the planted backward fault at the train shape and rg_shapes'."""
+    """B2/B3 against their plain version (BWD_SHAPES, then rg_shapes' and
+    vlm_shapes' rows); the planted backward fault at the train shape and
+    at rg_shapes' and vlm_shapes'."""
     import torch
     rg = rg_shapes()
     shapes = BWD_SHAPES + [(n, b, s_, s_, k, g, d, dt, True, w)
-                           for n, b, s_, k, g, d, dt, w, _ in rg]
-    faults = {"train": FAULT, **{n: f for n, *_, f in rg}}
+                           for n, b, s_, k, g, d, dt, w, _ in rg] + [
+        (n, b, s_, s_, k, g, d, "bfloat16", True, None)
+        for n, b, s_, k, g, d in vlm_shapes()]
+    faults = {"train": FAULT, **{n: f for n, *_, f in rg},
+              **{n: FAULT for n, *_ in vlm_shapes()}}
     errs = {}
     for i, (name, B, S, T, K, G, D, dt, causal, window) in enumerate(
             shapes):
@@ -1306,24 +1469,24 @@ def phase_archs(fa, fa_bwd, serve, steps, card):
     return total
 
 
-def hybrid_prefill_shares(prof):
-    """(B1 ms, plain-scan ms, GEMM ms, device busy ms, the top kernels)
-    over a profiled prefill: B1 by its kernel's name; the plain RG-LRU
-    scan as the device span of its ``HYBRID_SCAN_RANGE`` ranges (from the
-    first kernel launched inside one to the end of its last: the stream
-    runs them in order); GEMMs by the library's kernel names."""
+def prefill_shares(prof, ranges):
+    """(B1 ms, {range: ms}, GEMM ms, device busy ms, the top kernels) over
+    a profiled prefill: B1 by its kernel's name; each user range of
+    ``ranges`` as the device span of its instances (from the first kernel
+    launched inside one to the end of its last: the stream runs them in
+    order); GEMMs by the library's kernel names."""
     from torch.autograd import DeviceType
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in device if e.key != HYBRID_SCAN_RANGE]
+    kernels = [e for e in device if e.key not in ranges]
     b1 = sum(e.self_device_time_total for e in kernels if "fa_fwd" in e.key)
     gemm = sum(e.self_device_time_total for e in kernels
                if any(w in e.key.lower() for w in HYBRID_GEMM_NAMES))
-    scan = sum(e.self_device_time_total for e in device
-               if e.key == HYBRID_SCAN_RANGE)
+    spans = {r: sum(e.self_device_time_total for e in device if e.key == r)
+             / 1e3 for r in ranges}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return (b1 / 1e3, scan / 1e3, gemm / 1e3,
-            busy_union_ms(prof, skip=(HYBRID_SCAN_RANGE,))[0],
+    return (b1 / 1e3, spans, gemm / 1e3,
+            busy_union_ms(prof, skip=tuple(ranges))[0],
             [(e.key[:60], e.self_device_time_total / 1e3) for e in top])
 
 
@@ -1342,6 +1505,40 @@ def scan_annotated(rec_lib):
         yield
     finally:
         rec_lib.rglru_reference = scan
+
+
+@contextlib.contextmanager
+def event_spans(module, names, out):
+    """Time each call of ``module.<attr>`` on the card, for {attr: label}
+    in ``names``: CUDA events on the current stream just before and after
+    every call; on exit ``out[label]`` is their summed ms, each the device
+    span from the end of the work before the call to the end of its last
+    kernel, idle gaps included."""
+    import torch
+    saved = {attr: getattr(module, attr) for attr in names}
+    marks = {label: [] for label in names.values()}
+
+    def timed(fn, label):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                end.record()
+                marks[label].append((start, end))
+        return run
+    for attr, label in names.items():
+        setattr(module, attr, timed(saved[attr], label))
+    try:
+        yield out
+    finally:
+        for attr, fn in saved.items():
+            setattr(module, attr, fn)
+        torch.cuda.synchronize()
+        for label, pairs in marks.items():
+            out[label] = sum(a.elapsed_time(b) for a, b in pairs)
 
 
 def hybrid_serve(fa, fa_bwd, steps, card):
@@ -1450,7 +1647,9 @@ def hybrid_serve(fa, fa_bwd, steps, card):
     with scan_annotated(rec_lib), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prefill_logits(prompts)
-    b1_ms, scan_ms, gemm_ms, busy_ms, top = hybrid_prefill_shares(prof)
+    b1_ms, spans, gemm_ms, busy_ms, top = prefill_shares(
+        prof, (HYBRID_SCAN_RANGE,))
+    scan_ms = spans[HYBRID_SCAN_RANGE]
     del prof
     plain = prefill_logits(prompts, use_pallas=False)
     exact = prefill_logits(prompts, use_pallas=False, precision="fp32")
@@ -1642,6 +1841,887 @@ def phase_hybrid(fa, fa_bwd, steps, card):
     return serve_launches, train_launches
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """fp32 matrix products and convolutions without TF32, restored after."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def bf16_excess(got, ref):
+    """max(|got - ref| - 2**-7 |ref|) / max|ref|: how far two bf16 tensors
+    differ beyond one bf16 step of each value, in units of the largest."""
+    got, ref = got.float().to(ref.device), ref.float()
+    return float(((got - ref).abs() - 2.0 ** -7 * ref.abs()).max()
+                 / ref.abs().max())
+
+
+def rel_dist(got, ref):
+    """max|got - ref| / max|ref|, on ref's device."""
+    return float((got.to(ref.device) - ref).abs().max() / ref.abs().max())
+
+
+def cpu_exp_warmed():
+    """One fp32 exp on the CPU, so that the CPU side of a card-vs-CPU check
+    is not the process's first: PyTorch's first fp32 CPU exp of a process on
+    several threads has erred by up to 1.5e-4 (tools/probe_cpu_exp.py)."""
+    import torch
+    torch.exp(torch.zeros(1 << 16))
+
+
+def train_run(counters, steps, cfg, batches, sys_kw, opt, state):
+    """Steps of ``make_train_step`` over ``batches`` (counters set to 0
+    just before): (state, losses, ms a step by CUDA events, counts)."""
+    import torch
+    from repro_torch.models import transformer as T
+    step = steps.make_train_step(cfg, T.SystemConfig(**sys_kw), opt)
+    reset_all(counters)
+    losses, ms = [], []
+    for batch in batches:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        ms.append(start.elapsed_time(end))
+    return state, losses, ms, read_all(counters)
+
+
+def adamw_for(n_steps):
+    from repro_torch.optim import optimizers
+    return optimizers.adamw(optimizers.warmup_cosine(3e-4, 10, n_steps),
+                            weight_decay=0.01)
+
+
+def ssm_serve(counters, steps, card):
+    """Full-width, full-depth xlstm-350m: prefill through make_prefill_step
+    (warm-up, then timed; as in the reference it returns no cache), decode
+    from init_cache, decode against the fp32 forward, and where one
+    prefill's device time goes (the plain chunkwise mLSTM, the sLSTM's time
+    loop, GEMMs, idle). Returns the launch counts over the served run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch import device as device_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    sys_ = T.SystemConfig()
+    cfg = dataclasses.replace(configs.get(SSM_ARCH), dtype=sys_.compute_dtype)
+    B, S = SSM_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S))).to("cuda")
+    prefill = steps.make_prefill_step(cfg, sys_)
+    decode = steps.make_decode_step(cfg, sys_)
+
+    reset_all(counters)
+    prefill(params, {"tokens": prompts})                    # warm-up
+    with device_lib.Timer(dev) as t_prefill:
+        logits, cache = prefill(params, {"tokens": prompts})
+    V = cfg.padded_vocab
+    check(cache is None, "an ssm's prefill returned a cache")
+    check(tuple(logits.shape) == (B, 1, V)
+          and bool(torch.isfinite(logits).all()),
+          "ssm prefill logits wrong in shape or not finite")
+    cache = T.init_cache(cfg, B, S, device="cuda")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    dec = []
+    for t in range(SSM_GEN):
+        if t == 1:
+            start.record()
+        step_logits, cache = decode(params, cache, prompts[:, t:t + 1], t)
+        dec.append(step_logits[:, 0])
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (SSM_GEN - 1)
+    counts = read_all(counters)
+    dec = torch.stack(dec, dim=1)
+    mcfg = cfg.mlstm_cfg()
+    print(f"[ssm] {SSM_ARCH}: {cfg.n_layers} layers ({cfg.ssm_groups} groups"
+          f" of {cfg.mlstm_per_slstm} mLSTM + 1 sLSTM; d {cfg.d_model}, "
+          f"{mcfg.n_heads} heads of {mcfg.head_dim}, d_inner "
+          f"{mcfg.d_inner}), {n_params:,} parameters (bf16, w_if and b_if "
+          f"fp32); launches over 2 prefills and {SSM_GEN} decode steps: "
+          f"{counts} (want all 0)", flush=True)
+    check(not any(counts.values()), f"the ssm launched kernels: {counts}")
+    check(bool(torch.isfinite(dec).all()), "ssm decode logits not finite")
+    del cache
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def prefill_logits(tokens, **change):
+        step = steps.make_prefill_step(cfg, dataclasses.replace(sys_,
+                                                                **change))
+        out = step(params, {"tokens": tokens})[0]
+        torch.cuda.synchronize()
+        return out
+
+    head = prompts[:, :SSM_GEN]
+    short = prefill_logits(head)[:, 0]
+    short_exact = prefill_logits(head, precision="fp32")[:, 0]
+    e_dec = float((dec[:, -1] - short_exact).abs().max())
+    e_short = float((short - short_exact).abs().max())
+    dec_ok = e_dec <= SSM_DECODE_RATIO * e_short
+
+    # the plain mLSTM's and the sLSTM loop's device spans over a prefill at
+    # the serve shape, by CUDA events around each call
+    spans = {}
+    with event_spans(xlstm_lib, {"mlstm_chunkwise_reference": "mlstm",
+                                 "slstm_steps": "slstm"}, spans), \
+            device_lib.Timer(dev) as t_spans:
+        prefill_logits(prompts)
+    m_ms, s_ms = spans["mlstm"], spans["slstm"]
+    # GEMMs, device busy and idle share over SSM_PROFILE_S tokens a row
+    # (each part's work scales with S); idle against the same prefill's
+    # unprofiled time
+    short_prompts = prompts[:, :SSM_PROFILE_S]
+    prefill_logits(short_prompts)
+    with device_lib.Timer(dev) as t_short:
+        prefill_logits(short_prompts)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill_logits(short_prompts)
+    _, _, gemm_ms, busy_ms, top = prefill_shares(prof, ())
+    del prof
+    n_m = cfg.ssm_groups * cfg.mlstm_per_slstm
+    print(f"[ssm] {card} | {SSM_ARCH} {B}x{S}: prefill "
+          f"{B * S / (t_prefill.ms / 1e3):.1f} tok/s ({t_prefill.ms:.3f} "
+          f"ms), decode from init_cache {B / (decode_ms / 1e3):.1f} tok/s "
+          f"({decode_ms:.3f} ms a step, steps 1..{SSM_GEN - 1}), peak memory "
+          f"{serve_peak:.3f} GiB", flush=True)
+    print(f"[ssm] {card} | a {B}x{S} prefill ({t_spans.ms:.3f} ms), device "
+          f"spans by CUDA events: plain mLSTM chunkwise {m_ms:.3f} ms "
+          f"({m_ms / t_spans.ms:.4f}; {m_ms / n_m:.3f} ms a layer over "
+          f"{n_m}, B4 at this shape in [timing]), sLSTM time loop "
+          f"{s_ms:.3f} ms ({s_ms / t_spans.ms:.4f}; {s_ms / cfg.ssm_groups:.3f}"
+          f" ms a layer, {S} steps each)", flush=True)
+    print(f"[ssm] {card} | a {B}x{SSM_PROFILE_S} prefill ({t_short.ms:.3f} "
+          f"ms unprofiled), torch.profiler device activity: busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / t_short.ms:.4f}; "
+          f"GEMMs {gemm_ms:.3f} ms ({gemm_ms / busy_ms:.4f} of busy, the "
+          f"sLSTM's recurrent products among them); top kernels "
+          + "; ".join(f"{k} {ms:.3f}" for k, ms in top), flush=True)
+    print(f"[ssm] decode from init_cache: position {SSM_GEN - 1}'s logits "
+          f"against the fp32 forward of the same {SSM_GEN} tokens: decode "
+          f"{e_dec:.3e}, bf16 prefill {e_short:.3e} (limit "
+          f"{SSM_DECODE_RATIO:g}x it) {'ok' if dec_ok else 'FAIL'}",
+          flush=True)
+    check(dec_ok, "ssm decode strays from the forward")
+    del params, logits, dec
+    torch.cuda.empty_cache()
+    return counts, m_ms
+
+
+def ssm_train(counters, steps, card):
+    """Full-width xlstm-350m cut to SSM_TRAIN_LAYERS layers (fp32 masters,
+    bf16 compute, adamw): SSM_TRAIN_STEPS steps at SSM_TRAIN tokens and one
+    at remat block with 2 microbatches. Returns the launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.tree import tree_leaves
+    full = configs.get(SSM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SSM_TRAIN_LAYERS)
+    B, S = SSM_TRAIN
+    n_steps = SSM_TRAIN_STEPS + 1
+    opt = adamw_for(n_steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.make_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, opt, "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(state["params"]))
+    toks = synthetic.make_lm_dataset(0, B * S * n_steps, cfg.vocab)
+
+    def batch_of(i):
+        chunk = toks[i * B * S:][:B * S].reshape(B, S)
+        return {"tokens": torch.from_numpy(chunk).to("cuda", torch.long),
+                "labels": torch.from_numpy(np.roll(chunk, -1, -1)).to(
+                    "cuda", torch.long)}
+
+    state, losses, ms, counts = train_run(
+        counters, steps, cfg, [batch_of(i) for i in range(SSM_TRAIN_STEPS)],
+        dict(precision="bf16"), opt, state)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[ssm] {card} | train {SSM_ARCH} cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers ({cfg.ssm_groups} group; {n_params:,} "
+          f"parameters, fp32 masters, bf16 compute, adamw), "
+          f"{SSM_TRAIN_STEPS} steps of {B}x{S} tokens: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; ms/step "
+          f"{' '.join(f'{x:.3f}' for x in ms)}; peak memory {peak:.3f} GiB; "
+          f"launches {counts} (want all 0)", flush=True)
+    check(all(math.isfinite(x) for x in losses), "non-finite ssm loss")
+    torch.cuda.reset_peak_memory_stats()
+    state, r_losses, r_ms, r_counts = train_run(
+        counters, steps, cfg, [batch_of(SSM_TRAIN_STEPS)],
+        dict(precision="bf16", remat="block", microbatches=2), opt, state)
+    print(f"[ssm] remat block, 2 microbatches of {B // 2}x{S}: loss "
+          f"{r_losses[0]:.4f}, {r_ms[0]:.3f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, launches "
+          f"{r_counts}", flush=True)
+    check(math.isfinite(r_losses[0]), "non-finite ssm remat loss")
+    check(not any(counts.values()) and not any(r_counts.values()),
+          f"ssm training launched kernels: {counts}, {r_counts}")
+    del state
+    torch.cuda.empty_cache()
+    return {k: counts[k] + r_counts[k] for k in counts}
+
+
+def ssm_card_cpu(steps, card, ml):
+    """One group of xlstm-350m (8 layers) at full width, card against CPU
+    in fp32 with TF32 off: the logits and every loss gradient, with the
+    planted fault (the chunkwise mLSTM without its inter-chunk q C term)
+    on the card side."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.tree import tree_map
+    cfg = configs.get(SSM_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.mlstm_per_slstm + 1)
+    B, S = SSM_CHECK
+    cpu_exp_warmed()
+    params = T.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    gpu_params = tree_map(lambda a: a.to("cuda"), params)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, -1))}
+    gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
+    sys_ = T.SystemConfig(precision="fp32")
+
+    def logits(p, b):
+        with torch.no_grad():
+            return T.forward(p, {"tokens": b["tokens"]}, cfg, sys_)[0]
+
+    def drop_inter(q, k, v, i_gate, f_gate, chunk=256, state=None):
+        return mlstm_drop_inter(ml, q, k, v, i_gate, f_gate,
+                                min(chunk, q.shape[1])), None
+
+    with tf32_off():
+        ref = logits(params, batch)
+        e_logits = rel_dist(logits(gpu_params, gpu_batch), ref)
+        chunkwise = xlstm_lib.mlstm_chunkwise_reference
+        xlstm_lib.mlstm_chunkwise_reference = drop_inter
+        try:
+            e_fault = rel_dist(logits(gpu_params, gpu_batch), ref)
+        finally:
+            xlstm_lib.mlstm_chunkwise_reference = chunkwise
+        g_cpu = loss_grads(params, batch, cfg, sys_)
+        g_gpu = loss_grads(gpu_params, gpu_batch, cfg, sys_)
+    e_grads = {p: rel_dist(g_gpu[p], g) for p, g in g_cpu.items()}
+    worst = max(e_grads, key=e_grads.get)
+    ok = e_logits <= SSM_LOGITS_TOL and e_grads[worst] <= SSM_GRAD_TOL
+    caught = e_fault > SSM_LOGITS_TOL
+    print(f"[ssm] {card} | card against CPU, fp32 (TF32 off), {SSM_ARCH} "
+          f"cut to {cfg.n_layers} layers (1 group) at full width, {B}x{S} "
+          f"tokens ({S // min(256, S)} mLSTM chunks): logits {e_logits:.3e} "
+          f"(limit {SSM_LOGITS_TOL:g}), worst gradient leaf {worst} "
+          f"{e_grads[worst]:.3e} (limit {SSM_GRAD_TOL:g}; max|d| / "
+          f"max|CPU|) {'ok' if ok else 'FAIL'}; "
+          f"planted fault (chunkwise without the inter-chunk q C term) "
+          f"logits {e_fault:.3e} {'caught' if caught else 'MISSED'}",
+          flush=True)
+    check(ok, "the ssm on the card disagrees with the CPU")
+    check(caught, "the ssm card-vs-CPU check misses a dropped q C term")
+    del gpu_params, g_gpu
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(counters, steps, card, ml):
+    """[ssm]: xlstm-350m served and trained at full width and depth through
+    launch.steps, and one group held card against CPU; within
+    SSM_PHASE_LIMIT_S. Returns (launch counts serving and training, the
+    plain mLSTM's span in the profiled prefill)."""
+    t_phase = time.perf_counter()
+    serve_counts, mlstm_ms = ssm_serve(counters, steps, card)
+    t_serve = time.perf_counter()
+    train_counts = ssm_train(counters, steps, card)
+    t_train = time.perf_counter()
+    ssm_card_cpu(steps, card, ml)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[ssm] phase {phase_s:.1f} s (limit {SSM_PHASE_LIMIT_S:.0f} s: "
+          f"serve {t_serve - t_phase:.1f}, train {t_train - t_serve:.1f}, "
+          f"card vs CPU {time.perf_counter() - t_train:.1f}); launches "
+          f"serving {serve_counts}, training {train_counts}", flush=True)
+    check(phase_s < SSM_PHASE_LIMIT_S, f"the ssm phase took {phase_s:.1f} s")
+    return serve_counts, train_counts, mlstm_ms
+
+
+def vlm_embeddings(B, S, d, seed):
+    """Seeded patch embeddings (B, S, d) on the card, bf16."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, S, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+
+
+def vlm_serve(fa, fa_bwd, steps, card):
+    """Full-width, full-depth internvl2-26b: a warm-up and a timed prefill
+    of VLM_SERVE patch embeddings, then VLM_GEN tokens decoded greedily from
+    the prefill's caches (embed @ adapter). Returns (B1 launches, the
+    parameters cut to VLM_CUT_LAYERS layers, the embeddings)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch import device as device_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    sys_ = T.SystemConfig()
+    cfg = dataclasses.replace(configs.get(VLM_ARCH), dtype=sys_.compute_dtype)
+    B, S = VLM_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    gib = sum(a.numel() * a.element_size()
+              for a in tree_leaves(params)) / 2 ** 30
+    emb = vlm_embeddings(B, S, cfg.d_model, 1)
+    prefill = steps.make_prefill_step(cfg, sys_, max_len=S + VLM_GEN)
+    decode = steps.make_decode_step(cfg, sys_)
+    reset_counts(fa, fa_bwd)
+    prefill(params, {"embeddings": emb})                    # warm-up
+    with device_lib.Timer(dev) as t_prefill:
+        logits, cache = prefill(params, {"embeddings": emb})
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = [tok]
+    with device_lib.Timer(dev) as t_decode:
+        for i in range(VLM_GEN - 1):
+            step_logits, cache = decode(params, cache, tok, S + i)
+            tok = step_logits[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+    counts = read_counts(fa, fa_bwd)
+    tokens = torch.cat(out, dim=1)
+    L, V = cfg.n_layers, cfg.padded_vocab
+    want = (2 * L, 0, 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[vlm] {VLM_ARCH}: {L} layers (d {cfg.d_model}, K "
+          f"{cfg.n_kv_heads}, G {cfg.n_heads // cfg.n_kv_heads}, D "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}), {n_params:,} "
+          f"parameters ({gib:.3f} GiB bf16); launches over 2 prefills and "
+          f"{VLM_GEN - 1} decode steps: B1 {counts[0]}, dq {counts[1]}, dkv "
+          f"{counts[2]} (want {want})", flush=True)
+    check(counts == want, f"vlm serve launches {counts}, want {want}")
+    check(tuple(logits.shape) == (B, 1, V)
+          and bool(torch.isfinite(logits).all()),
+          "vlm prefill logits wrong in shape or not finite")
+    check(tuple(cache["k"].shape) == (L, B, S + VLM_GEN, cfg.n_kv_heads,
+                                      cfg.resolved_head_dim),
+          f"vlm cache {tuple(cache['k'].shape)}")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < V,
+          "vlm tokens out of range")
+    decode_ms = t_decode.ms / (VLM_GEN - 1)
+    print(f"[vlm] {card} | {VLM_ARCH} {B}x{S} embeddings + {VLM_GEN}: "
+          f"prefill {B * S / (t_prefill.ms / 1e3):.1f} tok/s "
+          f"({t_prefill.ms:.3f} ms), decode {B / (decode_ms / 1e3):.1f} "
+          f"tok/s ({decode_ms:.3f} ms a step at batch {B}), peak memory "
+          f"{peak:.3f} GiB", flush=True)
+    del cache, logits
+    cut = {k: v for k, v in params.items() if k != "layers"}
+    cut["layers"] = tree_map(lambda a: a[:VLM_CUT_LAYERS].clone(),
+                             params["layers"])
+    del params
+    torch.cuda.empty_cache()
+    return counts[0], cut, emb
+
+
+def vlm_checks(fa, steps, card, params, emb):
+    """At the cut: the prefill logits of the kernel path and the bf16 plain
+    path against the fp32 plain path (planted forward fault), and a few
+    decode steps card against CPU in fp32 (planted fault: decode without
+    the adapter)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    sys_ = T.SystemConfig()
+    cfg = dataclasses.replace(configs.get(VLM_ARCH), dtype=sys_.compute_dtype,
+                              n_layers=VLM_CUT_LAYERS)
+
+    def prefill_logits(**change):
+        step = steps.make_prefill_step(cfg, dataclasses.replace(sys_,
+                                                                **change))
+        out = step(params, {"embeddings": emb})[0]
+        torch.cuda.synchronize()
+        return out
+
+    kernel, plain = prefill_logits(), prefill_logits(use_pallas=False)
+    exact = prefill_logits(use_pallas=False, precision="fp32")
+    kernel_fn = fa.flash_attention
+    fa.flash_attention = faulty_flash(FAULT)
+    try:
+        fault = prefill_logits()
+    finally:
+        fa.flash_attention = kernel_fn
+
+    def err(x):
+        return float((x - exact).abs().max())
+    e_kernel, e_plain, e_fault = err(kernel), err(plain), err(fault)
+    ok = e_kernel <= LOGITS_RATIO * e_plain
+    caught = e_fault > LOGITS_RATIO * e_plain
+    B, S = emb.shape[:2]
+    print(f"[vlm] prefill logits, {VLM_ARCH} cut to {VLM_CUT_LAYERS} layers, "
+          f"{B}x{S}, against the fp32 plain path (max|logit| "
+          f"{float(exact.abs().max()):.3f}): bf16 kernel path {e_kernel:.3e},"
+          f" bf16 plain path {e_plain:.3e}, limit {LOGITS_RATIO:g}x the plain "
+          f"path's {'ok' if ok else 'FAIL'}; planted fault (keys "
+          f"{FAULT[1]}..{FAULT[2] - 1} hidden from rows >= {FAULT[0]}) "
+          f"{e_fault:.3e} ({e_fault / e_plain:.2f}x) "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(ok, "vlm kernel-path logits disagree with the plain path")
+    check(caught, "the vlm logits check misses a dropped kv tile")
+    del kernel, plain, exact, fault
+
+    # card against CPU in fp32 on the same bf16 weights: a prefill of
+    # VLM_DECODE_PROMPT embeddings (logits, and its bf16 caches within one
+    # bf16 step), then VLM_DECODE decode steps on each side from the card's
+    # caches, so that a cache value rounded to the neighbouring bf16 on one
+    # side does not stand in for a decode difference
+    P, N = VLM_DECODE_PROMPT, VLM_DECODE
+    prompt = emb[:1, :P]
+    feed = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (N, 1, 1)))
+    sys32 = dataclasses.replace(sys_, precision="fp32")
+    prefill = steps.make_prefill_step(cfg, sys32, max_len=P + N)
+
+    def decode_all(p, cache, dev, decode_cfg):
+        decode = steps.make_decode_step(decode_cfg, sys32)
+        out = []
+        for i in range(N):
+            logits, cache = decode(p, cache, feed[i].to(dev), P + i)
+            out.append(logits)
+        return torch.cat(out, dim=1).cpu()
+
+    cpu_exp_warmed()
+    # the CPU side's weights widened once (bf16 -> fp32 is exact)
+    cpu_params = tree_map(lambda a: a.cpu().float(), params)
+    with tf32_off():
+        card_prefill, card_cache = prefill(params, {"embeddings": prompt})
+        cpu_prefill, cpu_cache = prefill(cpu_params,
+                                         {"embeddings": prompt.cpu()})
+        e_cache = max(bf16_excess(card_cache[n], c)
+                      for n, c in cpu_cache.items())
+        from_card = {n: c.cpu() for n, c in card_cache.items()}
+        card_dec = decode_all(params, card_cache, "cuda", cfg)
+        cpu_dec = decode_all(cpu_params, from_card, "cpu", cfg)
+        _, fault_cache = prefill(params, {"embeddings": prompt})
+        no_adapter = decode_all(params, fault_cache, "cuda",
+                                dataclasses.replace(cfg, family="dense"))
+    e_pre = rel_dist(card_prefill, cpu_prefill)
+    e_dec = rel_dist(card_dec, cpu_dec)
+    e_fault = rel_dist(no_adapter, cpu_dec)
+    ok = max(e_pre, e_dec) <= VLM_CARD_CPU_TOL and e_cache <= VLM_CACHE_TOL
+    caught = e_fault > VLM_CARD_CPU_TOL
+    print(f"[vlm] {card} | card against CPU, fp32 (TF32 off), cut to "
+          f"{cfg.n_layers} layers: prefill of 1x{P} embeddings {e_pre:.3e}, "
+          f"its bf16 caches {e_cache:.3e} of max|cache| beyond one bf16 step "
+          f"(limit {VLM_CACHE_TOL:g}); {N} decode steps through "
+          f"embed @ adapter from the card's caches {e_dec:.3e} (max|d| / "
+          f"max|CPU|, limit {VLM_CARD_CPU_TOL:g}) {'ok' if ok else 'FAIL'}; "
+          f"planted fault (decode without the adapter) {e_fault:.3e} "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(ok, "vlm prefill or decode on the card disagrees with the CPU")
+    check(caught, "the vlm decode check misses a missing adapter")
+
+
+def vlm_train(fa, fa_bwd, steps, card):
+    """The cut (fp32 masters, bf16 compute, adamw): VLM_TRAIN_STEPS steps at
+    VLM_TRAIN and one at remat block with 2 microbatches, B1-B3 launches
+    counted; then the loss gradients (1 x S) of the kernel path against the
+    fp32 plain path leaf by leaf, with the planted backward fault; the
+    unused embed's gradient must be zero on every path. Returns (B1, B2,
+    B3) launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(configs.get(VLM_ARCH), n_layers=VLM_CUT_LAYERS)
+    L, (B, S) = cfg.n_layers, VLM_TRAIN
+    n_steps = VLM_TRAIN_STEPS + 1
+    opt = adamw_for(n_steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.make_train_state(
+        torch.Generator(device="cuda").manual_seed(2), cfg, opt, "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(state["params"]))
+    rng = np.random.default_rng(2)
+
+    def batch_of(i, rows):
+        labels = rng.integers(0, cfg.vocab, (rows, S))
+        return {"embeddings": vlm_embeddings(rows, S, cfg.d_model, 10 + i),
+                "labels": torch.from_numpy(labels).to("cuda")}
+
+    counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
+                ("B3", fa_bwd, "launches_dkv")]
+    state, losses, ms, counts = train_run(
+        counters, steps, cfg, [batch_of(i, B) for i in range(VLM_TRAIN_STEPS)],
+        dict(precision="bf16"), opt, state)
+    counts = tuple(counts.values())
+    want = (L * VLM_TRAIN_STEPS,) * 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[vlm] {card} | train {VLM_ARCH} cut to {L} layers ({n_params:,}"
+          f" parameters, fp32 masters, bf16 compute, adamw), "
+          f"{VLM_TRAIN_STEPS} steps of {B}x{S}: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; ms/step "
+          f"{' '.join(f'{x:.3f}' for x in ms)}; peak memory {peak:.3f} GiB; "
+          f"launches B1 {counts[0]}, dq {counts[1]}, dkv {counts[2]} (want "
+          f"{want})", flush=True)
+    check(counts == want, f"vlm train launches {counts}, want {want}")
+    check(all(math.isfinite(x) for x in losses), "non-finite vlm loss")
+    torch.cuda.reset_peak_memory_stats()
+    state, r_losses, r_ms, r_counts = train_run(
+        counters, steps, cfg, [batch_of(VLM_TRAIN_STEPS, B)],
+        dict(precision="bf16", remat="block", microbatches=2), opt, state)
+    r_counts = tuple(r_counts.values())
+    r_want = (2 * L * 2, L * 2, L * 2)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    print(f"[vlm] remat block, 2 microbatches of {B // 2}x{S}: loss "
+          f"{r_losses[0]:.4f}, {r_ms[0]:.3f} ms, launches B1 {r_counts[0]}, "
+          f"dq {r_counts[1]}, dkv {r_counts[2]} (want {r_want}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (allocator "
+          f"retries so far {retries})", flush=True)
+    check(r_counts == r_want, f"vlm remat launches {r_counts}")
+    check(math.isfinite(r_losses[0]), "non-finite vlm remat loss")
+    total = tuple(a + b for a, b in zip(counts, r_counts))
+
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    batch = batch_of(n_steps, 1)
+
+    def grads(**kw):
+        out = loss_grads(params, batch, cfg, T.SystemConfig(**kw))
+        torch.cuda.synchronize()
+        return out
+
+    exact = grads(precision="fp32", use_pallas=False)
+    unused = [p for p, e in exact.items() if not bool(e.any())]
+    check(unused == ["embed"], f"vlm leaves with zero gradients: {unused}")
+
+    def dist(**kw):
+        g = grads(**kw)
+        check(not bool(g["embed"].any()), "the vlm's embed got a gradient")
+        return {p: float((g[p] - e).abs().max() / e.abs().max())
+                for p, e in exact.items() if p not in unused}
+
+    d_k = dist(precision="bf16")
+    d_p = dist(precision="bf16", use_pallas=False)
+    kernel_bwd = fa_bwd.flash_attention_bwd
+    fa_bwd.flash_attention_bwd = (
+        lambda q, k, v, out, lse, do, *, causal=True, window=None, **_:
+        dense_attention_bwd(q, k, v, do, causal, window, FAULT))
+    try:
+        d_f = dist(precision="bf16")
+    finally:
+        fa_bwd.flash_attention_bwd = kernel_bwd
+    ratio = {p: d_k[p] / d_p[p] for p in d_k}
+    f_ratio = {p: d_f[p] / d_p[p] for p in d_k}
+    worst = max(ratio, key=ratio.get)
+    worst_f = max(f_ratio, key=f_ratio.get)
+    for p in d_k:
+        print(f"[vlm] grad {p:24s} distance kernel {d_k[p]:.3e}, plain "
+              f"{d_p[p]:.3e} ({ratio[p]:.2f}x), fault {d_f[p]:.3e} "
+              f"({f_ratio[p]:.2f}x)", flush=True)
+    ok = ratio[worst] <= GRAD_RATIO
+    caught = f_ratio[worst_f] > GRAD_RATIO
+    print(f"[vlm] loss gradients (1x{S}) against the fp32 plain path: embed "
+          f"zero on every path (unused: the forward starts at the adapter); "
+          f"worst leaf {worst} at {ratio[worst]:.2f}x the bf16 plain path's "
+          f"distance (limit {GRAD_RATIO:g}x) {'ok' if ok else 'FAIL'}; "
+          f"planted backward fault: worst leaf {worst_f} at "
+          f"{f_ratio[worst_f]:.2f}x {'caught' if caught else 'MISSED'}",
+          flush=True)
+    check(ok, "vlm kernel-path gradients disagree with the plain path")
+    check(caught, "the vlm gradient check misses a dropped tile")
+    del params, exact
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_vlm(fa, fa_bwd, steps, card):
+    """[vlm]: internvl2-26b served at full width and depth through
+    launch.steps (launch.serve refuses a vlm: its prompts are embeddings),
+    checked and trained cut in depth; within VLM_PHASE_LIMIT_S. Returns
+    (B1 launches serving, (B1, B2, B3) launches training)."""
+    t_phase = time.perf_counter()
+    serve_b1, params, emb = vlm_serve(fa, fa_bwd, steps, card)
+    t_serve = time.perf_counter()
+    vlm_checks(fa, steps, card, params, emb)
+    del params, emb
+    t_checks = time.perf_counter()
+    train_counts = vlm_train(fa, fa_bwd, steps, card)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[vlm] phase {phase_s:.1f} s (limit {VLM_PHASE_LIMIT_S:.0f} s: "
+          f"serve {t_serve - t_phase:.1f}, checks {t_checks - t_serve:.1f}, "
+          f"train {time.perf_counter() - t_checks:.1f})", flush=True)
+    check(phase_s < VLM_PHASE_LIMIT_S, f"the vlm phase took {phase_s:.1f} s")
+    return serve_b1, train_counts
+
+
+def enc_frames(B, cfg, seed, dtype):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, cfg.n_enc_frames, cfg.d_model), generator=g,
+                       device="cuda").to(dtype)
+
+
+def encdec_serve(counters, steps, card):
+    """Full-width, full-depth whisper-small: ENC_SERVE requests of frames
+    and ENC_PROMPT tokens prefilled (encode, decoder, cross cache), then
+    ENC_GEN tokens decoded greedily past the prompt through the reference's
+    handover: the self cache is ENC_PROMPT long, so the ring and the
+    position embedding wrap. Returns the launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch import device as device_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    sys_ = T.SystemConfig()
+    cfg = dataclasses.replace(configs.get(ENC_ARCH), dtype=sys_.compute_dtype)
+    B, S = ENC_SERVE, ENC_PROMPT
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    batch = {"frames": enc_frames(B, cfg, 1, torch.bfloat16),
+             "tokens": torch.from_numpy(np.random.default_rng(1).integers(
+                 0, cfg.vocab, (B, S))).to("cuda")}
+    prefill = steps.make_prefill_step(cfg, sys_, max_len=S + ENC_GEN)
+    decode = steps.make_decode_step(cfg, sys_)
+    reset_all(counters)
+    logits, cache = prefill(params, batch)                  # warm-up
+    decode(params, cache, logits[:, -1].argmax(-1)[:, None], S)
+    with device_lib.Timer(dev) as t_prefill:
+        logits, cache = prefill(params, batch)
+    L, H, D, V = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.padded_vocab
+    check(tuple(cache["self_k"].shape) == (L, B, S, H, D)
+          and tuple(cache["cross_k"].shape) == (L, B, cfg.n_enc_frames, H, D),
+          f"encdec caches {tuple(cache['self_k'].shape)}, "
+          f"{tuple(cache['cross_k'].shape)}")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out, dec = [tok], [logits]
+    with device_lib.Timer(dev) as t_decode:
+        for i in range(ENC_GEN - 1):
+            step_logits, cache = decode(params, cache, tok, S + i)
+            tok = step_logits[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+            dec.append(step_logits)
+    counts = read_all(counters)
+    tokens, dec = torch.cat(out, dim=1), torch.cat(dec, dim=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    decode_ms = t_decode.ms / (ENC_GEN - 1)
+    print(f"[encdec] {ENC_ARCH}: {L} + {L} layers (d {cfg.d_model}, {H} "
+          f"heads of {D}, d_ff {cfg.d_ff}, {cfg.n_enc_frames} frames), "
+          f"{n_params:,} parameters (bf16); launches over 2 prefills and "
+          f"{ENC_GEN} decode steps: {counts} (want all 0)", flush=True)
+    print(f"[encdec] {card} | {ENC_ARCH} {B} requests of {cfg.n_enc_frames} "
+          f"frames + {S} tokens: encode + prefill {t_prefill.ms:.3f} ms; "
+          f"decode {ENC_GEN - 1} steps past the prompt (slots 0.."
+          f"{ENC_GEN - 2} of the {S}-slot ring overwritten, positions "
+          f"wrapped) {B / (decode_ms / 1e3):.1f} tok/s ({decode_ms:.3f} ms a "
+          f"step); peak memory {peak:.3f} GiB", flush=True)
+    check(not any(counts.values()), f"the encdec launched kernels: {counts}")
+    check(bool(torch.isfinite(dec).all()), "encdec logits not finite")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < V,
+          "encdec tokens out of range")
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_train(counters, steps, card):
+    """Full-width, full-depth whisper-small (fp32 masters, bf16 compute,
+    adamw): ENC_TRAIN_STEPS steps of ENC_SERVE x (frames, ENC_PROMPT
+    tokens) and one at remat block with 2 microbatches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.tree import tree_leaves
+    cfg = configs.get(ENC_ARCH)
+    B, S = ENC_SERVE, ENC_PROMPT
+    n_steps = ENC_TRAIN_STEPS + 1
+    opt = adamw_for(n_steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.make_train_state(
+        torch.Generator(device="cuda").manual_seed(2), cfg, opt, "cuda")
+    n_params = sum(a.numel() for a in tree_leaves(state["params"]))
+    rng = np.random.default_rng(2)
+
+    def batch_of(i):
+        toks = rng.integers(0, cfg.vocab, (B, S))
+        return {"frames": enc_frames(B, cfg, 10 + i, torch.bfloat16),
+                "tokens": torch.from_numpy(toks).to("cuda"),
+                "labels": torch.from_numpy(np.roll(toks, -1, -1)).to("cuda")}
+
+    state, losses, ms, counts = train_run(
+        counters, steps, cfg, [batch_of(i) for i in range(ENC_TRAIN_STEPS)],
+        dict(precision="bf16"), opt, state)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[encdec] {card} | train {ENC_ARCH} ({n_params:,} parameters, "
+          f"fp32 masters, bf16 compute, adamw), {ENC_TRAIN_STEPS} steps of "
+          f"{B} x ({cfg.n_enc_frames} frames, {S} tokens): losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; ms/step "
+          f"{' '.join(f'{x:.3f}' for x in ms)}; peak memory {peak:.3f} GiB; "
+          f"launches {counts} (want all 0)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, r_losses, r_ms, r_counts = train_run(
+        counters, steps, cfg, [batch_of(ENC_TRAIN_STEPS)],
+        dict(precision="bf16", remat="block", microbatches=2), opt, state)
+    print(f"[encdec] remat block, 2 microbatches of {B // 2}: loss "
+          f"{r_losses[0]:.4f}, {r_ms[0]:.3f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, launches "
+          f"{r_counts}", flush=True)
+    check(all(math.isfinite(x) for x in losses + r_losses),
+          "non-finite encdec loss")
+    check(not any(counts.values()) and not any(r_counts.values()),
+          f"encdec training launched kernels: {counts}, {r_counts}")
+    del state
+    torch.cuda.empty_cache()
+    return {k: counts[k] + r_counts[k] for k in counts}
+
+
+@contextlib.contextmanager
+def cross_half_hidden(encdec_lib):
+    """The planted fault of [encdec]: every cross-attention sees only the
+    first half of the frames."""
+    mha = encdec_lib._mha
+
+    def hidden(p, xq, xkv, **kw):
+        if xkv is not xq:
+            xkv = xkv[:, :xkv.shape[1] // 2]
+        return mha(p, xq, xkv, **kw)
+    encdec_lib._mha = hidden
+    try:
+        yield
+    finally:
+        encdec_lib._mha = mha
+
+
+def encdec_card_cpu(steps, card):
+    """whisper-small at full width cut to ENC_CHECK_LAYERS + as many
+    layers, card against CPU in fp32 (TF32 off) at 1 request of 1500
+    frames and ENC_CHECK_TOKENS tokens: the forward logits, the
+    teacher-forced decode from init_cache with build_cross_cache, the loss
+    gradients; the planted fault hides the later half of the frames from
+    the cross-attention on the card side."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(configs.get(ENC_ARCH),
+                              n_layers=ENC_CHECK_LAYERS)
+    S = ENC_CHECK_TOKENS
+    cpu_exp_warmed()
+    params = steps.model_init(torch.Generator().manual_seed(3), cfg, "cpu")
+    gpu_params = tree_map(lambda a: a.to("cuda"), params)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (1, S))
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+                 (1, cfg.n_enc_frames, cfg.d_model))).float(),
+             "tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, -1))}
+    gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
+    sys_ = T.SystemConfig(precision="fp32")
+
+    @torch.no_grad()
+    def forward(p, b):
+        return E.forward(p, b, cfg, sys_)[0]
+
+    @torch.no_grad()
+    def teacher_forced(p, b):
+        dev = b["tokens"].device
+        enc = E.encode(p, b["frames"], cfg, sys_)
+        cache = E.init_cache(cfg, 1, S, dtype=torch.float32, device=dev)
+        cache["cross_k"], cache["cross_v"] = E.build_cross_cache(
+            p, enc, cfg, dtype=torch.float32)
+        decode = steps.make_decode_step(cfg, sys_)
+        dec = []
+        for t in range(S):
+            logits, cache = decode(p, cache, b["tokens"][:, t:t + 1], t)
+            dec.append(logits)
+        return torch.cat(dec, dim=1)
+
+    with tf32_off():
+        fwd_cpu, dec_cpu = forward(params, batch), teacher_forced(params,
+                                                                  batch)
+        fwd_gpu = forward(gpu_params, gpu_batch)
+        dec_gpu = teacher_forced(gpu_params, gpu_batch)
+        with cross_half_hidden(E):
+            fwd_fault = forward(gpu_params, gpu_batch)
+        g_cpu = loss_grads(params, batch, cfg, sys_)
+        g_gpu = loss_grads(gpu_params, gpu_batch, cfg, sys_)
+    e_fwd, e_dec = rel_dist(fwd_gpu, fwd_cpu), rel_dist(dec_gpu, dec_cpu)
+    e_fault = rel_dist(fwd_fault, fwd_cpu)
+    drift = float((dec_gpu - fwd_gpu).abs().max())
+    e_grads = {p: rel_dist(g_gpu[p], g) for p, g in g_cpu.items()}
+    worst = max(e_grads, key=e_grads.get)
+    ok = max(e_fwd, e_dec, e_grads[worst]) <= ENC_CARD_CPU_TOL
+    caught = e_fault > ENC_CARD_CPU_TOL
+    print(f"[encdec] {card} | card against CPU, fp32 (TF32 off), {ENC_ARCH} "
+          f"cut to {cfg.n_layers} + {cfg.n_layers} layers (CPU side) at full "
+          f"width, 1 x ({cfg.n_enc_frames} frames, {S} tokens): forward "
+          f"logits {e_fwd:.3e}, teacher-forced decode from init_cache "
+          f"{e_dec:.3e}, worst gradient leaf {worst} {e_grads[worst]:.3e} "
+          f"(max|d| / max|CPU|, limit {ENC_CARD_CPU_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}; decode against the card's forward "
+          f"max|d| {drift:.3e} (limit {ENC_DECODE_TOL:g}); planted fault "
+          f"(cross-attention without the later half of the frames) "
+          f"{e_fault:.3e} {'caught' if caught else 'MISSED'}", flush=True)
+    check(ok, "the encdec on the card disagrees with the CPU")
+    check(drift < ENC_DECODE_TOL, "encdec decode strays from the forward")
+    check(caught, "the encdec card-vs-CPU check misses hidden frames")
+    del gpu_params, g_gpu
+    torch.cuda.empty_cache()
+
+
+def phase_encdec(counters, steps, card):
+    """[encdec]: whisper-small served and trained at full width and depth
+    through launch.steps (launch.serve refuses it: its prompts are frames
+    plus tokens), held card against CPU cut in depth; within
+    ENC_PHASE_LIMIT_S. Returns the launch counts serving and training."""
+    t_phase = time.perf_counter()
+    serve_counts = encdec_serve(counters, steps, card)
+    train_counts = encdec_train(counters, steps, card)
+    encdec_card_cpu(steps, card)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[encdec] phase {phase_s:.1f} s (limit {ENC_PHASE_LIMIT_S:.0f} "
+          f"s)", flush=True)
+    check(phase_s < ENC_PHASE_LIMIT_S,
+          f"the encdec phase took {phase_s:.1f} s")
+    return serve_counts, train_counts
+
+
 def sdpa_flash():
     """The context that pins SDPA to its flash backend; a shape it refuses
     raises instead of falling to another backend."""
@@ -1806,14 +2886,17 @@ def phase_train(fa, fa_bwd, train, card):
 
 
 def loss_grads(params, batch, cfg, sys):
-    """{leaf path: fp32 gradient of transformer.loss_fn}."""
+    """{leaf path: fp32 gradient of the model's loss} (``steps.model_loss``;
+    a leaf the loss does not use, the vlm's embed, gets zeros, as in the
+    train step)."""
     import torch
     from repro_torch import weights
-    from repro_torch.models import transformer
+    from repro_torch.launch import steps
     flat = {path: leaf.detach().requires_grad_()
             for path, leaf in weights.flatten(params).items()}
-    loss, _ = transformer.loss_fn(weights.unflatten(flat), batch, cfg, sys)
-    grads = torch.autograd.grad(loss, list(flat.values()))
+    loss, _ = steps.model_loss(weights.unflatten(flat), batch, cfg, sys)
+    grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True,
+                                materialize_grads=True)
     return {path: g.detach() for path, g in zip(flat, grads)}
 
 
@@ -3456,9 +4539,15 @@ def main() -> int:
           f"ms/step at batch {REQUESTS})", flush=True)
     del res
     torch.cuda.empty_cache()
+    counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
+                ("B3", fa_bwd, "launches_dkv"), ("B4", ml, "launches"),
+                ("B5", rg, "launches")]
     archs_launches = phase_archs(fa, fa_bwd, serve, steps, card)
     hybrid_serve_b1, hybrid_train_counts = phase_hybrid(fa, fa_bwd, steps,
                                                         card)
+    vlm_serve_b1, vlm_train_counts = phase_vlm(fa, fa_bwd, steps, card)
+    ssm_counts = phase_ssm(counters, steps, card, ml)
+    phase_encdec(counters, steps, card)
     _, train_counts = phase_train(fa, fa_bwd, train, card)
     phase_grad(fa_bwd)
     # B1 at the serve shape, B2 and B3 at the train shape (each call times
@@ -3468,11 +4557,10 @@ def main() -> int:
     bwd_timing = time_attention(fa, fa_bwd, card, "train", *TRAIN_SHAPE,
                                 None, torch.bfloat16)
     hybrid_timing = phase_hybrid_timing(fa, fa_bwd, card)
+    vlm_timing = time_attention(fa, fa_bwd, card, "vlm", *VLM_SERVE,
+                                *vlm_shapes()[0][3:], None, torch.bfloat16)
     mlstm_errs = phase_mlstm(ml)
     rglru_errs = phase_rglru(rg)
-    counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
-                ("B3", fa_bwd, "launches_dkv"), ("B4", ml, "launches"),
-                ("B5", rg, "launches")]
     summaries, tune_counts = phase_tuner(counters, ml, rg, tune, findb, ops,
                                          groundtruth)
     rec_timing = phase_recurrent_timing(build, ml, rg, summaries, card)
@@ -3485,6 +4573,7 @@ def main() -> int:
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]
+    vlm_errs = bwd_errs["vlm_serve"]
 
     def hybrid_rows(kid, err):
         """A kernel's [hybrid] readings: head_dim 256 at the serve shape
@@ -3499,6 +4588,8 @@ def main() -> int:
          "launches": launches, "launches_archs": archs_launches,
          "launches_lmtune": lm_counts[0],
          "launches_hybrid": hybrid_serve_b1 + hybrid_train_counts[0],
+         "launches_vlm": vlm_serve_b1 + vlm_train_counts[0],
+         "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
         {"name": "flash_attention_bwd_dq", "id": "B2", "route": "cuda",
@@ -3506,6 +4597,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention_bwd.py:43",
          "launches": train_counts[1], "launches_lmtune": lm_counts[1],
          "launches_hybrid": hybrid_train_counts[1],
+         "launches_vlm": vlm_train_counts[1],
+         "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
          **bwd_timing["B2"], **hybrid_rows("B2", rg_errs[0][0])},
         {"name": "flash_attention_bwd_dkv", "id": "B3", "route": "cuda",
@@ -3513,6 +4606,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention_bwd.py:87",
          "launches": train_counts[2], "launches_lmtune": lm_counts[2],
          "launches_hybrid": hybrid_train_counts[2],
+         "launches_vlm": vlm_train_counts[2],
+         "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
+                 **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),
          **bwd_timing["B3"],
          **hybrid_rows("B3", max(rg_errs[1][0], rg_errs[2][0]))},
@@ -3520,12 +4616,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mlstm.cu",
          "replaces": "src/repro/kernels/mlstm.py:27",
          "launches": tune_counts["B4"],
+         "launches_ssm": sum(c["B4"] for c in ssm_counts[:2]),
+         "ssm_plain_mlstm_ms": ssm_counts[2],
          "max_abs_err": mlstm_errs["full_c128"],
          **rec_timing[("mlstm", "tuned")]},
         {"name": "rglru", "id": "B5", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru.cu",
          "replaces": "src/repro/kernels/rglru.py:24",
          "launches": tune_counts["B5"],
+         "launches_ssm": sum(c["B5"] for c in ssm_counts[:2]),
          "max_abs_err": rglru_errs["full"],
          **rec_timing[("rglru", "tuned")]}]
     print(json.dumps({"kernels": kernels}))

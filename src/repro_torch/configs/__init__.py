@@ -2,14 +2,19 @@
 
 ``get_config(name)`` returns the full published config and
 ``get_reduced(name)`` the family-preserving smoke-test config, as in the
-reference. The dense, moe and hybrid archs resolve; the others (ssm, vlm,
-audio) raise, naming the ROADMAP.md item (queue A) that brings them. The
+reference; every arch of the reference's ``ARCH_IDS`` resolves. The
 paper's own workloads (``PAPER_WORKLOADS``, Table 3) return their
 ``SmallConfig`` from both, as in the reference.
 """
 from __future__ import annotations
 
 import importlib
+
+ARCH_IDS = [
+    "mixtral-8x22b", "qwen2-moe-a2.7b", "yi-34b", "qwen2-1.5b", "qwen3-0.6b",
+    "deepseek-coder-33b", "internvl2-26b", "whisper-small",
+    "recurrentgemma-9b", "xlstm-350m",
+]
 
 PAPER_WORKLOADS = ["lenet-mnist", "lenet-fashion", "cnn-news20", "lstm-news20"]
 
@@ -20,24 +25,16 @@ _MODULES = {"qwen3-0.6b": "qwen3_0_6b",
             "mixtral-8x22b": "mixtral_8x22b",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
             "recurrentgemma-9b": "recurrentgemma_9b",
+            "internvl2-26b": "internvl2_26b",
+            "whisper-small": "whisper_small",
+            "xlstm-350m": "xlstm_350m",
             **{name: "paper_workloads" for name in PAPER_WORKLOADS}}
-
-_NOT_PORTED = {   # arch -> (ROADMAP.md queue A item, its title)
-    "internvl2-26b": ("7", "Encoder-decoder and VLM"),
-    "whisper-small": ("7", "Encoder-decoder and VLM"),
-    "xlstm-350m": ("5", "xLSTM (ssm) family"),
-}
 
 
 def _mod(name: str):
     if name in _MODULES:
         return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
-    if name in _NOT_PORTED:
-        num, title = _NOT_PORTED[name]
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: ROADMAP.md queue A, item "
-            f"{num} '{title}'")
-    raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
 
 
 def get_config(name: str):

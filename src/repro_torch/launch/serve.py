@@ -50,23 +50,46 @@ class ServeResult:
         return B * (gen - 1) / (self.decode_ms / 1e3) if gen > 1 else 0.0
 
 
+# family -> why ``serve`` cannot prefill and decode it; each of these
+# serves through ``launch.steps``' prefill and decode builders.
+_NOT_SERVABLE = {
+    "hybrid": "serving a hybrid needs a prefill that hands its recurrent "
+              "states to decode; the reference's forward(collect_cache="
+              "True) returns only the attention caches, so its decode "
+              "starts from init_cache (ROADMAP.md §C, 'On the reference "
+              "side'). Run steps.make_prefill_step and make_decode_step "
+              "from init_cache instead",
+    "ssm": "an ssm's prefill hands decode no state at all: the reference's "
+           "forward(collect_cache=True) returns None for the cache, so its "
+           "decode starts from init_cache (ROADMAP.md §C, 'On the "
+           "reference side'). Run steps.make_prefill_step and "
+           "make_decode_step from init_cache instead",
+    "vlm": "a vlm's prompts are patch embeddings (batch['embeddings']), "
+           "not the token prompts this launcher makes. Run "
+           "steps.make_prefill_step on {'embeddings': ...} and "
+           "make_decode_step instead",
+    "audio": "an encoder-decoder's prompts are frames plus tokens "
+             "(batch['frames'], batch['tokens']), not the token prompts "
+             "this launcher makes. Run steps.make_prefill_step and "
+             "make_decode_step instead",
+}
+
+
 def require_servable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a hybrid config: the reference's
-    prefill hands decode only the attention caches, not the recurrent
-    states (ROADMAP.md §C), and the port adds no handover."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: serving a hybrid needs a prefill that hands its "
-            "recurrent states to decode; the reference's forward("
-            "collect_cache=True) returns only the attention caches, so its "
-            "decode starts from init_cache (ROADMAP.md §C, 'On the "
-            "reference side'). Run steps.make_prefill_step and "
-            "make_decode_step from init_cache instead")
+    """Raise ``NotImplementedError``, saying why, for the families this
+    launcher cannot serve (``_NOT_SERVABLE``): the hybrid and the ssm,
+    whose prefill hands decode no recurrent state in the reference
+    (ROADMAP.md §C), the vlm and the encoder-decoder, whose prompts are not
+    tokens."""
+    why = _NOT_SERVABLE.get(cfg.family)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why}")
 
 
 def serve(params, prompts, cfg, sys, gen: int) -> ServeResult:
     """Warm up, then prefill ``prompts`` and decode ``gen`` tokens greedily
-    (a hybrid raises first: ``require_servable``)."""
+    (a hybrid, ssm, vlm or encoder-decoder raises first:
+    ``require_servable``)."""
     require_servable(cfg)
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")

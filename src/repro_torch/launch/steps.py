@@ -1,7 +1,12 @@
-"""Step functions: the counterpart of ``repro.launch.steps`` for the dense,
-moe and hybrid families. As in the reference, a hybrid's prefill returns
-only its attention caches (stacked over groups); its decode starts from
-``transformer.init_cache``.
+"""Step functions: the counterpart of ``repro.launch.steps`` for every
+model family: the LM families of ``models.transformer`` and the
+encoder-decoder of ``models.encdec`` (``is_encdec``). As in the reference:
+a hybrid's prefill returns only its attention caches (stacked over groups)
+and an ssm's none, so their decode starts from ``transformer.init_cache``;
+a vlm's prompt is ``batch["embeddings"]``; an encoder-decoder's prefill
+encodes ``batch["frames"]``, runs the decoder over ``batch["tokens"]`` and
+returns its self-attention cache prompt-long, whatever ``max_len`` says,
+with the cross cache.
 
 ``make_train_state``, ``make_train_step``, ``make_prefill_step`` and
 ``make_decode_step`` keep the reference's signatures, less the mesh (the
@@ -17,17 +22,33 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import weights
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.transformer import SystemConfig
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves
 
 
+def is_encdec(cfg) -> bool:
+    return isinstance(cfg, encdec.EncDecConfig)
+
+
+def model_loss(params, batch, cfg, sys):
+    if is_encdec(cfg):
+        return encdec.loss_fn(params, batch, cfg, sys)
+    return transformer.loss_fn(params, batch, cfg, sys)
+
+
+def model_init(gen: torch.Generator, cfg, device=None):
+    if is_encdec(cfg):
+        return encdec.init(gen, cfg, device)
+    return transformer.init(gen, cfg, device)
+
+
 def make_train_state(gen: torch.Generator, cfg, opt: optimizers.Optimizer,
                      device=None):
-    """{"params", "opt", "step"}: parameters from ``transformer.init``, the
+    """{"params", "opt", "step"}: parameters from ``model_init``, the
     optimizer's state, and the step as a Python int."""
-    params = transformer.init(gen, cfg, device)
+    params = model_init(gen, cfg, device)
     return {"params": params, "opt": opt.init(params), "step": 0}
 
 
@@ -39,17 +60,21 @@ def make_train_step(cfg, sys: SystemConfig,
     its first axis) as fp32 sums divided by their number, with loss and
     accuracy averaged over them. The update is applied to the parameters in
     place and ``state`` is returned updated: the counterpart of the
-    reference's donated state.
+    reference's donated state. A leaf the loss does not use (the vlm's
+    ``embed``: its forward starts from the adapter) gets a zero gradient,
+    as under ``jax.grad``, and the optimizer still updates it.
     """
-    transformer.require_ported(cfg)
+    if not is_encdec(cfg):
+        transformer.require_ported(cfg)
     n_micro = sys.microbatches
 
     def grads_of(params, batch):
         flat = {path: leaf.detach().requires_grad_()
                 for path, leaf in weights.flatten(params).items()}
-        loss, metrics = transformer.loss_fn(weights.unflatten(flat), batch,
-                                            cfg, sys)
-        grads = torch.autograd.grad(loss, list(flat.values()))
+        loss, metrics = model_loss(weights.unflatten(flat), batch, cfg, sys)
+        grads = torch.autograd.grad(loss, list(flat.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), metrics["accuracy"], list(grads), list(flat)
 
     def train_step(state, batch):
@@ -90,12 +115,27 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
     """prefill(params, batch) -> (last-token logits, decode cache).
 
     max_len sizes the (full-attention) decode cache; default = prompt length.
+    An encoder-decoder ignores it, as the reference does.
     """
+    if is_encdec(cfg):
+        @torch.inference_mode()
+        def prefill(params, batch):
+            dtype = sys.compute_dtype
+            cparams = transformer._cast(params, dtype)
+            enc = encdec.encode(cparams, batch["frames"].to(dtype), cfg, sys)
+            logits, sk, sv = encdec.decode_train(
+                cparams, batch["tokens"], enc, cfg, sys, collect_cache=True,
+                last_only=True)
+            ck, cv = encdec.build_cross_cache(cparams, enc, cfg)
+            return logits, {"self_k": sk, "self_v": sv, "cross_k": ck,
+                            "cross_v": cv}
+        return prefill
     transformer.require_ported(cfg)
 
     @torch.inference_mode()
     def prefill(params, batch):
-        S = batch["tokens"].shape[1]
+        S = (batch["tokens"].shape[1] if "tokens" in batch
+             else batch["embeddings"].shape[1])
         logits, _, cache = transformer.forward(
             params, batch, cfg, sys, collect_cache=True, last_only=True,
             max_cache=max_len or S)
@@ -105,6 +145,11 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
 
 def make_decode_step(cfg, sys: SystemConfig) -> Callable:
     """decode(params, cache, tokens, pos) -> (logits, cache)."""
+    if is_encdec(cfg):
+        @torch.inference_mode()
+        def decode(params, cache, tokens, pos):
+            return encdec.decode_step(params, cache, tokens, pos, cfg, sys)
+        return decode
     transformer.require_ported(cfg)
 
     @torch.inference_mode()

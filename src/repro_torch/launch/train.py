@@ -17,7 +17,9 @@ here ``--arch`` names the config, as in ``repro_torch.launch.serve``:
 Weights come from ``transformer.init`` on a ``torch.Generator`` seeded with
 0. ``--kernel-db`` primes the kernel find-db from a golden table before the
 first step, as in the reference. Checkpointing (``--ckpt``) is not ported
-yet (ROADMAP.md queue A, item 'Checkpoint').
+yet (ROADMAP.md queue A, item 'Checkpoint'). The vlm and the
+encoder-decoder raise ``NotImplementedError`` (``require_token_stream``):
+their batches carry patch embeddings or frames.
 
 Step times are CUDA events on the card (the host clock on the CPU); the
 first step is left out of the mean. Without a GPU the command raises unless
@@ -80,10 +82,25 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def require_token_stream(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config whose batches are not
+    tokens alone: the vlm's carry "embeddings", the encoder-decoder's
+    "frames" (the reference's launcher would fail on them with a
+    KeyError)."""
+    if cfg.takes_embeddings:
+        what = ("frames" if steps_lib.is_encdec(cfg)
+                else "embeddings (patch embeddings)")
+        raise NotImplementedError(
+            f"{cfg.name}: its batches carry {what}, which this launcher's "
+            "token stream lacks; build the batches yourself and run "
+            "steps.make_train_step")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     args = parser().parse_args(argv)
     dev = device_lib.resolve(args.device)
     cfg = configs.get(args.arch)
+    require_token_stream(cfg)
     kernel_db_rows = install_kernel_db_from_args(args)
     sys = system_config_from_args(args)
     opt = optimizers.adamw(

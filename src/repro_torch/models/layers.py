@@ -1,4 +1,5 @@
-"""Layers of the dense serve path: RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Layers of the port's models: RMSNorm and LayerNorm, RoPE, GQA attention,
+SwiGLU and the GELU MLP.
 
 PyTorch counterpart of ``repro.models.layers``, with the same names and the
 same conventions:
@@ -19,8 +20,7 @@ same conventions:
   ``dequantize_kv``) keeps int8 values with one bf16 scale per (token, kv
   head), as the reference does.
 
-Not ported yet: layernorm and the GELU MLP; they come with the encoder-decoder
-slice (ROADMAP.md, queue A, item 7).
+* GELU is the tanh approximation, ``jax.nn.gelu``'s default.
 """
 from __future__ import annotations
 
@@ -70,6 +70,22 @@ def rmsnorm(params, x, eps: float = 1e-6):
     var = x.square().mean(-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dtype)
+
+
+def init_layernorm(dim, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """LayerNorm in float32, cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -380,3 +396,21 @@ def apply_swiglu(params, x):
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     return (F.silu(g) * u) @ params["w_down"]
+
+
+def init_mlp(gen: torch.Generator, d_model, d_ff,
+             dtype=torch.float32) -> Params:
+    dev = gen.device
+    return {
+        "w_up": dense_init(gen, (d_model, d_ff), dtype=dtype),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_down": dense_init(gen, (d_ff, d_model), in_axis_size=d_ff,
+                             dtype=dtype),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=dev),
+    }
+
+
+def apply_mlp(params, x):
+    """GELU (tanh approximation) MLP with biases."""
+    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    return h @ params["w_down"] + params["b_down"]

@@ -1,20 +1,26 @@
-"""TransformerLM, dense, moe and hybrid families: ``forward``, ``loss_fn``
-and ``decode_step``.
+"""TransformerLM, every LM family: ``forward``, ``loss_fn`` and
+``decode_step``.
 
-PyTorch counterpart of ``repro.models.transformer`` for the dense and moe
-families (attention blocks whose MLP is a SwiGLU or ``models.moe``) and the
-hybrid (Griffin) family: groups of ``rec_per_attn`` recurrent blocks
-(``models.recurrent``) and one sliding-window attention block, then a tail
-of leftover recurrent blocks. Parameters stay stacked on a leading layer
+PyTorch counterpart of ``repro.models.transformer``:
+
+* dense, moe and vlm: attention blocks whose MLP is a SwiGLU or
+  ``models.moe``. The vlm takes precomputed patch embeddings (the
+  reference's stub frontend) through one linear ``adapter``; its decode
+  takes tokens, ``embed[tokens] @ adapter``, as the reference's does.
+* hybrid (Griffin): groups of ``rec_per_attn`` recurrent blocks
+  (``models.recurrent``) and one sliding-window attention block, then a tail
+  of leftover recurrent blocks.
+* ssm (xLSTM): groups of ``mlstm_per_slstm`` mLSTM blocks and one sLSTM
+  block (``models.xlstm``). As in the reference, its ``forward`` returns no
+  cache, so it decodes from ``init_cache``.
+
+Parameters stay stacked on a leading layer
 (or group) axis as in the reference, and a loop over the layers takes the
 place of its ``lax.scan``. Parameters are fp32 masters; ``forward`` casts
 them to the compute dtype, so their gradients arrive in fp32, as in the
 reference. A cast that widens the leaves (bf16 weights run at fp32) goes one
 layer at a time, so that no fp32 copy of the whole model is held
-(``_stacked``).
-
-The other families raise ``NotImplementedError`` naming the ROADMAP.md item
-(queue A) that ports them.
+(``_stacked``). An unknown family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -31,26 +37,17 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.tree import tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
-
-_ROADMAP_ITEM = {   # family -> (ROADMAP.md queue A item, its title)
-    "ssm": ("5", "xLSTM (ssm) family"),
-    "vlm": ("7", "Encoder-decoder and VLM"),
-}
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def require_ported(cfg) -> None:
-    """Raise unless ``cfg``'s family is one the port has (dense, moe,
-    hybrid)."""
+    """Raise ``ValueError`` unless ``cfg``'s family is one of
+    ``PORTED_FAMILIES``."""
     if cfg.family not in PORTED_FAMILIES:
-        item = _ROADMAP_ITEM.get(cfg.family)
-        if item is None:
-            raise ValueError(f"unknown family {cfg.family}")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue A, "
-            f"item {item[0]} '{item[1]}'")
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +113,11 @@ class ModelConfig:
     def rec_cfg(self) -> rec_lib.RecurrentConfig:
         return rec_lib.RecurrentConfig(d_model=self.d_model,
                                        d_rnn=self.d_rnn or self.d_model)
+
+    def mlstm_cfg(self) -> xlstm_lib.MLSTMConfig:
+        return xlstm_lib.MLSTMConfig(d_model=self.d_model,
+                                     n_heads=self.n_heads,
+                                     proj_factor=self.proj_factor)
 
     @property
     def sub_quadratic(self) -> bool:
@@ -329,8 +331,7 @@ def _apply_rec_block_decode(p, x, cfg: ModelConfig, state):
     h = layers.rmsnorm(p["rec_norm"], x)
     out, new = rec_lib.apply_recurrent_decode(p["rec"], h, cfg.rec_cfg(),
                                               state)
-    for name, t in new.items():
-        state[name].copy_(t)
+    _copy_into(state, new)
     x = x + out
     h = layers.rmsnorm(p["mlp_norm"], x)
     return x + layers.apply_swiglu(p["mlp"], h)
@@ -356,6 +357,11 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     V = cfg.padded_vocab
     params = {"final_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype, dev)}
     params["embed"] = layers.embed_init(gen, (V, cfg.d_model), cfg.dtype)
+    if cfg.takes_embeddings:
+        # the vlm's stub frontend: one linear adapter on precomputed patch
+        # embeddings (the embedding table stays, for decode's tokens)
+        params["adapter"] = layers.dense_init(gen, (cfg.d_model, cfg.d_model),
+                                              dtype=cfg.dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, (cfg.d_model, V),
                                               dtype=cfg.dtype)
@@ -370,6 +376,21 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
         if cfg.hybrid_tail:
             params["tail"] = _stack_init(lambda: _init_rec_block(gen, cfg),
                                          cfg.hybrid_tail)
+    elif cfg.family == "ssm":
+        # groups of (mlstm_per_slstm mLSTM blocks, one sLSTM block), each
+        # block with its pre-norm
+        mcfg = cfg.mlstm_cfg()
+
+        def block(init_cell):
+            return {"norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype, dev),
+                    "cell": init_cell(gen, mcfg, cfg.dtype)}
+
+        def group():
+            return {"mlstms": _stack_init(
+                        lambda: block(xlstm_lib.init_mlstm),
+                        cfg.mlstm_per_slstm),
+                    "slstm": block(xlstm_lib.init_slstm)}
+        params["layers"] = _stack_init(group, cfg.ssm_groups)
     else:
         params["layers"] = _stack_init(lambda: _init_attn_block(gen, cfg),
                                        cfg.n_layers)
@@ -421,16 +442,20 @@ def _lm_head(params, cparams, x, cfg: ModelConfig):
 
 def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
             collect_cache=False, max_cache=None, last_only=False):
-    """batch: {"tokens": (B, S) int}.
+    """batch: {"tokens": (B, S) int}, or {"embeddings": (B, S, d)} for
+    the vlm.
 
     Returns (logits, aux_loss) or (logits, aux_loss, cache) with
-    collect_cache. last_only projects the LM head on the final position only
-    (prefill).
+    collect_cache; an ssm's cache is None, as in the reference. last_only
+    projects the LM head on the final position only (prefill).
     """
     require_ported(cfg)
     dtype = sys.compute_dtype
     cparams = _cast(_outside_layers(params), dtype)
-    x = cparams["embed"][batch["tokens"]]
+    if cfg.takes_embeddings:
+        x = batch["embeddings"].to(dtype) @ cparams["adapter"]
+    else:
+        x = cparams["embed"][batch["tokens"]]
 
     if cfg.family == "hybrid":
         def body(lp, x):
@@ -442,6 +467,18 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
                                      collect_cache=collect_cache,
                                      max_cache=max_cache)
         n_blocks = cfg.hybrid_groups
+    elif cfg.family == "ssm":
+        mcfg = cfg.mlstm_cfg()
+
+        def body(lp, x):
+            lp = _cast(lp, dtype)
+            for mp in _unstack(lp["mlstms"], cfg.mlstm_per_slstm):
+                h = layers.rmsnorm(mp["norm"], x)
+                x = x + xlstm_lib.apply_mlstm(mp["cell"], h, mcfg)
+            h = layers.rmsnorm(lp["slstm"]["norm"], x)
+            out, _ = xlstm_lib.apply_slstm(lp["slstm"]["cell"], h, mcfg)
+            return x + out, torch.zeros((), device=x.device), None
+        n_blocks = cfg.ssm_groups
     else:
         def body(lp, x):
             return _apply_attn_block(_cast(lp, dtype), x, cfg, sys,
@@ -464,7 +501,8 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
     logits = _lm_head(params, cparams, x, cfg)
     aux_total = torch.stack(auxs).sum()
     if collect_cache:
-        return logits, aux_total, _tree_stack(caches)
+        cache = None if cfg.family == "ssm" else _tree_stack(caches)
+        return logits, aux_total, cache
     return logits, aux_total
 
 
@@ -493,7 +531,12 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
     ``loss``, ``aux_loss``, ``tokens`` and ``accuracy``.
     """
     logits, aux = forward(params, batch, cfg, sys)
-    labels = batch["labels"]
+    return lm_loss(logits, aux, batch["labels"])
+
+
+def lm_loss(logits, aux, labels):
+    """``loss_fn``'s loss and metrics from the logits (B, S, V) fp32, the
+    aux loss and the labels (< 0 = ignored)."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -512,9 +555,9 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
 # ---------------------------------------------------------------------------
 
 
-def _zeros_stacked(one, lead):
-    return {k: torch.zeros(lead + a.shape, dtype=a.dtype, device=a.device)
-            for k, a in one.items()}
+def _copies_stacked(one, lead):
+    """Each leaf of ``one`` repeated on new leading axes ``lead``."""
+    return {k: a.expand(lead + a.shape).clone() for k, a in one.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -525,19 +568,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     hybrid: {"recs": recurrent states (G, rec_per_attn, ...), "attn": the
     attention caches (G, ...), "tail": recurrent states (tail, ...)}; a
     recurrent state is "h" (B, d_rnn) fp32 and "conv" (B, 3, d_rnn) in
-    ``dtype``."""
+    ``dtype``.
+
+    ssm: {"mlstms": mLSTM states (G, mlstm_per_slstm, ...), "slstm": sLSTM
+    states (G, ...)}; an mLSTM state is "C", "n", "m" fp32 and "conv"
+    (B, 3, d_inner) in ``dtype``, an sLSTM state "c", "n", "h", "m" fp32
+    (``models.xlstm``). ``max_len`` and ``quant`` do not apply."""
     require_ported(cfg)
     dev = device_lib.resolve(device)
+    if cfg.family == "ssm":
+        mcfg, g = cfg.mlstm_cfg(), cfg.ssm_groups
+        m = xlstm_lib.init_mlstm_state(mcfg, batch, dtype, dev)
+        s = xlstm_lib.init_slstm_state(mcfg, batch, dev)
+        return {"mlstms": _copies_stacked(m, (g, cfg.mlstm_per_slstm)),
+                "slstm": _copies_stacked(s, (g,))}
     attn = layers.init_kv_cache(cfg.attn_cfg(), batch, max_len, dtype,
                                 quant=quant, device=dev)
     if cfg.family != "hybrid":
-        return _zeros_stacked(attn, (cfg.n_layers,))
+        return _copies_stacked(attn, (cfg.n_layers,))
     state = rec_lib.init_recurrent_state(cfg.rec_cfg(), batch, dtype, dev)
     g = cfg.hybrid_groups
-    cache = {"recs": _zeros_stacked(state, (g, cfg.rec_per_attn)),
-             "attn": _zeros_stacked(attn, (g,))}
+    cache = {"recs": _copies_stacked(state, (g, cfg.rec_per_attn)),
+             "attn": _copies_stacked(attn, (g,))}
     if cfg.hybrid_tail:
-        cache["tail"] = _zeros_stacked(state, (cfg.hybrid_tail,))
+        cache["tail"] = _copies_stacked(state, (cfg.hybrid_tail,))
     return cache
 
 
@@ -545,7 +599,8 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
                 sys: SystemConfig = DEFAULT_SYS):
     """One new token for every sequence in the batch.
 
-    tokens: (B, 1) int; pos: current context length. Returns
+    tokens: (B, 1) int (a vlm's too: ``embed[tokens] @ adapter``, as in the
+    reference); pos: current context length. Returns
     (logits (B, 1, V) fp32, cache); the cache is updated in place
     (see ``layers.apply_attention_decode``).
     """
@@ -554,7 +609,12 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
     dtype = sys.compute_dtype
     cparams = _cast(_outside_layers(params), dtype)
     x = cparams["embed"][tokens]
+    if cfg.takes_embeddings:
+        x = x @ cparams["adapter"]
     stacked = _stacked(params["layers"], dtype)
+    if cfg.family == "ssm":
+        x = _decode_ssm(stacked, cache, x, cfg, dtype)
+        return _lm_head(params, cparams, x, cfg), cache
     if cfg.family != "hybrid":
         for i in range(cfg.n_layers):
             x, _ = _apply_attn_block_decode(_cast(_layer(stacked, i), dtype),
@@ -575,3 +635,33 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
             x = _apply_rec_block_decode(_cast(_layer(tail, i), dtype), x,
                                         cfg, _layer(cache["tail"], i))
     return _lm_head(params, cparams, x, cfg), cache
+
+
+def _copy_into(state, new):
+    """Overwrite ``state``'s tensors (views into the stacked cache) with
+    ``new``'s, in place."""
+    for name, t in new.items():
+        state[name].copy_(t)
+
+
+def _decode_ssm(stacked, cache, x, cfg: ModelConfig, dtype):
+    """One token through the ssm's groups; the mLSTM and sLSTM states in
+    ``cache`` are overwritten in place."""
+    mcfg = cfg.mlstm_cfg()
+    for g in range(cfg.ssm_groups):
+        lp = _cast(_layer(stacked, g), dtype)
+        states = _layer(cache["mlstms"], g)
+        for j in range(cfg.mlstm_per_slstm):
+            mp, state = _layer(lp["mlstms"], j), _layer(states, j)
+            h = layers.rmsnorm(mp["norm"], x)
+            out, new = xlstm_lib.apply_mlstm_decode(mp["cell"], h, mcfg,
+                                                    state)
+            _copy_into(state, new)
+            x = x + out
+        state = _layer(cache["slstm"], g)
+        h = layers.rmsnorm(lp["slstm"]["norm"], x)
+        out, new = xlstm_lib.apply_slstm(lp["slstm"]["cell"], h, mcfg,
+                                         state=state)
+        _copy_into(state, new)
+        x = x + out
+    return x

@@ -53,26 +53,33 @@ def _small_layout(cfg) -> Dict[str, Tuple[Tuple[int, ...],
 
 
 def _layout(cfg):
-    if getattr(cfg, "family", None) == "small":
+    family = getattr(cfg, "family", None)
+    if family == "small":
         return _small_layout(cfg)
-    return {p: (s, None) for p, s in _dense_shapes(cfg).items()}
+    shapes = _encdec_shapes(cfg) if family == "audio" else _lm_shapes(cfg)
+    return {p: (s, None) for p, s in shapes.items()}
 
 
 def leaf_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
-    """Leaf path ("a/b/c") -> shape in the port, for the dense, moe and
-    hybrid families and the small workloads."""
+    """Leaf path ("a/b/c") -> shape in the port, for every model family
+    and the small workloads."""
     return {p: s if perm is None else tuple(s[i] for i in perm)
             for p, (s, perm) in _layout(cfg).items()}
 
 
-def _dense_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+def _lm_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     require_ported(cfg)
     L, d, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
     K, D = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // K
     shapes = {"embed": (V, d), "final_norm/scale": (d,)}
+    if cfg.takes_embeddings:
+        shapes["adapter"] = (d, d)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, V)
+    if cfg.family == "ssm":
+        shapes.update(_ssm_shapes(cfg))
+        return shapes
     layer = {"attn_norm/scale": (d,), "mlp_norm/scale": (d,),
              "attn/wq": (d, K, G, D), "attn/wk": (d, K, D),
              "attn/wv": (d, K, D), "attn/wo": (K, G, D, d)}
@@ -115,6 +122,49 @@ def _dense_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def _ssm_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """ssm groups: layers/mlstms/... at (G, M, ...) and layers/slstm/...
+    at (G, ...), each block a pre-norm "norm" and its "cell"."""
+    mcfg = cfg.mlstm_cfg()
+    d, di, H, D = mcfg.d_model, mcfg.d_inner, mcfg.n_heads, mcfg.head_dim
+    g, m = cfg.ssm_groups, cfg.mlstm_per_slstm
+    mlstm = {"norm/scale": (d,), "cell/w_up": (d, di),
+             "cell/w_gate": (d, di), "cell/conv_w": (mcfg.conv_width, di),
+             "cell/conv_b": (di,), "cell/wq": (di, H, D),
+             "cell/wk": (di, H, D), "cell/wv": (di, H, D),
+             "cell/w_if": (di, H, 2), "cell/b_if": (H, 2),
+             "cell/out_norm/scale": (D,), "cell/w_down": (di, d)}
+    slstm = {"norm/scale": (d,), "cell/w_in": (d, 4 * di),
+             "cell/w_rec": (di, 4 * di), "cell/b": (4 * di,),
+             "cell/out_norm/scale": (di,), "cell/w_down": (di, d)}
+    shapes = {f"layers/mlstms/{p}": (g, m) + s for p, s in mlstm.items()}
+    shapes.update({f"layers/slstm/{p}": (g,) + s for p, s in slstm.items()})
+    return shapes
+
+
+def _encdec_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """The encoder-decoder: embed, enc_layers/... and dec_layers/...
+    stacked on the layer axis, enc_norm and dec_norm."""
+    L, d, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, D = cfg.n_heads, cfg.head_dim
+    norm = {"scale": (d,), "bias": (d,)}
+    mha = {"wq": (d, H, D), "wk": (d, H, D), "wv": (d, H, D),
+           "wo": (H, D, d)}
+    block = {"mlp/w_up": (d, F), "mlp/b_up": (F,), "mlp/w_down": (F, d),
+             "mlp/b_down": (d,)}
+    parts = {"self_norm": norm, "self": mha, "mlp_norm": norm}
+    enc = dict(block, **{f"{n}/{k}": s for n, leaves in parts.items()
+                         for k, s in leaves.items()})
+    dec = dict(enc, **{f"cross_norm/{k}": s for k, s in norm.items()},
+               **{f"cross/{k}": s for k, s in mha.items()})
+    shapes = {"embed": (cfg.padded_vocab, d)}
+    shapes.update({f"enc_layers/{p}": (L,) + s for p, s in enc.items()})
+    shapes.update({f"dec_layers/{p}": (L,) + s for p, s in dec.items()})
+    for n in ("enc_norm", "dec_norm"):
+        shapes.update({f"{n}/{k}": s for k, s in norm.items()})
+    return shapes
+
+
 def flatten(tree, prefix: str = "") -> Dict[str, object]:
     """Nested dicts and lists -> {"a/b/c": leaf}; a list's items are keyed
     by their index ("convs/0/w")."""
@@ -152,14 +202,16 @@ def unflatten(flat):
 
 
 _FP32_LEAVES = ("layers/moe/router", "layers/recs/rec/Lambda",
-                "tail/rec/Lambda")
+                "tail/rec/Lambda", "layers/mlstms/cell/w_if",
+                "layers/mlstms/cell/b_if")
 
 
 def from_jax(params_np, cfg, device, dtype=None):
     """The reference's parameter tree (numpy leaves) -> the port's tensors.
 
-    dtype defaults to ``cfg.dtype``, but for the MoE router and the RG-LRU's
-    ``Lambda``, which stay fp32 as the reference's init keeps them. bf16
+    dtype defaults to ``cfg.dtype``, but for the MoE router, the RG-LRU's
+    ``Lambda`` and the mLSTM's gate projection ``w_if`` and bias ``b_if``,
+    which stay fp32 as the reference's init keeps them. bf16
     leaves (ml_dtypes) pass through float32, which holds them exactly.
     """
     flat = flatten(params_np)

@@ -15,8 +15,6 @@ difference seen is 4e-7 with one flip in the cache), so decode logits are
 held at 1e-4 too.
 """
 import dataclasses
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +32,7 @@ from repro_torch import weights
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.launch import steps as tsteps
+from repro_torch.models import encdec as TE
 from repro_torch.models import transformer as TT
 
 B, S, GEN = 2, 20, 6
@@ -121,35 +120,44 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     assert device_lib.resolve("cpu") == torch.device("cpu")
 
 
-# Every arch and family that is not ported, with the ROADMAP.md queue A item
-# (number, title) that brings it.
-UNPORTED = {
-    ("arch", "internvl2-26b"): ("7", "Encoder-decoder and VLM"),
-    ("arch", "whisper-small"): ("7", "Encoder-decoder and VLM"),
-    ("arch", "xlstm-350m"): ("5", "xLSTM (ssm) family"),
-    ("family", "ssm"): ("5", "xLSTM (ssm) family"),
-    ("family", "vlm"): ("7", "Encoder-decoder and VLM"),
-}
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_arch_resolves_and_runs_forward(arch):
+    """Each of the reference's archs resolves in the port, full and
+    reduced, and the reduced config's forward gives finite logits."""
+    cfg = tconfigs.get_reduced(arch)
+    assert tconfigs.get_config(arch).name == arch
+    assert tconfigs.get(f"{arch}-reduced") == cfg
+    params = tsteps.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 4)))
+    sys_ = TT.SystemConfig(precision="fp32")
+    if tsteps.is_encdec(cfg):
+        frames = rng.standard_normal((1, cfg.n_enc_frames, cfg.d_model))
+        logits, _ = TE.forward(params, {"frames": torch.from_numpy(
+            frames).float(), "tokens": tokens}, cfg, sys_)
+    elif cfg.takes_embeddings:
+        emb = rng.standard_normal((1, 4, cfg.d_model))
+        logits, _ = TT.forward(params, {"embeddings": torch.from_numpy(
+            emb).float()}, cfg, sys_)
+    else:
+        logits, _ = TT.forward(params, {"tokens": tokens}, cfg, sys_)
+    assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
-def test_unported_table_covers_the_port():
-    assert {n for kind, n in UNPORTED if kind == "arch"} == \
-        set(tconfigs._NOT_PORTED)
-    assert {n for kind, n in UNPORTED if kind == "family"} == \
-        set(TT._ROADMAP_ITEM)
+def test_arch_ids_match_reference_and_unknown_names_raise():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("gpt-2")
 
 
-@pytest.mark.parametrize("kind,name", sorted(UNPORTED))
-def test_unported_families_raise(kind, name):
-    num, title = UNPORTED[(kind, name)]
-    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    assert f"{num}. **{title}." in roadmap or f"**{num}. {title}." in roadmap
-    want = re.escape(f"item {num} '{title}'")
-    with pytest.raises(NotImplementedError, match=want):
-        if kind == "arch":
-            tconfigs.get_config(name)
-        else:
-            cfg = dataclasses.replace(tconfigs.get_reduced("qwen3-0.6b"),
-                                      family=name)
-            TT.forward({}, {"tokens": torch.zeros((1, 1), dtype=torch.long)},
-                       cfg)
+def test_unknown_family_raises_value_error():
+    cfg = dataclasses.replace(tconfigs.get_reduced("qwen3-0.6b"),
+                              family="rnn")
+    batch = {"tokens": torch.zeros((1, 1), dtype=torch.long)}
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        TT.forward({}, batch, cfg)
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        TT.init(torch.Generator(), cfg, "cpu")
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        weights.leaf_shapes(cfg)
