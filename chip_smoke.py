@@ -143,6 +143,37 @@ Phases (any failure raises, and the script exits non-zero):
      the bf16 kernel path against those of the fp32 plain path: per leaf no
      further than ``GRAD_RATIO`` times the bf16 plain path's distance. The
      planted backward fault must fail this check;
+ 5b. ``[ckpt]``: checkpoint/restart of full-width qwen3-0.6b (4 x 2048
+     tokens, fp32 masters, bf16 compute; 40 leaves, 7.15 GB) through
+     ``launch.train.main``, under ``CKPT_ROOT``, after printing its free
+     space (the depth is cut, and says so, only where two checkpoints do
+     not fit). ``CKPT_STEPS`` steps straight, twice (the card's own
+     run-to-run distance); the same with ``--ckpt --ckpt-every 2``, a
+     clone of the state taken on the card at the step-2 save: its losses
+     and final state within the straight runs' distance (bit for bit where
+     they are), steps 3-4 run while the step-2 write is in flight, and the
+     step-2 checkpoint reloads equal to the clone bit for bit (the
+     snapshot holds against the in-place updates). Then ``--resume`` in a
+     fresh process (``chip_smoke.py --train-child``, which calls
+     ``train.main`` as ``python -m repro_torch.launch.train`` does and
+     prints its launches) must print "resumed from step 2", and its losses
+     and step-4 checkpoint must match the straight run as above. B1, B2 and
+     B3 launch layers x steps in every run. Printed: checkpoint bytes,
+     save()'s blocking time, the writer's time and GB/s (sha256
+     included), the restore time, ms/step with and without a write in
+     flight. Planted faults, each caught: (a) a flipped byte in a leaf file
+     (``IOError``), (b) a resume that zeroes adamw's moments, (c) a save
+     that queues the live tensors with no host copy, then one more step;
+ 5c. ``[dist]``: an NCCL process group of world size 1 over a
+     ``FileStore`` (the collectives are copies here): the full-width
+     gradients of one step reduced by ``compressed_grad_mean``, int8
+     within half a scale (``DIST_HALF_SCALE``) of method none per element,
+     which a reduce with its scales dropped must break; ``compressed_bytes``
+     int8 against fp32 (a quarter); ``compress_grads`` (int8, top-k at 1%)
+     and both reduces timed; ``state_specs`` and ``reshard_state`` of the
+     train state on ``single_device_mesh()`` and back, and the [ckpt]
+     checkpoint restored with ``placements=``, both bit for bit. Each of
+     5b and 5c must end within its limit;
   6. time B1, B2 and B3 (``time_attention``) at the serve shape (B1's
      reading), the train shape (B2's and B3's), the [hybrid] serve shape
      (head_dim 256, MQA, window 2048) and the [vlm] serve shape (K 8, G 6,
@@ -262,10 +293,14 @@ Phases (any failure raises, and the script exits non-zero):
      launcher and the quickstart launch none of B1-B5. Each of the last
      four phases prints its wall time and must end within its 60 s limit.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
-``launches_vlm`` and ``vlm`` timing rows, B4 and B5 with their
+``launches_vlm`` and ``vlm`` timing rows and their ``launches_ckpt``,
+``launches_ckpt_resume`` and ``launches_dist``, B4 and B5 with their
 ``launches_ssm``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 
+``--train-child LAYERS ARGS`` (used by [ckpt]) runs
+``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
+prints its start step, losses, step times and B1-B3 launches as JSON.
 ``--lane-probe [REPS]`` builds nothing and runs (a) alone, REPS times
 (``PAR_PROBE_REPS``) in each of two processes: one with the profiler off
 (serial, 2 and 4 lanes), one with the profiler started from another thread
@@ -276,8 +311,10 @@ exit code, so a crash is put down to the lanes or to the profiler. Without CUDA,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -660,6 +697,24 @@ ENC_CHECK_TOKENS, ENC_CHECK_LAYERS = 64, 2
 ENC_CARD_CPU_TOL = 1e-4
 ENC_DECODE_TOL = 0.1
 ENC_PHASE_LIMIT_S = 90.0
+
+# [ckpt] and [dist]: full-width qwen3-0.6b through launch.train with
+# --ckpt/--resume, its checkpoints under CKPT_ROOT (ignored by git, removed
+# at the end). Two straight runs measure the card's run-to-run distance; a
+# resumed run must be bit for bit where they are, else within CKPT_SLACK
+# times their distance. Depth is cut only if the disk cannot hold two
+# checkpoints in CKPT_DISK_SHARE of its free space.
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
+CKPT_STEPS = 4
+CKPT_SLACK = 4.0
+CKPT_DISK_SHARE = 0.9
+CKPT_CHILD_TIMEOUT_S = 300
+CKPT_PHASE_LIMIT_S = 120.0
+# An int8 reduce over one rank is q * scale with q = round(g / scale): at
+# most half a scale from g, plus the fp32 rounding of the divide and the
+# multiply (2 x 127 x 2^-24 of a scale < 2^-16).
+DIST_HALF_SCALE = 0.5 + 2.0 ** -16
+DIST_PHASE_LIMIT_S = 60.0
 
 ARCH = "qwen3-0.6b"
 REQUESTS, PROMPT_LEN, GEN = 8, 2048, 32
@@ -2966,6 +3021,562 @@ def phase_grad(fa_bwd):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """``owner.name`` set to ``value`` inside the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield value
+    finally:
+        setattr(owner, name, old)
+
+
+def ckpt_layers(cfg, free):
+    """The depth whose train state fits twice into ``free`` bytes (two
+    checkpoints on disk at once, keep 2), and its checkpoint bytes: full
+    depth where it fits; the width is never cut."""
+    import math
+    from repro_torch import weights
+    shapes = weights.leaf_shapes(cfg)
+    for layers in range(cfg.n_layers, 0, -1):
+        n = sum(math.prod(s[1:]) * layers if p.startswith("layers/")
+                else math.prod(s) for p, s in shapes.items())
+        nbytes = 3 * 4 * n + 4      # fp32 params, m and v, the int32 step
+        if 2 * nbytes <= CKPT_DISK_SHARE * free:
+            return layers, nbytes
+    raise SmokeFailure(f"{free / 1e9:.1f} GB free cannot hold two "
+                       "one-layer checkpoints")
+
+
+@contextlib.contextmanager
+def arch_depth(train, layers):
+    """``ARCH`` cut to ``layers`` layers in ``train``'s config lookup (the
+    full depth leaves it as it is)."""
+    import dataclasses
+    get = train.configs.get
+
+    def cut(name):
+        cfg = get(name)
+        return dataclasses.replace(cfg, n_layers=layers) \
+            if name == ARCH and layers != cfg.n_layers else cfg
+    with patched(train.configs, "get", cut):
+        yield
+
+
+@contextlib.contextmanager
+def captured_state(train, box):
+    """``train.main``'s step function recorded in ``box``: "state" after
+    each step (the live, in-place-updated tree), "step_fn" and "batch" of
+    the last call, and each step's (start, end) on the host clock."""
+    make = train.steps_lib.make_train_step
+    box["spans"] = []
+
+    def wrapped(*args, **kwargs):
+        fn = make(*args, **kwargs)
+        box["step_fn"] = fn
+
+        def step(state, batch):
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            box.update(state=state, batch=batch)
+            box["spans"].append((t0, time.perf_counter()))
+            return state, metrics
+        return step
+    with patched(train.steps_lib, "make_train_step", wrapped):
+        yield box
+
+
+def logged_manager(base, log, clone_at=(), lazy=False, zero_moments=False):
+    """A ``CheckpointManager`` that times save() (the host snapshot), each
+    write (sha256 included) and each restore into ``log``, clones the tree
+    on the device at the steps in ``clone_at``, and plants two faults:
+    ``lazy`` queues the live tree with no host copy (fault c), and
+    ``zero_moments`` zeroes adamw's moments after a restore (fault b)."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+
+    class Manager(base):
+        def save(self, step, tree, metadata=None, blocking=False):
+            if step in clone_at:
+                log["clones"][step] = tree_map(
+                    lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if lazy:
+                self._queue.put((step, tree, metadata))
+            else:
+                super().save(step, tree, metadata, blocking)
+            log["save_s"].append(time.perf_counter() - t0)
+
+        def _write(self, step, tree, metadata):
+            t0 = time.perf_counter()
+            super()._write(step, tree, metadata)
+            log["writes"].append((step, t0, time.perf_counter()))
+
+        def restore(self, like, step=None, **kwargs):
+            t0 = time.perf_counter()
+            tree, meta = super().restore(like, step, **kwargs)
+            torch.cuda.synchronize()
+            log["restore_s"].append(time.perf_counter() - t0)
+            if zero_moments and tree is not None:
+                for t in tree_leaves(tree["opt"]):
+                    t.zero_()
+            return tree, meta
+    log.update(clones={}, save_s=[], writes=[], restore_s=[])
+    return Manager
+
+
+def meta_state(cfg):
+    """A train state's structure on the meta device (``load_pytree``'s
+    ``like``): parameters in ``cfg.dtype``, adamw's moments in fp32, the
+    step an int."""
+    import torch
+    from repro_torch import weights
+
+    def tree(dtype):
+        return weights.unflatten({
+            p: torch.empty(s, device="meta", dtype=dtype)
+            for p, s in weights.leaf_shapes(cfg).items()})
+    moments = tree(torch.float32)
+    return {"params": tree(cfg.dtype), "opt": {"m": moments, "v": moments},
+            "step": 0}
+
+
+def flat_state(state, copy=False):
+    """{path: leaf} of a train state (the checkpoint's paths), each tensor
+    cloned on its device with ``copy``."""
+    import torch
+    from repro_torch.checkpoint.manager import leaves_with_paths
+    return {p: x.detach().clone() if copy and torch.is_tensor(x) else x
+            for p, x in leaves_with_paths(state)}
+
+
+def state_distance(state, ref):
+    """(max over tensor leaves of max|x - ref| / max|ref|, the leaves that
+    differ in any bit) of a train state against ``flat_state``'s dict; a
+    step that differs counts as infinitely far."""
+    import torch
+    from repro_torch.checkpoint.manager import leaves_with_paths
+    worst, differ = 0.0, []
+    for p, x in leaves_with_paths(state):
+        r = ref[p]
+        if not torch.is_tensor(x):
+            if x != r:
+                worst = math.inf
+                differ.append(p)
+            continue
+        r = r.to(x.device)
+        if not torch.equal(x, r):
+            differ.append(p)
+            worst = max(worst, float((x.float() - r.float()).abs().max()
+                                     / r.float().abs().max().clamp_min(
+                                         1e-30)))
+    return worst, differ
+
+
+def within_straight(d, d_straight):
+    """Bit for bit where the card repeated itself over the two straight
+    runs, else within ``CKPT_SLACK`` times their distance."""
+    return d == 0.0 if d_straight == 0.0 else d <= CKPT_SLACK * d_straight
+
+
+def loss_distance(a, b):
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def train_child(train, fa, fa_bwd, layers, argv):
+    """``--train-child``: ``train.main(argv)`` in this fresh process (what
+    ``python -m repro_torch.launch.train argv`` runs), launches counted;
+    prints one JSON line."""
+    from repro_torch import device as device_lib
+    device_lib.resolve("cuda")
+    with arch_depth(train, layers):
+        reset_counts(fa, fa_bwd)
+        res = train.main(argv)
+        counts = read_counts(fa, fa_bwd)
+    print(json.dumps({"train_child": {
+        "start_step": res.start_step, "losses": res.losses,
+        "step_ms": res.step_ms, "launches": counts}}), flush=True)
+    return 0
+
+
+def ckpt_runs(fa, fa_bwd, train, card, root, layers, nbytes):
+    """[ckpt]'s runs and checks (``phase_ckpt``); returns the in-process
+    runs' and the fresh process's B1-B3 launches."""
+    import torch
+    from repro_torch import checkpoint
+    argv = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--precision", "bf16", "--steps",
+            str(CKPT_STEPS)]
+    ck = ["--ckpt", str(root / "run"), "--ckpt-every",
+          str(CKPT_STEPS // 2)]
+    L, half = layers, CKPT_STEPS // 2
+    total = [0, 0, 0]
+    like = meta_state(dataclasses.replace(train.configs.get(ARCH),
+                                          n_layers=layers))
+
+    def run(extra, manager=None):
+        box = {}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(arch_depth(train, layers))
+            stack.enter_context(captured_state(train, box))
+            if manager is not None:
+                stack.enter_context(patched(train, "CheckpointManager",
+                                            manager))
+            reset_counts(fa, fa_bwd)
+            res = train.main(argv + extra)
+            counts = read_counts(fa, fa_bwd)
+        n = CKPT_STEPS - res.start_step
+        check(counts == (L * n,) * 3,
+              f"expected {L * n} launches of B1, B2 and B3, got {counts}")
+        for i in range(3):
+            total[i] += counts[i]
+        return res, box
+
+    # 1. twice straight: the card's own run-to-run distance
+    s1, box = run([])
+    ref = flat_state(box.pop("state"), copy=True)
+    s2, box = run([])
+    d_straight, diff_straight = state_distance(box.pop("state"), ref)
+    l_straight = loss_distance(s1.losses, s2.losses)
+    del box
+    torch.cuda.empty_cache()
+    print(f"[ckpt] {card} | straight runs of {CKPT_STEPS} steps: losses "
+          f"{' '.join(f'{x:.6f}' for x in s1.losses)} and "
+          f"{' '.join(f'{x:.6f}' for x in s2.losses)} (|diff| "
+          f"{l_straight:.3e}); final states "
+          f"{'equal bit for bit' if not diff_straight else f'differ in {len(diff_straight)} leaves, relative {d_straight:.3e}'}",
+          flush=True)
+
+    # 2. with a checkpoint every CKPT_STEPS / 2 steps, the snapshot cloned
+    # on the card at the first save; steps half+1.. run with its write in
+    # flight
+    log = {}
+    manager = logged_manager(checkpoint.CheckpointManager, log,
+                             clone_at=(half,))
+    c, box = run(ck, manager)
+    d_c, _ = state_distance(box.pop("state"), ref)
+    spans = box.pop("spans")
+    del box
+    (w_step, w0, w1), (_, w2, w3) = sorted(log["writes"])
+    overlap = [i + 1 for i, (a, b) in enumerate(spans)
+               if i >= half and a < w1 and b > w0]
+    ckdir = root / "run" / f"step_{half:010d}"
+    on_disk = sum(f.stat().st_size for f in ckdir.iterdir())
+    mgr = checkpoint.CheckpointManager(str(root / "run"), keep=2,
+                                       async_writes=False)
+    t0 = time.perf_counter()
+    back, meta = mgr.restore(like, half, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _, snap_diff = state_distance(back, flat_state(log["clones"][half]))
+    del back, log["clones"][half]
+    torch.cuda.empty_cache()
+    wait_ms = [c.step_ms[i] for i in range(half, CKPT_STEPS)]
+    base_ms = [s.step_ms[i] for s in (s1, s2) for i in range(half,
+                                                             CKPT_STEPS)]
+    print(f"[ckpt] {card} | checkpoint {on_disk:,} bytes on disk "
+          f"({nbytes:,} of leaves, {len(list(ckdir.glob('leaf_*')))} "
+          f"leaves, {layers} layers); save() blocking (host snapshot) "
+          f"{' / '.join(f'{x * 1e3:.1f}' for x in log['save_s'])} ms; "
+          f"writer {w1 - w0:.3f} / {w3 - w2:.3f} s "
+          f"({nbytes / (w1 - w0) / 1e9:.3f} / {nbytes / (w3 - w2) / 1e9:.3f}"
+          f" GB/s, sha256 included, no fsync); restore "
+          f"{restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s, sha256 "
+          f"and host-to-device included)", flush=True)
+    print(f"[ckpt] {card} | ms/step over steps {half + 1}..{CKPT_STEPS}: "
+          f"{' '.join(f'{x:.3f}' for x in wait_ms)} with the step-{w_step} "
+          f"write in flight (steps {overlap} overlap it) against "
+          f"{' '.join(f'{x:.3f}' for x in base_ms)} in the straight runs",
+          flush=True)
+    check(overlap, "no step ran while the checkpoint was being written")
+    ok = within_straight(d_c, d_straight) and within_straight(
+        loss_distance(c.losses, s1.losses), l_straight)
+    print(f"[ckpt] the run with checkpoints against the first straight run: "
+          f"losses |diff| {loss_distance(c.losses, s1.losses):.3e}, final "
+          f"state {d_c:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "checkpointing changed the training")
+    print(f"[ckpt] snapshot: the step-{half} checkpoint reloaded against "
+          f"the state cloned on the card right after step {half}: "
+          f"{'equal bit for bit' if not snap_diff else f'{len(snap_diff)} leaves differ'}"
+          f" (metadata {meta}) {'ok' if not snap_diff else 'FAIL'}",
+          flush=True)
+    check(not snap_diff and meta == {"step": half},
+          "the checkpoint is not the state at save()")
+
+    # 3. resume in a fresh process from the step-half checkpoint
+    last = root / "run" / f"step_{CKPT_STEPS:010d}"
+    digests = [r["sha256"] for r in json.loads(
+        (last / "manifest.json").read_text())["leaves"]]
+    shutil.rmtree(last)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, __file__, "--train-child", str(layers)] + argv + ck
+        + ["--resume"], capture_output=True, text=True,
+        timeout=CKPT_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"the resume process failed:\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    child = json.loads([ln for ln in out.stdout.splitlines()
+                        if ln.startswith('{"train_child"')][-1])["train_child"]
+    resumed = f"resumed from step {half}" in out.stdout
+    if d_c == 0.0 and digests == [r["sha256"] for r in json.loads(
+            (last / "manifest.json").read_text())["leaves"]]:
+        d_r, diff_r = 0.0, []   # the same files as the run that equals ref
+    else:
+        final, _ = mgr.restore(like, CKPT_STEPS, device="cuda")
+        d_r, diff_r = state_distance(final, ref)
+        del final
+        torch.cuda.empty_cache()
+    l_r = loss_distance(child["losses"], s1.losses[half:])
+    ok = (resumed and child["start_step"] == half
+          and len(child["losses"]) == CKPT_STEPS - half
+          and within_straight(d_r, d_straight)
+          and within_straight(l_r, l_straight))
+    want = [L * (CKPT_STEPS - half)] * 3
+    print(f"[ckpt] {card} | fresh process (--resume, {child_s:.1f} s): "
+          f"{'printed' if resumed else 'did NOT print'} \"resumed from step "
+          f"{half}\", losses {' '.join(f'{x:.6f}' for x in child['losses'])}"
+          f" against {' '.join(f'{x:.6f}' for x in s1.losses[half:])} "
+          f"(|diff| {l_r:.3e}), final state "
+          f"{'equal bit for bit' if not diff_r else f'{d_r:.3e} ({len(diff_r)} leaves differ)'}"
+          f" to the first straight run's; its launches B1/B2/B3 "
+          f"{child['launches']} (expected {want}); ms/step "
+          f"{' '.join(f'{x:.3f}' for x in child['step_ms'])} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the resumed run does not match the straight run")
+    check(child["launches"] == want,
+          f"resume process: expected {want} launches, got "
+          f"{child['launches']}")
+    shutil.rmtree(last)
+
+    # fault (b): a resume that restores the parameters but zeroes adamw's
+    # moments (no checkpoint written)
+    log_b = {}
+    fault_b, box = run(["--ckpt", str(root / "run"), "--ckpt-every",
+                        str(10 * CKPT_STEPS), "--resume"],
+                       logged_manager(checkpoint.CheckpointManager, log_b,
+                                      zero_moments=True))
+    d_b, _ = state_distance(box["state"], ref)
+    caught_b = not within_straight(d_b, d_straight)
+    print(f"[ckpt] planted fault (b), the moments zeroed on resume: final "
+          f"state {d_b:.3e} from the straight run's "
+          f"{'caught' if caught_b else 'MISSED'}", flush=True)
+    check(caught_b, "the resume check misses zeroed moments")
+
+    # fault (c): a snapshot taken without the host copy finished, then one
+    # more in-place step while the writer reads the live tensors
+    state, step_fn, batch = box.pop("state"), box.pop("step_fn"), \
+        box.pop("batch")
+    del box, fault_b
+    log_c = {}
+    lazy = logged_manager(checkpoint.CheckpointManager, log_c,
+                          clone_at=(99,), lazy=True)(str(root / "lazy"))
+    lazy.save(99, state)
+    step_fn(state, batch)
+    lazy.wait()
+    clone = flat_state(log_c["clones"].pop(99))
+    back, _ = lazy.restore(like, 99, device="cuda")
+    _, diff_c = state_distance(back, clone)
+    del back, state, clone
+    torch.cuda.empty_cache()
+    print(f"[ckpt] planted fault (c), no host copy at save(): "
+          f"{len(diff_c)} of 40 leaves differ from the clone "
+          f"{'caught' if diff_c else 'MISSED'}", flush=True)
+    check(diff_c, "the snapshot check misses a snapshot taken late")
+
+    # fault (a): one flipped byte in a leaf file
+    victim = root / "lazy" / "step_0000000099" / "leaf_00000.npy"
+    with open(victim, "r+b") as f:
+        f.seek(-1, 2)
+        b = f.read(1)
+        f.seek(-1, 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    try:
+        lazy.restore(like, 99, device="cuda")
+        caught_a = "MISSED"
+    except IOError as e:
+        caught_a = f"caught ({e})"
+    print(f"[ckpt] planted fault (a), one flipped byte in leaf_00000.npy: "
+          f"{caught_a}", flush=True)
+    check(caught_a.startswith("caught"), "a corrupt leaf restored")
+    shutil.rmtree(root / "lazy")
+    return total, child["launches"]
+
+
+def phase_ckpt(fa, fa_bwd, train, card):
+    """[ckpt]: full-width qwen3-0.6b through launch.train.main with
+    --ckpt/--resume (module docstring, 5b), within CKPT_PHASE_LIMIT_S.
+    Leaves the step-CKPT_STEPS/2 checkpoint under CKPT_ROOT for [dist];
+    returns (in-process launches, the fresh process's launches, layers)."""
+    import torch
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = CKPT_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    cfg = configs.get(ARCH)
+    layers, nbytes = ckpt_layers(cfg, free)
+    cut = ("full depth" if layers == cfg.n_layers else
+           f"DEPTH CUT to {layers} of {cfg.n_layers} layers")
+    print(f"[ckpt] {card} | {free / 1e9:.1f} GB free under {root}; a "
+          f"checkpoint holds {nbytes / 1e9:.3f} GB: {cut}", flush=True)
+    total, child = ckpt_runs(fa, fa_bwd, train, card, root, layers, nbytes)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[ckpt] phase {phase_s:.1f} s (limit {CKPT_PHASE_LIMIT_S:.0f} "
+          f"s)", flush=True)
+    check(phase_s < CKPT_PHASE_LIMIT_S, f"the ckpt phase took {phase_s:.1f} s")
+    return total, child, layers
+
+
+def phase_dist(fa, fa_bwd, card, layers):
+    """[dist]: the distributed layer over an NCCL group of one rank
+    (module docstring, 5c), within DIST_PHASE_LIMIT_S; returns the B1-B3
+    launches of its gradient step."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import checkpoint, configs
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import (collectives, compression, elastic,
+                                         sharding)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import SystemConfig
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=layers)
+    like = meta_state(cfg)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(CKPT_ROOT / "dist_store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mgr = checkpoint.CheckpointManager(str(CKPT_ROOT / "run"),
+                                           async_writes=False)
+        step = CKPT_STEPS // 2
+        state, _ = mgr.restore(like, step, device="cuda")
+        toks = synthetic.make_lm_dataset(0, TRAIN_BATCH * TRAIN_SEQ,
+                                         cfg.vocab).reshape(TRAIN_BATCH,
+                                                            TRAIN_SEQ)
+        batch = {"tokens": torch.from_numpy(toks).cuda().long(),
+                 "labels": torch.from_numpy(np.roll(toks, -1, -1)).cuda()
+                 .long()}
+        reset_counts(fa, fa_bwd)
+        grads = loss_grads(state["params"], batch, cfg,
+                           SystemConfig(precision="bf16"))
+        counts = read_counts(fa, fa_bwd)
+        check(counts == (layers,) * 3,
+              f"[dist] gradient step: expected {layers} launches each, "
+              f"got {counts}")
+
+        def int8_excess(reduced):
+            """max over leaves of |reduced - g| in units of the leaf's int8
+            scale, against the half-scale bound."""
+            worst = 0.0
+            for p, g in grads.items():
+                scale = float(g.abs().max() / 127.0 + 1e-12)
+                err = float((reduced[p] - g).abs().max())
+                worst = max(worst, err / scale)
+            return worst
+
+        plain = collectives.compressed_grad_mean(grads, method="none")
+        exact = all(torch.equal(plain[p], g) for p, g in grads.items())
+        int8 = collectives.compressed_grad_mean(grads, method="int8")
+        e8 = int8_excess(int8)
+        quantize = compression.quantize_int8
+        with patched(compression, "quantize_int8", lambda x: (
+                quantize(x)[0], torch.ones((), device=x.device))):
+            e_fault = int8_excess(collectives.compressed_grad_mean(
+                grads, method="int8"))
+        del plain, int8
+        n_bytes = {m: compression.compressed_bytes(grads, m)
+                   for m in ("none", "int8", "topk")}
+        print(f"[dist] {card} | NCCL, world size 1 (the collectives are "
+              f"copies here): full-width gradients of one step "
+              f"({TRAIN_BATCH} x {TRAIN_SEQ}, {len(grads)} leaves, "
+              f"launches B1/B2/B3 {counts}); method none equals the "
+              f"gradients {'bit for bit' if exact else 'NOT bit for bit'}; "
+              f"int8 within {e8:.6f} of a scale per element (limit "
+              f"{DIST_HALF_SCALE:.6f}) {'ok' if e8 <= DIST_HALF_SCALE else 'FAIL'}"
+              f"; planted fault, scales dropped on the wire: {e_fault:.3e} "
+              f"{'caught' if e_fault > DIST_HALF_SCALE else 'MISSED'}",
+              flush=True)
+        check(exact, "an all-reduce over one rank changed the gradients")
+        check(e8 <= DIST_HALF_SCALE, "int8 reduce beyond half a scale")
+        check(e_fault > DIST_HALF_SCALE, "the int8 check misses dropped "
+              "scales")
+        ratio = n_bytes["int8"] / n_bytes["none"]
+        print(f"[dist] compressed_bytes: fp32 {n_bytes['none']:,}, int8 "
+              f"{n_bytes['int8']:,} ({ratio:.6f} of fp32), topk 1% "
+              f"{n_bytes['topk']:,}", flush=True)
+        check(abs(ratio - 0.25) < 1e-3, f"int8 carries {ratio} of fp32")
+        ef = compression.init_ef(grads)
+        times = {
+            "compress_grads int8": cuda_ms(lambda: compression.compress_grads(
+                grads, ef, "int8"), 1, warmup=1, windows=3),
+            "compress_grads topk 1%": cuda_ms(
+                lambda: compression.compress_grads(grads, ef, "topk", 0.01),
+                1, warmup=1, windows=3),
+            "compressed_grad_mean none": cuda_ms(
+                lambda: collectives.compressed_grad_mean(grads,
+                                                         method="none"),
+                1, warmup=1, windows=3),
+            "compressed_grad_mean int8": cuda_ms(
+                lambda: collectives.compressed_grad_mean(grads,
+                                                         method="int8"),
+                1, warmup=1, windows=3)}
+        del ef, grads
+        torch.cuda.empty_cache()
+        for name, t in times.items():
+            print(f"[dist] {card} | {name} over the whole gradient "
+                  f"({n_bytes['none'] / 1e9:.3f} GB fp32): {t:.3f} ms "
+                  f"({t.spread()})", flush=True)
+
+        mesh = mesh_lib.single_device_mesh()
+        sys_cfg = SystemConfig(param_sharding="2d")
+        specs = sharding.state_specs(state, cfg, mesh, sys_cfg)
+        named_dims = sum(1 for s in tree_leaves(specs) for a in s if a)
+        on_mesh = elastic.reshard_state(state, cfg, mesh, sys_cfg)
+        tensors = [(a, b) for a, b in zip(tree_leaves(state),
+                                           tree_leaves(on_mesh))
+                   if torch.is_tensor(a)]
+        all_dt = all(isinstance(b, DTensor) for _, b in tensors)
+        back_ok = all(torch.equal(b.full_tensor(), a) for a, b in tensors)
+        del on_mesh, tensors
+        restored, meta = mgr.restore(
+            like, step, placements=sharding.named(specs, mesh))
+        pairs = [(a, b) for a, b in zip(tree_leaves(state),
+                                         tree_leaves(restored))
+                 if torch.is_tensor(a)]
+        restore_ok = all(isinstance(b, DTensor) and torch.equal(
+            b.full_tensor(), a) for a, b in pairs)
+        del restored, pairs
+        print(f"[dist] single_device_mesh {tuple(mesh.mesh_dim_names)} "
+              f"{tuple(mesh.shape)}: state_specs name a mesh axis on "
+              f"{named_dims} tensor dims; reshard_state onto it: "
+              f"{'every leaf a DTensor' if all_dt else 'NOT all DTensors'}"
+              f", full_tensor() {'equal bit for bit' if back_ok else 'DIFFERS'}"
+              f"; the step-{step} checkpoint restored with placements= "
+              f"{'equal bit for bit' if restore_ok else 'DIFFERS'} "
+              f"(metadata {meta})", flush=True)
+        check(all_dt and back_ok, "reshard_state changed the state")
+        check(restore_ok, "restore with placements= changed the state")
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[dist] phase {phase_s:.1f} s (limit {DIST_PHASE_LIMIT_S:.0f} "
+          f"s)", flush=True)
+    check(phase_s < DIST_PHASE_LIMIT_S, f"the dist phase took {phase_s:.1f} s")
+    return counts
+
+
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(least ms the card needs, what sets it), at the operations' peak."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -4505,6 +5116,8 @@ def main() -> int:
     from repro_torch.kernels import tune
     from repro_torch.launch import serve, steps, train
 
+    if sys.argv[1:2] == ["--train-child"]:
+        return train_child(train, fa, fa_bwd, int(sys.argv[2]), sys.argv[3:])
     card = card_line()
     if sys.argv[1:2] == ["--lane-probe"]:
         print(f"[card] {card}", flush=True)
@@ -4550,6 +5163,12 @@ def main() -> int:
     phase_encdec(counters, steps, card)
     _, train_counts = phase_train(fa, fa_bwd, train, card)
     phase_grad(fa_bwd)
+    try:
+        ckpt_counts, resume_counts, ckpt_depth = phase_ckpt(fa, fa_bwd,
+                                                            train, card)
+        dist_counts = phase_dist(fa, fa_bwd, card, ckpt_depth)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     # B1 at the serve shape, B2 and B3 at the train shape (each call times
     # all three)
     timing = time_attention(fa, fa_bwd, card, "serve", *SERVE_SHAPE, None,
@@ -4589,6 +5208,9 @@ def main() -> int:
          "launches_lmtune": lm_counts[0],
          "launches_hybrid": hybrid_serve_b1 + hybrid_train_counts[0],
          "launches_vlm": vlm_serve_b1 + vlm_train_counts[0],
+         "launches_ckpt": ckpt_counts[0],
+         "launches_ckpt_resume": resume_counts[0],
+         "launches_dist": dist_counts[0],
          "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
@@ -4598,6 +5220,9 @@ def main() -> int:
          "launches": train_counts[1], "launches_lmtune": lm_counts[1],
          "launches_hybrid": hybrid_train_counts[1],
          "launches_vlm": vlm_train_counts[1],
+         "launches_ckpt": ckpt_counts[1],
+         "launches_ckpt_resume": resume_counts[1],
+         "launches_dist": dist_counts[1],
          "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
          **bwd_timing["B2"], **hybrid_rows("B2", rg_errs[0][0])},
@@ -4607,6 +5232,9 @@ def main() -> int:
          "launches": train_counts[2], "launches_lmtune": lm_counts[2],
          "launches_hybrid": hybrid_train_counts[2],
          "launches_vlm": vlm_train_counts[2],
+         "launches_ckpt": ckpt_counts[2],
+         "launches_ckpt_resume": resume_counts[2],
+         "launches_dist": dist_counts[2],
          "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
                  **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),

@@ -20,9 +20,8 @@ tuner would.
 Nodes are described by ``NodeSpec`` (speed factor, placement tag, slot
 capacity) and membership is *mutable*: ``add_node`` joins a node mid-run,
 ``retire_node`` drains one (tasks on it stop at their next epoch boundary,
-pay the restore + reconfiguration charge — the ``distributed/elastic.py``
-reshard-on-a-different-slice story, ROADMAP item 11 in the port — and
-re-queue), and ``preempt`` evicts
+pay the restore + reconfiguration charge — the reshard onto a different
+slice of ``repro_torch.distributed.elastic`` — and re-queue), and ``preempt`` evicts
 a single task the same way without touching the node. A ``policy``
 callback, invoked whenever the queue changes (arrival or completion), can
 call those events to implement elastic allocation (``ClusterSim``'s

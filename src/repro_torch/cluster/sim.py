@@ -170,8 +170,8 @@ class ElasticPolicy:
       is sublinear for these workloads (perfmodel, Fig 3b): half the chips
       keeps well over half the throughput. A job already on the splitting
       node re-shards at its next epoch boundary (restore + reconfig charge)
-      and re-queues — the reference's ``distributed/elastic.py`` machinery
-      (ROADMAP item 11 in the port).
+      and re-queues — the machinery of
+      ``repro_torch.distributed.elastic`` (``reshard_state``).
     * **grow when idle** — when the queue is empty, any split whose
       fractional nodes are all idle merges back into the original node
       (free: nothing is running, nothing re-shards).

@@ -9,11 +9,11 @@ returns its self-attention cache prompt-long, whatever ``max_len`` says,
 with the cross cache.
 
 ``make_train_state``, ``make_train_step``, ``make_prefill_step`` and
-``make_decode_step`` keep the reference's signatures, less the mesh (the
-distributed slice brings it, ROADMAP.md queue A) and with an explicit
-``torch.Generator`` and device in place of a PRNG key. PyTorch runs eagerly,
-so the returned functions need no ``jit``; prefill and decode run under
-``torch.inference_mode()``.
+``make_decode_step`` keep the reference's signatures, less the mesh (a
+train step sharded over a mesh is not ported: ROADMAP.md, "Distributed")
+and with an explicit ``torch.Generator`` and device in place of a PRNG key.
+PyTorch runs eagerly, so the returned functions need no ``jit``; prefill
+and decode run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 

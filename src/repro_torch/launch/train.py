@@ -4,7 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 6 --batch 4 --seq 2048 --precision bf16 \\
         [--microbatches 1] [--remat none|block|dots] [--device cpu] \\
-        [--kernel-db golden.json]
+        [--kernel-db golden.json] [--ckpt DIR [--ckpt-every 25] [--resume]]
 
 As in the reference: adamw over ``warmup_cosine(lr, 10, steps)`` with weight
 decay 0.01, tokens from ``make_lm_dataset(0, batch * seq * 32, vocab)``, the
@@ -16,10 +16,14 @@ here ``--arch`` names the config, as in ``repro_torch.launch.serve``:
 ``qwen3-0.6b`` is full width, ``qwen3-0.6b-reduced`` the smoke config.
 Weights come from ``transformer.init`` on a ``torch.Generator`` seeded with
 0. ``--kernel-db`` primes the kernel find-db from a golden table before the
-first step, as in the reference. Checkpointing (``--ckpt``) is not ported
-yet (ROADMAP.md queue A, item 'Checkpoint'). The vlm and the
-encoder-decoder raise ``NotImplementedError`` (``require_token_stream``):
-their batches carry patch embeddings or frames.
+first step, as in the reference. ``--ckpt DIR`` keeps the two newest
+checkpoints of the train state there (``checkpoint.CheckpointManager``, the
+reference's format), one every ``--ckpt-every`` steps with metadata
+``{"step": step + 1}``, written by a background thread while training goes
+on; ``--resume`` restores the newest and trains from its step to
+``--steps``, with the batch of step ``s`` still ``stream[s % len(stream)]``.
+The vlm and the encoder-decoder raise ``NotImplementedError``
+(``require_token_stream``): their batches carry patch embeddings or frames.
 
 Step times are CUDA events on the card (the host clock on the CPU); the
 first step is left out of the mean. Without a GPU the command raises unless
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_lib
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import synthetic
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.sysargs import (add_kernel_db_arg, add_system_args,
@@ -56,6 +61,7 @@ class TrainResult:
     peak_memory_bytes: Optional[int]   # None on the CPU
     device_name: str
     kernel_db_rows: int = 0         # rows --kernel-db installed
+    start_step: int = 0             # the step a --resume run started from
 
     @property
     def ms_per_step(self) -> float:
@@ -79,6 +85,9 @@ def parser() -> argparse.ArgumentParser:
     add_system_args(ap)
     add_kernel_db_arg(ap)   # tuned kernel configs from a prior tune run
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
     return ap
 
 
@@ -111,10 +120,18 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
         torch.Generator(device=dev).manual_seed(0), cfg, opt, dev)
     step_fn = steps_lib.make_train_step(cfg, sys, opt)
 
+    mgr = CheckpointManager(args.ckpt, keep=2) if args.ckpt else None
+    start = 0
+    if mgr and args.resume:
+        restored, meta = mgr.restore(state, device=dev)
+        if restored is not None:
+            state, start = restored, meta["step"]
+            print(f"resumed from step {start}")
+
     toks = synthetic.make_lm_dataset(0, args.batch * args.seq * 32, cfg.vocab)
     stream = toks.reshape(-1, args.batch, args.seq)
     losses, accs, step_ms = [], [], []
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         chunk = stream[step % len(stream)]
         batch = {"tokens": torch.from_numpy(chunk).to(dev, torch.long),
                  "labels": torch.from_numpy(np.roll(chunk, -1, -1)).to(
@@ -124,19 +141,23 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
         losses.append(float(metrics["loss"]))
         accs.append(float(metrics["accuracy"]))
         step_ms.append(timer.ms)
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step + 1, state, metadata={"step": step + 1})
         if (step + 1) % 10 == 0:
             print(f"step {step + 1:4d} loss={losses[-1]:.4f} "
                   f"({sum(step_ms[-10:]) / 10e3:.2f}s/step)")
+    if mgr:
+        mgr.wait()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     res = TrainResult(cfg=cfg, sys=sys, losses=losses, accuracies=accs,
                       step_ms=step_ms, tokens_per_step=args.batch * args.seq,
                       peak_memory_bytes=peak, device_name=name,
-                      kernel_db_rows=kernel_db_rows)
+                      kernel_db_rows=kernel_db_rows, start_step=start)
     print(f"done: final loss {losses[-1] if losses else float('nan'):.4f}")
     if losses:
-        print(f"trained {cfg.name} on {name}: {args.steps} steps of "
+        print(f"trained {cfg.name} on {name}: {len(losses)} steps of "
               f"{args.batch}x{args.seq} tokens, {res.ms_per_step:.3f} "
               f"ms/step ({res.tokens_per_s:,.0f} tok/s)")
     return res
