@@ -292,12 +292,44 @@ Phases (any failure raises, and the script exits non-zero):
      ``examples/torch_quickstart.py`` on the card. The tuner, the tuning
      launcher and the quickstart launch none of B1-B5. Each of the last
      four phases prints its wall time and must end within its 60 s limit.
+ 15. the tuning service (``[service]``): a journaled store, a second store,
+     a coordinator and two trial workers (``--backend real --announce
+     --store``, on the card by default), each a ``python -m`` process of
+     its own on port 0, started after the build. (1) PipeTune on
+     lenet-mnist through ``launch.tune`` in process twice (the second
+     against the second store, counting the lookups that cost no round
+     trip) and on one remote worker: the records and the hit/miss sequence
+     equal the in-process ones bit for bit where the two in-process runs
+     agree, else within ``SERVICE_RATIO`` times their distance; a record
+     with one accuracy one ulp up, carried through the payload and the
+     binary codec, must be caught. (2) The same job with
+     ``--coordinator`` over both workers, the second SIGKILLed at its first
+     dispatch after a completion: it is retired, its trials re-placed and
+     completed on the first, every dispatch completed once. One lenet
+     trial's wall time remote and in process; loopback round trips of
+     version, add, a ``SERVICE_BATCH``-add batch and a ``SERVICE_PUTS``-put
+     kernel_db under json and the binary codec negotiated here
+     (``SERVICE_RTT_REQS`` each: median, p10, p90); record payload bytes.
+     (3) The LM example's backend at full-width qwen3-0.6b on a worker
+     served in this process: a ``RemoteWorker`` runs ``SERVICE_LM_TRIALS``
+     trials, B1-B3 launched exactly as their epochs imply, the records held
+     against two direct runs as in (1). (4) ``kernels.tune tune --workload
+     rglru@B=8,S=2048,R=4096 --store`` (B5 launches = its kernel calls),
+     a second run answering from the store with 0 trials and 0 launches,
+     the rows under the card's hardware key; ``launch.train --kernel-db``
+     from the store and from its journal installs the same rows. (5) The
+     store SIGKILLed and restarted from its journal: its entry count,
+     centroid model and kernel rows equal the ones before, bit for bit; a
+     restart missing one entry and a journal with a corrupt line mid-way
+     must be caught. Within ``SERVICE_PHASE_LIMIT_S``.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
 ``launches_vlm`` and ``vlm`` timing rows and their ``launches_ckpt``,
-``launches_ckpt_resume`` and ``launches_dist``, B4 and B5 with their
-``launches_ssm``), the card line, and last
-``{"ok": true, "device": {...}}``.
+``launches_ckpt_resume``, ``launches_dist`` and ``launches_service``, B4
+and B5 with their ``launches_ssm`` and ``launches_service``), the card
+line, and last ``{"ok": true, "device": {...}}``.
 
+``--service`` builds the kernels and runs ``[service]`` alone, printing
+its launches as JSON.
 ``--train-child LAYERS ARGS`` (used by [ckpt]) runs
 ``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
 prints its start step, losses, step times and B1-B3 launches as JSON.
@@ -315,6 +347,7 @@ import dataclasses
 import json
 import math
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -3091,8 +3124,11 @@ def logged_manager(base, log, clone_at=(), lazy=False, zero_moments=False):
     """A ``CheckpointManager`` that times save() (the host snapshot), each
     write (sha256 included) and each restore into ``log``, clones the tree
     on the device at the steps in ``clone_at``, and plants two faults:
-    ``lazy`` queues the live tree with no host copy (fault c), and
-    ``zero_moments`` zeroes adamw's moments after a restore (fault b)."""
+    ``lazy`` keeps the live tree with no host copy and queues it for the
+    writer only at ``release()`` (fault c: the caller runs a step in
+    between, so the writer reads tensors the step changed, whatever the
+    host's timing), and ``zero_moments`` zeroes adamw's moments after a
+    restore (fault b)."""
     import torch
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -3104,10 +3140,13 @@ def logged_manager(base, log, clone_at=(), lazy=False, zero_moments=False):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if lazy:
-                self._queue.put((step, tree, metadata))
+                self._late = (step, tree, metadata)
             else:
                 super().save(step, tree, metadata, blocking)
             log["save_s"].append(time.perf_counter() - t0)
+
+        def release(self):
+            self._queue.put(self._late)
 
         def _write(self, step, tree, metadata):
             t0 = time.perf_counter()
@@ -3365,8 +3404,8 @@ def ckpt_runs(fa, fa_bwd, train, card, root, layers, nbytes):
           f"{'caught' if caught_b else 'MISSED'}", flush=True)
     check(caught_b, "the resume check misses zeroed moments")
 
-    # fault (c): a snapshot taken without the host copy finished, then one
-    # more in-place step while the writer reads the live tensors
+    # fault (c): a snapshot taken without the host copy, written after one
+    # more in-place step
     state, step_fn, batch = box.pop("state"), box.pop("step_fn"), \
         box.pop("batch")
     del box, fault_b
@@ -3375,6 +3414,7 @@ def ckpt_runs(fa, fa_bwd, train, card, root, layers, nbytes):
                           clone_at=(99,), lazy=True)(str(root / "lazy"))
     lazy.save(99, state)
     step_fn(state, batch)
+    lazy.release()
     lazy.wait()
     clone = flat_state(log_c["clones"].pop(99))
     back, _ = lazy.restore(like, 99, device="cuda")
@@ -4753,7 +4793,7 @@ def counted_lm_backend(example, fa, fa_bwd):
     return Counted
 
 
-def lm_launches(log, what, card):
+def lm_launches(log, what, card, tag="lmtune"):
     """Print B1-B3 launches and ms/step per sys config over ``log`` and
     check each epoch against what it implies: per step, L x M launches of
     B2 and of B3, and of B1 once more under remat (the recompute)."""
@@ -4773,7 +4813,7 @@ def lm_launches(log, what, card):
         ent[3] += 1
         ent[4] += list(times)
     for (remat, m, prec), (b1, b2, b3, epochs, times) in sorted(per.items()):
-        print(f"[lmtune] {card} | {what} remat={remat} microbatches={m} "
+        print(f"[{tag}] {card} | {what} remat={remat} microbatches={m} "
               f"{prec}: {epochs} epochs, {len(times)} steps at "
               f"{np.median(times) * 1e3:.3f} ms/step median; launches B1 "
               f"{b1}, B2 {b2}, B3 {b3} (as the epochs imply)", flush=True)
@@ -5093,6 +5133,677 @@ def phase_trainstep(counters, card, tune, findb, groundtruth):
           f"the train_step phase took {phase_s:.1f} s")
 
 
+# ---------------------------------------------------------------- [service]
+# The tuning service: a store, a coordinator and two trial workers, each a
+# process of its own on the card (``python -m repro_torch.service``,
+# ``repro_torch.coordinator``, ``repro_torch.worker``), bound to port 0.
+SERVICE_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "service"
+SERVICE_JOB = ["--workload", "lenet-mnist", "--system", "pipetune",
+               "--scheduler", "hyperband", "--epochs", "4"]
+# remote against in-process: equal where two in-process runs are, else
+# within this many times their distance
+SERVICE_RATIO = 4.0
+SERVICE_RTT_REQS = 200          # requests a loopback round-trip median is of
+SERVICE_BATCH = 64              # adds in the timed batch
+SERVICE_PUTS = 16               # puts in the timed kernel_db request
+SERVICE_LM_TRIALS = 2
+SERVICE_LM_STEPS = 2
+SERVICE_ONE_TRIAL_REPS = 3      # one lenet trial, remote and in process
+SERVICE_START_S = 120.0         # bound on a server's first lines
+# the phase read 64.7 s in a whole run and 101.8 s alone (a cold main
+# process) on an NVIDIA H100 80GB HBM3 at 700 W
+SERVICE_PHASE_LIMIT_S = 120.0
+
+
+def start_server(args, name):
+    """``python -m <args>`` from the repo's root with ``src`` on the path,
+    its output in ``SERVICE_ROOT/<name>.log``; never a fork of this
+    process, which holds a CUDA context."""
+    root = Path(__file__).resolve().parent
+    log = open(SERVICE_ROOT / f"{name}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *args], stdout=log, stderr=subprocess.STDOUT,
+        cwd=str(root), env={**__import__("os").environ,
+                            "PYTHONPATH": str(root / "src")})
+    log.close()
+    proc.log = SERVICE_ROOT / f"{name}.log"
+    return proc
+
+
+def server_line(proc, expect, timeout=SERVICE_START_S):
+    """The first line of `proc`'s log containing `expect` (bounded wait)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for line in proc.log.read_text().splitlines():
+            if expect in line:
+                return line
+        check(proc.poll() is None, f"{proc.args[2]} exited: "
+              f"{proc.log.read_text()[-2000:]}")
+        time.sleep(0.05)
+    raise SmokeFailure(f"{proc.args[2]} printed no {expect!r} in "
+                       f"{timeout:.0f} s: {proc.log.read_text()[-2000:]}")
+
+
+def server_addr(proc, expect):
+    return "tcp://" + server_line(proc, expect).split(" on ", 1)[1].split()[0]
+
+
+def stop_servers(procs):
+    """Terminate every process, wait (bounded), then kill."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
+
+
+def flat_records(records):
+    """{(trial, field, epoch): value} of a job's records: per-epoch
+    accuracy, loss and sys config, and per trial the ground-truth hit and
+    probe epochs (the hit/miss sequence)."""
+    out = {}
+    for tid, rec in records.items():
+        for i, e in enumerate(rec.epochs):
+            out[(tid, "accuracy", i)] = e.accuracy
+            out[(tid, "loss", i)] = e.loss
+            out[(tid, "sys", i)] = json.dumps(e.sys_config, sort_keys=True)
+        out[(tid, "gt_hit", -1)] = rec.gt_hit
+        out[(tid, "probe_epochs", -1)] = rec.probe_epochs
+    return out
+
+
+def bits_equal(a, b):
+    if isinstance(a, float) and isinstance(b, float):
+        return struct.pack(">d", a) == struct.pack(">d", b)
+    return a == b
+
+
+def records_rule(a, b, c):
+    """Hold records `c` against two runs `a`, `b` of the same job: where
+    `a` and `b` agree bit for bit, `c` must too; where they differ, a
+    number of `c` lies within SERVICE_RATIO times their distance of `a`'s
+    (other values may differ as they do). Returns (failures, keys where
+    a = b, the largest |a - b| and |c - a| over numbers)."""
+    fa, fb, fc = flat_records(a), flat_records(b), flat_records(c)
+    bad, same, d_ab, d_ca = [], 0, 0.0, 0.0
+    for key in sorted(set(fa) | set(fb) | set(fc), key=str):
+        va, vb, vc = fa.get(key), fb.get(key), fc.get(key)
+        num = all(isinstance(v, float) for v in (va, vb, vc))
+        if num:
+            d_ab = max(d_ab, abs(va - vb))
+            d_ca = max(d_ca, abs(vc - va))
+        if key in fa and key in fb and bits_equal(va, vb):
+            same += 1
+            if key not in fc or not bits_equal(vc, va):
+                bad.append((key, va, vc))
+        elif num and abs(vc - va) > SERVICE_RATIO * abs(va - vb):
+            bad.append((key, va, vc))
+    return bad, same, d_ab, d_ca
+
+
+def moved_one_ulp(records, key, codec):
+    """`records` with the accuracy at `key` moved by one ulp, as a worker
+    would return it: through the record payload and the wire codec."""
+    from repro_torch.service import dispatch
+    tid, _, i = key
+    payload = dispatch.record_to_payload(records[tid])
+    acc = payload["epochs"][i]["accuracy"]
+    payload["epochs"][i]["accuracy"] = math.nextafter(acc, math.inf)
+    out = dict(records)
+    out[tid] = dispatch.record_from_payload(codec.decode(codec.encode(
+        payload)))
+    return out
+
+
+def run_tune_launch(tune_launch, argv):
+    """``launch.tune.main(argv)``: (result, wall seconds, printout)."""
+    import io
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = tune_launch.main(argv)
+    return res, time.perf_counter() - t0, out.getvalue()
+
+
+def store_snapshot(addr):
+    """What a store holds, as tlv bytes: its entry count, its centroid
+    model's payload (without the model's version, which a replay starts
+    again) and its kernel rows."""
+    from repro_torch.service import (SocketTransport, StoreClient,
+                                     dispatch, get_codec)
+    with StoreClient(SocketTransport(*dispatch.parse_tcp_address(addr),
+                                     wire="json")) as client:
+        snap = client.snapshot()
+        rows = client.kernel_export()
+    return service_snapshot_bytes(snap, rows, get_codec("tlv"))
+
+
+def service_snapshot_bytes(snap, rows, codec):
+    model = dict(snap["model"] or {})
+    model.pop("version", None)
+    return codec.encode({"n_entries": snap["n_entries"], "model": model,
+                         "rows": rows}), snap
+
+
+def rtt_us(transport, req, n):
+    """Median and 10th-90th percentile spread (µs) of `n` round trips."""
+    import numpy as np
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        resp = transport.request(req)
+        times.append((time.perf_counter() - t0) * 1e6)
+        check(resp.get("ok"), f"{req['op']}: {resp}")
+    p10, med, p90 = np.percentile(times, [10, 50, 90])
+    return med, p10, p90
+
+
+def service_timings(card, store2, codec_names):
+    """Loopback round trips to a store process under json, tlv and the
+    binary codec negotiated here (msgpack where it is installed),
+    ``SERVICE_RTT_REQS`` each: version, an add (no refit), a batch of
+    ``SERVICE_BATCH`` adds, a kernel_db request of ``SERVICE_PUTS``
+    puts."""
+    import numpy as np
+    from repro_torch.service import SocketTransport, dispatch
+    host, port = dispatch.parse_tcp_address(store2)
+    rng = np.random.RandomState(0)
+    prof = [float(x) for x in rng.randn(58)]
+    add = {"op": "add", "profile": prof, "workload": "rtt",
+           "sys_config": {"remat": "none", "microbatches": 1,
+                          "precision": "fp32"},
+           "objective": 0.5, "refit": False}
+    reqs = [("version", {"op": "version"}), ("add", add),
+            (f"batch of {SERVICE_BATCH} adds",
+             {"op": "batch", "requests": [add] * SERVICE_BATCH}),
+            (f"kernel_db of {SERVICE_PUTS} puts",
+             {"op": "kernel_db", "puts": [
+                 {"kernel": "rglru", "shape": f"rtt{i}",
+                  "hardware": "cuda/rtt", "config": {"chunk": 64,
+                                                     "r_block": 128},
+                  "objective": 0.25} for i in range(SERVICE_PUTS)]})]
+    out = {}
+    for wire in ("json", "tlv", "binary"):
+        t = SocketTransport(host, port, wire=wire)
+        name = t.codec_name
+        if name in codec_names:         # binary is tlv without msgpack
+            t.close()
+            continue
+        codec_names.append(name)
+        for what, req in reqs:
+            med, p10, p90 = rtt_us(t, req, SERVICE_RTT_REQS)
+            out[(name, what)] = med
+            print(f"[service] {card} | loopback {name} {what}: median "
+                  f"{med:.1f} us (p10 {p10:.1f}, p90 {p90:.1f}) over "
+                  f"{SERVICE_RTT_REQS} requests", flush=True)
+        t.close()
+    return out
+
+
+def service_lenet(card, tune_launch, dev, store, store2, w1, w2, coord,
+                  procs):
+    """Runs 1 and 2 of [service]: PipeTune on lenet-mnist in process
+    twice, on one remote worker, then elastic over both workers with one
+    killed mid-job. Returns (the remote run, the store's op counts)."""
+    from repro_torch import service as service_lib
+    from repro_torch.obs import events as events_lib
+    from repro_torch.service import dispatch, get_codec
+    job = SERVICE_JOB + ([] if dev == "cuda" else ["--device", dev])
+
+    # 1. in process twice (the second against a store process, counting
+    # the lookups that cost a round trip) while both workers warm up, then
+    # on one remote worker
+    threads, walls = warm_workers(dev, [w1, w2])
+    a, wall_a, _ = run_tune_launch(tune_launch, job + ["--store", "inproc"])
+    ops = {}
+    request = service_lib.SocketTransport.request
+
+    def counted(self, req):
+        ops[req.get("op")] = ops.get(req.get("op"), 0) + 1
+        return request(self, req)
+    service_lib.SocketTransport.request = counted
+    try:
+        b, wall_b, _ = run_tune_launch(tune_launch,
+                                       job + ["--store", store2])
+    finally:
+        service_lib.SocketTransport.request = request
+    for t in threads:
+        t.join(timeout=SERVICE_START_S)
+    check(len(walls) == 2, f"a worker's warm-up trial did not end: {walls}")
+    print(f"[service] {card} | warm-up: one lenet trial on each worker, "
+          f"both at once, beside the in-process runs: "
+          f"{', '.join(f'{w} {s:.2f} s' for w, s in walls.items())}",
+          flush=True)
+    lookups = b.gt_hits + b.gt_misses
+    fetches = ops.get("snapshot", 0)
+    print(f"[service] {card} | piggyback: {lookups} lookups of the second "
+          f"in-process run took {fetches} model fetches; "
+          f"{1 - fetches / max(lookups, 1):.3f} of them cost no round "
+          f"trip (store ops {ops})", flush=True)
+    c, wall_c, printed = run_tune_launch(
+        tune_launch, job + ["--store", store, "--workers", w1])
+    print(f"[service] remote run printed: "
+          f"{' | '.join(printed.splitlines()[1:])}", flush=True)
+    bad, same, d_ab, d_ca = records_rule(a.records, b.records, c.records)
+    hits = [(t, r.gt_hit) for t, r in sorted(c.records.items())]
+    print(f"[service] {card} | lenet PipeTune hyperband: in process "
+          f"{wall_a:.2f} s and {wall_b:.2f} s, one remote worker "
+          f"{wall_c:.2f} s; {len(c.records)} trials, ground truth "
+          f"{c.gt_hits} / {c.gt_misses} (in process {a.gt_hits} / "
+          f"{a.gt_misses}, {b.gt_hits} / {b.gt_misses}); {same} values "
+          f"equal in both in-process runs; in-process distance {d_ab:.3e}, "
+          f"remote against in-process {d_ca:.3e} (limit: equal where the "
+          f"in-process runs are, else within {SERVICE_RATIO:.0f}x)",
+          flush=True)
+    check(not bad and sorted(c.records) == sorted(a.records),
+          f"remote records differ from in-process: {bad[:5]}")
+    check(all(r.remote for r in c.records.values()),
+          "a trial of the remote run ran in process")
+    check((c.gt_hits, c.gt_misses) == (a.gt_hits, a.gt_misses)
+          or (a.gt_hits, a.gt_misses) != (b.gt_hits, b.gt_misses),
+          f"hit/miss {c.gt_hits}/{c.gt_misses} against "
+          f"{a.gt_hits}/{a.gt_misses}")
+    # planted fault: a worker returning one accuracy moved by one ulp
+    fa, fb, fc = (flat_records(r.records) for r in (a, b, c))
+    keys = [k for k in fa if k[1] == "accuracy" and k in fb and k in fc
+            and bits_equal(fa[k], fb[k]) and bits_equal(fa[k], fc[k])]
+    check(keys, "no accuracy that both in-process runs agree on: the "
+          "one-ulp fault has nowhere to be caught")
+    tid, _, epoch = keys[0]
+    faulty = moved_one_ulp(c.records, keys[0], get_codec("binary"))
+    fbad, _, _, _ = records_rule(a.records, b.records, faulty)
+    moved_to = faulty[tid].epochs[epoch].accuracy
+    print(f"[service] planted fault (a worker returns {keys[0]} one ulp "
+          f"up, {fa[keys[0]]!r} -> {moved_to!r}, by "
+          f"{moved_to - fa[keys[0]]:.3e}): {len(fbad)} value(s) caught",
+          flush=True)
+    check(len(fbad) == 1, "the records check misses a one-ulp fault")
+    sizes = {name: sorted(len(get_codec(name).encode(
+        dispatch.record_to_payload(r))) for r in c.records.values())
+        for name in ("json", "binary")}
+    print(f"[service] {card} | record payload bytes (median, largest over "
+          f"{len(c.records)} records): json {sizes['json'][len(c.records)//2]}"
+          f", {sizes['json'][-1]}; {get_codec('binary').name} "
+          f"{sizes['binary'][len(c.records)//2]}, {sizes['binary'][-1]}",
+          flush=True)
+
+    # 2. elastic over both workers; SIGKILL the second at its first
+    # dispatch after a trial has completed
+    events, state = [], {"done": 0, "killed": None}
+
+    def sink(rec):
+        events.append(rec)
+        if rec["kind"] == "trial_completed":
+            state["done"] += 1
+        elif (rec["kind"] == "trial_dispatched" and rec["worker"] == w2
+              and state["done"] and state["killed"] is None):
+            procs["w2"].kill()
+            state["killed"] = time.perf_counter()
+    bus = events_lib.EventBus()
+    bus.add_sink(sink)
+    prev = events_lib.set_bus(bus)
+    try:
+        e, wall_e, _ = run_tune_launch(
+            tune_launch, job + ["--store", store, "--coordinator", coord])
+    finally:
+        events_lib.set_bus(prev)
+    procs["w2"].wait(timeout=10)
+    kinds = [ev["kind"] for ev in events]
+    retired = [ev for ev in events if ev["kind"] == "worker_retired"]
+    moved = [ev for ev in events if ev["kind"] == "resharded"]
+    done = [ev for ev in events if ev["kind"] == "trial_completed"]
+    sent = [ev for ev in events if ev["kind"] == "trial_dispatched"]
+    joined = sorted({ev["worker"] for ev in events
+                     if ev["kind"] == "worker_joined"})
+    after = [ev for ev in done if retired and ev["seq"] > retired[0]["seq"]
+             and ev["trial_id"] in {m["trial_id"] for m in moved}]
+    when = ("at its first dispatch after a completion" if state["killed"]
+            else "never")
+    print(f"[service] {card} | elastic lenet PipeTune over {joined}: "
+          f"{wall_e:.2f} s, {len(e.records)} trials, ground truth "
+          f"{e.gt_hits} / {e.gt_misses}; {w2} killed {when}; retired "
+          f"{[(r['worker'], r['reason']) for r in retired]}, {len(moved)} "
+          f"trial(s) re-placed on {sorted({m['dst'] for m in moved})} and "
+          f"completed there {sorted({ev['worker'] for ev in after})}; "
+          f"{len(sent)} dispatches, {len(done)} completions", flush=True)
+    check(state["killed"] is not None, "the second worker was never killed")
+    check([(r["worker"], r["reason"]) for r in retired] ==
+          [(w2, "worker_lost")] or [r["worker"] for r in retired] == [w2],
+          f"retirements {retired}")
+    check(moved and all(m["dst"] == w1 for m in moved),
+          f"re-placements {moved}")
+    check(after and all(ev["worker"] == w1 for ev in after),
+          "the killed worker's trials did not finish on the other")
+    check(all(ev["error"] is None for ev in done)
+          and len(done) == len(sent) - len(moved),
+          f"proposals did not complete exactly once: {len(done)} "
+          f"completions of {len(sent)} dispatches, {len(moved)} re-placed")
+    check(all(r.epochs for r in e.records.values()) and "worker_joined"
+          in kinds, "an elastic trial has no epochs")
+    return c, wall_c, wall_e
+
+
+def one_lenet_trial(dev, worker=None):
+    """Wall seconds of one TuneV1 lenet trial of 2 epochs of 8 steps, in
+    process or on the worker at address `worker`."""
+    from repro_torch.api import Experiment, RemoteWorker, WorkerPoolExecutor
+    from repro_torch.core.job import HPTJob, Param, SearchSpace
+    job = HPTJob(workload="lenet-mnist", space=SearchSpace(
+        [Param("batch_size", "choice", choices=(64,)),
+         Param("learning_rate", "log", 0.01, 0.1)]), max_epochs=2)
+    ex = None if worker is None else WorkerPoolExecutor(
+        [RemoteWorker(worker)])
+    t0 = time.perf_counter()
+    try:
+        (Experiment(job).with_tuner("v1")
+         .with_backend("real", n_train=1024, n_eval=256, steps_per_epoch=8,
+                       device=dev)
+         .with_scheduler("random", n_trials=1).run(executor=ex))
+    finally:
+        if ex is not None:
+            ex.close()
+    return time.perf_counter() - t0
+
+
+def warm_workers(dev, workers):
+    """One lenet trial on each worker, all at once, in threads: a worker
+    process's first trial pays its CUDA context and first kernels. Returns
+    the threads and a dict that gets each worker's wall seconds."""
+    import threading
+    walls = {}
+
+    def warm(w):
+        walls[w] = one_lenet_trial(dev, w)
+    threads = [threading.Thread(target=warm, args=(w,), daemon=True)
+               for w in workers]
+    for t in threads:
+        t.start()
+    return threads, walls
+
+
+def service_one_trial(card, dev, w1):
+    """One lenet trial of 2 epochs, remote on the first worker and in
+    process, SERVICE_ONE_TRIAL_REPS times each (median wall seconds)."""
+    import numpy as np
+    remote, local = [], []
+    for _ in range(SERVICE_ONE_TRIAL_REPS):
+        remote.append(one_lenet_trial(dev, w1))
+        local.append(one_lenet_trial(dev))
+    r, l_ = float(np.median(remote)), float(np.median(local))
+    print(f"[service] {card} | one lenet trial (2 epochs of 8 steps): "
+          f"remote {r * 1e3:.1f} ms, in process {l_ * 1e3:.1f} ms (medians "
+          f"of {SERVICE_ONE_TRIAL_REPS}: {[round(x * 1e3, 1) for x in remote]}"
+          f", {[round(x * 1e3, 1) for x in local]}); dispatch cost "
+          f"{(r - l_) * 1e3:.1f} ms a trial", flush=True)
+
+
+def service_lm(card, counters, fa, fa_bwd, dev):
+    """Run 3 of [service]: the LM example's backend at [lmtune]'s
+    full-width qwen3-0.6b shape on a worker served in this process; a
+    RemoteWorker runs SERVICE_LM_TRIALS trials. Returns B1-B3 launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.api import (Experiment, RemoteWorker,
+                                 WorkerPoolExecutor, registry)
+    from repro_torch.core.job import HPTJob, Param, SearchSpace
+    from repro_torch.service import TrialWorkerService, serve_worker
+    example = load_example("torch_tune_llm_sysparams")
+    Counted = counted_lm_backend(example, fa, fa_bwd)
+
+    class Wire(Counted):
+        log = []
+
+        def _cfg(self):
+            return configs.get(LM_FULL_ARCH)
+    space = registry.default_sys_space("lm")     # as the example registered
+    registry.register_backend("lm-wire", Wire, sys_space=lambda **_: space)
+    job = HPTJob(workload=LM_FULL_ARCH, space=SearchSpace(
+        [Param("learning_rate", "log", 1e-4, 1e-2)]), max_epochs=1)
+
+    def run(executor=None):
+        return (Experiment(job).with_tuner("v1")
+                .with_backend("lm-wire", steps_per_epoch=SERVICE_LM_STEPS,
+                              device=dev)
+                .with_scheduler("random", n_trials=SERVICE_LM_TRIALS)
+                .run(executor=executor))
+    svc = TrialWorkerService()
+    server = serve_worker(svc, port=0, background=True)
+    addr = "tcp://127.0.0.1:%d" % server.server_address[1]
+    reset_all(counters)
+    t0 = time.perf_counter()
+    try:
+        ex = WorkerPoolExecutor([RemoteWorker(addr)])
+        try:
+            remote = run(ex)
+        finally:
+            ex.close()
+    finally:
+        server.shutdown()
+        svc.close()
+        svc.runner = None           # the trials' states, on the card
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    counts = read_all(counters)
+    per = lm_launches(Wire.log, f"wire {LM_FULL_ARCH}", card, tag="service")
+    total = tuple(sum(v[i] for v in per.values()) for i in range(3))
+    check(total == (counts["B1"], counts["B2"], counts["B3"]) and total[0]
+          and counts["B4"] == counts["B5"] == 0
+          and sum(steps for _, _, steps, _, _ in Wire.log)
+          == SERVICE_LM_TRIALS * SERVICE_LM_STEPS,
+          f"LM over the wire: launches {counts} against the epochs' {total}")
+    direct = [run(), run()]
+    bad, same, d_ab, d_ca = records_rule(direct[0].records,
+                                         direct[1].records, remote.records)
+    print(f"[service] {card} | LM over the wire: {SERVICE_LM_TRIALS} "
+          f"trials of {SERVICE_LM_STEPS} steps at full-width "
+          f"{LM_FULL_ARCH} in {wall:.2f} s, losses "
+          f"{[round(-r.accuracy, 4) for r in remote.records.values()]}; "
+          f"launches {counts}; {same} values equal in both direct runs, "
+          f"direct distance {d_ab:.3e}, remote against direct {d_ca:.3e}",
+          flush=True)
+    check(not bad and all(r.remote for r in remote.records.values()),
+          f"LM records over the wire differ from direct runs: {bad[:5]}")
+    del remote, direct
+    return total
+
+
+def service_kernels(card, counters, tune, findb, groundtruth, dev, store,
+                    journal):
+    """Run 4 of [service]: the kernel tuner times B5 into the live store;
+    a second run answers from the store; both launchers' --kernel-db
+    install the store's rows, from the store and from its journal.
+    Returns (B5 launches, B1-B3 launches of the two train runs)."""
+    import io
+    import torch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.service import SocketTransport, StoreClient, dispatch
+    hw = findb.hardware_key(torch.device(dev))
+    dev_args = [] if dev == "cuda" else ["--device", dev]
+    prev = findb.set_find_db(groundtruth.KernelConfigDB())
+    try:
+        summaries = []
+        for _ in range(2):
+            findb.set_find_db(groundtruth.KernelConfigDB())
+            reset_all(counters)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                tune.main(["tune", "--workload", RGLRU_WORKLOAD, "--store",
+                           store, *dev_args])
+            smry = json.loads(out.getvalue())[0]
+            summaries.append((smry, read_all(counters),
+                              time.perf_counter() - t0))
+        (cold, cold_n, cold_s), (warm, warm_n, warm_s) = summaries
+        with StoreClient(SocketTransport(
+                *dispatch.parse_tcp_address(store))) as client:
+            rows = client.kernel_export()
+        print(f"[service] {card} | kernels.tune --store: {cold['trials']} "
+              f"trials in {cold_s:.2f} s, stored {cold['config']} under "
+              f"{cold['hardware']}, B5 launches {cold_n['B5']} (kernel "
+              f"calls {cold['kernel_calls'].get('rglru')}); again: "
+              f"{warm['source']}, {warm['trials']} trials, launches "
+              f"{warm_n} in {warm_s:.2f} s; the store holds {rows}",
+              flush=True)
+        grid = tune.kernel_space(*tune.parse_workload(RGLRU_WORKLOAD))
+        check(cold["source"] == "tuned"
+              and cold["trials"] == len(grid.grid())
+              and cold_n["B5"] == cold["kernel_calls"]["rglru"] > 0
+              and cold_n["B4"] == 0, f"tuning into the store: {cold_n}")
+        check(warm["source"] == "find-db" and warm["trials"] == 0
+              and not any(warm_n.values())
+              and warm["config"] == cold["config"],
+              f"the second run re-tuned: {warm}, {warm_n}")
+        check(rows and all(r["hardware"] == hw for r in rows),
+              f"store rows {rows}, hardware key {hw}")
+        installed, train_counts = [], []
+        for spec in (store, str(journal)):
+            findb.set_find_db(groundtruth.KernelConfigDB())
+            reset_all(counters)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = train_launch.main(["--arch", ARCH, "--steps", "1",
+                                         "--batch", "1", "--seq", "128",
+                                         "--kernel-db", spec, *dev_args])
+            counts = read_all(counters)
+            first = out.getvalue().splitlines()[0]
+            installed.append(findb.get_find_db().rows())
+            train_counts.append(counts)
+            print(f"[service] launch.train --kernel-db {spec}: {first} "
+                  f"({res.kernel_db_rows} rows; loss {res.losses[-1]:.4f}; "
+                  f"launches {counts})", flush=True)
+            check(res.kernel_db_rows == len(rows) and first.startswith(
+                f"kernel find-db: {len(rows)} tuned configs"), first)
+        check(installed[0] == installed[1] == rows,
+              f"--kernel-db rows differ: {installed}")
+    finally:
+        findb.set_find_db(prev)
+    b123 = tuple(sum(c[k] for c in train_counts) for k in ("B1", "B2", "B3"))
+    return cold_n["B5"], b123
+
+
+def service_restart(card, groundtruth, store, journal, procs):
+    """Run 5 of [service]: SIGKILL the store, restart it from its journal;
+    its snapshot must equal the one before, bit for bit. Planted: a
+    journal missing one entry, and one with a corrupt line mid-way."""
+    from repro_torch.service import GroundTruthService, get_codec
+    before, snap = store_snapshot(store)
+    procs["store"].kill()
+    procs["store"].wait(timeout=10)
+    t0 = time.perf_counter()
+    procs["store_restart"] = start_server(
+        ["repro_torch.service", "--port", "0", "--journal", str(journal)],
+        "store_restart")
+    addr = server_addr(procs["store_restart"], "ground-truth service on")
+    up_s = time.perf_counter() - t0
+    after, _ = store_snapshot(addr)
+    lines = journal.read_text().splitlines(keepends=True)
+    adds = [i for i, line in enumerate(lines) if '"op": "add"' in line]
+    print(f"[service] {card} | store restart: {snap['n_entries']} entries, "
+          f"{len(lines) - len(adds)} kernel rows, journal "
+          f"{journal.stat().st_size} bytes; the new process served in "
+          f"{up_s:.2f} s; snapshot {len(before)} tlv bytes, equal bit for "
+          f"bit: {before == after}", flush=True)
+    check(before == after, "the restarted store's snapshot differs")
+    check(adds, "the journal holds no entry to leave out")
+    # planted: a restart missing one entry
+    missing = SERVICE_ROOT / "missing.jsonl"
+    missing.write_text("".join(line for i, line in enumerate(lines)
+                               if i != adds[len(adds) // 2]))
+    svc = GroundTruthService(path=str(missing))
+    try:
+        fault, fsnap = service_snapshot_bytes(
+            svc.handle({"op": "snapshot"}),
+            svc.handle({"op": "kernel_db", "export": True})["entries"],
+            get_codec("tlv"))
+    finally:
+        svc.close()
+    print(f"[service] planted fault (a restart missing one entry): "
+          f"{fsnap['n_entries']} entries against {snap['n_entries']}, "
+          f"snapshot equal: {fault == before}", flush=True)
+    check(fault != before, "the restart check misses a lost entry")
+    # planted: a journal with one corrupt line in the middle
+    corrupt = SERVICE_ROOT / "corrupt.jsonl"
+    mid = len(lines) // 2
+    corrupt.write_text("".join(lines[:mid]) + lines[mid][:-10] + "}\n"
+                       + "".join(lines[mid + 1:]))
+    try:
+        GroundTruthService(path=str(corrupt)).close()
+        raised = None
+    except groundtruth.GroundTruthError as err:
+        raised = str(err)
+    print(f"[service] planted fault (a corrupt line {mid + 1} of "
+          f"{len(lines)}): replay raised: {raised!r:.160}", flush=True)
+    check(raised is not None and f"record {mid + 1}" in raised,
+          "the replay accepted a corrupt journal")
+
+
+def phase_service(counters, card, fa, fa_bwd, tune, findb, groundtruth,
+                  dev="cuda"):
+    """The tuning service on the card (see the module doc, 15)."""
+    import torch
+    from repro_torch.launch import tune as tune_launch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SERVICE_ROOT, ignore_errors=True)
+    SERVICE_ROOT.mkdir(parents=True)
+    journal = SERVICE_ROOT / "store.jsonl"
+    procs = {}
+    try:
+        procs["store"] = start_server(["repro_torch.service", "--port", "0",
+                                       "--journal", str(journal)], "store")
+        procs["store2"] = start_server(["repro_torch.service", "--port",
+                                        "0"], "store2")
+        procs["coord"] = start_server(["repro_torch.coordinator", "--port",
+                                       "0", "--ttl", "10"], "coord")
+        store = server_addr(procs["store"], "ground-truth service on")
+        coord = server_addr(procs["coord"], "coordinator on")
+        dev_args = [] if dev == "cuda" else ["--device", dev]
+        for name in ("w1", "w2"):       # the card by default
+            procs[name] = start_server(
+                ["repro_torch.worker", "--port", "0", "--backend", "real",
+                 "--store", store, "--announce", coord, *dev_args], name)
+        store2 = server_addr(procs["store2"], "ground-truth service on")
+        w1, w2 = (server_addr(procs[n], "trial worker on")
+                  for n in ("w1", "w2"))
+        for n in ("w1", "w2"):
+            server_line(procs[n], "announced to")
+        print(f"[service] store {store} (journal), store {store2}, "
+              f"coordinator {coord}, workers {w1} and {w2} up in "
+              f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+        reset_all(counters)
+        c, wall_c, wall_e = service_lenet(card, tune_launch, dev, store,
+                                          store2, w1, w2, coord, procs)
+        counts = read_all(counters)
+        check(not any(counts.values()), f"lenet launched {counts}")
+        print(f"[service] {card} | job wall: one remote worker "
+              f"{wall_c:.2f} s, elastic with a kill {wall_e:.2f} s",
+              flush=True)
+        service_one_trial(card, dev, w1)
+        codecs = []
+        service_timings(card, store2, codecs)
+        b123_wire = service_lm(card, counters, fa, fa_bwd, dev)
+        b5, b123_train = service_kernels(card, counters, tune, findb,
+                                         groundtruth, dev, store, journal)
+        service_restart(card, groundtruth, store, journal, procs)
+    finally:
+        stop_servers(list(procs.values()))
+    shutil.rmtree(SERVICE_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[service] phase {phase_s:.1f} s (limit "
+          f"{SERVICE_PHASE_LIMIT_S:.0f} s); codecs {codecs}", flush=True)
+    check(phase_s < SERVICE_PHASE_LIMIT_S,
+          f"the service phase took {phase_s:.1f} s")
+    return {"B1": b123_wire[0] + b123_train[0],
+            "B2": b123_wire[1] + b123_train[1],
+            "B3": b123_wire[2] + b123_train[2], "B4": 0, "B5": b5}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5127,6 +5838,18 @@ def main() -> int:
         device_lib.resolve("cuda")
         lane_probe(sys.argv[2], int(sys.argv[3]), card)
         return 0
+    counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
+                ("B3", fa_bwd, "launches_dkv"), ("B4", ml, "launches"),
+                ("B5", rg, "launches")]
+    if sys.argv[1:2] == ["--service"]:
+        print(f"[card] {card}", flush=True)
+        device_lib.resolve("cuda")
+        t0 = time.perf_counter()
+        build.build()
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps(phase_service(counters, card, fa, fa_bwd, tune,
+                                       findb, groundtruth)), flush=True)
+        return 0
     idle_w = power_draw_w()
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -5152,9 +5875,6 @@ def main() -> int:
           f"ms/step at batch {REQUESTS})", flush=True)
     del res
     torch.cuda.empty_cache()
-    counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
-                ("B3", fa_bwd, "launches_dkv"), ("B4", ml, "launches"),
-                ("B5", rg, "launches")]
     archs_launches = phase_archs(fa, fa_bwd, serve, steps, card)
     hybrid_serve_b1, hybrid_train_counts = phase_hybrid(fa, fa_bwd, steps,
                                                         card)
@@ -5189,6 +5909,8 @@ def main() -> int:
     lm_counts = phase_lmtune(counters, card, fa, fa_bwd)
     phase_lmprofile(card)
     phase_trainstep(counters, card, tune, findb, groundtruth)
+    service_counts = phase_service(counters, card, fa, fa_bwd, tune, findb,
+                                   groundtruth)
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]
@@ -5211,6 +5933,7 @@ def main() -> int:
          "launches_ckpt": ckpt_counts[0],
          "launches_ckpt_resume": resume_counts[0],
          "launches_dist": dist_counts[0],
+         "launches_service": service_counts["B1"],
          "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
@@ -5223,6 +5946,7 @@ def main() -> int:
          "launches_ckpt": ckpt_counts[1],
          "launches_ckpt_resume": resume_counts[1],
          "launches_dist": dist_counts[1],
+         "launches_service": service_counts["B2"],
          "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
          **bwd_timing["B2"], **hybrid_rows("B2", rg_errs[0][0])},
@@ -5235,6 +5959,7 @@ def main() -> int:
          "launches_ckpt": ckpt_counts[2],
          "launches_ckpt_resume": resume_counts[2],
          "launches_dist": dist_counts[2],
+         "launches_service": service_counts["B3"],
          "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
                  **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),
@@ -5245,6 +5970,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/mlstm.py:27",
          "launches": tune_counts["B4"],
          "launches_ssm": sum(c["B4"] for c in ssm_counts[:2]),
+         "launches_service": service_counts["B4"],
          "ssm_plain_mlstm_ms": ssm_counts[2],
          "max_abs_err": mlstm_errs["full_c128"],
          **rec_timing[("mlstm", "tuned")]},
@@ -5253,6 +5979,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/rglru.py:24",
          "launches": tune_counts["B5"],
          "launches_ssm": sum(c["B5"] for c in ssm_counts[:2]),
+         "launches_service": service_counts["B5"],
          "max_abs_err": rglru_errs["full"],
          **rec_timing[("rglru", "tuned")]}]
     print(json.dumps({"kernels": kernels}))

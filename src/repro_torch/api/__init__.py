@@ -1,6 +1,6 @@
 """Experiment API of the port: the ``Experiment`` facade, the name
-registries, the executors and the Backend and Worker protocols of
-``repro.api``, holding what the port has.
+registries, the executors (remote, sharded and elastic ones among them)
+and the Backend and Worker protocols of ``repro.api``.
 
     from repro_torch.api import Experiment
     res = (Experiment(job).with_tuner("pipetune").with_backend("sim")
@@ -9,12 +9,12 @@ registries, the executors and the Backend and Worker protocols of
 from repro_torch.api.backend import (  # noqa: F401
     Backend, BackendCapabilities, backend_capabilities)
 from repro_torch.api.executor import (  # noqa: F401
-    ClusterTrialExecutor, ParallelTrialExecutor, SerialTrialExecutor,
-    WorkerPoolExecutor)
+    ClusterTrialExecutor, ElasticWorkerPoolExecutor, ParallelTrialExecutor,
+    SerialTrialExecutor, ShardedTrialExecutor, WorkerPoolExecutor)
 from repro_torch.api.experiment import Experiment  # noqa: F401
 from repro_torch.api.worker import (  # noqa: F401
-    EngineWorker, InprocWorker, ThreadWorker, TrialCompletion, Worker,
-    WorkerCapabilities, WorkerPool)
+    EngineWorker, InprocWorker, RemoteWorker, ThreadWorker, TrialCompletion,
+    Worker, WorkerCapabilities, WorkerLostError, WorkerPool)
 from repro_torch.api.registry import (  # noqa: F401
     available_backends, available_executors, available_schedulers,
     available_tuners, default_sys_space, make_backend, make_executor,

@@ -20,8 +20,8 @@ is. ``run`` returns the runner's ``JobResult``. Trials run on the serial
 executor, on N thread lanes (``run(parallelism=N)``; on the card each lane
 has its own CUDA stream), on the simulated cluster
 (``with_executor("cluster")``) or on any executor given by name or
-instance. The reference's ``remote_runner_spec`` (the recipe remote workers
-mirror the runner from) is ROADMAP queue A, item 12.
+instance; an executor with remote workers gets ``remote_runner_spec``, the
+recipe its workers mirror the runner from.
 """
 from __future__ import annotations
 
@@ -132,6 +132,35 @@ class Experiment:
                                    sys_space=self.resolved_sys_space(),
                                    groundtruth=self._groundtruth, **kw)
 
+    def remote_runner_spec(self) -> Optional[Dict[str, Any]]:
+        """The recipe remote workers use to mirror this experiment's runner
+        (tuner/backend registry names + kwargs). None when the tuner or
+        backend is an instance, or a custom system space is set — none of
+        those can travel over the wire, and a worker quietly substituting
+        its own defaults would merge wrong scores (the executor raises
+        instead). When the ground-truth client reaches a TCP store, its
+        address rides along so every worker shares the same
+        ``GroundTruthService``. Elastic pools (``--coordinator``) keep the
+        spec and hand it to every worker that joins mid-run."""
+        tuner, tuner_kw = self._tuner
+        backend, backend_kw = self._backend
+        if not isinstance(tuner, str) or not isinstance(backend, str) or \
+                self._sys_space is not None:
+            return None
+        addr = getattr(getattr(self._groundtruth, "transport", None),
+                       "addr", None)
+        if self._groundtruth is not None and addr is None:
+            # an in-proc store (or bare GroundTruth) cannot be reached from
+            # another process: shipping the spec without it would quietly
+            # split the tuning state between local and remote stores
+            return None
+        spec: Dict[str, Any] = {"tuner": tuner, "tuner_kw": dict(tuner_kw),
+                                "backend": backend,
+                                "backend_kw": dict(backend_kw)}
+        if addr is not None:
+            spec["store"] = f"tcp://{addr[0]}:{addr[1]}"
+        return spec
+
     def build_executor(self, parallelism: int = 1):
         """Resolve the configured executor: ``with_executor`` name/instance,
         falling back to serial (or thread lanes for `parallelism` > 1)."""
@@ -175,6 +204,11 @@ class Experiment:
         elif isinstance(executor, str):
             executor = registry.make_executor(executor)
             owned = True
+        # executors carrying remote workers mirror the runner out of process:
+        # hand them the recipe unless they were built with an explicit one
+        configure = getattr(executor, "configure_runner_spec", None)
+        if configure is not None:
+            configure(self.remote_runner_spec())
         try:
             return runner.run_job(self.job, scheduler=scheduler,
                                   executor=executor, **kw)

@@ -5,12 +5,11 @@ as in ``repro.api.registry``, holding what the port has:
     backends    real (TorchRealBackend), sim (SimBackend), numeric
                 (TorchNumericBackend), kernel-tune
     tuners      v1 (tunev1), v2 (tunev2), pipetune
-    executors   serial, parallel, cluster, workers (local members)
+    executors   serial, parallel, cluster, sharded, workers (local and
+                remote members, or an elastic roster)
 
-A name the reference registers and the port does not yet (``sharded``)
-raises a ``KeyError`` that lists the registered names and the
-ROADMAP item that brings it. Third-party code
-extends the port by registering a factory:
+An unknown name raises a ``KeyError`` that lists the registered names.
+Third-party code extends the port by registering a factory:
 
     from repro_torch.api import register_backend
     register_backend("my-cluster", MyBackend, sys_space=my_system_space)
@@ -62,9 +61,7 @@ _EXECUTORS: Dict[str, Callable[..., Any]] = {}
 
 # names the reference registers that the port does not have yet, and the
 # ROADMAP item (queue A) that brings each
-_LATER = {
-    "executor": {"sharded": "12 (Tuning service and wire protocol)"},
-}
+_LATER: Dict[str, Dict[str, str]] = {}
 
 
 def _lookup(table: Dict[str, Any], kind: str, name: str):
@@ -109,7 +106,12 @@ def make_scheduler(name: str, job: HPTJob, **kw) -> AskTellScheduler:
 
 
 def make_backend(name: str, **kw):
-    return _lookup(_BACKENDS, "backend", name)["factory"](**kw)
+    return backend_factory(name)(**kw)
+
+
+def backend_factory(name: str) -> Callable[..., Any]:
+    """The factory registered for backend `name`."""
+    return _lookup(_BACKENDS, "backend", name)["factory"]
 
 
 def default_sys_space(name: str, **backend_kw) -> Optional[SystemSpace]:
@@ -229,31 +231,55 @@ def _make_cluster_executor(cluster=None, default_sys=None, **kw):
                                 **kw)
 
 
-def _make_workers_executor(workers=None, sticky=True, coordinator=None):
-    """Composable pool of local workers: each entry of `workers` is a
-    Worker instance, ``"inproc"``, or a backend registry name (an
-    in-process shard pinned to a backend built with its defaults). Remote
-    members (``tcp://HOST:PORT``) and the elastic ``coordinator`` are
-    ROADMAP queue A, item 12."""
+def _make_sharded_executor(backends=None, capacity=1, default_sys=None, **kw):
+    # registry-name backends ("sim", "real", ...) resolve through
+    # make_backend inside the executor; same default-config charging
+    # convention as "cluster"
+    from repro_torch.service.sharded import ShardedTrialExecutor
+    if default_sys is None:
+        default_sys = SIM_SYS_DEFAULT
+    return ShardedTrialExecutor(backends=backends, capacity=capacity,
+                                default_sys=default_sys, **kw)
+
+
+def _make_workers_executor(workers=None, runner_spec=None, sticky=True,
+                           coordinator=None, refresh_s=0.5,
+                           join_timeout_s=60.0, **worker_kw):
+    """Composable worker pool: each entry of `workers` is a Worker
+    instance, ``tcp://HOST:PORT`` of a running ``python -m
+    repro_torch.worker``, ``"inproc"``, or a backend registry name (a local
+    in-process shard pinned to a backend built with its defaults).
+    `worker_kw` (connect_timeout, connect_retries, retry_backoff_s, wire)
+    passes through to remote workers.
+
+    ``coordinator`` (tcp://HOST:PORT of a running ``python -m
+    repro_torch.coordinator``) makes the pool *elastic*: the roster of
+    announced workers is synced between waves — joins are dialed as remote
+    workers, leaves/missed heartbeats retire them and re-place their
+    trials. The static `workers` entries (may be empty) are kept alongside.
+    """
     from repro_torch.core.worker import InprocWorker, WorkerPoolExecutor
-    item12 = ("ROADMAP queue A, item 12 (Tuning service and wire "
-              "protocol)")
-    if coordinator is not None:
-        raise NotImplementedError(
-            f"the elastic coordinator is not ported yet: {item12}")
     resolved = []
-    for spec in (workers if workers is not None else ["inproc"]):
+    for spec in (workers if workers is not None
+                 else ([] if coordinator else ["inproc"])):
         if not isinstance(spec, str):
             resolved.append(spec)                       # a Worker instance
         elif spec.startswith("tcp://"):
-            raise NotImplementedError(
-                f"remote worker {spec!r}: remote workers are not ported "
-                f"yet: {item12}")
+            from repro_torch.service.dispatch import RemoteWorker
+            resolved.append(RemoteWorker(spec, runner_spec=runner_spec,
+                                         **worker_kw))
         elif spec == "inproc":
             resolved.append(InprocWorker())
         else:
             resolved.append(InprocWorker(backend=make_backend(spec),
                                          tag=spec))
+    if coordinator is not None:
+        from repro_torch.service.coordinator import \
+            ElasticWorkerPoolExecutor
+        return ElasticWorkerPoolExecutor(
+            coordinator, workers=resolved, sticky=sticky,
+            refresh_s=refresh_s, runner_spec=runner_spec,
+            join_timeout_s=join_timeout_s, worker_kw=worker_kw)
     return WorkerPoolExecutor(resolved, sticky=sticky)
 
 
@@ -261,4 +287,5 @@ register_executor("serial", lambda: SerialTrialExecutor())
 register_executor("parallel",
                   lambda parallelism=4: ParallelTrialExecutor(parallelism))
 register_executor("cluster", _make_cluster_executor)
+register_executor("sharded", _make_sharded_executor)
 register_executor("workers", _make_workers_executor)

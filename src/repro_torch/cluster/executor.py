@@ -12,8 +12,8 @@ back into when the scheduler hears about each score.
 Like every executor it is a thin placement policy over a worker pool — here
 a pool of exactly one ``repro_torch.cluster.worker.EngineWorker`` whose
 capacity is the node count, with ``_placement`` as the policy hook the
-reference's sharded executor overrides (ROADMAP item 12 in the port). The
-pool supplies both drive modes:
+sharded executor (``repro_torch.service.sharded``) overrides. The pool
+supplies both drive modes:
 
 * ``run_wave`` — barrier semantics, results merged in wave order. With
   faults disabled this is bit-identical to ``SerialTrialExecutor`` on a
@@ -122,8 +122,7 @@ class ClusterTrialExecutor:
     # ------------------------------------------------------------ placement
     def _placement(self, runner, p: TrialProposal):
         """(node tag, backend) for one proposal. The base executor places
-        anywhere and runs on the runner's own backend; the reference's
-        sharded executor (``repro.service.sharded``, ROADMAP item 12 in the
-        port) overrides this to bind each trial to a backend-tagged node
-        group."""
+        anywhere and runs on the runner's own backend; the sharded executor
+        (``repro_torch.service.sharded``) overrides this to bind each trial
+        to a backend-tagged node group."""
         return None, None

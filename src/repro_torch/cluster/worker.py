@@ -10,8 +10,9 @@ scores at their *simulated* completion times.
 
 ``placement`` is the executor's policy hook: ``(runner, proposal) ->
 (node_tag, backend)``. The base cluster executor places anywhere on the
-runner's own backend; the reference's sharded executor (ROADMAP item 12 in
-the port) binds trials to backend-tagged node groups.
+runner's own backend; the sharded executor
+(``repro_torch.service.sharded``) binds trials to backend-tagged node
+groups.
 """
 from __future__ import annotations
 

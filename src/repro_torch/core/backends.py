@@ -14,6 +14,7 @@ TorchRealBackend — trains the paper's small workloads (Table 3) for real on
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -38,6 +39,26 @@ from repro_torch.tree import tree_leaves, tree_map
 # trials likewise all start from one fixed default). PipeTune's probing
 # discovers when the aggressive configs fit and are faster.
 SYS_DEFAULT = {"remat": "block", "microbatches": 4, "precision": "fp32"}
+
+# threads that run their epochs as the main thread does (``serial_lane``)
+_SERIAL = threading.local()
+
+
+@contextlib.contextmanager
+def serial_lane():
+    """Run the calling thread's epochs as a serial run on the main thread
+    does: on the thread's current stream (the default stream, unless the
+    caller entered another), not on a lane stream of its own. A trial
+    worker's RPC handler threads take turns running one trial at a time
+    (``repro_torch.service.worker``); under this context a trial there runs
+    on the stream, and through the step cache, that an in-process trial
+    would."""
+    prev = getattr(_SERIAL, "on", False)
+    _SERIAL.on = True
+    try:
+        yield
+    finally:
+        _SERIAL.on = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,11 +367,12 @@ class TorchRealBackend:
     # ----------------------------------------------------------------- lanes
     def lane_stream(self):
         """The CUDA stream the calling thread's epochs run on (None on the
-        CPU): the current stream on the main thread, a stream of the
-        thread's own on any other."""
+        CPU): the current stream on the main thread and under
+        ``serial_lane``, a stream of the thread's own on any other."""
         if self.device.type != "cuda":
             return None
-        if threading.current_thread() is threading.main_thread():
+        if threading.current_thread() is threading.main_thread() or \
+                getattr(_SERIAL, "on", False):
             return torch.cuda.current_stream(self.device)
         stream = getattr(self._lanes, "stream", None)
         if stream is None:

@@ -11,8 +11,8 @@ As in the reference, the executors are thin placement policies over a
 ``repro_torch.core.worker.WorkerPool``: serial is a pool of one
 ``InprocWorker``, parallel a pool of one ``ThreadWorker`` with N lanes. The
 pool owns the drive loop; see ``repro_torch.core.worker`` for the protocol
-and ``repro_torch.cluster`` for the simulated-cluster executor. The sharded
-executor and remote workers are ROADMAP queue A, item 12.
+and ``repro_torch.cluster`` for the simulated-cluster executor; the sharded
+executor and remote workers live in ``repro_torch.service``.
 
 Reproducibility: on a backend whose capabilities declare ``deterministic``
 (``SimBackend``) and a runner without cross-trial shared state

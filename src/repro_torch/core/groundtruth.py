@@ -93,8 +93,8 @@ class GroundTruthError(RuntimeError):
 class CentroidModel:
     """The pure, immutable lookup state of a fitted store: everything a
     ``lookup`` needs and nothing else, so it can be shipped to remote
-    clients (the tuning service, ROADMAP queue A, item 12) and evaluated
-    there with *identical* arithmetic to a server-side lookup.
+    clients (``repro_torch.service``) and evaluated there with *identical*
+    arithmetic to a server-side lookup.
 
     ``configs[j]`` is the best-objective member config of cluster ``j``.
     """

@@ -19,8 +19,8 @@ Trials run on any executor of ``repro_torch.core.executor`` or
 when lanes run trials concurrently, ``trial_epochs`` lets the cluster
 executor charge each epoch to a simulated node as it happens, and the
 per-trial backend binding keeps a trial on a pinned backend (a local
-shard). ``install_record`` (records from remote workers) is ROADMAP queue
-A, item 12.
+shard), and ``install_record`` adopts a record that a remote worker
+(``repro_torch.service.dispatch``) ran on its own runner.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ class TrialRecord:
     sys_history: List[dict] = dataclasses.field(default_factory=list)
     gt_hit: bool = False
     probe_epochs: int = 0
+    remote: bool = False        # epochs ran on a remote worker's runner
 
     @property
     def accuracy(self) -> float:
@@ -198,6 +199,15 @@ class TrialRunner:
             pass
         return self.records[trial_id]
 
+    def install_record(self, record: TrialRecord) -> None:
+        """Adopt a trial record produced elsewhere (a remote worker ran the
+        epochs on its own runner); job-level bookkeeping — best trial,
+        tuning time, energy, ground-truth counters — then sees it like any
+        locally-run trial."""
+        record.remote = True
+        with self._hook_lock:
+            self.records[record.trial_id] = record
+
     # -- job level -----------------------------------------------------------
     def run_job(self, job: HPTJob,
                 scheduler: Union[str, AskTellScheduler] = "hyperband",
@@ -245,6 +255,18 @@ class TrialRunner:
                            key=lambda r: r.score(self.objective),
                            default=None)
             gt = getattr(self, "groundtruth", None)
+            gt_hits = gt.hits if gt is not None else 0
+            gt_misses = gt.misses if gt is not None else 0
+            if gt is not None:
+                # trials that ran on remote workers did their store lookups
+                # out of process (one per trial, after its profiling epoch),
+                # so the local client never saw them; their records carry
+                # the outcome home (a mixed local + remote pool adds both)
+                remote = [r for r in self.records.values()
+                          if r.remote and r.epochs]
+                hits = sum(1 for r in remote if r.gt_hit)
+                gt_hits += hits
+                gt_misses += len(remote) - hits
             return JobResult(
                 best_hparams=best_hp or {}, best_score=best_score,
                 best_record=best_rec,
@@ -253,8 +275,7 @@ class TrialRunner:
                 wall_time_s=time.monotonic() - t0,
                 energy_j=sum(r.energy for r in self.records.values()),
                 records=dict(self.records),
-                gt_hits=gt.hits if gt is not None else 0,
-                gt_misses=gt.misses if gt is not None else 0,
+                gt_hits=gt_hits, gt_misses=gt_misses,
                 sim_time_s=float(getattr(executor, "sim_now", 0.0)))
         finally:
             if executor_owned:
@@ -320,9 +341,11 @@ class PipeTune(TrialRunner):
       after probing     lock argmin(objective); store profile->config
 
     ``groundtruth`` is a store client: anything implementing the
-    ``lookup``/``add``/``hits``/``misses`` surface; a bare ``GroundTruth``
-    is the in-process store (the shared store service is ROADMAP queue A,
-    item 12).
+    ``lookup``/``add``/``hits``/``misses`` surface. A bare ``GroundTruth``
+    is the in-process store; ``repro_torch.service.StoreClient`` reaches a
+    shared ``GroundTruthService`` (in process or over TCP), which is what
+    lets concurrent jobs, sharded backends and separate processes tune
+    against one store (paper §5.4-5.5).
     """
 
     overlap_reconfig = True

@@ -5,10 +5,10 @@ A *worker* is the unit of trial execution —
 
     submit(trial, epochs)   accept one TrialProposal (non-blocking)
     poll(timeout)           completions since the last poll; a positive
-                            timeout may block (thread workers) or advance
-                            simulated time (engine workers)
+                            timeout may block (thread/remote workers) or
+                            advance simulated time (engine workers)
     capabilities()          kind / capacity / simulated / remote
-    close()                 release threads
+    close()                 release threads, sockets
 
 — and every executor is a thin *placement policy* over a ``WorkerPool``:
 which worker gets the next proposal. The pool owns the two drive loops all
@@ -27,10 +27,11 @@ Worker families in the port:
   stream (``TorchRealBackend`` picks the stream per thread).
 * ``EngineWorker`` (``repro_torch.cluster.worker``) — dispatches epochs
   onto simulated cluster nodes on the discrete-event clock.
+* ``RemoteWorker`` (``repro_torch.service.dispatch``) — speaks the
+  trial-dispatch wire protocol to a ``python -m repro_torch.worker``
+  process.
 
-The reference's ``RemoteWorker`` (a trial worker in another process, over
-the wire protocol) and the elastic coordinator are ROADMAP queue A, item
-12 "Tuning service and wire protocol"; distributed tracing is item 13.
+Distributed tracing is ROADMAP queue A, item 13.
 
 Clone requests (``proposal.clone_from``, the PBT exploit) are applied at
 the wave boundary, before any trial of the wave starts, routed to the
@@ -115,13 +116,19 @@ class Worker:
             Tuple[TrialProposal, Optional[int]]]) -> None:
         """Accept a wave's worth of proposals at once. The default just
         loops ``submit``; a worker with a wire between it and the trials
-        (the reference's ``RemoteWorker``) overrides this to pay one
-        round-trip for the whole batch."""
+        (``RemoteWorker``) overrides this to pay one round-trip for the
+        whole batch."""
         for trial, epochs in batch:
             self.submit(trial, epochs)
 
     def poll(self, timeout: float = 0.0) -> List[TrialCompletion]:
         return []
+
+    def poll_many(self, timeout: float = 0.0) -> List[TrialCompletion]:
+        """Drain every ready completion. ``poll`` already returns all
+        completions since the last call, so the default is an alias; it
+        exists on the protocol so batched callers don't assume that."""
+        return self.poll(timeout)
 
     def close(self) -> None:
         pass
@@ -157,7 +164,7 @@ class InprocWorker(Worker):
     """In-process worker on the caller's thread: ``submit`` queues, the
     next ``poll`` runs the queued trials to completion in submission order
     (submit stays non-blocking, so a mixed pool hands the whole wave to its
-    thread workers before local trials start burning the caller's
+    remote/thread workers before local trials start burning the caller's
     thread). ``backend`` pins the worker's trials to a specific backend (a
     local shard in a mixed pool); ``tag`` is a display name for such
     shards."""
@@ -265,19 +272,30 @@ class WorkerPool:
     the survivors, and its sticky bindings migrate (a re-placed trial
     re-runs its epochs on the new worker: state private to the dead worker
     is gone, which on a deterministic backend reproduces the same record).
-    The reference's hooks for remote and elastic pools (retiring a worker
-    whose transport died, a roster-sync ``maintenance`` callback, waiting
-    for a worker to join an empty pool) come with them, ROADMAP item 12;
-    a completion carrying an error raises here.
+
+    A completion carrying an error whose exception is flagged
+    ``worker_lost`` (transport death — see ``repro_torch.service.dispatch``)
+    retires the worker the same way when ``retire_on_error`` is set,
+    instead of killing the run; any other error raises.
+
+    ``maintenance``, when set, is called between waves and whenever the
+    pool blocks for completions — the hook a coordinator-backed executor
+    uses to sync the live roster (joins/leaves) into the pool. An empty
+    pool (``allow_empty``) with a ``maintenance`` hook waits up to
+    ``join_timeout_s`` for a worker to join.
     """
 
-    def __init__(self, workers: Sequence[Worker], sticky: bool = False):
-        if not workers:
+    def __init__(self, workers: Sequence[Worker], sticky: bool = False,
+                 allow_empty: bool = False, join_timeout_s: float = 60.0):
+        if not workers and not allow_empty:
             raise ValueError("need at least one worker")
         self.workers: List[Worker] = list(workers)
         self.sticky = sticky
         self.bus = get_bus()            # telemetry; off until observed
         self.drain_timeout_s = 30.0
+        self.retire_on_error = False
+        self.maintenance: Optional[Any] = None      # no-arg callable
+        self.join_timeout_s = join_timeout_s
         self.dispatched: Dict[int, int] = {}        # id(worker) -> n trials
         self._bindings: Dict[str, Worker] = {}
         self._bound_key: Optional[Tuple[int, str]] = None
@@ -287,6 +305,7 @@ class WorkerPool:
         self._backlog: List[Tuple[TrialProposal, int]] = []
         self._drained: List[TrialCompletion] = []
         self._poll_rr = 0
+        self._stall_t0: Optional[float] = None
 
     # ------------------------------------------------------------- binding
     def bind(self, runner, workload: str) -> None:
@@ -335,10 +354,10 @@ class WorkerPool:
 
     # ----------------------------------------------------- pool membership
     def add_worker(self, worker: Worker) -> None:
-        """Join `worker` mid-run: bound to the current runner/workload (if
-        that raises, the pool is unchanged), then immediately eligible for
-        placement; any backlogged trials (stranded by earlier removals)
-        dispatch to it."""
+        """Join `worker` mid-run: bound to the current runner/workload (may
+        raise — e.g. a remote worker with no runner spec — in which case the
+        pool is unchanged), then immediately eligible for placement; any
+        backlogged trials (stranded by earlier removals) dispatch to it."""
         worker.bus = self.bus
         if self._bound is not None:
             worker.bind(*self._bound)
@@ -348,6 +367,7 @@ class WorkerPool:
             self.bus.emit(WorkerJoined(
                 worker=worker_label(worker), worker_kind=caps.kind,
                 capacity=caps.capacity, speed_factor=caps.speed_factor))
+        self._stall_t0 = None
         backlog, self._backlog = self._backlog, []
         for p, epochs in backlog:
             self._dispatch(p, epochs)
@@ -405,6 +425,7 @@ class WorkerPool:
         regardless of completion order (scheduler decisions never depend on
         scheduling noise)."""
         self.bind(runner, workload)
+        self._maintain()                # pick up joins/leaves between waves
         self._apply_wave_clones(proposals)
         self._dispatch_wave([(p, p.epochs) for p in proposals])
         want = {p.trial_id for p in proposals}
@@ -424,6 +445,7 @@ class WorkerPool:
         while True:
             wave = scheduler.suggest()
             if wave:
+                self._maintain()
                 self._apply_wave_clones(wave)
                 self._dispatch_wave([(p, p.epochs) for p in wave])
                 outstanding.update(p.trial_id for p in wave)
@@ -441,6 +463,10 @@ class WorkerPool:
         for w in self.workers:
             w.close()
 
+    def _maintain(self) -> None:
+        if self.maintenance is not None:
+            self.maintenance()
+
     # ------------------------------------------------------------ internals
     def _dispatch(self, p: TrialProposal, epochs: Optional[int]) -> None:
         epochs = p.epochs if epochs is None else epochs
@@ -456,6 +482,7 @@ class WorkerPool:
         self._inflight[p.trial_id] = (p, epochs)
         self._inflight_worker[p.trial_id] = w
         self.dispatched[id(w)] = self.dispatched.get(id(w), 0) + 1
+        self._stall_t0 = None
         if self.bus.enabled:
             self.bus.emit(TrialDispatched(trial_id=p.trial_id,
                                           worker=worker_label(w),
@@ -508,28 +535,46 @@ class WorkerPool:
     def _absorb(self, worker: Worker, completions: List[TrialCompletion],
                 out: List[TrialCompletion]) -> None:
         """File one worker's poll batch: successes clear their in-flight
-        entry; an error is filed too, and ``_poll_once`` raises it."""
+        entry; a transport-death error retires the worker (when enabled) and
+        re-places its remaining trials instead of surfacing; any other error
+        is filed too, and ``_poll_once`` raises it. Successes are filed
+        first so a batch that completed trials *before* dying doesn't re-run
+        them."""
+        errors = [c for c in completions if c.error is not None]
         for c in completions:
             if c.error is None:
                 self._inflight.pop(c.trial_id, None)
                 self._inflight_worker.pop(c.trial_id, None)
-            out.append(c)
-            if self.bus.enabled:
-                self.bus.emit(TrialCompleted(
-                    trial_id=c.trial_id, worker=worker_label(worker),
-                    score=c.score,
-                    error=None if c.error is None else str(c.error)))
+                out.append(c)
+                if self.bus.enabled:
+                    self.bus.emit(TrialCompleted(trial_id=c.trial_id,
+                                                 worker=worker_label(worker),
+                                                 score=c.score))
+        for c in errors:
+            if self.retire_on_error and \
+                    getattr(c.error, "worker_lost", False):
+                self.remove_worker(worker,      # no-op once removed;
+                                   reason="worker_lost")
+            else:                               # re-places its trials
+                out.append(c)
+                if self.bus.enabled:
+                    self.bus.emit(TrialCompleted(
+                        trial_id=c.trial_id, worker=worker_label(worker),
+                        score=c.score, error=str(c.error)))
 
     def _poll_once(self, block: bool) -> List[TrialCompletion]:
         out, self._drained = self._drained, []
         for w in list(self.workers):
             self._absorb(w, w.poll(), out)
         if not out and block:
+            # sync the roster even while workers are busy: a hung-but-
+            # connected worker never errors its transport, so the only way
+            # its trials get re-placed is the coordinator pruning it
+            self._maintain()
             busy = [w for w in self.workers if w.outstanding]
             if not busy:
-                raise RuntimeError(
-                    "worker pool stalled: trials outstanding but no worker "
-                    "reports work in flight")
+                self._stalled()
+                return out
             # rotate which busy worker eats the blocking poll, so a
             # straggling first worker can't starve completions already
             # sitting in its peers' queues
@@ -545,12 +590,34 @@ class WorkerPool:
                 raise c.error
         return out
 
+    def _stalled(self) -> None:
+        """No worker has work in flight but trials are owed. For an elastic
+        pool (maintenance hook set) with trials backlogged this means
+        'waiting for a worker to join': sync the roster and give it
+        ``join_timeout_s``. Anything else is a real stall."""
+        if self.maintenance is not None and (self._backlog or self._inflight):
+            if self._stall_t0 is None:
+                self._stall_t0 = time.monotonic()
+            if time.monotonic() - self._stall_t0 > self.join_timeout_s:
+                raise RuntimeError(
+                    f"no worker joined the pool within "
+                    f"{self.join_timeout_s:.0f}s with "
+                    f"{len(self._backlog) + len(self._inflight)} trial(s) "
+                    "owed — is the coordinator reachable and are workers "
+                    "announcing to it?")
+            time.sleep(0.05)
+            self._maintain()
+            return
+        raise RuntimeError(
+            "worker pool stalled: trials outstanding but no worker "
+            "reports work in flight")
+
 
 class WorkerPoolExecutor:
-    """Executor over an explicit list of local workers (``InprocWorker``
-    shards pinned to backends, ``ThreadWorker`` lanes, or any ``Worker``):
-    the composition point the reference also uses for remote workers
-    (``--workers tcp://H1:P1,sim``), which are ROADMAP item 12 here.
+    """Executor over an explicit worker list — the composition point for
+    remote workers and local shards (``--workers tcp://H1:P1,sim``):
+    ``RemoteWorker``s, ``InprocWorker`` shards pinned to backends,
+    ``ThreadWorker`` lanes, or any ``Worker``.
 
     Placement is sticky (see ``WorkerPool``): trials land on the
     least-loaded worker (weighted by declared capacity x speed factor) at
@@ -559,12 +626,16 @@ class WorkerPoolExecutor:
     single-worker pool gives the serial executor's results.
 
     The pool is elastic: ``add_worker``/``remove_worker`` reshape it
-    mid-job.
+    mid-job (``repro_torch.service.coordinator.ElasticWorkerPoolExecutor``
+    drives them from a live worker roster).
     """
 
-    def __init__(self, workers: Sequence[Worker], sticky: bool = True):
-        self.pool = WorkerPool(workers, sticky=sticky)
+    def __init__(self, workers: Sequence[Worker], sticky: bool = True,
+                 allow_empty: bool = False):
+        self.pool = WorkerPool(workers, sticky=sticky,
+                               allow_empty=allow_empty)
         self.workers = self.pool.workers
+        self._runner_spec: Optional[dict] = None
 
     @property
     def parallelism(self) -> int:
@@ -592,10 +663,43 @@ class WorkerPoolExecutor:
             "13 (Observability and chaos)")
 
     def configure_runner_spec(self, spec: Optional[dict]) -> None:
-        raise NotImplementedError(
-            "runner specs travel to remote workers, which are not ported "
-            "yet: ROADMAP queue A, item 12 (Tuning service and wire "
-            "protocol)")
+        """Hand workers that mirror the runner remotely the recipe for
+        building it (``Experiment`` calls this with its tuner/backend
+        names); workers constructed with an explicit spec keep theirs.
+        Remote workers left without any spec are a hard error — they would
+        silently run their process's own default tuner/backend and merge
+        wrong scores."""
+        self._runner_spec = dict(spec) if spec else spec  # for late joiners
+        needy = [w for w in self.workers
+                 if getattr(w, "accepts_runner_spec", False) and
+                 w.runner_spec is None]
+        if spec:
+            store = spec.get("store") or ""
+            store_host = store[len("tcp://"):].rsplit(":", 1)[0] \
+                if store.startswith("tcp://") else ""
+            loopback = ("127.0.0.1", "localhost", "::1")
+            for w in needy:
+                if store_host in loopback and \
+                        getattr(w, "address", ("",))[0] not in loopback:
+                    raise ValueError(
+                        f"the ground-truth store is dialed at {store!r} "
+                        f"(loopback), which remote worker "
+                        f"{w.address[0]}:{w.address[1]} cannot reach — "
+                        "point --store at an address routable from the "
+                        "workers")
+                w.runner_spec = dict(spec)
+        elif needy:
+            raise ValueError(
+                "remote workers need a runner spec (tuner/backend registry "
+                "names) to mirror the experiment's runner, and none could "
+                "be derived: the experiment's tuner, backend, or sys_space "
+                "is an instance, or its ground-truth store is not reachable "
+                "over TCP — none of which can travel over the wire. "
+                "Configure tuner/backend by registry name, share state via "
+                "a TCP store (--store tcp://HOST:PORT of a running "
+                "`python -m repro_torch.service`), or build RemoteWorker(..., "
+                "runner_spec=...) explicitly (runner_spec={} opts into the "
+                "worker process's own CLI defaults).")
 
     def run_wave(self, runner, workload: str,
                  proposals: Sequence[TrialProposal]

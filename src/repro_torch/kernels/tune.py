@@ -26,9 +26,13 @@ reference, after ``warmup`` untimed epochs of a new config (the reference
 times its first epoch). The default and the trials' winner are re-timed
 in three interleaved rounds, not two, and the winner is persisted only if
 it beats the default by more than the default's spread over them (the
-reference persists it whatever the margin). The service-backed sources
-(``--store``, ``--journal``, ``import``) wait for the service package
-(item 12).
+reference persists it whatever the margin). Rows go to and come from a
+live store (``--store tcp://HOST:PORT`` of a ``python -m
+repro_torch.service``, one batched ``kernel_db`` round-trip a workload) or
+a stopped service's journal (``--journal``) as well as a golden table;
+``import`` loads a golden table into either. Rows keep the hardware key
+they were tuned under (``cuda/<device name>`` on a card, ``cpu/cpu`` on
+the CPU), so a launcher finds only its own device's rows.
 
 Workload specs
 --------------
@@ -46,12 +50,19 @@ CLI::
     python -m repro_torch.kernels.tune tune --workload train-smoke
     python -m repro_torch.kernels.tune show --golden golden.json
     python -m repro_torch.kernels.tune export --golden golden.json --out copy.json
+    python -m repro_torch.kernels.tune tune --workload rglru-smoke \\
+        --store tcp://HOST:PORT
+    python -m repro_torch.kernels.tune export --journal store.jsonl \\
+        --out golden.json
+    python -m repro_torch.kernels.tune import golden.json \\
+        --store tcp://HOST:PORT
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import os
 import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -107,8 +118,6 @@ BASELINES["train_step"] = {"remat": "none", "microbatches": 1,
 HEADLINE_ROUNDS = 3
 
 _INT_KEYS = ("q_block", "kv_block", "chunk", "r_block", "microbatches")
-
-_ITEM12 = "ROADMAP queue A, item 12 (Tuning service and wire protocol)"
 
 # kernels the port cannot time yet, and why
 _NOT_YET = {
@@ -435,15 +444,17 @@ class VariantTuneV1(TuneV1):
 # ---------------------------------------------------------------------------
 
 def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
-                scheduler: str = "grid", trials: Optional[int] = None,
-                reps: int = 3, warmup: int = 1, seed: int = 0,
+                store=None, scheduler: str = "grid",
+                trials: Optional[int] = None, reps: int = 3,
+                warmup: int = 1, seed: int = 0,
                 device: device_lib.DeviceLike = None, force: bool = False
                 ) -> Dict[str, Any]:
     """Resolve-or-tune one kernel workload; returns a summary dict.
 
-    A find-db hit returns the known-best config with **zero** tuning
-    trials. A miss runs the variant space through the standard
-    ``Experiment`` machinery, persists the winner in ``db`` under the
+    A find-db (or store) hit returns the known-best config with **zero**
+    tuning trials. A miss runs the variant space through the standard
+    ``Experiment`` machinery, persists the stored config in ``db`` (and in
+    ``store`` when given — one batched ``kernel_db`` round-trip) under the
     device's hardware key, and reports tuned-vs-default time (seconds).
     A winner that does not beat the default by more than the default's
     spread (``HEADLINE_ROUNDS`` re-timings) is not persisted: the default
@@ -459,6 +470,11 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
     skey = workload_shape_key(kernel, dims)
     if not force:
         cached = db.get(kernel, skey, hw)
+        if cached is None and store is not None:
+            cached = store.kernel_find(
+                [{"kernel": kernel, "shape": skey, "hardware": hw}])[0]
+            if cached is not None:              # warm the local db too
+                db.put(kernel, skey, cached, hardware=hw)
         if cached is not None:
             return {"workload": workload, "kernel": kernel, "shape": skey,
                     "hardware": hw, "source": "find-db", "trials": 0,
@@ -498,6 +514,9 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
     if default_s <= winner_s * (1.0 + spread):
         cfg, tuned_s = base_cfg, default_s
     db.put(kernel, skey, cfg, hardware=hw, objective=tuned_s)
+    if store is not None:
+        store.kernel_put([{"kernel": kernel, "shape": skey, "hardware": hw,
+                           "config": cfg, "objective": tuned_s}])
     return {"workload": workload, "kernel": kernel, "shape": skey,
             "hardware": hw, "source": "tuned", "trials": len(res.records),
             "config": cfg, "default_s": default_s, "tuned_s": tuned_s,
@@ -508,26 +527,53 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
             "kernel_calls": dict(backend.kernel_calls)}
 
 
+def _store_client(addr: str):
+    from repro_torch.service.dispatch import parse_tcp_address
+    from repro_torch.service.transport import SocketTransport, StoreClient
+    return StoreClient(SocketTransport(*parse_tcp_address(addr)))
+
+
+def _journal_rows(path: str) -> List[dict]:
+    """The find-db rows of a (stopped) service's journal."""
+    from repro_torch.service.service import GroundTruthService
+    if not os.path.isfile(path):        # the service would start one
+        raise GroundTruthError(f"no service journal at {path!r}")
+    svc = GroundTruthService(path=path)
+    try:
+        return svc.kernel_db.rows()
+    finally:
+        svc.close()
+
+
 def install_kernel_db(spec: str,
                       db: Optional[KernelConfigDB] = None) -> int:
-    """Prime a find-db (the process-wide one by default) from a golden
-    table JSON at ``spec``. Returns the number of rows installed. A
-    service journal or a ``tcp://`` store raises: both need the service
-    package."""
+    """Prime a find-db (the process-wide one by default) from ``spec``:
+    a golden table JSON, a service journal (JSONL), or ``tcp://HOST:PORT``
+    of a live store. Returns the number of rows installed."""
     db = db if db is not None else findb.get_find_db()
     if spec.startswith("tcp://"):
-        raise NotImplementedError(
-            f"{spec}: a live store (tcp://) needs the service package, "
-            f"which the port does not have yet ({_ITEM12}); use a golden "
-            "table")
+        with _store_client(spec) as client:
+            return db.merge_rows(client.kernel_export())
     try:
         rows = load_golden(spec)
-    except GroundTruthError as e:
-        raise NotImplementedError(
-            f"{e}. A service journal needs the service package, which the "
-            f"port does not have yet ({_ITEM12}); use a golden table") \
-            from None
+    except GroundTruthError as golden_err:      # not a table: a journal?
+        try:
+            rows = _journal_rows(spec)
+        except GroundTruthError:                # neither format
+            raise golden_err from None
     return db.merge_rows(rows)
+
+
+def _rows_from_source(args) -> List[dict]:
+    if getattr(args, "store", None):
+        with _store_client(args.store) as client:
+            return client.kernel_export()
+    if getattr(args, "journal", None):
+        return _journal_rows(args.journal)
+    if getattr(args, "golden", None):
+        return load_golden(args.golden)
+    raise SystemExit("need a source: --store tcp://HOST:PORT, "
+                     "--journal PATH, or --golden PATH")
 
 
 def main(argv=None) -> int:
@@ -546,6 +592,8 @@ def main(argv=None) -> int:
                    help="trial budget (random scheduler)")
     t.add_argument("--reps", type=int, default=3)
     t.add_argument("--warmup", type=int, default=1)
+    t.add_argument("--store", default=None, metavar="tcp://HOST:PORT",
+                   help="also look up and persist winners in a live store")
     t.add_argument("--golden", default=None, metavar="PATH",
                    help="also write/refresh a golden table at PATH")
     t.add_argument("--force", action="store_true",
@@ -555,9 +603,19 @@ def main(argv=None) -> int:
 
     e = sub.add_parser("export", help="dump a golden config table")
     e.add_argument("--out", required=True, metavar="PATH")
+    e.add_argument("--store", default=None, metavar="tcp://HOST:PORT")
+    e.add_argument("--journal", default=None, metavar="PATH")
     e.add_argument("--golden", default=None, metavar="PATH")
 
+    i = sub.add_parser("import", help="load a golden table into a store")
+    i.add_argument("golden_file", metavar="GOLDEN.json")
+    i.add_argument("--store", default=None, metavar="tcp://HOST:PORT")
+    i.add_argument("--journal", default=None, metavar="PATH",
+                   help="journal file of a (stopped) service to append to")
+
     s = sub.add_parser("show", help="print find-db rows")
+    s.add_argument("--store", default=None, metavar="tcp://HOST:PORT")
+    s.add_argument("--journal", default=None, metavar="PATH")
     s.add_argument("--golden", default=None, metavar="PATH")
 
     args = ap.parse_args(argv)
@@ -570,26 +628,46 @@ def main(argv=None) -> int:
                 db.merge_rows(load_golden(args.golden))
             except GroundTruthError:           # no table yet: a fresh one
                 pass
-        summaries = [tune_kernel(w, db=db, scheduler=args.scheduler,
-                                 trials=args.trials, reps=args.reps,
-                                 warmup=args.warmup, force=args.force,
-                                 device=dev)
-                     for w in specs]
+        store = _store_client(args.store) if args.store else None
+        try:
+            summaries = [tune_kernel(w, db=db, store=store,
+                                     scheduler=args.scheduler,
+                                     trials=args.trials, reps=args.reps,
+                                     warmup=args.warmup, force=args.force,
+                                     device=dev)
+                         for w in specs]
+        finally:
+            if store is not None:
+                store.close()
         if args.golden:
             export_golden(db.rows(), args.golden)
         json.dump(summaries, sys.stdout, indent=1, sort_keys=True)
         sys.stdout.write("\n")
         return 0
-    if not args.golden:
-        raise SystemExit("need a source: --golden PATH (--store and "
-                         "--journal need the service package, which the "
-                         f"port does not have yet: {_ITEM12})")
-    rows = load_golden(args.golden)
     if args.cmd == "export":
-        n = export_golden(rows, args.out)
+        n = export_golden(_rows_from_source(args), args.out)
         print(f"exported {n} entries -> {args.out}")
         return 0
-    json.dump(rows, sys.stdout, indent=1, sort_keys=True)
+    if args.cmd == "import":
+        rows = load_golden(args.golden_file)
+        if args.store:
+            with _store_client(args.store) as client:
+                n = client.kernel_put(rows)
+            print(f"imported {len(rows)} entries -> {args.store} "
+                  f"(store now holds {n})")
+        elif args.journal:
+            from repro_torch.service.service import GroundTruthService
+            svc = GroundTruthService(path=args.journal)
+            resp = svc.handle({"op": "kernel_db", "puts": rows})
+            svc.close()
+            if not resp.get("ok"):
+                raise SystemExit(f"import failed: {resp.get('error')}")
+            print(f"imported {len(rows)} entries -> {args.journal} "
+                  f"(journal now holds {resp['n_kernel_entries']})")
+        else:
+            raise SystemExit("need a destination: --store or --journal")
+        return 0
+    json.dump(_rows_from_source(args), sys.stdout, indent=1, sort_keys=True)
     sys.stdout.write("\n")
     return 0
 

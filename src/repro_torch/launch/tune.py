@@ -8,6 +8,8 @@ counterpart of ``repro.launch.tune``.
         --system pipetune --scheduler hyperband --epochs 9 --parallelism 4
     PYTHONPATH=src python -m repro_torch.launch.tune --backend numeric \\
         --workload jacobi-rodinia --scheduler random [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.tune --store tcp://H:P \\
+        [--workers tcp://H:P2,... | --coordinator tcp://H:P3]
 
 Tuners, backends, and schedulers resolve through the ``repro_torch.api``
 registries — ``--system``/``--backend``/``--scheduler`` accept anything
@@ -20,10 +22,11 @@ unless ``--device cpu`` is given) goes to the real and numeric backends;
 ``--backend sim`` models the epochs and touches no device. The executor
 flags and ``--kernel-db`` (installed before the first trial, so the real
 backend's trials pick up tuned ``train_step`` configs for the sys keys a
-tuner leaves unset) are ``launch.sysargs``'s. PipeTune tunes against a
-fresh in-process ground-truth store. Not ported yet: the store flags
-``--store``, ``--gt-store`` and ``--store-reset`` (ROADMAP queue A, item
-12).
+tuner leaves unset) are ``launch.sysargs``'s, and so are the store flags:
+``--store inproc`` (the default: a fresh in-process
+``GroundTruthService``, journaled to ``--gt-store`` when given) or
+``--store tcp://HOST:PORT`` of a ``python -m repro_torch.service`` that
+remote workers (``--workers tcp://...``, ``--coordinator``) share.
 """
 from __future__ import annotations
 
@@ -35,12 +38,12 @@ from typing import Optional, Sequence
 from repro_torch.api import (Experiment, available_backends,
                              available_executors, available_schedulers,
                              available_tuners)
-from repro_torch.core.groundtruth import GroundTruth
 from repro_torch.core.job import HPTJob, Param, SearchSpace
 from repro_torch.core.pipetune import JobResult
 from repro_torch.launch.sysargs import (add_executor_args, add_kernel_db_arg,
-                                        executor_from_args,
-                                        install_kernel_db_from_args)
+                                        add_store_args, executor_from_args,
+                                        install_kernel_db_from_args,
+                                        store_client_from_args)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> JobResult:
@@ -55,6 +58,7 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
     ap.add_argument("--backend", default="real",
                     help=f"backend name; registered: {available_backends()}")
     add_executor_args(ap)   # --executor / --parallelism / --cluster-nodes
+    add_store_args(ap)      # --store / --gt-store / --store-reset
     add_kernel_db_arg(ap)   # --kernel-db: tuned kernel configs
     ap.add_argument("--device", default=None,
                     help="device the real and numeric backends run on: "
@@ -89,14 +93,23 @@ def main(argv: Optional[Sequence[str]] = None) -> JobResult:
            .with_tuner(args.system, **tuner_kw)
            .with_backend(args.backend, **backend_kw)
            .with_scheduler(args.scheduler, **sched_kw))
-    if args.system == "pipetune":
-        # only attach a store when the tuner consumes one
-        exp = exp.with_groundtruth(GroundTruth())
-    executor = executor_from_args(args)
+    store = None
+    if args.system == "pipetune" or args.store != "inproc" or \
+            args.gt_store or args.store_reset:
+        # only attach a store client when the tuner consumes one (or the
+        # user asked for a specific store): a v1 job with remote workers
+        # must not trip over a ground-truth client it would never use
+        store = store_client_from_args(args)
+        exp = exp.with_groundtruth(store)
     try:
-        res = exp.run(executor=executor)
+        executor = executor_from_args(args)
+        try:
+            res = exp.run(executor=executor)
+        finally:
+            executor.close()
     finally:
-        executor.close()
+        if store is not None:
+            store.close()
 
     print(f"workload={args.workload} system={args.system} "
           f"scheduler={args.scheduler} "

@@ -239,7 +239,10 @@ def test_untunable_workloads_name_their_roadmap_item(spec, match,
     else:
         with pytest.raises(ValueError, match=match):
             tune.tune_kernel(spec, db=tgt.KernelConfigDB(), device="cpu")
-    with pytest.raises(NotImplementedError, match="service.*item 12"):
+    # a tcp:// spec now reaches the service package: a store that is not
+    # there raises naming its address
+    from repro_torch.service import TransportError
+    with pytest.raises(TransportError, match="127.0.0.1:1"):
         tune.install_kernel_db("tcp://127.0.0.1:1")
 
 
@@ -372,14 +375,38 @@ def test_kernel_db_flag_installs_a_golden_table(tmp_path, monkeypatch,
     assert explicit.sys_config == {**TUNED, "microbatches": 1}
 
 
-def test_kernel_db_flag_refuses_a_journal_and_a_live_store(tmp_path,
-                                                           monkeypatch):
+def test_kernel_db_flag_installs_a_journal_and_a_live_store(
+        tmp_path, monkeypatch, capsys):
+    """--kernel-db takes a service journal and a live store as well as a
+    golden table: each installs the same rows; a corrupt journal raises
+    and installs nothing."""
     from repro_torch.launch import train as train_launch
-    monkeypatch.setattr(findb, "_active_db", tgt.KernelConfigDB())
+    from repro_torch.service import GroundTruthService, serve
     journal = tmp_path / "journal.jsonl"
-    journal.write_text(json.dumps({"op": "kernel_put"}) + "\n")
-    for spec in (str(journal), "tcp://127.0.0.1:1"):
-        with pytest.raises(NotImplementedError, match="service.*item 12"):
-            train_launch.main(["--arch", "qwen3-0.6b-reduced", "--steps",
-                               "1", "--device", "cpu", "--kernel-db", spec])
+    golden = tmp_path / "golden.json"
+    _train_step_golden(golden, TUNED)
+    rows = tgt.load_golden(str(golden))
+    svc = GroundTruthService(path=str(journal))
+    assert svc.handle({"op": "kernel_db", "puts": rows})["ok"]
+    server = serve(svc, port=0, background=True)
+    addr = "tcp://127.0.0.1:%d" % server.server_address[1]
+    try:
+        for spec in (str(journal), addr):
+            monkeypatch.setattr(findb, "_active_db", tgt.KernelConfigDB())
+            res = train_launch.main([
+                "--arch", "qwen3-0.6b-reduced", "--steps", "1", "--batch",
+                "2", "--seq", "16", "--device", "cpu", "--kernel-db", spec])
+            assert res.kernel_db_rows == 1
+            assert f"kernel find-db: 1 tuned configs from {spec}" in \
+                capsys.readouterr().out
+            assert findb.get_find_db().rows() == rows
+    finally:
+        server.shutdown()
+        svc.close()
+    bad = tmp_path / "bad.jsonl"
+    bad.write_text(json.dumps({"op": "kernel_put"}) + "\n")
+    monkeypatch.setattr(findb, "_active_db", tgt.KernelConfigDB())
+    with pytest.raises(tgt.GroundTruthError):
+        train_launch.main(["--arch", "qwen3-0.6b-reduced", "--steps", "1",
+                           "--device", "cpu", "--kernel-db", str(bad)])
     assert findb.get_find_db().rows() == []

@@ -176,9 +176,9 @@ def test_clone_trial_shares_no_tensor():
 
 
 # The cases of names that the tuning-loop slice (real, pipetune, v2), the
-# parallel-execution slice (sim, parallel) and the Type-III slice (numeric)
-# brought keep their ids and now assert that the name builds; sim and
-# parallel also run one wave.
+# parallel-execution slice (sim, parallel), the Type-III slice (numeric) and
+# the tuning-service slice (sharded) brought keep their ids and now assert
+# that the name builds; sim, parallel and sharded also run one wave.
 @pytest.mark.parametrize("kind,name,item", [
     pytest.param("backend", "sim", None, id="backend-sim-2b"),
     pytest.param("backend", "real", None, id="backend-real-2b"),
@@ -186,7 +186,7 @@ def test_clone_trial_shares_no_tensor():
     pytest.param("tuner", "pipetune", None, id="tuner-pipetune-2b"),
     pytest.param("tuner", "v2", None, id="tuner-v2-2b"),
     pytest.param("executor", "parallel", None, id="executor-parallel-2b"),
-    ("executor", "sharded", "12")])
+    pytest.param("executor", "sharded", None, id="executor-sharded-12")])
 def test_missing_names_list_registered_and_roadmap_item(kind, name, item):
     from repro_torch.api import registry
     space = tjob.SystemSpace(remat=("none",), microbatches=(1,),
@@ -203,14 +203,16 @@ def test_missing_names_list_registered_and_roadmap_item(kind, name, item):
                                         "numeric": "TorchNumericBackend",
                                         "sim": "SimBackend",
                                         "parallel": "ParallelTrialExecutor",
+                                        "sharded": "ShardedTrialExecutor",
                                         "pipetune": "PipeTune",
                                         "v2": "TuneV2"}[name]
         assert name in getattr(registry, f"available_{kind}s")()
-        if name in ("sim", "parallel"):
+        if name in ("sim", "parallel", "sharded"):
             # one wave of two trials: the sim backend under the serial
-            # executor, the stub backend on two lanes
+            # executor, the stub backend on two lanes or on the runner's
+            # own backend as the sharded executor's one shard
             runner = TuneV1(built if name == "sim" else StubBackend("port"))
-            ex = built if name == "parallel" else registry.make_executor(1)
+            ex = built if name != "sim" else registry.make_executor(1)
             wave = [tsched.TrialProposal(f"t{i}", hp, 2) for i, hp in
                     enumerate(({"x": 0.2, "lr": 0.01, "width": 3,
                                 "act": "relu", "batch_size": 64},

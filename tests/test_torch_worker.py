@@ -11,7 +11,8 @@
 - Concurrent ``get_step`` calls build each step once.
 - A sticky ``WorkerPoolExecutor`` over ``InprocWorker(backend=...)`` shards
   keeps each trial, its rung resumes and its clones on one shard.
-- What the port leaves to ROADMAP items 12 and 13 raises and names them.
+- The executors and launcher flags of the tuning service (ROADMAP item
+  12) build and run; what the port leaves to item 13 raises and names it.
 """
 import re
 import threading
@@ -424,23 +425,13 @@ def test_later_items_stand_in_the_roadmap():
         for note in kind.values():
             num, title = re.match(r"(\d+) \((.+)\)$", note).groups()
             assert _item_title(num) == title
-    assert _item_title(12) == "Tuning service and wire protocol"
     assert _item_title(13) == "Observability and chaos"
 
 
 @pytest.mark.parametrize("make,exc,item", [
-    (lambda: registry.make_executor("sharded"), KeyError, 12),
-    (lambda: registry.make_executor("workers",
-                                    workers=["tcp://127.0.0.1:7078"]),
-     NotImplementedError, 12),
-    (lambda: registry.make_executor("workers", coordinator="tcp://h:1"),
-     NotImplementedError, 12),
     (lambda: tapi.WorkerPoolExecutor([tworker.InprocWorker()])
-     .enable_trace(), NotImplementedError, 13),
-    (lambda: tapi.WorkerPoolExecutor([tworker.InprocWorker()])
-     .configure_runner_spec({}), NotImplementedError, 12)],
-    ids=["sharded", "tcp-worker", "coordinator", "enable-trace",
-         "runner-spec"])
+     .enable_trace(), NotImplementedError, 13)],
+    ids=["enable-trace"])
 def test_unported_executors_name_their_item(make, exc, item):
     with pytest.raises(exc) as err:
         make()
@@ -448,20 +439,133 @@ def test_unported_executors_name_their_item(make, exc, item):
     assert f"item {item}" in msg and _item_title(item) in msg
 
 
+@pytest.fixture
+def sim_worker():
+    """A trial worker serving in this process (sim defaults) and a
+    coordinator it announces to: (worker address, coordinator address)."""
+    from repro_torch.service import (CoordinatorService, TrialWorkerService,
+                                     WorkerAnnouncer, serve_coordinator,
+                                     serve_worker)
+    coord = serve_coordinator(CoordinatorService(ttl_s=5.0), port=0,
+                              background=True)
+    caddr = "tcp://127.0.0.1:%d" % coord.server_address[1]
+    service = TrialWorkerService()
+    server = serve_worker(service, port=0, background=True)
+    waddr = "tcp://127.0.0.1:%d" % server.server_address[1]
+    announcer = WorkerAnnouncer(caddr, address=waddr)
+    announcer.start()
+    yield waddr, caddr
+    announcer.stop()
+    server.shutdown()
+    service.close()
+    coord.shutdown()
+
+
+def _sim_records(res):
+    return {t: ([e.accuracy for e in r.epochs], r.sys_history, r.gt_hit)
+            for t, r in res.records.items()}
+
+
+def _sim_job(epochs=6):
+    return HPTJob(workload="lenet-mnist", space=SearchSpace([
+        Param("batch_size", "choice", choices=(32, 64, 256, 1024)),
+        Param("learning_rate", "log", 0.001, 0.1)]), max_epochs=epochs)
+
+
+# The executors that raised naming ROADMAP item 12 keep their ids here and
+# now run a TuneV1 sim job: the records equal the serial executor's.
+@pytest.mark.parametrize("case", ["sharded", "tcp-worker", "coordinator",
+                                  "runner-spec"])
+def test_item12_executors_run_jobs(case, sim_worker):
+    waddr, caddr = sim_worker
+    exp = tapi.Experiment(_sim_job()).with_tuner("v1").with_backend("sim")
+    serial = exp.run()
+    if case == "runner-spec":
+        # an instance backend cannot travel: no spec, and a remote worker
+        # without one is refused before any trial runs
+        ex = tapi.WorkerPoolExecutor([tapi.RemoteWorker(waddr)])
+        try:
+            with pytest.raises(ValueError, match="runner spec"):
+                (tapi.Experiment(_sim_job()).with_tuner("v1")
+                 .with_backend(tsim.SimBackend()).run(executor=ex))
+            ex.configure_runner_spec({"tuner": "v1", "backend": "sim"})
+            assert ex.workers[0].runner_spec == {"tuner": "v1",
+                                                 "backend": "sim"}
+            res = exp.run(executor=ex)
+        finally:
+            ex.close()
+    else:
+        kw = {"sharded": dict(backends=["sim", "sim"]),
+              "tcp-worker": dict(workers=[waddr]),
+              "coordinator": dict(coordinator=caddr)}[case]
+        name = "sharded" if case == "sharded" else "workers"
+        ex = registry.make_executor(name, **kw)
+        try:
+            res = exp.run(executor=ex)
+            if case == "coordinator":
+                assert [w.address for w in ex.workers] == \
+                    [("127.0.0.1", int(waddr.rsplit(":", 1)[1]))]
+        finally:
+            ex.close()
+    assert _sim_records(res) == _sim_records(serial)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--trace", "run.jsonl"], 13),
-    (["--backends", "sim,sim"], 12),
-    (["--shard-capacity", "2"], 12),
-    (["--coordinator", "tcp://h:1"], 12),
-    (["--wire", "json"], 12),
-    (["--workers", "tcp://127.0.0.1:7078"], 12)],
-    ids=["trace", "backends", "shard-capacity", "coordinator", "wire",
-         "tcp-workers"])
+    (["--trace", "run.jsonl"], 13)], ids=["trace"])
 def test_launcher_flags_of_later_items_raise(flags, item):
     with pytest.raises((NotImplementedError, KeyError)) as err:
         tune_launch.main(["--backend", "sim", "--epochs", "3", *flags])
     msg = str(err.value)
     assert f"item {item}" in msg and _item_title(item) in msg
+
+
+def _launcher_lines(main, argv, capsys):
+    """What a launcher prints, without its energy line (the port's H100
+    power model differs from the reference's TPU constants) and without
+    the executor line."""
+    main() if argv is None else main(argv)
+    return [line for line in capsys.readouterr().out.splitlines()
+            if "energy" not in line and "executor=" not in line]
+
+
+# The launcher flags that raised naming ROADMAP item 12 keep their ids and
+# now run the sim launcher: the sharded flags print the reference's
+# launcher's numbers for the same flags, the wire and worker flags the
+# serial launcher's (the reference's numbers: tests/test_torch_cluster.py).
+@pytest.mark.parametrize("flags", [
+    ["--executor", "sharded", "--backends", "sim,sim"],
+    ["--executor", "sharded", "--shard-capacity", "2"],
+    ["--coordinator", "COORD"],
+    ["--store", "STORE", "--wire", "json"],
+    ["--workers", "WORKER"]],
+    ids=["backends", "shard-capacity", "coordinator", "wire",
+         "tcp-workers"])
+def test_launcher_flags_of_item12_work(flags, sim_worker, capsys,
+                                       monkeypatch):
+    from repro_torch.service import GroundTruthService, serve
+    import repro.launch.tune as jtune_launch
+    waddr, caddr = sim_worker
+    svc = GroundTruthService()
+    store = serve(svc, port=0, background=True)
+    saddr = "tcp://127.0.0.1:%d" % store.server_address[1]
+    base = ["--backend", "sim", "--system", "pipetune", "--scheduler",
+            "hyperband", "--epochs", "9"]
+    flags = [{"COORD": caddr, "STORE": saddr, "WORKER": waddr}.get(f, f)
+             for f in flags]
+    if "--store" not in flags and "sharded" not in flags:
+        flags += ["--store", saddr]     # remote workers share the store
+    try:
+        got = _launcher_lines(tune_launch.main, base + flags, capsys)
+    finally:
+        store.shutdown()
+        svc.close()
+    if "sharded" in flags:
+        monkeypatch.setattr("sys.argv", ["tune", *base, *flags])
+        want = _launcher_lines(jtune_launch.main, None, capsys)
+    else:
+        want = _launcher_lines(tune_launch.main, base, capsys)
+    assert got == want
+    assert any("ground truth" in line for line in got)
 
 
 def test_launcher_flag_conflicts_are_errors():
