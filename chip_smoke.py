@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --lane-probe [REPS]   # the [parallel] lanes only
+    python3 chip_smoke.py --service | --obs     # one phase alone
 
 Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
@@ -322,6 +323,28 @@ Phases (any failure raises, and the script exits non-zero):
      centroid model and kernel rows equal the ones before, bit for bit; a
      restart missing one entry and a journal with a corrupt line mid-way
      must be caught. Within ``SERVICE_PHASE_LIMIT_S``.
+ 16. observability and chaos (``[obs]``): three stores, a coordinator and
+     two real trial workers (on the card), each a ``python -m`` process on
+     port 0, a warm-up trial each. PipeTune hyperband on lenet-mnist
+     (``SERVICE_JOB``) through ``launch.tune --coordinator``: untraced,
+     then with ``--trace`` (the driver bus served by ``serve_obs`` and
+     scraped every ``OBS_SCRAPE_S``: each scrape's counters equal the
+     trace's records up to its seq, and the last the bus's), then
+     untraced again; and on one worker (``--workers``, a fresh store in
+     this process each) twice untraced and once traced, whose records
+     must equal the untraced under ``[service]``'s rule. ``python -m
+     repro_torch.obs analyze`` on the elastic trace: one trace id,
+     records from the driver, both workers and the store, one segment a
+     dispatch, 0 orphans, 0 forward drops; its breakdown (compute, queue
+     wait, rpc + codec, store waits, per-worker busy and idle) adds up
+     against the trace's wall, which lies within the job's. Planted: a
+     forwarded batch dropped (its receipt flagged), a driver's dispatch
+     lost (an orphan flagged), a torn last line (tolerated, counted).
+     Then ``python -m repro_torch.obs chaos sigkill_worker --trace
+     --json`` (sim backend, its own worker processes) passes its SLOs;
+     its artifact re-judged by ``_evaluate`` passes, and with one
+     accuracy one ulp up fails. B1-B5 launch 0. Within
+     ``OBS_PHASE_LIMIT_S``.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
 ``launches_vlm`` and ``vlm`` timing rows and their ``launches_ckpt``,
 ``launches_ckpt_resume``, ``launches_dist`` and ``launches_service``, B4
@@ -329,7 +352,8 @@ and B5 with their ``launches_ssm`` and ``launches_service``), the card
 line, and last ``{"ok": true, "device": {...}}``.
 
 ``--service`` builds the kernels and runs ``[service]`` alone, printing
-its launches as JSON.
+its launches as JSON; ``--obs`` runs ``[obs]`` alone (it builds nothing:
+no kernel runs in it).
 ``--train-child LAYERS ARGS`` (used by [ckpt]) runs
 ``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
 prints its start step, losses, step times and B1-B3 launches as JSON.
@@ -5156,18 +5180,19 @@ SERVICE_START_S = 120.0         # bound on a server's first lines
 SERVICE_PHASE_LIMIT_S = 120.0
 
 
-def start_server(args, name):
+def start_server(args, name, logs=None):
     """``python -m <args>`` from the repo's root with ``src`` on the path,
-    its output in ``SERVICE_ROOT/<name>.log``; never a fork of this
-    process, which holds a CUDA context."""
+    its output in ``<logs>/<name>.log`` (``SERVICE_ROOT`` by default);
+    never a fork of this process, which holds a CUDA context."""
     root = Path(__file__).resolve().parent
-    log = open(SERVICE_ROOT / f"{name}.log", "w")
+    logs = SERVICE_ROOT if logs is None else logs
+    log = open(logs / f"{name}.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", *args], stdout=log, stderr=subprocess.STDOUT,
         cwd=str(root), env={**__import__("os").environ,
                             "PYTHONPATH": str(root / "src")})
     log.close()
-    proc.log = SERVICE_ROOT / f"{name}.log"
+    proc.log = logs / f"{name}.log"
     return proc
 
 
@@ -5804,6 +5829,409 @@ def phase_service(counters, card, fa, fa_bwd, tune, findb, groundtruth,
             "B3": b123_wire[2] + b123_train[2], "B4": 0, "B5": b5}
 
 
+OBS_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "obs"
+OBS_SCENARIO = "sigkill_worker"
+OBS_CHAOS_TIMEOUT_S = 100.0     # bound on the chaos subprocess
+OBS_SCRAPE_S = 0.25             # interval of the live endpoint scrapes
+OBS_SKEW_S = 0.005              # slack on times two clocks of one host give
+# 75.4 s alone on an NVIDIA H100 80GB HBM3 at 700 W (servers 18.5 s,
+# warm-up 18.8 s, the lenet jobs 13 s, chaos 24.8 s)
+OBS_PHASE_LIMIT_S = 120.0
+
+
+def obs_scraped(bus_box, scrapes, stop):
+    """``repro_torch.obs.sinks.attach_trace`` as the launcher calls it for
+    ``--trace``, plus an obs endpoint on the bus it attaches and a thread
+    that scrapes the endpoint's ``counters`` every ``OBS_SCRAPE_S`` until
+    `stop` is set: each scrape lands in `scrapes` as (seq, counters)."""
+    import threading
+    from repro_torch.obs import metrics, sinks
+    attach = sinks.attach_trace
+
+    def scrape(addr):
+        client = metrics.ObsClient(addr)
+        try:
+            while not stop.is_set():
+                resp = client._request({"op": "counters"})
+                scrapes.append((resp["seq"], resp["counters"]))
+                stop.wait(OBS_SCRAPE_S)
+        finally:
+            client.close()
+
+    def attach_scraped(bus, path):
+        sink = attach(bus, path)
+        server = metrics.serve_obs(bus, port=0, background=True)
+        bus_box["bus"], bus_box["server"] = bus, server
+        bus_box["addr"] = f"tcp://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=scrape, args=(bus_box["addr"],),
+                                  daemon=True)
+        thread.start()
+        bus_box["thread"] = thread
+        return sink
+    return attach_scraped
+
+
+def obs_traced_job(tune_launch, argv, path):
+    """``launch.tune.main(argv + ["--trace", path])`` with the driver
+    bus's endpoint scraped during the run. Returns (result, wall seconds,
+    the scrapes, the bus's counters after the run, the endpoint's last
+    answer)."""
+    import threading
+    from repro_torch.obs import metrics, sinks
+    box, scrapes, stop = {}, [], threading.Event()
+    attach = sinks.attach_trace
+    sinks.attach_trace = obs_scraped(box, scrapes, stop)
+    try:
+        res, wall, _ = run_tune_launch(tune_launch, argv + ["--trace", path])
+    finally:
+        sinks.attach_trace = attach
+        stop.set()
+    check("bus" in box, "--trace attached no bus")
+    box["thread"].join(timeout=10)
+    client = metrics.ObsClient(box["addr"])
+    try:
+        last = client.counters()
+        text = client.metrics()
+    finally:
+        client.close()
+        box["server"].shutdown()
+    with box["bus"]._lock:
+        counters = dict(box["bus"].counters)
+    return res, wall, scrapes, counters, (last, text)
+
+
+def obs_analyze(path):
+    """``python -m repro_torch.obs analyze PATH``, as a table and as JSON:
+    (exit code, table, report)."""
+    root = Path(__file__).resolve().parent
+    env = {**__import__("os").environ, "PYTHONPATH": str(root / "src")}
+    out = []
+    for extra in ([], ["--json"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "analyze", str(path),
+             *extra], capture_output=True, text=True, cwd=str(root),
+            env=env, timeout=60)
+        out.append(proc)
+    report = json.loads(out[1].stdout) if out[1].returncode == 0 else None
+    return out[0].returncode, out[0].stdout + out[0].stderr, report
+
+
+def obs_source(rec):
+    """Whose record: the driver's own ("driver"; "other" for what the
+    driver emits naming a peer, such as a clock sample), or the process
+    that forwarded it to the driver's collector (it keeps its seq as
+    rseq): a worker's address, or "store"."""
+    if "rseq" not in rec:
+        return "driver" if rec.get("proc") == "driver" else "other"
+    proc = str(rec.get("proc"))
+    return "store" if proc.startswith("store@") else proc
+
+
+def obs_timeline(card, path, res, wall, w1, w2, scrapes, counters, last):
+    """The traced elastic job's checks: one merged timeline from the
+    driver, both workers and the store; its breakdown; the live endpoint's
+    counters against the bus's."""
+    from collections import Counter
+    from repro_torch.obs import sinks
+    rc, table, report = obs_analyze(path)
+    print(f"[obs] python -m repro_torch.obs analyze (exit {rc}):", flush=True)
+    for line in table.splitlines():
+        print(f"[obs]   {line}", flush=True)
+    check(rc == 0 and report is not None, f"analyze failed: {table[-2000:]}")
+    records = sinks.read_trace(str(path))
+    sent = [r for r in records if r["kind"] == "trial_dispatched"]
+    by_src = Counter(obs_source(r) for r in records)
+    offsets = {p: round(o * 1e3, 3)
+               for p, o in report["clock_offsets"].items()}
+    print(f"[obs] {card} | merged timeline: {len(records)} records, trace "
+          f"ids {report['trace_ids']}, records by source {dict(by_src)}; "
+          f"{report['n_trials']} trials, {report['n_segments']} segments "
+          f"for {len(sent)} dispatches, {report['n_orphans']} orphans, "
+          f"{report['forward_dropped']} forward_dropped; clock offsets "
+          f"{offsets} ms", flush=True)
+    check(len(report["trace_ids"]) == 1, f"trace ids {report['trace_ids']}")
+    check(all(by_src[s] for s in ("driver", w1, w2, "store")),
+          f"the timeline lacks a process: {dict(by_src)}")
+    check(report["n_segments"] == len(sent) and report["n_orphans"] == 0
+          and report["forward_dropped"] == 0,
+          f"segments {report['n_segments']} for {len(sent)} dispatches, "
+          f"{report['n_orphans']} orphans, {report['forward_dropped']} "
+          "dropped")
+    check(report["n_trials"] == len(res.records),
+          f"{report['n_trials']} traced trials of {len(res.records)}")
+    # every segment closed by the driver; every trial started by a worker
+    # (a rung resume's start, stamped within a clock sample's error of the
+    # previous segment's end, may slot into that segment)
+    segs = [s for ss in report["trials"].values() for s in ss]
+    started = sum(s["started_ts"] is not None for s in segs)
+    for tid, ss in report["trials"].items():
+        check(all(s["completed_ts"] is not None for s in ss)
+              and any(s["started_ts"] is not None for s in ss),
+              f"{tid}: {ss}")
+    # the breakdown adds up against the job's wall
+    b = report["breakdown"]
+    rows = {row["worker"]: row for row in report["workers"]}
+    busy_idle = {w: (round(r["busy_s"], 3), round(r["idle_s"], 3))
+                 for w, r in rows.items()}
+    print(f"[obs] {card} | breakdown of the traced job ({wall:.3f} s wall "
+          f"in the launcher, {b['wall_s']:.3f} s first dispatch to last "
+          f"completion): epoch compute {b['epoch_compute_s']:.3f} s, queue "
+          f"wait {b['queue_wait_s']:.3f} s, rpc + codec "
+          f"{b['rpc_overhead_s']:.3f} s, store waits {b['store_wait_s']:.3f}"
+          f" s, idle {b['idle_s']:.3f} s of {b['capacity_s']:.3f} s "
+          f"capacity; per worker {busy_idle} (busy, idle s); "
+          f"{started} of {len(segs)} segments hold a worker's start; "
+          f"critical path "
+          f"{report['critical_path']['length_s']:.3f} s over "
+          f"{report['critical_path']['n_segments']} segments", flush=True)
+    check(set(rows) == {w1, w2}, f"workers in the breakdown: {sorted(rows)}")
+    check(0 < b["wall_s"] <= wall, f"trace wall {b['wall_s']} against the "
+          f"job's {wall}")
+    skew = OBS_SKEW_S + max([abs(o) for o in
+                             report["clock_offsets"].values()] or [0.0])
+    for w, row in rows.items():
+        check(abs(row["busy_s"] + row["idle_s"] - b["wall_s"]) < 1e-9
+              and row["busy_s"] <= b["wall_s"] + 1e-9,
+              f"{w}: busy {row['busy_s']} + idle {row['idle_s']} against "
+              f"{b['wall_s']}")
+    check(abs(b["idle_s"] - sum(r["idle_s"] for r in rows.values())) < 1e-9
+          and abs(b["capacity_s"] - 2 * b["wall_s"]) < 1e-9,
+          "idle and capacity do not add up")
+    check(b["epoch_compute_s"] <= b["capacity_s"] + skew * len(segs)
+          and max(b["queue_wait_s"], b["rpc_overhead_s"],
+                  b["store_wait_s"]) <= b["capacity_s"],
+          f"a part of the breakdown exceeds the capacity: {b}")
+    # the live endpoint: each scrape's counters are the bus's at its seq
+    def kinds_upto(seq):
+        return dict(Counter(r["kind"] for r in records if r["seq"] <= seq))
+    mid = [s for s in scrapes if 0 < s[0] < len(records)]
+    bad = [s for s in scrapes if s[1] != kinds_upto(s[0])]
+    last_counters, text = last
+    print(f"[obs] {card} | endpoint: {len(scrapes)} scrapes during the run "
+          f"({len(mid)} mid-run, at seq {sorted({s[0] for s in mid})}), each "
+          f"equal to the bus's counters at its seq: {not bad}; after the "
+          f"run {sum(last_counters.values())} records, equal to the bus's: "
+          f"{last_counters == counters}; metrics text "
+          f"{len(text.splitlines())} lines", flush=True)
+    check(mid and not bad, f"scrapes differ from the bus: {bad[:2]}")
+    check(last_counters == counters == kinds_upto(len(records)),
+          "the endpoint's counters differ from the bus's")
+    return records, report
+
+
+def obs_planted(card, path, records, report):
+    """Planted faults on the traced job's trace: a forwarded batch dropped
+    (a drop receipt, and a lost dispatch leaving orphans), and a torn last
+    JSONL line."""
+    from repro_torch.obs import sinks, trace
+    fwd = sorted((r for r in records if "rseq" in r
+                  and r["kind"] in ("trial_started", "epoch_completed")),
+                 key=lambda r: r["seq"])
+    batch = fwd[:4]
+    proc = batch[0]["proc"]
+    dropped = [r for r in records if r not in batch] + [
+        {"kind": "forward_dropped", "ts": batch[-1]["ts"], "seq": 10 ** 9,
+         "trace": batch[0]["trace"], "proc": proc, "dropped": len(batch)}]
+    rep = trace.analyze_trace(dropped)
+    text = trace.render_report(rep)
+    print(f"[obs] planted fault (a forwarded batch of {len(batch)} records "
+          f"from {proc} dropped, its receipt kept): forward_dropped "
+          f"{rep['forward_dropped']}, warning printed: "
+          f"{'WARNING' in text}", flush=True)
+    check(rep["forward_dropped"] == len(batch) and "WARNING" in text,
+          "a dropped forwarded batch went unflagged")
+    first = next(r for r in records if r["kind"] == "trial_dispatched")
+    lost = [r for r in records if r is not first]
+    rep = trace.analyze_trace(lost)
+    print(f"[obs] planted fault (the driver's dispatch of "
+          f"{first['trial_id']} lost): orphans {rep['n_orphans']} "
+          f"{rep['orphan_trials']}", flush=True)
+    check(rep["n_orphans"] >= 1 and first["trial_id"] in
+          rep["orphan_trials"], "a lost dispatch left no orphan")
+    torn = OBS_ROOT / "torn.jsonl"
+    text = Path(path).read_text()
+    torn.write_text(text + text.splitlines()[-1][:-7])
+    rc, table, torn_report = obs_analyze(torn)
+    n_lines = len(torn.read_text().splitlines())
+    n_read = len(sinks.read_trace(str(torn)))
+    print(f"[obs] planted fault (a torn last line): analyze exit {rc}, "
+          f"{n_lines} lines, {n_read} records read, "
+          f"{n_lines - n_read} torn line(s) dropped; report equal to the "
+          f"untorn one: {torn_report == report}", flush=True)
+    check(rc == 0 and n_lines - n_read == 1 and torn_report == report,
+          "a torn last line was not tolerated")
+
+
+def obs_chaos(card):
+    """``python -m repro_torch.obs chaos sigkill_worker --trace`` in a
+    process of its own; its verdict re-derived from the artifact by
+    ``_evaluate``, and a perturbed result that ``_evaluate`` must flag."""
+    import copy
+    from repro_torch.obs import chaos, events, scenarios, sinks
+    root = Path(__file__).resolve().parent
+    path = OBS_ROOT / "chaos.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "chaos", OBS_SCENARIO,
+         "--trace", str(path), "--json"], capture_output=True, text=True,
+        cwd=str(root), timeout=OBS_CHAOS_TIMEOUT_S,
+        env={**__import__("os").environ, "PYTHONPATH": str(root / "src")})
+    chaos_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[obs]   {line}", flush=True)
+    check(proc.returncode == 0, f"chaos exited {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-2000:]}")
+    rep = json.loads(lines[-1])
+    print(f"[obs] {card} | chaos {OBS_SCENARIO}: passed {rep['passed']}, "
+          f"retire time {rep['recovery_s']} s (budget "
+          f"{scenarios.SCENARIOS[OBS_SCENARIO].retire_budget_s():.1f} s), "
+          f"{rep['replaced']} trial(s) re-placed, {rep['n_events']} events, "
+          f"{rep['wall_s']} s scenario wall, {chaos_s:.2f} s with the "
+          f"process", flush=True)
+    check(rep["passed"], "the chaos scenario failed its SLOs")
+    records = sinks.read_trace(str(path))
+    check(len(records) == rep["n_events"], f"{len(records)} records in the "
+          f"artifact, {rep['n_events']} events judged")
+    scn = scenarios.SCENARIOS[OBS_SCENARIO]
+    retired = [r for r in records if r["kind"] == "worker_retired"
+               and r.get("reason") in ("worker_lost", "roster")]
+    check(retired, "the artifact holds no retirement")
+    t_kill = retired[0]["ts"] - rep["recovery_s"]
+    serial = chaos._serial_baseline(scn)
+    again = chaos._evaluate(scn, records, serial, serial, t_kill,
+                            [retired[0]["worker"]], None, events.EventBus(),
+                            rep["wall_s"])
+    faulty = copy.deepcopy(serial)
+    tid = sorted(faulty.records)[0]
+    e0 = faulty.records[tid].epochs[-1]
+    faulty.records[tid].epochs[-1] = dataclasses.replace(
+        e0, accuracy=math.nextafter(e0.accuracy, math.inf))
+    flagged = chaos._evaluate(scn, records, faulty, serial, t_kill,
+                              [retired[0]["worker"]], None,
+                              events.EventBus(), rep["wall_s"])
+    verdicts = {s.name: s.ok for s in flagged.slos}
+    print(f"[obs] the artifact re-judged: passed {again.passed} "
+          f"({[s.name for s in again.slos]}); planted fault (trial {tid}'s "
+          f"last accuracy one ulp up): passed {flagged.passed}, verdicts "
+          f"{verdicts}", flush=True)
+    check(again.passed, f"the artifact re-judged: {again.summary()}")
+    check(not flagged.passed and not verdicts["no_lost_or_repeated_epochs"],
+          "_evaluate missed a perturbed result")
+    return rep, chaos_s
+
+
+def phase_obs(counters, card, dev="cuda"):
+    """Observability and chaos on the card (see the module doc, 16).
+    Returns B1-B5's launches in the phase (none: lenet runs no kernel of
+    the port, and chaos runs the sim backend)."""
+    import torch
+    from repro_torch import service as service_lib
+    from repro_torch.launch import tune as tune_launch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    OBS_ROOT.mkdir(parents=True)
+    procs, inproc = {}, []
+
+    def fresh_store():
+        """A store served in this process, empty, on its own bus."""
+        from repro_torch.obs.events import EventBus
+        svc = service_lib.GroundTruthService()
+        svc.bus = EventBus()
+        srv = service_lib.serve(svc, port=0, background=True)
+        inproc.append((srv, svc))
+        return f"tcp://127.0.0.1:{srv.server_address[1]}"
+    try:
+        for name in ("store", "store_u1", "store_u2"):
+            procs[name] = start_server(["repro_torch.service", "--port",
+                                        "0"], name, OBS_ROOT)
+        procs["coord"] = start_server(["repro_torch.coordinator", "--port",
+                                       "0", "--ttl", "10"], "coord",
+                                      OBS_ROOT)
+        coord = server_addr(procs["coord"], "coordinator on")
+        dev_args = [] if dev == "cuda" else ["--device", dev]
+        for name in ("w1", "w2"):       # the card by default
+            procs[name] = start_server(
+                ["repro_torch.worker", "--port", "0", "--backend", "real",
+                 "--announce", coord, *dev_args], name, OBS_ROOT)
+        store, store_u1, store_u2 = (
+            server_addr(procs[n], "ground-truth service on")
+            for n in ("store", "store_u1", "store_u2"))
+        w1, w2 = (server_addr(procs[n], "trial worker on")
+                  for n in ("w1", "w2"))
+        for n in ("w1", "w2"):
+            server_line(procs[n], "announced to")
+        up_s = time.perf_counter() - t_phase
+        threads, walls = warm_workers(dev, [w1, w2])
+        for t in threads:
+            t.join(timeout=SERVICE_START_S)
+        check(len(walls) == 2, f"a worker's warm-up did not end: {walls}")
+        print(f"[obs] stores {store}, {store_u1}, {store_u2}, coordinator "
+              f"{coord}, "
+              f"workers {w1} and {w2} up in {up_s:.2f} s; warm-up trial "
+              f"{', '.join(f'{w} {s:.2f} s' for w, s in walls.items())}",
+              flush=True)
+        job = SERVICE_JOB + ([] if dev == "cuda" else ["--device", dev])
+        reset_all(counters)
+        # the elastic job untraced (a store process of its own; again after
+        # the traced one, so neither side of the comparison pays the
+        # workers' first batch sizes alone)
+        u, wall_u, _ = run_tune_launch(tune_launch, job + [
+            "--store", store_u1, "--coordinator", coord])
+        # records: on one worker, so a job's trial order is fixed; two
+        # untraced runs, then a traced one, each on a fresh store
+        one = [run_tune_launch(tune_launch, job + [
+            "--store", fresh_store(), "--workers", w1] + extra)
+            for extra in ([], [], ["--trace", str(OBS_ROOT / "one.jsonl")])]
+        # the elastic job traced, its endpoint scraped while it runs
+        path = OBS_ROOT / "trace.jsonl"
+        t, wall_t, scrapes, bus_counters, last = obs_traced_job(
+            tune_launch, job + ["--store", store, "--coordinator",
+                                      coord], str(path))
+        u2, wall_u2, _ = run_tune_launch(tune_launch, job + [
+            "--store", store_u2, "--coordinator", coord])
+        counts = read_all(counters)
+        check(not any(counts.values()), f"lenet launched {counts}")
+        (a, wall_a, _), (b, wall_b, _), (c, wall_c, _) = one
+        bad, same, d_ab, d_ca = records_rule(a.records, b.records,
+                                             c.records)
+        print(f"[obs] {card} | job walls: elastic over two workers "
+              f"untraced {wall_u:.3f} s, traced {wall_t:.3f} s, untraced "
+              f"again {wall_u2:.3f} s ({len(u.records)}, {len(t.records)} "
+              f"and {len(u2.records)} trials); one worker "
+              f"untraced {wall_a:.3f} s and {wall_b:.3f} s, traced "
+              f"{wall_c:.3f} s", flush=True)
+        print(f"[obs] {card} | records of the traced one-worker job: "
+              f"{same} values equal in both untraced runs, untraced "
+              f"distance {d_ab:.3e}, traced against untraced {d_ca:.3e} "
+              f"(limit: equal where the untraced runs are, else within "
+              f"{SERVICE_RATIO:.0f}x); ground truth {c.gt_hits} / "
+              f"{c.gt_misses} against {a.gt_hits} / {a.gt_misses}, "
+              f"{b.gt_hits} / {b.gt_misses}", flush=True)
+        check(not bad and sorted(c.records) == sorted(a.records),
+              f"the traced records differ from the untraced: {bad[:5]}")
+        check(sorted(t.records) == sorted(u.records) == sorted(u2.records)
+              and all(r.remote and r.epochs for r in t.records.values()),
+              "the traced elastic job's trials differ from the untraced")
+        records, report = obs_timeline(card, path, t, wall_t, w1, w2,
+                                       scrapes, bus_counters, last)
+        obs_planted(card, path, records, report)
+    finally:
+        stop_servers(list(procs.values()))
+        for srv, svc in inproc:
+            srv.shutdown()
+            svc.close()
+    obs_chaos(card)
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[obs] {card} | phase {phase_s:.1f} s (limit "
+          f"{OBS_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < OBS_PHASE_LIMIT_S, f"the obs phase took {phase_s:.1f} s")
+    return read_all(counters)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5841,6 +6269,11 @@ def main() -> int:
     counters = [("B1", fa, "launches"), ("B2", fa_bwd, "launches_dq"),
                 ("B3", fa_bwd, "launches_dkv"), ("B4", ml, "launches"),
                 ("B5", rg, "launches")]
+    if sys.argv[1:2] == ["--obs"]:
+        print(f"[card] {card}", flush=True)
+        device_lib.resolve("cuda")
+        print(json.dumps(phase_obs(counters, card)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--service"]:
         print(f"[card] {card}", flush=True)
         device_lib.resolve("cuda")
@@ -5911,6 +6344,8 @@ def main() -> int:
     phase_trainstep(counters, card, tune, findb, groundtruth)
     service_counts = phase_service(counters, card, fa, fa_bwd, tune, findb,
                                    groundtruth)
+    obs_counts = phase_obs(counters, card)
+    check(not any(obs_counts.values()), f"[obs] launched {obs_counts}")
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]

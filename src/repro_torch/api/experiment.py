@@ -209,6 +209,18 @@ class Experiment:
         configure = getattr(executor, "configure_runner_spec", None)
         if configure is not None:
             configure(self.remote_runner_spec())
+        # a trace-enabled executor (--trace with --workers/--coordinator)
+        # pulls the driver's own store traffic into the same trace: store
+        # RPCs emit RpcCompleted and the store service forwards its events
+        trace_ctx = getattr(executor, "trace_context", None)
+        enable_store_trace = getattr(self._groundtruth, "enable_trace", None)
+        if trace_ctx and enable_store_trace is not None:
+            try:
+                enable_store_trace(trace_ctx["trace_id"],
+                                   collector=trace_ctx.get("collector"),
+                                   bus=getattr(executor, "trace_bus", None))
+            except Exception:                   # noqa: BLE001 — best effort
+                pass
         try:
             return runner.run_job(self.job, scheduler=scheduler,
                                   executor=executor, **kw)

@@ -191,12 +191,19 @@ class TorchRealBackend:
       trial, batches from the trial's numpy generator, dropout from a
       generator seeded per step); nothing touches the global RNG.
     - The device, and with it the process's TF32 flags, is resolved once,
-      here.
+      here. On the card the process's cuDNN is also held to deterministic
+      convolution algorithms (``torch.backends.cudnn.deterministic``):
+      with cuDNN's own choice the same lenet trial's losses differ by an
+      ulp from run to run (``tools/probe_lenet_determinism.py``), and a
+      trial's losses and accuracies are to be a pure function of the
+      trial, on any worker, in any process.
     """
 
     def __init__(self, n_train: int = 2048, n_eval: int = 512,
                  steps_per_epoch: Optional[int] = 8, device=None):
         self.device = device_lib.resolve(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.deterministic = True
         self.n_train, self.n_eval = n_train, n_eval
         self.steps_per_epoch = steps_per_epoch
         self._step_cache: Dict[tuple, Any] = {}

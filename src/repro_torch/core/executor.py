@@ -48,6 +48,11 @@ class SerialTrialExecutor:
     def __init__(self):
         self.pool = WorkerPool([InprocWorker()])
 
+    def attach_bus(self, bus) -> None:
+        """Route the pool's dispatch/completion events to `bus` (the
+        reference's serial executor has no bus to attach)."""
+        _attach_bus(self.pool, bus)
+
     def run_wave(self, runner, workload: str,
                  proposals: Sequence[TrialProposal]
                  ) -> List[Tuple[TrialProposal, float]]:
@@ -73,6 +78,11 @@ class ParallelTrialExecutor:
         self.parallelism = parallelism
         self.pool = WorkerPool([ThreadWorker(capacity=parallelism)])
 
+    def attach_bus(self, bus) -> None:
+        """Route the pool's dispatch/completion events to `bus` (the
+        reference's parallel executor has no bus to attach)."""
+        _attach_bus(self.pool, bus)
+
     def run_wave(self, runner, workload: str,
                  proposals: Sequence[TrialProposal]
                  ) -> List[Tuple[TrialProposal, float]]:
@@ -80,6 +90,12 @@ class ParallelTrialExecutor:
 
     def close(self) -> None:
         self.pool.close()
+
+
+def _attach_bus(pool: WorkerPool, bus) -> None:
+    pool.bus = bus
+    for w in pool.workers:
+        w.bus = bus
 
 
 def make_executor(parallelism: int = 1):

@@ -31,8 +31,6 @@ Worker families in the port:
   trial-dispatch wire protocol to a ``python -m repro_torch.worker``
   process.
 
-Distributed tracing is ROADMAP queue A, item 13.
-
 Clone requests (``proposal.clone_from``, the PBT exploit) are applied at
 the wave boundary, before any trial of the wave starts, routed to the
 worker that holds the source trial's state (sticky pools bind the clone to
@@ -49,7 +47,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.schedulers import TrialProposal
 from repro_torch.obs.events import (Resharded, TrialCompleted,
                                     TrialDispatched, WorkerJoined,
-                                    WorkerRetired, get_bus, worker_label)
+                                    WorkerRetired, get_bus, new_trace_id,
+                                    worker_label)
 
 __all__ = ["WorkerCapabilities", "TrialCompletion", "Worker",
            "InprocWorker", "ThreadWorker", "WorkerPool",
@@ -292,6 +291,10 @@ class WorkerPool:
         self.workers: List[Worker] = list(workers)
         self.sticky = sticky
         self.bus = get_bus()            # telemetry; off until observed
+        # distributed-trace context ({"trace_id", "collector"}) applied to
+        # every worker that joins while set (see WorkerPoolExecutor
+        # .enable_trace); None = untraced
+        self.trace: Optional[Dict[str, Any]] = None
         self.drain_timeout_s = 30.0
         self.retire_on_error = False
         self.maintenance: Optional[Any] = None      # no-arg callable
@@ -359,6 +362,14 @@ class WorkerPool:
         pool is unchanged), then immediately eligible for placement; any
         backlogged trials (stranded by earlier removals) dispatch to it."""
         worker.bus = self.bus
+        if self.trace is not None:
+            enable = getattr(worker, "enable_trace", None)
+            if enable is not None:
+                try:        # best-effort: legacy peers just stay untraced
+                    enable(self.trace["trace_id"],
+                           collector=self.trace.get("collector"))
+                except Exception:               # noqa: BLE001
+                    pass
         if self._bound is not None:
             worker.bind(*self._bound)
         self.workers.append(worker)
@@ -636,6 +647,7 @@ class WorkerPoolExecutor:
                                allow_empty=allow_empty)
         self.workers = self.pool.workers
         self._runner_spec: Optional[dict] = None
+        self._trace_collector = None    # owned TraceCollector, if any
 
     @property
     def parallelism(self) -> int:
@@ -650,17 +662,48 @@ class WorkerPoolExecutor:
     def attach_bus(self, bus) -> None:
         """Route this executor's telemetry through `bus` (an
         ``repro_torch.obs.events.EventBus``) instead of the process
-        default. Propagates to current workers; late joiners pick it up
-        from the pool."""
+        default — the hook ``--trace`` and the chaos orchestrator use.
+        Propagates to current workers; late joiners pick it up from the
+        pool."""
         self.pool.bus = bus
         for w in self.workers:
             w.bus = bus
 
     def enable_trace(self, trace_id: Optional[str] = None,
                      collector: Optional[str] = None) -> str:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        """Start a distributed trace on this executor: stamp the pool's
+        bus with a trace id + the ``"driver"`` proc label, remember the
+        context for late joiners, and handshake every current worker that
+        can propagate it (``RemoteWorker.enable_trace``; in-process
+        workers share the bus already). ``collector`` is the
+        ``tcp://HOST:PORT`` of a ``TraceCollector`` remote peers forward
+        their events to. Returns the trace id (fresh when not given)."""
+        tid = trace_id or new_trace_id()
+        bus = self.pool.bus
+        bus.trace_id = tid
+        if bus.proc is None:
+            bus.proc = "driver"
+        bus.enable()
+        self.pool.trace = {"trace_id": tid, "collector": collector}
+        for w in list(self.workers):
+            enable = getattr(w, "enable_trace", None)
+            if enable is not None:
+                try:    # best-effort: legacy peers just stay untraced
+                    enable(tid, collector=collector)
+                except Exception:               # noqa: BLE001
+                    pass
+        return tid
+
+    @property
+    def trace_context(self) -> Optional[dict]:
+        """The active trace ({"trace_id", "collector"}) or None —
+        ``Experiment.run`` reads this to join the driver's store client
+        into the trace."""
+        return self.pool.trace
+
+    @property
+    def trace_bus(self):
+        return self.pool.bus
 
     def configure_runner_spec(self, spec: Optional[dict]) -> None:
         """Hand workers that mirror the runner remotely the recipe for
@@ -708,6 +751,9 @@ class WorkerPoolExecutor:
 
     def close(self) -> None:
         self.pool.close()
+        if self._trace_collector is not None:
+            self._trace_collector.close()
+            self._trace_collector = None
 
     def __enter__(self):
         return self

@@ -15,8 +15,8 @@ connection the process dials. ``add_store_args``/``store_client_from_args``
 (``--store``/``--gt-store``/``--store-reset``) place the ground-truth
 store in process or behind a ``python -m repro_torch.service``.
 ``--kernel-db`` takes a golden table, a service journal or a live store.
-The reference's ``--trace`` (the event sinks and distributed tracing,
-ROADMAP queue A, item 13) is accepted and raises a clear error when given.
+``--trace PATH`` sinks the run's events to a JSONL file and, on an executor
+that dials peers, collects their events into it (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -70,13 +70,9 @@ def system_config_from_args(args: argparse.Namespace,
     return SystemConfig(**kw)
 
 
-_ITEM13 = "ROADMAP queue A, item 13 (Observability and chaos)"
 # flags of the reference that the port parses but cannot honour yet: the
-# flag, what it needs, and the ROADMAP item that brings it
-_UNPORTED_FLAGS = (
-    ("trace", "--trace", "the event sinks and distributed tracing",
-     _ITEM13),
-)
+# flag, what it needs, and the ROADMAP item that brings it (none today)
+_UNPORTED_FLAGS: tuple = ()
 
 
 def add_executor_args(ap: argparse.ArgumentParser, executor: str = "serial",
@@ -121,6 +117,12 @@ def add_executor_args(ap: argparse.ArgumentParser, executor: str = "serial",
                          "waves, leaves/missed heartbeats retire the worker "
                          "and re-place its trials; combine with --workers "
                          "for static members")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="append the run's structured events (dispatches, "
+                         "epoch completions, worker joins/retires, reshards) "
+                         "to PATH as JSONL; requires an executor that can "
+                         "attach an event bus (serial / parallel / cluster / "
+                         "sharded / workers / --coordinator)")
     for _, flag, needs, item in _UNPORTED_FLAGS:
         ap.add_argument(flag, default=None,
                         help=f"not ported ({needs}: {item})")
@@ -152,7 +154,7 @@ def executor_from_args(args: argparse.Namespace):
     serial/parallel (use ``--cluster-nodes`` / ``--shard-capacity`` / more
     ``--workers`` for the others), ``--backends`` to sharded, ``--workers``
     to workers (which it implies when the executor is left at the default).
-    ``--trace`` raises naming its ROADMAP item.
+    ``--trace`` on an executor that cannot attach an event bus is one too.
     """
     from repro_torch.api import registry
     for dest, flag, needs, item in _UNPORTED_FLAGS:
@@ -213,6 +215,39 @@ def executor_from_args(args: argparse.Namespace):
                                     wire=getattr(args, "wire", "auto"))
     else:
         ex = registry.make_executor(name)
+    return _maybe_attach_trace(ex, args, name)
+
+
+def _maybe_attach_trace(ex, args: argparse.Namespace, name: str):
+    """``--trace PATH``: sink the run's event stream to a JSONL file. An
+    executor with no ``attach_bus`` would produce a silently empty trace —
+    that combination is a hard error, like the other ignored-flag cases.
+    The port's serial and parallel executors attach a bus (their pool's
+    dispatches and completions), where the reference's refuse the flag."""
+    trace = getattr(args, "trace", None)
+    if not trace:
+        return ex
+    if getattr(ex, "attach_bus", None) is None:
+        raise ValueError(
+            f"--trace conflicts with --executor {name}: "
+            f"{type(ex).__name__} cannot attach an event bus, so the trace "
+            "would stay silently empty — use an executor that emits events "
+            "(serial / parallel / cluster / sharded / workers / "
+            "--coordinator)")
+    from repro_torch.obs.events import EventBus
+    from repro_torch.obs.sinks import attach_trace
+    bus = EventBus()
+    attach_trace(bus, trace)
+    ex.attach_bus(bus)
+    if getattr(ex, "enable_trace", None) is not None:
+        # cross-process collection rides along automatically: start a
+        # collector on an ephemeral port and handshake every peer the
+        # executor dials (--workers / --coordinator); purely local
+        # executors skip this (no enable_trace) and trace as before
+        from repro_torch.obs.forward import start_collector
+        collector = start_collector(bus)
+        ex.enable_trace(collector=collector.address)
+        ex._trace_collector = collector     # closed with the executor
     return ex
 
 

@@ -30,9 +30,8 @@ does this), which also starts the in-memory ring the ``tail`` op reads.
 
 This module is stdlib-only on purpose: ``repro_torch.core.worker`` and
 ``repro_torch.cluster.engine`` import it, so it must sit below everything
-else. The sinks, metrics, trace, forwarding and chaos modules that read
-these events are ROADMAP queue A, item 13; the trace and forwarding fields
-of the bus are kept so the records stay those of the reference.
+else. The sinks, metrics, trace, forwarding and chaos modules of
+``repro_torch.obs`` read these events.
 """
 from __future__ import annotations
 
@@ -242,11 +241,11 @@ class EventBus:
         self.counters: Dict[str, int] = {}
         # distributed-tracing context: when set, every record is stamped
         # with the trace id and this process's label so cross-process
-        # streams merge into one causal timeline (the reference's
-        # repro.obs.trace; item 13 in the port)
+        # streams merge into one causal timeline (see
+        # repro_torch.obs.trace)
         self.trace_id: Optional[str] = None
         self.proc: Optional[str] = None
-        # forwarding capability (the reference's repro.obs.forward):
+        # forwarding capability (owned by repro_torch.obs.forward):
         # addresses of collectors that ingest into THIS bus — forwarding
         # to one of them would loop records back forever — and the active
         # outbound sink

@@ -37,9 +37,9 @@ The pieces:
   experiment side is ``--coordinator tcp://HOST:PORT``.
 
 The messages are the reference's, so workers and drivers of either package
-share one coordinator. The ``obs_trace`` hello and ``enable_trace`` are
-distributed tracing, ROADMAP queue A, item 13: the service answers the
-hello with an error naming the item, and ``enable_trace`` raises.
+share one coordinator. The ``obs_trace`` hello and ``enable_trace`` join
+the coordinator's membership events to a driver's distributed trace
+(``repro_torch.obs.forward``).
 """
 from __future__ import annotations
 
@@ -163,9 +163,11 @@ class CoordinatorService:
             return {"version": self._version}
 
     def _op_obs_trace(self, req) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        # distributed-tracing hello (repro_torch.obs.forward): membership
+        # events (joins, prunes) get tagged + forwarded into the driver's
+        # trace
+        from repro_torch.obs.forward import adopt_trace
+        return adopt_trace(req, self.bus)
 
     # ------------------------------------------------------------ internals
     def _prune(self) -> None:
@@ -219,6 +221,7 @@ class CoordinatorClient:
         self._request_timeout = request_timeout
         self._wire = wire
         self._transport: Optional[SocketTransport] = None
+        self._trace: Optional[str] = None
         self._lock = threading.Lock()
 
     def _request(self, req: Dict[str, Any]) -> Dict[str, Any]:
@@ -230,6 +233,7 @@ class CoordinatorClient:
                         connect_retries=1,
                         request_timeout=self._request_timeout,
                         wire=self._wire)
+                    self._transport.trace = self._trace
                 resp = self._transport.request(req)
             except (TransportError, ConnectionError, OSError) as e:
                 self._reset_transport()
@@ -271,9 +275,28 @@ class CoordinatorClient:
 
     def enable_trace(self, trace_id: str, collector: Optional[str] = None,
                      bus=None) -> bool:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        """Send the ``obs_trace`` hello so the coordinator tags + forwards
+        its membership events into this trace. Best-effort and never
+        raises: False means the coordinator is away or predates tracing
+        (the run proceeds with the driver-side view only). ``_trace``
+        request metadata keeps riding across reconnects either way."""
+        self._trace = trace_id
+        peer = f"coordinator@{self.address[0]}:{self.address[1]}"
+        from repro_torch.obs.forward import propagate_trace
+        try:
+            with self._lock:
+                if self._transport is None:
+                    self._transport = SocketTransport(
+                        *self.address, timeout=self._connect_timeout,
+                        connect_retries=1,
+                        request_timeout=self._request_timeout,
+                        wire=self._wire)
+                return propagate_trace(self._transport, trace_id,
+                                       collector=collector, proc=peer,
+                                       bus=bus)
+        except (TransportError, ConnectionError, OSError):
+            self.close()
+            return False
 
     def _reset_transport(self) -> None:
         """Drop the cached connection. Caller must hold ``self._lock`` (the
@@ -399,6 +422,17 @@ class ElasticWorkerPoolExecutor(WorkerPoolExecutor):
                 if getattr(w, "accepts_runner_spec", False) and \
                         w.runner_spec is None:
                     w.runner_spec = {}
+
+    def enable_trace(self, trace_id: Optional[str] = None,
+                     collector: Optional[str] = None) -> str:
+        """Trace the whole elastic topology: the pool + every current
+        worker (via the base executor), plus the coordinator's membership
+        events. Workers that join later are handshaked by
+        ``WorkerPool.add_worker`` from the pool's stored trace context."""
+        tid = super().enable_trace(trace_id=trace_id, collector=collector)
+        self.coordinator.enable_trace(tid, collector=collector,
+                                      bus=self.pool.bus)
+        return tid
 
     def run_wave(self, runner, workload: str, proposals):
         # a wave boundary forces a sync (one version ping; the roster is

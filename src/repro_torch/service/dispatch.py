@@ -34,7 +34,8 @@ tensor's value lives on the device), so every payload here goes through
 either package serves a driver of the other. Cross-worker tuning state is
 the store: point every worker at one ``python -m repro_torch.service`` via
 the spec's ``store`` field and their PipeTune runners share ground truth.
-Distributed tracing (``enable_trace``) is ROADMAP queue A, item 13.
+``enable_trace`` joins the worker process to a distributed trace
+(``repro_torch.obs.forward``).
 """
 from __future__ import annotations
 
@@ -175,6 +176,10 @@ class RemoteWorker(Worker):
         self._last_trial: Optional[str] = None
         self._last_epochs = 0
         self._epochs_seen: Dict[str, int] = {}      # trial -> epochs emitted
+        # tracing: once the peer forwards its own events to a collector
+        # (enable_trace), the driver stops synthesizing EpochCompleted from
+        # returned records — the worker-side stream is the real one
+        self._peer_traced = False
         self._pending_compute_s = 0.0   # remote compute seen since last rpc
         # request_timeout=None: a remote trial legitimately runs longer
         # than any sane connect timeout
@@ -228,9 +233,16 @@ class RemoteWorker(Worker):
 
     def enable_trace(self, trace_id: str,
                      collector: Optional[str] = None) -> bool:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        """Send the ``obs_trace`` hello so the worker process tags its
+        events with this trace and (when ``collector`` is set) forwards
+        them home. Returns False for a legacy worker — the run proceeds
+        untraced on that peer, with driver-side synthesis as before."""
+        from repro_torch.obs.forward import propagate_trace
+        label = f"tcp://{self.address[0]}:{self.address[1]}"
+        ok = propagate_trace(self.transport, trace_id, collector=collector,
+                             proc=label, bus=self.bus)
+        self._peer_traced = bool(ok and collector)
+        return ok
 
     def clone(self, dst_id: str, src_id: str) -> None:
         # wave-boundary semantics hold because the pool only clones while
@@ -314,10 +326,13 @@ class RemoteWorker(Worker):
             seen = self._epochs_seen.get(rec.trial_id, 0)
             self._pending_compute_s += sum(
                 float(e.duration_s) for e in rec.epochs[seen:])
-            for i in range(seen, len(rec.epochs)):
-                self.bus.emit(EpochCompleted(
-                    trial_id=rec.trial_id, worker=label, epoch=i,
-                    duration_s=rec.epochs[i].duration_s))
+            if not self._peer_traced:
+                # the worker emits the real per-epoch stream itself when
+                # traced; synthesizing here too would double-count
+                for i in range(seen, len(rec.epochs)):
+                    self.bus.emit(EpochCompleted(
+                        trial_id=rec.trial_id, worker=label, epoch=i,
+                        duration_s=rec.epochs[i].duration_s))
             self._epochs_seen[rec.trial_id] = len(rec.epochs)
         return TrialCompletion(rec.trial_id, rec.score(runner.objective))
 

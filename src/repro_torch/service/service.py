@@ -52,11 +52,9 @@ append — is tolerated and dropped; any other malformed line raises
 every recurring job).
 
 Replies, versions and journal lines are the reference's byte for byte, so
-either package replays the other's journal. ``obs_trace`` (the
-distributed-tracing hello) needs ``obs.forward``, which the port does not
-have yet (ROADMAP queue A, item 13): it answers ``ok: False`` naming the
-item, which the reference's ``propagate_trace`` reads as a legacy peer, so
-a traced reference driver still runs against this service, untraced.
+either package replays the other's journal. ``obs_trace`` is the
+distributed-tracing hello (``repro_torch.obs.forward``), which a tracing
+driver of either package sends.
 """
 from __future__ import annotations
 
@@ -120,9 +118,11 @@ class GroundTruthService:
         return {}
 
     def _op_obs_trace(self, req) -> dict:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        # distributed-tracing hello (repro_torch.obs.forward): adopt the
+        # trace context, echo the trace id (the trace-aware signal), start
+        # forwarding local events when the hello names a collector
+        from repro_torch.obs.forward import adopt_trace
+        return adopt_trace(req, self.bus)
 
     def _op_lookup(self, req) -> dict:
         score, cfg = self.store.lookup(

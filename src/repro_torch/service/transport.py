@@ -37,10 +37,11 @@ outboxes — no thread-per-connection. A handler may raise
 fault-injection hook the tests use to model mid-batch drops).
 
 The frames, the ``_wire`` hello and every payload are the reference's, so
-a client of either package talks to a server of the other. Distributed
-tracing (the ``_trace`` request metadata, ``RpcCompleted`` receipts and
-``StoreClient.enable_trace``) is ROADMAP queue A, item 13:
-``enable_trace`` raises naming it.
+a client of either package talks to a server of the other. A traced
+connection (``StoreClient.enable_trace``, ``repro_torch.obs.forward``)
+adds the reference's ``_trace`` request metadata to public ops only, and
+the client emits an ``RpcCompleted`` receipt per store round trip; an
+untraced request's bytes are the reference's.
 """
 from __future__ import annotations
 
@@ -170,6 +171,11 @@ class SocketTransport:
         self.addr = (host, port)
         self.max_frame = max_frame
         self._codec = _JSON
+        # distributed-tracing context: once the obs_trace hello succeeds
+        # (repro_torch.obs.forward.propagate_trace) every request carries
+        # the trace id as `_trace` metadata; services ignore unknown keys,
+        # so this is free interop with untraced/legacy peers
+        self.trace: Optional[str] = None
         self._sock = self._connect(timeout, connect_retries, retry_backoff_s)
         if request_timeout is not _SAME_AS_CONNECT:
             self._sock.settimeout(request_timeout)
@@ -215,6 +221,9 @@ class SocketTransport:
 
     def request(self, req: Dict[str, Any]) -> Dict[str, Any]:
         peer = f"{self.addr[0]}:{self.addr[1]}"
+        if (self.trace is not None and "_trace" not in req
+                and not str(req.get("op", "")).startswith("_")):
+            req = {**req, "_trace": self.trace}
         try:
             with self._lock:
                 _send_frame(self._sock, self._codec.encode(req))
@@ -266,10 +275,28 @@ class StoreClient:
         self._known_version: Optional[int] = None
         self.hits = 0
         self.misses = 0
+        # tracing: set by enable_trace; every RPC then emits RpcCompleted
+        # on this bus so store stalls show up in the merged timeline
+        self.bus = None
+        addr = getattr(transport, "addr", None)
+        self.peer = (f"store@{addr[0]}:{addr[1]}"
+                     if isinstance(addr, tuple) and len(addr) == 2
+                     else "store@inproc")
 
     # -------------------------------------------------------------- plumbing
     def _request(self, req: Dict[str, Any]) -> Dict[str, Any]:
-        resp = self.transport.request(req)
+        bus = self.bus
+        if bus is not None and bus.enabled:
+            t0 = time.monotonic()
+            resp = self.transport.request(req)
+            dt = time.monotonic() - t0
+            from repro_torch.obs.events import RpcCompleted
+            op = str(req.get("op", ""))
+            n = (len(req.get("requests") or ()) if op == "batch" else 1)
+            bus.emit(RpcCompleted(op=op, peer=self.peer, duration_s=dt,
+                                  overhead_s=dt, n=max(1, n)))
+        else:
+            resp = self.transport.request(req)
         if not resp.get("ok"):
             raise StoreError(resp.get("error", "store request failed"))
         v = resp.get("version")
@@ -280,9 +307,21 @@ class StoreClient:
 
     def enable_trace(self, trace_id: str, collector: Optional[str] = None,
                      bus=None) -> bool:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        """Join this client's store traffic to a distributed trace: emit
+        ``RpcCompleted`` per round-trip on ``bus`` and (for TCP stores)
+        send the ``obs_trace`` hello so the *service* tags + forwards its
+        own events. In-process stores share our process, so their service
+        is simply pointed at the traced bus. False = legacy peer."""
+        from repro_torch.obs.events import get_bus
+        self.bus = bus if bus is not None else get_bus()
+        if isinstance(self.transport, InprocTransport):
+            if getattr(self.transport.service, "bus", None) is not None:
+                self.transport.service.bus = self.bus
+            return True
+        from repro_torch.obs.forward import propagate_trace
+        return propagate_trace(self.transport, trace_id,
+                               collector=collector, proc=self.peer,
+                               bus=self.bus)
 
     def version(self) -> int:
         return self._request({"op": "version"})["version"]
@@ -452,7 +491,7 @@ class _Conn:
 class JsonRPCServer:
     """Serve any ``handle(dict) -> dict`` callable over the length-prefixed
     framing — the shared substrate under the ground-truth store server, the
-    trial worker server and the coordinator. Port 0
+    trial worker server, the coordinator, and the obs endpoint. Port 0
     binds an ephemeral port (read it back from ``server_address``).
 
     One selector thread (the caller of ``serve_forever``) owns all socket

@@ -33,9 +33,10 @@ experiments launched with ``--coordinator`` pick this worker up (and drop
 it when it dies) without editing any ``--workers`` list. ``--speed-factor``
 declares relative throughput — heterogeneous pools weight placement by it.
 ``--plugin MODULE`` imports a module for its ``register_*`` side effects
-(a user backend such as the LM example's). The ``obs_trace`` hello of
-distributed tracing is ROADMAP queue A, item 13: it answers an error
-naming the item, which a tracing driver reads as an untraced peer.
+(a user backend such as the LM example's). The ``obs_trace`` hello joins
+the process to a driver's distributed trace (``repro_torch.obs.forward``):
+its bus is stamped with the trace before the next trial's
+``TrialStarted``, and its records ship to the driver's collector.
 """
 from __future__ import annotations
 
@@ -105,6 +106,9 @@ class TrialWorkerService:
             if self._store_client is not None:
                 self._store_client.close()
                 self._store_client = None
+        sink = self.bus.forward_sink
+        if sink is not None:        # ship the tail of the trace home
+            sink.flush(timeout=1.0)
 
     # ------------------------------------------------------------------ ops
     def _op_hello(self, req) -> Dict[str, Any]:
@@ -126,9 +130,15 @@ class TrialWorkerService:
                 "store": spec.get("store")}
 
     def _op_obs_trace(self, req) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "distributed tracing is not ported yet: ROADMAP queue A, item "
-            "13 (Observability and chaos)")
+        # distributed-tracing hello (repro_torch.obs.forward): adopt the
+        # client-assigned trace context + proc label, echo the trace id,
+        # forward local events to the named collector
+        from repro_torch.obs.forward import adopt_trace
+        out = adopt_trace(req, self.bus)
+        with self._lock:
+            if self._store_client is not None:
+                self._wire_store_trace(self._store_client)
+        return out
 
     def _op_clone(self, req) -> Dict[str, Any]:
         with self._lock:
@@ -142,7 +152,9 @@ class TrialWorkerService:
             rec = self._run_trial(runner, str(req["workload"]),
                                   str(req["trial_id"]),
                                   dict(req["hparams"]), int(req["epochs"]))
-            return {"record": record_to_payload(rec)}
+            out = {"record": record_to_payload(rec)}
+        self._kick_forwarder()
+        return out
 
     def _op_run_many(self, req) -> Dict[str, Any]:
         """A wave's worth of trials in one round-trip. Trials run in
@@ -167,7 +179,17 @@ class TrialWorkerService:
                     results.append(
                         {"ok": False,
                          "error": f"{type(e).__name__}: {e}"})
+        self._kick_forwarder()
         return {"results": results}
+
+    def _kick_forwarder(self) -> None:
+        """Nudge the forwarding sink at the end of each run request so the
+        wave's events ship before the driver acts on the response — a
+        worker SIGKILL'd (or a run ending) right after the last wave would
+        otherwise lose everything queued since the previous 0.2s tick."""
+        sink = self.bus.forward_sink
+        if sink is not None:
+            sink.kick()
 
     # ------------------------------------------------------------ internals
     def _require_runner(self):
@@ -177,8 +199,8 @@ class TrialWorkerService:
 
     def _run_trial(self, runner, workload: str, trial_id: str,
                    hparams: dict, epochs: int):
-        """``runner.run_trial`` plus, when the bus is on, the worker-side
-        event stream: ``trial_started`` at entry, then one ``epoch_completed``
+        """``runner.run_trial`` plus, when traced, the worker-side event
+        stream: ``trial_started`` at entry, then one ``epoch_completed``
         per *new* epoch with its timestamp allocated across the measured
         wall interval proportionally to epoch duration (sim backends
         report simulated seconds, so raw ``duration_s`` is not wall time
@@ -208,6 +230,19 @@ class TrialWorkerService:
                     ts=t0 + (t1 - t0) * (done / total))
         return rec
 
+    def _wire_store_trace(self, client) -> None:
+        """Join the worker's store traffic to the adopted trace: store
+        RPCs emit ``RpcCompleted`` on this process's bus and carry the
+        ``_trace`` metadata (the driver handshakes the store *service*
+        itself; re-helloing from every worker would duplicate sinks)."""
+        if self.bus.trace_id is None:
+            return
+        client.bus = self.bus
+        try:
+            client.transport.trace = self.bus.trace_id
+        except AttributeError:
+            pass
+
     def _build_runner(self, spec: Dict[str, Any]):
         # lazy: repro_torch.api sits above repro_torch.service in the layer
         # order
@@ -224,6 +259,7 @@ class TrialWorkerService:
                                                        StoreClient)
             host, port = parse_tcp_address(store)
             groundtruth = StoreClient(SocketTransport(host, port))
+            self._wire_store_trace(groundtruth)
         if self._store_client is not None:
             self._store_client.close()
         self._store_client = groundtruth

@@ -178,17 +178,22 @@ def test_pbt_clones_follow_their_source(worker_server):
 
 
 def test_server_errors_surface_by_name(worker_server):
-    worker = tapi.RemoteWorker(worker_server())
+    from repro_torch.obs.events import EventBus
+    service = tservice.TrialWorkerService()
+    service.bus = EventBus()        # the hello must not stamp this process
+    worker = tapi.RemoteWorker(worker_server(service))
     try:
         with pytest.raises(tservice.WorkerError, match="unknown op"):
             worker._request({"op": "drop_all"})
         with pytest.raises(tservice.WorkerError, match="bind"):
             worker._request({"op": "run", "workload": "w", "trial_id": "t",
                              "hparams": {}, "epochs": 1})
-        with pytest.raises(tservice.WorkerError, match="item 13"):
-            worker._request({"op": "obs_trace", "trace": "t"})
-        with pytest.raises(NotImplementedError, match="item 13"):
-            worker.enable_trace("t")
+        with pytest.raises(tservice.WorkerError,
+                           match="obs_trace without a trace id"):
+            worker._request({"op": "obs_trace"})
+        assert worker.enable_trace("t" * 16) is True
+        assert service.bus.trace_id == "t" * 16
+        assert worker.transport.trace == "t" * 16
         with pytest.raises(tservice.WorkerError, match="no-such-backend"):
             worker._request({"op": "bind",
                              "spec": {"backend": "no-such-backend"}})
@@ -275,6 +280,28 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def fixed_clock(monkeypatch):
+    """``TorchRealBackend`` times its steps on the host clock, and PipeTune
+    both locks the fastest probed config and matches the store on those
+    times, so two jobs on a loaded host can part ways. Here the backend's
+    clock advances one millisecond a read, so every step (and every build)
+    lasts exactly that long in both jobs: the clock the remote and the
+    in-process job read is the same, whichever thread reads it."""
+    import itertools
+    import types
+
+    import repro_torch.core.backends as backends
+    ticks, lock = itertools.count(), threading.Lock()
+
+    def perf_counter():
+        with lock:
+            return next(ticks) * 1e-3
+
+    monkeypatch.setattr(backends, "time",
+                        types.SimpleNamespace(perf_counter=perf_counter))
+
+
 def _real_job():
     return HPTJob(workload="lenet-mnist", space=SearchSpace([
         Param("batch_size", "choice", choices=(32, 64)),
@@ -283,11 +310,14 @@ def _real_job():
 
 @pytest.mark.parametrize("tuner", ["v1", "pipetune"])
 def test_real_backend_remote_equals_inproc_on_the_cpu(worker_server,
-                                                      one_thread, tuner):
+                                                      one_thread,
+                                                      fixed_clock, tuner):
     """``TorchRealBackend`` trials on a remote worker (served here, so the
     CPU's thread count is the in-process run's) give the in-process
     records bit for bit: losses, accuracies, sys histories; PipeTune's
-    store lookups run out of process, against the same TCP store."""
+    store lookups run out of process, against the same TCP store. Both
+    jobs read one fixed clock (``fixed_clock``), so PipeTune's choices,
+    which follow step times, cannot differ with the host's load."""
     kw = dict(SMALL, device="cpu")
 
     def run(executor=None, store=None):

@@ -113,8 +113,12 @@ def test_coordinator_events_reach_the_bus():
                      ("heartbeat_missed", None), ("worker_retired",
                                                   "heartbeat")]
     assert not svc.handle({"op": "heartbeat", "worker_id": wid})["ok"]
-    resp = svc.handle({"op": "obs_trace", "trace": "t"})
-    assert not resp["ok"] and "item 13" in resp["error"]
+    resp = svc.handle({"op": "obs_trace", "trace": "t", "proc": "c"})
+    assert resp["ok"] and resp["trace"] == "t"
+    assert (svc.bus.trace_id, svc.bus.proc) == ("t", "c")
+    svc.handle({"op": "register", "address": "tcp://h:3"})
+    assert kinds[-1] == ("worker_joined", None)
+    assert svc.bus.events()[-1]["trace"] == "t"
 
 
 @pytest.mark.parametrize("coord_pkg", ["port", "reference"])

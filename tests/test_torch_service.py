@@ -156,25 +156,47 @@ def test_service_replies_equal_the_reference():
 
 
 def test_obs_trace_answers_naming_item_13_and_reads_as_legacy():
-    """The distributed-tracing hello is item 13: the service answers an
-    error naming it, and the reference's client reads that as a legacy
-    peer (untraced, no error)."""
-    from repro.obs.forward import propagate_trace
+    """The distributed-tracing hello (ROADMAP item 13, now ported): the
+    store answers it with the trace id, the reference's client reads that
+    as a traced peer, and the port's ``StoreClient.enable_trace`` joins
+    the store's bus. A store that still answers the hello with the error
+    naming item 13 (the port before tracing) reads as a legacy peer to
+    either package's client: untraced, no error."""
+    from repro.obs.forward import propagate_trace as jpropagate
+    from repro_torch.obs.events import EventBus
+    from repro_torch.obs.forward import propagate_trace as tpropagate
     svc = tservice.GroundTruthService()
-    resp = svc.handle({"op": "obs_trace", "trace": "t1"})
-    assert not resp["ok"] and "item 13 (Observability and chaos)" in \
-        resp["error"]
+    svc.bus = EventBus()
+    resp = svc.handle({"op": "obs_trace", "trace": "t1", "proc": "p"})
+    assert resp["ok"] and resp["trace"] == "t1" and svc.bus.trace_id == "t1"
     server = tservice.serve(svc, port=0, background=True)
+    old = jservice.JsonRPCServer(("127.0.0.1", 0), lambda req: {
+        "ok": False, "error": "NotImplementedError: distributed tracing is "
+        "not ported yet: ROADMAP queue A, item 13 (Observability and "
+        "chaos)"} if req.get("op") == "obs_trace" else {"ok": True})
+    import threading
+    threading.Thread(target=old.serve_forever, daemon=True).start()
     try:
         transport = jservice.SocketTransport(*server.server_address[:2])
-        assert propagate_trace(transport, "t1") is False
+        assert jpropagate(transport, "t2") is True
+        assert transport.trace == "t2" and svc.bus.trace_id == "t2"
         assert transport.request({"op": "version"})["ok"]
         transport.close()
+        for propagate, mod in ((jpropagate, jservice),
+                               (tpropagate, tservice)):
+            legacy = mod.SocketTransport(*old.server_address[:2],
+                                         wire="json")
+            assert propagate(legacy, "t3") is False
+            assert legacy.trace is None
+            assert legacy.request({"op": "version"})["ok"]
+            legacy.close()
+        bus = EventBus()
         client = tservice.StoreClient(tservice.InprocTransport(svc))
-        with pytest.raises(NotImplementedError, match="item 13"):
-            client.enable_trace("t1")
+        assert client.enable_trace("t1", bus=bus) is True
+        assert svc.bus is bus and client.bus is bus
     finally:
         server.shutdown()
+        old.shutdown()
 
 
 # ----------------------------------------------------------------- journal

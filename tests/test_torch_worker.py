@@ -12,7 +12,9 @@
 - A sticky ``WorkerPoolExecutor`` over ``InprocWorker(backend=...)`` shards
   keeps each trial, its rung resumes and its clones on one shard.
 - The executors and launcher flags of the tuning service (ROADMAP item
-  12) build and run; what the port leaves to item 13 raises and names it.
+  12) build and run, and so do those of tracing (item 13): an executor's
+  ``enable_trace`` and the launcher's ``--trace``. A name the port leaves
+  to a later item raises naming it (``registry._LATER``, none today).
 """
 import re
 import threading
@@ -425,18 +427,35 @@ def test_later_items_stand_in_the_roadmap():
         for note in kind.values():
             num, title = re.match(r"(\d+) \((.+)\)$", note).groups()
             assert _item_title(num) == title
-    assert _item_title(13) == "Observability and chaos"
+    # item 13 is done and pruned; item 14 is the one left in queue A
+    assert not re.search(r"^13\. \*\*", ROADMAP, re.M)
+    assert _item_title(14).startswith("Dry-run, analysis and lint")
 
 
-@pytest.mark.parametrize("make,exc,item", [
-    (lambda: tapi.WorkerPoolExecutor([tworker.InprocWorker()])
-     .enable_trace(), NotImplementedError, 13)],
+# The executor surface that raised naming ROADMAP item 13 keeps its id
+# and now traces: a fresh trace id stamped on the pool's bus as "driver",
+# kept for late joiners and read back by ``Experiment.run``.
+@pytest.mark.parametrize("make", [
+    lambda: tapi.WorkerPoolExecutor([tworker.InprocWorker()])],
     ids=["enable-trace"])
-def test_unported_executors_name_their_item(make, exc, item):
-    with pytest.raises(exc) as err:
-        make()
-    msg = str(err.value)
-    assert f"item {item}" in msg and _item_title(item) in msg
+def test_unported_executors_name_their_item(make):
+    ex = make()
+    bus = tevents.EventBus()
+    ex.attach_bus(bus)
+    try:
+        tid = ex.enable_trace()
+        assert re.fullmatch(r"[0-9a-f]{16}", tid)
+        assert (bus.trace_id, bus.proc, bus.enabled) == (tid, "driver",
+                                                         True)
+        assert ex.trace_context == {"trace_id": tid, "collector": None}
+        res = (tapi.Experiment(_sim_job(3)).with_tuner("v1")
+               .with_backend("sim").run(executor=ex))
+        recs = bus.events()
+        assert {r["trial_id"] for r in recs
+                if r["kind"] == "trial_completed"} == set(res.records)
+        assert {r["trace"] for r in recs} == {tid}
+    finally:
+        ex.close()
 
 
 @pytest.fixture
@@ -510,13 +529,19 @@ def test_item12_executors_run_jobs(case, sim_worker):
     assert _sim_records(res) == _sim_records(serial)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--trace", "run.jsonl"], 13)], ids=["trace"])
-def test_launcher_flags_of_later_items_raise(flags, item):
-    with pytest.raises((NotImplementedError, KeyError)) as err:
-        tune_launch.main(["--backend", "sim", "--epochs", "3", *flags])
-    msg = str(err.value)
-    assert f"item {item}" in msg and _item_title(item) in msg
+# The launcher flag that raised naming ROADMAP item 13 keeps its id and
+# now works: the serial sim job's events land in the JSONL file, one
+# dispatch and one completion a trial segment.
+@pytest.mark.parametrize("flags", [["--trace", "run.jsonl"]], ids=["trace"])
+def test_launcher_flags_of_later_items_raise(flags, tmp_path):
+    from repro_torch.obs.sinks import read_trace
+    argv = [str(tmp_path / f) if f.endswith(".jsonl") else f for f in flags]
+    res = tune_launch.main(["--backend", "sim", "--epochs", "3", *argv])
+    recs = read_trace(argv[-1])
+    done = [r for r in recs if r["kind"] == "trial_completed"]
+    assert {r["trial_id"] for r in done} == set(res.records)
+    assert len(done) == len([r for r in recs
+                             if r["kind"] == "trial_dispatched"])
 
 
 def _launcher_lines(main, argv, capsys):
