@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --lane-probe [REPS]   # the [parallel] lanes only
     python3 chip_smoke.py --service | --obs     # one phase alone
+    python3 chip_smoke.py --dryrun              # [serve], [train], [dryrun]
 
 Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
@@ -345,6 +346,21 @@ Phases (any failure raises, and the script exits non-zero):
      its artifact re-judged by ``_evaluate`` passes, and with one
      accuracy one ulp up fails. B1-B5 launch 0. Within
      ``OBS_PHASE_LIMIT_S``.
+ 17. the dry-run against the card (``[dryrun]``; no step on the card):
+     ``repro_torch.launch.dryrun.run_cell`` on meta tensors for the cells
+     [serve] and [train] ran (the 8 x 2048 prefill in bf16 weights with
+     its 2080-slot cache; the 4 x 2048 bf16 train step; the remat-block,
+     2-microbatch one), each with the sys the run used. (a) Its kernel
+     calls a step equal the launches those runs read (B4, B5 none); (b)
+     its predicted peak (argument + temp bytes) over the run's
+     max_memory_allocated lies within ``DRYRUN_PEAK_LIMITS``, and the
+     prediction with adamw's moments dropped from the arguments (planted)
+     falls outside; (c) no measured step or prefill is faster than its
+     roofline ``step_time_s``, with the measured MFU printed beside the
+     projected; (d) chip_smoke's bounds (``bound`` over
+     ``attention_work``, ``mlstm_bound``, ``rglru_bound``) equal
+     ``analysis.roofline``'s at every timed shape within
+     ``DRYRUN_BOUND_RTOL``. Within ``DRYRUN_PHASE_LIMIT_S``.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
 ``launches_vlm`` and ``vlm`` timing rows and their ``launches_ckpt``,
 ``launches_ckpt_resume``, ``launches_dist`` and ``launches_service``, B4
@@ -353,7 +369,8 @@ line, and last ``{"ok": true, "device": {...}}``.
 
 ``--service`` builds the kernels and runs ``[service]`` alone, printing
 its launches as JSON; ``--obs`` runs ``[obs]`` alone (it builds nothing:
-no kernel runs in it).
+no kernel runs in it); ``--dryrun`` builds the kernels and runs 3 and 4
+(``[serve]``, ``[train]``), then ``[dryrun]`` on what they measured.
 ``--train-child LAYERS ARGS`` (used by [ckpt]) runs
 ``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
 prints its start step, losses, step times and B1-B3 launches as JSON.
@@ -779,6 +796,22 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 # The kernels' shapes: serve (B1) and train (B2, B3) at full width.
 SERVE_SHAPE = (REQUESTS, PROMPT_LEN, 8, 2, 128)
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8, 2, 128)
+
+
+# [dryrun]: the dry-run (repro_torch.launch.dryrun, on meta tensors) of the
+# cells [serve] and [train] ran. Its predicted peak (argument + temp bytes)
+# over max_memory_allocated of the same train run must fall inside
+# DRYRUN_PEAK_LIMITS; the planted fault (adamw's moments dropped from the
+# arguments) must fall outside. On an NVIDIA H100 80GB HBM3 (700 W) the
+# first readings were 0.9987 (4 x 2048) and 0.9972 (remat block, 2
+# microbatches): the meta trace misses 0.1-0.3% (allocator rounding,
+# cuBLAS's workspace, the init's transients). The limits leave about seven
+# times that; the planted fault read 0.9081 and 0.7972.
+DRYRUN_PEAK_LIMITS = (0.98, 1.02)
+DRYRUN_BOUND_RTOL = 1e-9        # chip_smoke's bounds against the analysis's
+DRYRUN_PHASE_LIMIT_S = 60.0
+# (kernel, shape, bound ms) of every bound the timing phases print
+BOUNDS_TIMED = []
 
 
 class SmokeFailure(RuntimeError):
@@ -2852,6 +2885,22 @@ def sdpa_gqa(q, k, v):
                                           enable_gqa=True)
 
 
+def attention_work(kid, B, S, K, G, D, window, size):
+    """(flops, bytes) of B1, B2 or B3 at a causal shape (S = T, inputs of
+    ``size`` bytes an element): 2 * D flops a product, 2, 3 or 4 products
+    a visible pair and query head. Each input read once, each output
+    written once: B1 reads q, k, v and writes out and lse (fp32); B2 and B3
+    read q, dO, k, v, lse and delta and write dq, or dk and dv."""
+    pairs = B * K * G * visible_pairs(S, S, True, window)
+    rows_ = B * S * K * G
+    q_n, k_n = rows_ * D, B * S * K * D
+    io = size * (2 * q_n + 2 * k_n)
+    products, nbytes = {"B1": (2, io + 4 * rows_),
+                        "B2": (3, io + 8 * rows_ + size * q_n),
+                        "B3": (4, io + 8 * rows_ + size * 2 * k_n)}[kid]
+    return 2.0 * D * products * pairs, nbytes
+
+
 def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
     """B1, B2 and B3 at one causal shape: each kernel's ms beside its
     bound, its plain version and SDPA with ``enable_gqa`` (timed here only:
@@ -2865,15 +2914,6 @@ def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
     do = attention_inputs(B, S, S, K, G, D, dtype, seed=601)[0]
     size = torch.empty((), dtype=dtype).element_size()
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    pairs = B * K * G * visible_pairs(S, S, True, window)
-    # each input read once, each output written once: B1 reads q, k, v and
-    # writes out and lse (fp32); B2 and B3 read q, dO, k, v, lse and delta
-    # and write dq, or dk and dv
-    rows_ = B * S * K * G
-    io = size * (2 * q.numel() + 2 * k.numel())
-    fwd_bytes = io + 4 * rows_
-    dq_bytes = io + 8 * rows_ + size * q.numel()
-    dkv_bytes = io + 8 * rows_ + size * 2 * k.numel()
     out, lse = fa.flash_attention(q, k, v, causal=True, window=window,
                                   return_lse=True)
     delta = fa_bwd.attention_delta(out, do)
@@ -2904,21 +2944,21 @@ def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
               f"{default_ms:.4f} ms ({default_ms.spread()})", flush=True)
         del out_d
     rows = {}
-    for kid, kernel, plain, products, nbytes, lib in (
+    for kid, kernel, plain, lib in (
             ("B1", lambda: fa.flash_attention(q, k, v, causal=True,
                                               window=window),
              lambda: fa.flash_attention_reference(q, k, v, causal=True,
                                                   window=window),
-             2, fwd_bytes, lib_fwd),
+             lib_fwd),
             ("B2", lambda: fa_bwd.dq_kernel(*args, **kw),
-             lambda: fa_bwd.dq_reference(*args, **kw), 3, dq_bytes, lib_bwd),
+             lambda: fa_bwd.dq_reference(*args, **kw), lib_bwd),
             ("B3", lambda: fa_bwd.dkv_kernel(*args, **kw),
-             lambda: fa_bwd.dkv_reference(*args, **kw), 4, dkv_bytes,
-             lib_bwd)):
+             lambda: fa_bwd.dkv_reference(*args, **kw), lib_bwd)):
         ms = cuda_ms(kernel, iters=iters)
         plain_ms = cuda_ms(plain, iters=1)
-        flops = 2.0 * D * products * pairs
+        flops, nbytes = attention_work(kid, B, S, K, G, D, window, size)
         bound_ms, bound_by = bound(flops, nbytes, peak)
+        BOUNDS_TIMED.append((kid, (B, S, K, G, D, window, size), bound_ms))
         what = "its forward" if kid == "B1" else f"{backend}: dq, dk, dv"
         print(f"[timing] {card} | {kid} {name} B={B} S=T={S} K={K} G={G} "
               f"D={D} {str(dtype)[6:]} causal window={window}: kernel "
@@ -2994,7 +3034,7 @@ def phase_train(fa, fa_bwd, train, card):
     check(rc == want, f"remat block: expected launches {want}, got {rc}")
     check(diff <= 1e-2, "remat block changes the first loss")
     torch.cuda.empty_cache()
-    return res, counts
+    return res, counts, remat, rc
 
 
 def loss_grads(params, batch, cfg, sys):
@@ -3944,6 +3984,7 @@ def phase_recurrent_timing(build, ml, rg, summaries, card):
         ms = cuda_ms(lambda: ml.mlstm_chunkwise(*x, chunk=cfg["chunk"]),
                      iters=10)
         bound_ms, bound_by = mlstm_bound(*MLSTM_SHAPE, 4)
+        BOUNDS_TIMED.append(("B4", (*MLSTM_SHAPE, 4), bound_ms))
         cluster = lib.mlstm_cluster_size(*MLSTM_SHAPE, cfg["chunk"], 4)
         print(f"[timing] {card} | mlstm B,S,H,D={MLSTM_SHAPE} fp32 {label} "
               f"{cfg}, clusters of {cluster}: kernel {ms:.4f} ms "
@@ -3964,6 +4005,7 @@ def phase_recurrent_timing(build, ml, rg, summaries, card):
     B, S, R = RGLRU_SHAPE
     plain_ms = cuda_ms(lambda: rg.rglru_reference(*y), iters=1)
     bound_ms, bound_by = rglru_bound(*RGLRU_SHAPE)
+    BOUNDS_TIMED.append(("B5", RGLRU_SHAPE, bound_ms))
     for label, cfg in (("default", {"chunk": 128, "r_block": 128}),
                        ("tuned", summaries[1]["config"])):
         ms = cuda_ms(lambda: rg.rglru_scan(*y, **cfg), iters=20)
@@ -6232,6 +6274,150 @@ def phase_obs(counters, card, dev="cuda"):
     return read_all(counters)
 
 
+def timed_bound_shapes():
+    """Every shape the timing phases time, with chip_smoke's own bound of
+    each: (kernel, shape, ms). B1-B3 at the serve, train, hybrid (D 256,
+    window), vlm and the fp32 [lmtune] and hybrid shapes; B4 at
+    ``MLSTM_SHAPE`` fp32; B5 at ``RGLRU_SHAPE``."""
+    attention = [(*SERVE_SHAPE, None, 2), (*TRAIN_SHAPE, None, 2),
+                 (*HYBRID_SERVE, *hybrid_attention(), 2),
+                 (*HYBRID_SERVE, *hybrid_attention(), 4),
+                 (*VLM_SERVE, *vlm_shapes()[0][3:], None, 2)]
+    attention += [(b, 64, k, 2, d, None, 4) for _, b, k, d in LM_ATTN_SHAPES]
+    rows = []
+    for shape in attention:
+        peak = PEAK_BF16_FLOPS if shape[-1] == 2 else PEAK_FP32_FLOPS
+        for kid in ("B1", "B2", "B3"):
+            rows.append((kid, shape,
+                         bound(*attention_work(kid, *shape), peak)[0]))
+    rows.append(("B4", (*MLSTM_SHAPE, 4), mlstm_bound(*MLSTM_SHAPE, 4)[0]))
+    rows.append(("B5", RGLRU_SHAPE, rglru_bound(*RGLRU_SHAPE)[0]))
+    return rows
+
+
+def analysis_bound(roofline, kid, shape):
+    """The analysis's bound (ms) of one kernel call at a timed shape."""
+    if kid == "B4":
+        return roofline.kernel_bound(roofline.mlstm_work(*shape))[0]
+    if kid == "B5":
+        return roofline.kernel_bound(roofline.rglru_work(*shape))[0]
+    B, S, K, G, D, window, size = shape
+    return roofline.kernel_bound(roofline.flash_work(
+        kid, B, S, S, K, G, D, size, True, window))[0]
+
+
+def train_runs(trained):
+    """[train]'s two runs as [dryrun] takes them: (label, result, launches,
+    steps)."""
+    res, counts, remat, remat_counts = trained
+    return [("train 4x2048", res, counts, TRAIN_STEPS),
+            ("train 4x2048 remat block x2", remat, remat_counts, 2)]
+
+
+def phase_dryrun(card, serve_info, runs):
+    """[dryrun]: ``launch.dryrun.run_cell`` on meta tensors, on the card's
+    host, for the cells [serve] and [train] ran, held against what they
+    measured: (a) the kernel calls a step against the launches, (b) the
+    predicted peak against max_memory_allocated (planted fault: adamw's
+    moments dropped), (c) no measured step faster than its roofline, the
+    measured MFU beside the projected, (d) chip_smoke's bounds against the
+    analysis's at every timed shape. Runs no step on the card."""
+    import math
+    from repro_torch import configs, weights
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    rows = []
+    # (a)-(c) the prefill [serve] timed, in its bf16 weights and 2080-slot
+    # cache, and the two train runs of [train]
+    launches, prefills, serve_sys, prefill_ms = serve_info
+    rec = dryrun.run_cell(
+        ARCH, "serve_prefill", verbose=False, max_len=PROMPT_LEN + GEN,
+        shape=configs.ShapeSpec("serve_prefill", "prefill", PROMPT_LEN,
+                                REQUESTS),
+        sys_overrides=vars(serve_sys),
+        cfg_overrides={"dtype": serve_sys.compute_dtype})
+    check(rec["status"] == "ok", f"[dryrun] prefill cell: {rec}")
+    rows.append(("prefill 8x2048", rec, {"B1": launches // prefills},
+                 prefill_ms / 1e3, None))
+    for label, res, counts, n_steps in runs:
+        rec = dryrun.run_cell(
+            ARCH, label, verbose=False, sys_overrides=vars(res.sys),
+            shape=configs.ShapeSpec(label, "train", TRAIN_SEQ, TRAIN_BATCH))
+        check(rec["status"] == "ok", f"[dryrun] {label} cell: {rec}")
+        want = {k: c // n_steps for k, c in zip(("B1", "B2", "B3"), counts)}
+        rows.append((label, rec, want, res.ms_per_step / 1e3,
+                     res.peak_memory_bytes))
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] {card} | the card's memory {total} B "
+          f"({total / 2 ** 30:.3f} GiB); the analysis takes the data "
+          f"sheet's {roofline.HBM_BYTES:.0f} B", flush=True)
+    cfg = configs.get(ARCH)
+    moments = 2 * 4 * sum(math.prod(s)
+                          for s in weights.leaf_shapes(cfg).values())
+    lo, hi = DRYRUN_PEAK_LIMITS
+    for label, rec, want, measured_s, peak in rows:
+        calls = rec["kernels"]
+        print(f"[dryrun] {label}: kernel calls a step {calls} against the "
+              f"launches {want} (B4, B5: none) "
+              f"{'ok' if calls == want else 'FAIL'}", flush=True)
+        check(calls == want, f"[dryrun] {label}: calls {calls}, launches "
+              f"{want}")
+        terms = rec["roofline"]
+        mfu = terms["model_flops"] / (measured_s * roofline.PEAK_FLOPS)
+        print(f"[dryrun] {card} | {label}: roofline {terms['step_time_s'] * 1e3:.3f}"
+              f" ms (compute {terms['compute_s'] * 1e3:.3f}, memory "
+              f"{terms['memory_s'] * 1e3:.3f}; {terms['dominant']}), measured "
+              f"{measured_s * 1e3:.3f} ms; MFU measured {mfu:.4f}, projected "
+              f"{terms['mfu']:.4f}; flops {rec['cost']['flops']:.4e}, bytes "
+              f"{rec['cost']['bytes accessed']:.4e}, trace "
+              f"{rec['trace_s']:.1f} s", flush=True)
+        check(terms["step_time_s"] <= measured_s,
+              f"[dryrun] {label}: measured {measured_s:.4f} s beats its "
+              f"roofline {terms['step_time_s']:.4f} s")
+        if peak is None:
+            continue
+        mem = rec["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        ratio, fault = predicted / peak, (predicted - moments) / peak
+        ok, caught = lo <= ratio <= hi, not lo <= fault <= hi
+        print(f"[dryrun] {card} | {label}: predicted peak "
+              f"{predicted / 2 ** 30:.3f} GiB (arguments "
+              f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f}, temp "
+              f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f}), "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB: ratio "
+              f"{ratio:.4f}, limits {lo}-{hi} {'ok' if ok else 'FAIL'}; "
+              f"planted fault (moments dropped) {fault:.4f} "
+              f"{'caught' if caught else 'MISSED'}", flush=True)
+        check(ok, f"[dryrun] {label}: predicted peak {ratio:.4f} of the "
+              "measured")
+        check(caught, f"[dryrun] {label}: the peak check misses dropped "
+              "moments")
+    # (d) every bound the script prints against the analysis's
+    timed = timed_bound_shapes()
+    keys = {(k, shape) for k, shape, _ in timed}
+    extra = [(k, shape) for k, shape, _ in BOUNDS_TIMED
+             if (k, shape) not in keys]
+    check(not extra, f"[dryrun] timed shapes outside the list: {extra}")
+    worst = 0.0
+    for kid, shape, ms in timed + BOUNDS_TIMED:
+        want = analysis_bound(roofline, kid, shape)
+        worst = max(worst, abs(ms - want) / want)
+    print(f"[dryrun] bounds: {len(timed)} shapes of B1-B5 (and "
+          f"{len(BOUNDS_TIMED)} printed by the timing phases) against "
+          f"analysis.roofline: max relative difference {worst:.2e} (limit "
+          f"{DRYRUN_BOUND_RTOL:g}) {'ok' if worst <= DRYRUN_BOUND_RTOL else 'FAIL'}",
+          flush=True)
+    check(worst <= DRYRUN_BOUND_RTOL, "chip_smoke's bounds disagree with "
+          "analysis.roofline's")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[dryrun] phase {phase_s:.1f} s (limit "
+          f"{DRYRUN_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < DRYRUN_PHASE_LIMIT_S, f"the dryrun phase took "
+          f"{phase_s:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6274,6 +6460,21 @@ def main() -> int:
         device_lib.resolve("cuda")
         print(json.dumps(phase_obs(counters, card)), flush=True)
         return 0
+    if sys.argv[1:2] == ["--dryrun"]:
+        # [serve] and [train] run first: [dryrun] holds its prediction
+        # against what they measured
+        print(f"[card] {card}", flush=True)
+        device_lib.resolve("cuda")
+        t0 = time.perf_counter()
+        build.build()
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        res, launches = phase_serve(fa, fa_bwd, serve, steps)
+        serve_info = (launches, res.prefills, res.sys, res.prefill_ms)
+        del res
+        torch.cuda.empty_cache()
+        phase_dryrun(card, serve_info, train_runs(phase_train(
+            fa, fa_bwd, train, card)))
+        return 0
     if sys.argv[1:2] == ["--service"]:
         print(f"[card] {card}", flush=True)
         device_lib.resolve("cuda")
@@ -6306,6 +6507,7 @@ def main() -> int:
           f"({res.prefill_ms:.3f} ms for {REQUESTS}x{PROMPT_LEN}), decode "
           f"{res.decode_tok_s:.1f} tok/s ({res.decode_ms / (GEN - 1):.3f} "
           f"ms/step at batch {REQUESTS})", flush=True)
+    serve_info = (launches, res.prefills, res.sys, res.prefill_ms)
     del res
     torch.cuda.empty_cache()
     archs_launches = phase_archs(fa, fa_bwd, serve, steps, card)
@@ -6314,7 +6516,8 @@ def main() -> int:
     vlm_serve_b1, vlm_train_counts = phase_vlm(fa, fa_bwd, steps, card)
     ssm_counts = phase_ssm(counters, steps, card, ml)
     phase_encdec(counters, steps, card)
-    _, train_counts = phase_train(fa, fa_bwd, train, card)
+    trained = phase_train(fa, fa_bwd, train, card)
+    train_counts = trained[1]
     phase_grad(fa_bwd)
     try:
         ckpt_counts, resume_counts, ckpt_depth = phase_ckpt(fa, fa_bwd,
@@ -6346,6 +6549,7 @@ def main() -> int:
                                    groundtruth)
     obs_counts = phase_obs(counters, card)
     check(not any(obs_counts.values()), f"[obs] launched {obs_counts}")
+    phase_dryrun(card, serve_info, train_runs(trained))
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]

@@ -4,11 +4,14 @@
 ``get_reduced(name)`` the family-preserving smoke-test config, as in the
 reference; every arch of the reference's ``ARCH_IDS`` resolves. The
 paper's own workloads (``PAPER_WORKLOADS``, Table 3) return their
-``SmallConfig`` from both, as in the reference.
+``SmallConfig`` from both, as in the reference. ``SHAPES`` maps the
+dry-run's shape ids to (kind, seq_len, global_batch), as the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict
 
 ARCH_IDS = [
     "mixtral-8x22b", "qwen2-moe-a2.7b", "yi-34b", "qwen2-1.5b", "qwen3-0.6b",
@@ -29,6 +32,29 @@ _MODULES = {"qwen3-0.6b": "qwen3_0_6b",
             "whisper-small": "whisper_small",
             "xlstm-350m": "xlstm_350m",
             **{name: "paper_workloads" for name in PAPER_WORKLOADS}}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg, shape: ShapeSpec) -> bool:
+    """long_500k needs sub-quadratic serving (the reference's rule)."""
+    if shape.name == "long_500k":
+        return getattr(cfg, "sub_quadratic", False)
+    return True
 
 
 def _mod(name: str):

@@ -2,6 +2,9 @@
 
 * The default device is ``cuda``. Without a GPU, :func:`resolve` raises unless
   the caller asked for ``"cpu"``: nothing carries on quietly on the CPU.
+* ``"meta"`` is taken only when asked for by name (the dry-run,
+  ``launch/dryrun.py``): tensors with shapes and dtypes and no storage. It
+  is never a default and touches no CUDA state.
 * On the card, float32 products run in full float32: :func:`resolve` sets
   ``torch.backends.cuda.matmul.allow_tf32 = False`` and
   ``torch.backends.cudnn.allow_tf32 = False`` (TF32 keeps about three decimal
@@ -29,7 +32,7 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 "pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

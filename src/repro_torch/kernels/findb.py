@@ -63,13 +63,14 @@ def set_find_db(db: KernelConfigDB) -> KernelConfigDB:
 def hardware_key(device=None) -> str:
     """Stable id of the device kernels run on: ``cuda/<name>`` for a CUDA
     device (the current one by default when a card is present),
-    ``cpu/cpu`` for the CPU."""
+    ``cpu/cpu`` for the CPU, ``meta/meta`` for the dry-run's meta device
+    (which no tuned row names, so its lookups take the defaults)."""
     import torch
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
-    if device.type == "cpu":
-        return "cpu/cpu"
+    if device.type in ("cpu", "meta"):
+        return f"{device.type}/{device.type}"
     name = torch.cuda.get_device_name(device)
     return f"{device.type}/{name}".replace(" ", "_").lower()
 

@@ -10,6 +10,9 @@
 * On CPU tensors it runs ``flash_attention_reference``, the plain PyTorch
   version of the same function, built on the online-softmax recurrence of
   ``layers.chunked_attention``.
+* On meta tensors (the dry-run, ``launch/dryrun.py``) it returns empty
+  outputs of the kernel's shapes and dtypes and reports the kernel's work
+  to ``analysis.cost``; nothing launches and nothing is computed.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run can
 show that its main path went through the kernel.
@@ -93,6 +96,22 @@ def _launch(q, k, v, causal, window, scale):
     return out, lse
 
 
+def _meta(q, k, v, causal, window):
+    """The kernel's outputs on the meta device, its work reported."""
+    from repro_torch.analysis import cost, roofline
+    B, S, K, G, D = q.shape
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes bf16 or fp32 q/k/v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D > 256 or G > _MAX_G[q.dtype]:
+        raise ValueError(f"head_dim {D}, {G} query heads per kv head: the "
+                         f"kernel takes D <= 256, G <= {_MAX_G[q.dtype]}")
+    cost.report_kernel("B1", roofline.flash_work(
+        "B1", B, S, k.shape[1], K, G, D, q.element_size(), causal, window))
+    return (torch.empty_like(q),
+            torch.empty((B, S, K, G), dtype=torch.float32, device=q.device))
+
+
 def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                     softmax_scale=None, return_lse=False):
     """q: (B, S, K, G, D); k, v: (B, T, K, D) -> (B, S, K, G, D).
@@ -112,6 +131,8 @@ def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
         out, lse = flash_attention_reference(q, k, v, causal=causal,
                                              window=window,
                                              softmax_scale=scale)
+    elif q.device.type == "meta" and k.device == q.device == v.device:
+        out, lse = _meta(q, k, v, causal, window)
     else:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     return (out, lse) if return_lse else out

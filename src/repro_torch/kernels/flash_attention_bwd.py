@@ -14,6 +14,9 @@ the kernels, by a torch op.
   PyTorch version: chunked, fp32 inside, recomputing
   ``p = exp(s * scale - lse)`` from the saved LSE with the reference
   kernels' masks and ``NEG_INF``.
+* On meta tensors (the dry-run) it computes delta as the card does and
+  returns empty dq, dk, dv, reporting B2's and B3's work to
+  ``analysis.cost``; nothing launches.
 
 ``launches_dq`` and ``launches_dkv`` count kernel launches (never
 plain-version calls), so a run can show that its main path went through the
@@ -230,6 +233,25 @@ def _scale(q, softmax_scale):
     return 1.0 / math.sqrt(q.shape[-1])
 
 
+def _meta(q, k, v, out, do, causal, window):
+    """B2's and B3's outputs on the meta device, their work reported."""
+    from repro_torch.analysis import cost, roofline
+    if q.dtype not in _NAMES or any(t.dtype != q.dtype for t in (k, v, do)):
+        raise TypeError(f"flash_attention_bwd takes bf16 or fp32 q/k/v/do of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{do.dtype}")
+    B, S, K, G, D = q.shape
+    if D > 256:
+        raise ValueError(f"head_dim {D}: the kernels take D <= 256")
+    delta = attention_delta(out, do)      # alive beside dq, dk, dv, as there
+    shape = (B, S, k.shape[1], K, G, D, q.element_size(), causal, window)
+    cost.report_kernel("B2", roofline.flash_work("B2", *shape))
+    cost.report_kernel("B3", roofline.flash_work("B3", *shape))
+    grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    del delta
+    return grads
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True,
                         window: Optional[int] = None, softmax_scale=None):
     """q, out, do: (B, S, K, G, D); k, v: (B, T, K, D); lse: (B, S, K, G)
@@ -256,4 +278,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True,
         return flash_attention_bwd_reference(q, k, v, out, lse, do,
                                              causal=causal, window=window,
                                              softmax_scale=scale)
+    if q.device.type == "meta" and all(
+            t.device == q.device for t in (k, v, out, lse, do)):
+        return _meta(q, k, v, out, do, causal, window)
     raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")

@@ -15,6 +15,9 @@ the tensors' device, and ``S % chunk`` must be 0.
 * On CPU tensors it runs ``mlstm_chunkwise_reference``, the plain PyTorch
   version: the port of ``repro.models.xlstm.mlstm_chunkwise`` in fp32
   einsums, which also takes and returns the carried state.
+* On meta tensors (the dry-run) it returns an empty h and allocates the
+  kernel's scores scratch as the card does, reporting B4's work to
+  ``analysis.cost``; nothing launches.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run
 can show that its main path went through the kernel.
@@ -153,6 +156,24 @@ def _launch(q, k, v, i_gate, f_gate, Q):
     return h
 
 
+def _meta(q, k, v, Q):
+    """B4's output on the meta device, its work reported."""
+    from repro_torch.analysis import cost, roofline
+    if q.dtype not in _NAMES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"mlstm_chunkwise takes fp32, bf16 or fp16 q/k/v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if Q > 256:
+        raise ValueError(f"chunk {Q}: the kernel takes chunks of at most 256 "
+                         "steps")
+    B, S, H, D = q.shape
+    cost.report_kernel("B4", roofline.mlstm_work(B, S, H, D,
+                                                 q.element_size()))
+    h = torch.empty_like(q)
+    # the scores scratch the kernel writes, alive until it returns
+    torch.empty((B * H, S // Q, Q, Q), dtype=torch.float32, device=q.device)
+    return h
+
+
 def resolve_chunk(q, chunk=None) -> int:
     """``chunk``, or when None the find-db's chunk for q's shape and
     device (``findb.DEFAULTS`` on a miss)."""
@@ -181,5 +202,8 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk=None):
     if q.device.type == "cpu" and all(
             t.device == q.device for t in (k, v, i_gate, f_gate)):
         return mlstm_chunkwise_reference(q, k, v, i_gate, f_gate, chunk=Q)[0]
+    if q.device.type == "meta" and all(
+            t.device == q.device for t in (k, v, i_gate, f_gate)):
+        return _meta(q, k, v, Q)
     raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}, "
                      f"gates on {i_gate.device}, {f_gate.device}")

@@ -16,6 +16,8 @@ dtype are cast to fp32 first, as the reference's kernel does at load).
 * On CPU tensors it runs ``rglru_reference``, the plain PyTorch version of
   ``repro.kernels.ref.rglru_ref``: an associative scan with h0 folded into
   the first step.
+* On meta tensors (the dry-run) it returns empty h and h_last, reporting
+  B5's work to ``analysis.cost``; nothing launches.
 
 ``launches`` counts kernel launches (never plain-version calls).
 """
@@ -136,6 +138,17 @@ def resolve_blocks(log_a, chunk=None, r_block=None):
     return int(chunk), int(r_block)
 
 
+def _meta(log_a, b, h0, r_block):
+    """B5's outputs on the meta device, their work reported."""
+    from repro_torch.analysis import cost, roofline
+    _check_r_block(r_block)
+    B, S, R = log_a.shape
+    cost.report_kernel("B5", roofline.rglru_work(B, S, R, h0 is not None))
+    dev = log_a.device
+    return (torch.empty((B, S, R), dtype=torch.float32, device=dev),
+            torch.empty((B, R), dtype=torch.float32, device=dev))
+
+
 def rglru_scan(log_a, b, h0=None, *, chunk=None, r_block=None):
     """log_a, b: (B, S, R); h0: (B, R) or None. Returns (h, h_last)."""
     B, S, R = log_a.shape
@@ -154,5 +167,8 @@ def rglru_scan(log_a, b, h0=None, *, chunk=None, r_block=None):
     if log_a.device.type == "cpu" and b.device == log_a.device and (
             h0 is None or h0.device == log_a.device):
         return rglru_reference(log_a, b, h0)
+    if log_a.device.type == "meta" and b.device == log_a.device and (
+            h0 is None or h0.device == log_a.device):
+        return _meta(log_a, b, h0, r_block)
     raise ValueError(f"log_a on {log_a.device}, b on {b.device}, h0 on "
                      f"{None if h0 is None else h0.device}")

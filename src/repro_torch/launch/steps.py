@@ -14,14 +14,23 @@ train step sharded over a mesh is not ported: ROADMAP.md, "Distributed")
 and with an explicit ``torch.Generator`` and device in place of a PRNG key.
 PyTorch runs eagerly, so the returned functions need no ``jit``; prefill
 and decode run under ``torch.inference_mode()``.
+
+The dry-run's helpers (``default_sys``, ``abstract_state``,
+``input_specs``, ``cache_specs_abstract``, ``state_specs_abstract``,
+``param_specs_abstract``) build meta tensors with the reference's shapes
+and dtypes: nothing is allocated. Where a mesh (a ``DeviceMesh`` or a
+``launch.mesh.AbstractMesh``) is given, each leaf's spec comes from
+``distributed.sharding``, as the reference's ``NamedSharding``s do.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch import weights
+from repro_torch.configs import ShapeSpec
+from repro_torch.distributed import sharding
 from repro_torch.models import encdec, transformer
 from repro_torch.models.transformer import SystemConfig
 from repro_torch.optim import optimizers
@@ -50,6 +59,20 @@ def make_train_state(gen: torch.Generator, cfg, opt: optimizers.Optimizer,
     optimizer's state, and the step as a Python int."""
     params = model_init(gen, cfg, device)
     return {"params": params, "opt": opt.init(params), "step": 0}
+
+
+def default_sys(cfg, shape: ShapeSpec, *, dp=16, tp=16, pods=1
+                ) -> SystemConfig:
+    """Baseline system config for a dry-run cell, as the reference's: one
+    sequence a data shard a microbatch in training, remat inside blocks
+    (the memory-minimal default), bf16 compute."""
+    dp_total = dp * pods
+    micro = max(1, shape.global_batch // dp_total) if shape.kind == "train" else 1
+    remat = "block" if shape.kind == "train" else "none"
+    baxes = ("pod", "data") if pods > 1 else ("data",)
+    return SystemConfig(dp=dp, tp=tp, pods=pods, microbatches=micro,
+                        remat=remat, precision="bf16", shard_attn=True,
+                        batch_axes=baxes)
 
 
 def make_train_step(cfg, sys: SystemConfig,
@@ -156,3 +179,92 @@ def make_decode_step(cfg, sys: SystemConfig) -> Callable:
     def decode(params, cache, tokens, pos):
         return transformer.decode_step(params, cache, tokens, pos, cfg, sys)
     return decode
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+class Abstract(NamedTuple):
+    """A tree of meta tensors and, where a mesh was given, its spec tree
+    (``distributed.sharding``'s tuples; None without a mesh)."""
+    tree: Any
+    specs: Any = None
+
+
+def _meta_params(cfg):
+    """Every parameter of ``cfg`` as a meta tensor in ``cfg.dtype``."""
+    return weights.unflatten({
+        p: torch.empty(s, device="meta", dtype=cfg.dtype)
+        for p, s in weights.leaf_shapes(cfg).items()})
+
+
+def abstract_state(cfg, opt: optimizers.Optimizer):
+    """``make_train_state``'s tree on the meta device: parameters in
+    ``cfg.dtype``, the optimizer's moments fp32, the step 0."""
+    params = _meta_params(cfg)
+    return {"params": params, "opt": opt.init(params), "step": 0}
+
+
+def input_specs(cfg, shape: ShapeSpec, mesh=None) -> Abstract:
+    """Abstract stand-ins for every model input of this (arch, shape)
+    cell: int32 tokens and labels, bf16 frames or embeddings; a decode
+    cell's "pos" is the last slot of its seq_len-long cache."""
+    B, S = shape.global_batch, shape.seq_len
+    baxes = None
+    if mesh is not None:
+        ax = tuple(a for a in sharding.BATCH_AXES
+                   if a in mesh.mesh_dim_names)
+        baxes = ax if len(ax) > 1 else (ax[0] if ax else None)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        nshards = 1
+        for a in (baxes if isinstance(baxes, tuple) else
+                  ((baxes,) if baxes else ())):
+            nshards *= sizes[a]
+        if B % max(1, nshards) != 0:
+            baxes = None                     # tiny batches stay replicated
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        d = {"tokens": meta((B, 1), torch.int32), "pos": S - 1}
+    elif is_encdec(cfg):
+        d = {"frames": meta((B, cfg.n_enc_frames, cfg.d_model),
+                            torch.bfloat16),
+             "tokens": meta((B, S), torch.int32)}
+    elif getattr(cfg, "takes_embeddings", False):
+        d = {"embeddings": meta((B, S, cfg.d_model), torch.bfloat16)}
+    else:
+        d = {"tokens": meta((B, S), torch.int32)}
+    if shape.kind == "train":
+        d["labels"] = meta((B, S), torch.int32)
+    if mesh is None:
+        return Abstract(d)
+    specs = {k: () if k == "pos" else
+             (baxes,) + (None,) * (len(v.shape) - 1) for k, v in d.items()}
+    return Abstract(d, specs)
+
+
+def cache_specs_abstract(cfg, shape: ShapeSpec, mesh=None,
+                         quant=False) -> Abstract:
+    """The decode cache on the meta device (bf16, int8 under ``quant``),
+    with its specs on a mesh."""
+    B, S = shape.global_batch, shape.seq_len
+    if is_encdec(cfg):
+        tree = encdec.init_cache(cfg, B, min(S, 32768), device="meta")
+    else:
+        tree = transformer.init_cache(cfg, B, S, quant=quant, device="meta")
+    if mesh is None:
+        return Abstract(tree)
+    return Abstract(tree, sharding.cache_specs(tree, cfg, mesh))
+
+
+def state_specs_abstract(cfg, opt, mesh, sys) -> Abstract:
+    tree = abstract_state(cfg, opt)
+    return Abstract(tree, sharding.state_specs(tree, cfg, mesh, sys))
+
+
+def param_specs_abstract(cfg, mesh, sys) -> Abstract:
+    tree = _meta_params(cfg)
+    return Abstract(tree, sharding.param_specs(tree, cfg, mesh, sys))

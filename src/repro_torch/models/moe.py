@@ -91,6 +91,20 @@ def _expert(params, e, x):
     return (F.silu(g) * u) @ params["w_down"][e]
 
 
+def _balanced_entries(n: int, E: int, cap: int, dev):
+    """The dry-run's routing on meta tensors, where the router's choices
+    have no values: a balanced router's. The n (row, token, choice) entries
+    spread evenly over the E experts (the first n % E one more), each
+    expert keeping at most ``cap`` = B * C of them. Returns (the kept
+    entries as a meta index tensor, the kept count per expert).
+
+    This models the work of routed rows. It is not the reference's count,
+    whose one-hot einsums cover all E * C capacity slots of every row."""
+    per_expert = [min(cap, n // E + (e < n % E)) for e in range(E)]
+    return (torch.empty(sum(per_expert), dtype=torch.long, device=dev),
+            per_expert)
+
+
 def apply_moe(params, x, cfg: MoEConfig, token_chunk: int = TOKEN_CHUNK):
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux_loss fp32 scalar).
 
@@ -98,6 +112,10 @@ def apply_moe(params, x, cfg: MoEConfig, token_chunk: int = TOKEN_CHUNK):
     ``token_chunk`` segments, each with its own capacity, and the aux loss is
     the mean over segments, as in the reference: here the segments become
     batch rows.
+
+    On meta tensors (the dry-run) the routing is a balanced router's
+    (``_balanced_entries``): the experts run on meta rows of those counts,
+    and the same ``index_add_`` combines them.
     """
     B, S, d = x.shape
     if S > token_chunk and S % token_chunk == 0:
@@ -110,20 +128,23 @@ def apply_moe(params, x, cfg: MoEConfig, token_chunk: int = TOKEN_CHUNK):
     logits = x.float() @ params["router"].float()
     weights, idx, aux = _top_k_gating(logits, cfg)
 
-    # Entries (row, token, choice) in the reference's order, grouped by
-    # expert and then by row by a stable sort; an entry's slot in its
-    # (expert, row) buffer is its rank within that group.
     n = B * T * k
     dev = x.device
-    e_of = idx.reshape(n)
-    row_of = torch.arange(B, device=dev).repeat_interleave(T * k)
-    group = e_of * B + row_of
-    order = torch.sort(group, stable=True).indices
-    sizes = torch.bincount(group, minlength=E * B)
-    starts = sizes.cumsum(0) - sizes
-    slot = torch.arange(n, device=dev) - starts[group[order]]
-    kept = order[slot < C]
-    per_expert = torch.bincount(e_of[kept], minlength=E).tolist()
+    if dev.type == "meta":
+        kept, per_expert = _balanced_entries(n, E, B * C, dev)
+    else:
+        # Entries (row, token, choice) in the reference's order, grouped by
+        # expert and then by row by a stable sort; an entry's slot in its
+        # (expert, row) buffer is its rank within that group.
+        e_of = idx.reshape(n)
+        row_of = torch.arange(B, device=dev).repeat_interleave(T * k)
+        group = e_of * B + row_of
+        order = torch.sort(group, stable=True).indices
+        sizes = torch.bincount(group, minlength=E * B)
+        starts = sizes.cumsum(0) - sizes
+        slot = torch.arange(n, device=dev) - starts[group[order]]
+        kept = order[slot < C]
+        per_expert = torch.bincount(e_of[kept], minlength=E).tolist()
 
     token_of = kept // k                        # flat (row, token) index
     xs = x.reshape(B * T, d)[token_of]

@@ -86,6 +86,12 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(examples) >= 3
     files += examples + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/analysis/cost.py",
+            "src/repro_torch/analysis/roofline.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/lint/engine.py",
+            "src/repro_torch/lint/passes/wire.py"} <= names
     banned = {"jax", "jaxlib", "flax", "repro"}
     for f in files:
         found = banned & set(_imported_roots(f))
