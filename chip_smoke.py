@@ -10,6 +10,9 @@ Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
      ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, all
      started together) and print the build time and ptxas's register report;
+     then each compiled tile plan of the attention kernels (``[ptxas] plan``:
+     registers and spill bytes), where every bf16 plan and the fp32
+     forward's must spill 0 bytes;
   2. run hopper.cuh's self-test (csrc/hopper_selftest.cu, not a port of a
      TPU kernel): a TMA load of a 64 x D and a 128 x D tile, then wgmma
      with B K-major and with B MN-major, at D = 64 and 128, each held
@@ -39,7 +42,16 @@ Phases (any failure raises, and the script exits non-zero):
      head_dim 256 and the [vlm] shapes; B2/B3's at the train, the head_dim
      256 and the [vlm] shapes). The whole autograd op (B1 forward,
      B2 and B3 backward) is held against autograd through fp32 dense
-     attention at the train shape;
+     attention at the train shape. Then every tile plan (``PLAN_SHAPES``,
+     ``findb.flash_attention_plans``/``flash_attention_bwd_plans``): B1 at
+     each (q_block, kv_block) of its sets (bf16 and fp32, head_dim 128 and
+     256) and B2 + B3 at each pair of theirs, held against the plain
+     version at the same limits at the serve or train shape (head_dim 256:
+     MQA, G 16, window 2048) and at a ragged one (S not a multiple of the
+     plan's positions, T not of its kv_block, a window, G 6 or 7); a kv
+     tile of the plan's kv_block hidden (from B1's output, from B2's dq,
+     from B3's dk and dv) must fail the check at one non-default plan of
+     each kernel;
   3. serve full-width qwen3-0.6b (seeded bf16 weights, 8 requests of 2048
      prompt tokens, 32 generated) through ``repro_torch.launch.serve.main``,
      with every launch counter set to 0 just before and read just after; the
@@ -185,6 +197,10 @@ Phases (any failure raises, and the script exits non-zero):
      backward, the flash backend pinned, timed here only: the port never
      calls it; what the backward picks unpinned is printed as
      information), and B2 + B3 back to back beside SDPA's whole backward;
+     B2 and B3 at their default plans (no find-db row); then every plan of
+     B1 at the serve shape and every pair of B2, B3 and B2 + B3 at the
+     train shape beside the bound (the same work whatever plan runs) and
+     SDPA;
      then the fp32 variants at the [lmtune] shapes and at the [hybrid]
      shape beside their bounds, plain versions and SDPA (unpinned: flash
      takes no fp32; the backend it picked is printed). Every
@@ -202,15 +218,29 @@ Phases (any failure raises, and the script exits non-zero):
      without the inter-chunk q C term for chunks >= 1; B5 without one
      step's carry) must fail the checks;
   8. run the kernel tuner (``repro_torch.kernels.tune.tune_kernel``: grid,
-     3 reps, 1 warm-up, a fresh find-db) on both full-width workloads with
-     every launch counter set to 0 just before and read just after: 4 and
-     16 trials, the B4 and B5 launches equal to the kernel calls the
-     backend timed, no B1-B3 launch, rows under a ``cuda/...h100...``
-     hardware key, a golden table under ``build/``; a second call must
-     answer from the find-db with 0 trials and 0 launches, and
-     ``ops.mlstm``/``ops.rglru`` with ``chunk=None`` must launch with the
-     defaults on an empty find-db, the winners' configs on the golden
+     ``TUNE_REPS`` reps, 1 warm-up, one fresh find-db) on the full-width
+     workloads of B4, B5 and, in bf16, B1 (``FLASH_FWD_WORKLOAD``) and
+     B2 + B3 (``FLASH_BWD_WORKLOAD``), every launch counter set to 0 just
+     before each workload and read just after it: 4, 16, 4 and 2 trials; each
+     workload launches only its kernels, B4, B5 and B1 once a kernel call
+     the backend timed, B2 and B3 once a backward call plus one B1 (the
+     forward that made the backward's inputs); rows under a
+     ``cuda/...h100...`` hardware key, a golden table under ``build/``; a
+     second call must answer from the find-db with 0 trials and 0 launches,
+     and ``ops.mlstm``/``ops.rglru`` with ``chunk=None`` must launch with
+     the defaults on an empty find-db, the winners' configs on the golden
      table, and on a find-db of configs that are neither, with those;
+ 8b. ``[tiles]``, the attention tiles on the main path: full-width
+     qwen3-0.6b trained ``TILES_STEPS`` steps through ``launch.train
+     --kernel-db`` and prefilled (8 x 2048) through the step builders with
+     ``findb.set_find_db``, on an empty table, the golden table and a
+     planted one (tiles neither default nor winning, for the prefill's and
+     the train step's B1 and for the backward): a spy on the wrappers
+     records each launch's tiles, which must be the table's, 28 B1 per
+     prefill and 28 B1, B2 and B3 per step; the golden and planted runs'
+     losses within ``TILES_LOSS_TOL`` of the empty table's, their logits as
+     in 3 against the fp32 plain path and the empty table's logits. Within
+     ``TILES_PHASE_LIMIT_S``;
   9. time B4 and B5 at full width at the default config and at the winner,
      beside their bounds (one per shape: the least work at any chunk) and
      their plain versions (no single PyTorch call computes either: no
@@ -362,8 +392,9 @@ Phases (any failure raises, and the script exits non-zero):
      ``analysis.roofline``'s at every timed shape within
      ``DRYRUN_BOUND_RTOL``. Within ``DRYRUN_PHASE_LIMIT_S``.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
-``launches_vlm`` and ``vlm`` timing rows and their ``launches_ckpt``,
-``launches_ckpt_resume``, ``launches_dist`` and ``launches_service``, B4
+``launches_vlm`` and ``vlm`` timing rows, their ``launches_ckpt``,
+``launches_ckpt_resume``, ``launches_dist``, ``launches_service``,
+``launches_tune`` and ``launches_tiles`` and their ``plans`` rows, B4
 and B5 with their ``launches_ssm`` and ``launches_service``), the card
 line, and last ``{"ok": true, "device": {...}}``.
 
@@ -505,6 +536,22 @@ RGLRU_WORKLOAD = "rglru@B=8,S=2048,R=4096"
 MLSTM_SHAPE = (8, 2048, 4, 512)
 RGLRU_SHAPE = (8, 2048, 4096)
 GOLDEN = Path("build") / "chip_smoke" / "kernel_golden.json"
+# the attention kernels' tuner workloads: qwen3-0.6b's serve and train
+# shapes in bf16 (4 and 2 trials: findb's plan sets at head_dim 128)
+FLASH_FWD_WORKLOAD = "flash_attention@B=8,S=2048,K=8,G=2,D=128,dtype=bf16"
+# timed reps a trial of the full-width grids (3 before the attention
+# workloads joined them: 2 keeps the whole command's time)
+TUNE_REPS = 2
+FLASH_BWD_WORKLOAD = ("flash_attention_bwd@B=4,S=2048,K=8,G=2,D=128,"
+                      "dtype=bf16")
+# [tiles]: full-width qwen3-0.6b trained TILES_STEPS steps through
+# launch.train --kernel-db and prefilled through the step builders on three
+# find-db tables; a loss may move by TILES_LOSS_TOL from the empty table's
+# (the [train] remat check's limit), the prefill logits as in [serve]
+TILES_STEPS = 2
+TILES_LOSS_TOL = 1e-2
+TILES_PHASE_LIMIT_S = 120.0
+TILES_TABLES = Path("build") / "chip_smoke" / "tiles"
 
 # hopper.cuh's self-test (csrc/hopper_selftest.cu) against fp32 products of
 # the same bf16 inputs: both sum 64 or 128 products that fp32 holds exactly,
@@ -977,12 +1024,14 @@ def compare(out, lse, ref_out, ref_lse):
     return ok, float(e_out.max()), float(e_lse.max()), atol, rtol
 
 
-def dense_attention_bwd(q, k, v, do, causal, window=None, drop=None):
+def dense_attention_bwd(q, k, v, do, causal, window=None, drop=None,
+                        part="dkv"):
     """Plain masked attention backward in fp32: (dq, dk, dv) in the inputs'
     dtype, from a softmax of its own.
 
     ``drop=(row, lo, hi)`` leaves the contribution of query rows >= row to
-    keys lo..hi-1 out of dk and dv: the planted fault of the backward.
+    keys lo..hi-1 out of dk and dv (``part="dkv"``, B3's planted fault) or
+    out of dq (``part="dq"``, B2's).
     """
     import torch
     B, S, K, G, D = q.shape
@@ -1003,10 +1052,12 @@ def dense_attention_bwd(q, k, v, do, causal, window=None, drop=None):
     delta = (out * dof.permute(0, 2, 3, 1, 4)).sum(-1)
     ds = p * (torch.einsum("bskgd,btkd->bkgst", dof, vf)
               - delta[..., None]) * scale
-    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf)
     if drop:
         row, lo, hi = drop
         keep = ~((rows >= row) & (cols >= lo) & (cols < hi))
+    dq = torch.einsum("bkgst,btkd->bskgd",
+                      ds * keep if drop and part == "dq" else ds, kf)
+    if drop and part == "dkv":
         p, ds = p * keep, ds * keep
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qf)
     dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
@@ -1255,6 +1306,199 @@ def phase_bwd_kernels(fa, fa_bwd):
             del fault
         del q, k, v, do, out, lse, got, ref
     return errs
+
+
+def plan_spills(libs):
+    """[ptxas]: every instantiation of the attention kernels' plans, its
+    registers and spill bytes (stores + loads). The bf16 plans and the
+    fp32 forward's must spill nothing. The fp32 backward's plans are
+    printed only: fp32 B3 spilled 16 and 24 bytes at head_dim 256 and 128
+    before the kernels took tiles, and still does (ROADMAP section B 7)."""
+    import re
+    checked = 0
+    for name in ("flash_attention", "flash_attention_bwd"):
+        for kernel, report in ptxas_report(libs[name].with_suffix(".log")):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", report)
+            spill = int(m.group(1)) + int(m.group(2)) if m else -1
+            must = "bf16" in kernel or kernel.startswith("fa_fwd_f32")
+            print(f"[ptxas] plan {kernel}: {report.split(';')[0]}; spill "
+                  f"bytes {spill}{'' if must else ' (not checked)'}",
+                  flush=True)
+            if must:
+                checked += 1
+                check(spill == 0, f"{kernel} spills {spill} bytes")
+    check(checked >= 13, f"only {checked} attention plans compiled")
+
+
+# (kernel, dtype, padded D): [(name, B, S, T, K, G, D, window)]
+PLAN_SHAPES = {
+    # the serve or train shape, then ragged: S not a multiple of any
+    # plan's positions, T of any kv_block, a window, G = 6 or 7 by plan
+    ("B1", "bfloat16", 128): [
+        ("serve", 8, 2048, 2048, 8, 2, 128, None),
+        ("ragged", 2, 1001, 1003, 4, 0, 128, 300)],
+    ("B1", "bfloat16", 256): [
+        ("hybrid", 8, 2048, 2048, 1, 16, 256, 2048),
+        ("ragged", 2, 2047, 2047, 1, 16, 256, 2048)],
+    ("B1", "float32", 128): [
+        ("fp32", 2, 512, 512, 8, 2, 128, None),
+        ("ragged", 2, 333, 335, 4, 3, 72, 64)],
+    ("B1", "float32", 256): [("ragged", 1, 333, 333, 1, 16, 256, 100)],
+    ("bwd", "bfloat16", 128): [
+        ("train", 4, 2048, 2048, 8, 2, 128, None),
+        ("ragged", 2, 1001, 1003, 4, 0, 128, 300)],
+    ("bwd", "bfloat16", 256): [
+        ("hybrid_train", 1, 4096, 4096, 1, 16, 256, 2048),
+        ("ragged", 1, 2047, 2047, 1, 16, 256, 2048)],
+    ("bwd", "float32", 128): [("ragged", 2, 333, 335, 4, 3, 72, 64)],
+    ("bwd", "float32", 256): [("ragged", 1, 333, 333, 1, 16, 256, 100)],
+}
+
+
+def phase_plans(fa, fa_bwd, findb):
+    """B1 at every plan of its sets, B2 + B3 at every pair of theirs, each
+    held against the plain version at the card limits (OUT_TOL, GRAD_TOL)
+    at the serve or train shape and a ragged one (PLAN_SHAPES); at a
+    non-default plan of each kernel a dropped kv tile of that plan's
+    kv_block must fail the check. Returns {(kernel, dtype, D, plan):
+    max|err|} at each plan's first shape."""
+    import torch
+    errs = {}
+    for (kid, dt, DP), shapes in PLAN_SHAPES.items():
+        dtype = getattr(torch, dt)
+        plans = (findb.flash_attention_plans if kid == "B1"
+                 else findb.flash_attention_bwd_plans)(dtype, DP)
+        for j, (qb, kb) in enumerate(plans):
+            for i, (name, B, S, T, K, G, D, window) in enumerate(shapes):
+                G = G or (6, 7)[j % 2]
+                seed = 1500 + 10 * j + i
+                q, k, v = attention_inputs(B, S, T, K, G, D, dtype, seed)
+                where = (f"{name} B={B} S={S} T={T} K={K} G={G} D={D} {dt} "
+                         f"causal window={window}")
+                do = None
+                if kid == "B1":
+                    got = fa.flash_attention(q, k, v, window=window,
+                                             q_block=qb, kv_block=kb,
+                                             return_lse=True)
+                    torch.cuda.synchronize()
+                    ref = fa.flash_attention_reference(q, k, v,
+                                                       window=window)
+                    ok, e, e_lse, atol, rtol = compare(*got, *ref)
+                    line = (f"max|out err|={e:.3e} max|lse err|={e_lse:.3e}"
+                            f" (limits out {atol:g}+{rtol:g}|ref|, lse "
+                            f"{LSE_TOL:g})")
+                else:
+                    do = attention_inputs(B, S, S, K, G, D, dtype,
+                                          seed + 5)[0]
+                    out, lse = fa.flash_attention(q, k, v, window=window,
+                                                  return_lse=True)
+                    got = fa_bwd.flash_attention_bwd_at(
+                        q, k, v, out, lse, do, {"dq": (qb, kb),
+                                                "dkv": (qb, kb)},
+                        window=window)
+                    torch.cuda.synchronize()
+                    ref = fa_bwd.flash_attention_bwd_reference(
+                        q, k, v, out, lse, do, window=window)
+                    ok, e3, need = compare_grads(got, ref, GRAD_TOL[dt])
+                    e = max(x for x, _ in e3)
+                    line = f"max|err| {grad_line(e3, need, GRAD_TOL[dt])}"
+                if i == 0:
+                    errs[(kid, dt, DP, (qb, kb))] = e
+                print(f"[kernel] plan {kid} ({qb}, {kb}) {where}: {line} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"{kid} at plan ({qb}, {kb}) disagrees with its "
+                          f"plain version at {name}")
+                if i == 0 and DP == 128 and dt == "bfloat16":
+                    plan_fault(kid, findb, (qb, kb), q, k, v, do, window,
+                               ref)
+                del q, k, v, do, got, ref
+    return errs
+
+
+def plan_fault(kid, findb, plan, q, k, v, do, window, ref):
+    """At a plan that is not the kernel's default, one kv tile of the
+    plan's kv_block hidden (B1; B3: its dk/dv contribution, B2: its dq
+    contribution) must fail the check that the plan passed."""
+    dtype, DP = q.dtype, q.shape[-1]
+    row, lo, hi = 1024, plan[1], 2 * plan[1]
+    defaults = {x: findb.flash_attention_defaults(x, dtype, DP)
+                for x in ("B1", "B2", "B3")}
+    if kid == "B1":
+        first = next(x for x in findb.flash_attention_plans(dtype, DP)
+                     if x != tuple(defaults["B1"].values()))
+        if plan != first:
+            return
+        f = dense_attention_sliced(q, k, v, True, window, (row, lo, hi))
+        caught = not compare(*f, *ref)[0]
+        what = (f"B1 keys {lo}..{hi - 1} hidden from rows >= {row}")
+    else:
+        tol = GRAD_TOL[str(dtype)[6:]]
+        faults = []
+        if plan != tuple(defaults["B2"].values()):
+            faults.append(("B2", dense_attention_bwd(
+                q, k, v, do, True, window, (row, lo, hi), part="dq")))
+        if plan != tuple(defaults["B3"].values()):
+            faults.append(("B3", dense_attention_bwd(q, k, v, do, True,
+                                                     window, (row, lo, hi))))
+        for name, f in faults:
+            caught = not compare_grads(f, ref, tol)[0]
+            print(f"[kernel] planted fault at plan {plan} ({name}: the "
+                  f"contribution of keys {lo}..{hi - 1} to rows >= {row} "
+                  f"left out) {'caught' if caught else 'MISSED'}",
+                  flush=True)
+            check(caught, f"the {name} check misses a dropped tile at plan "
+                          f"{plan}")
+        return
+    print(f"[kernel] planted fault at plan {plan} ({what}) "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(caught, f"the B1 check misses a dropped tile at plan {plan}")
+
+
+def time_plans(fa, fa_bwd, findb, card, fwd_lib, bwd_lib):
+    """Each plan of B1 at the serve shape and each pair of B2 + B3 at the
+    train shape (bf16, head_dim 128), beside the bound (the same work at
+    every plan) and SDPA's forward or whole backward as ``time_attention``
+    took it (``fwd_lib``, ``bwd_lib``). Returns {kid: {plan: row}}."""
+    import torch
+    rows = {"B1": {}, "B2": {}, "B3": {}, "B2+B3": {}}
+    for shape, kids in ((SERVE_SHAPE, ("B1",)),
+                        (TRAIN_SHAPE, ("B2", "B3", "B2+B3"))):
+        B, S, K, G, D = shape
+        q, k, v = attention_inputs(B, S, S, K, G, D, torch.bfloat16, 600)
+        do = attention_inputs(B, S, S, K, G, D, torch.bfloat16, 601)[0]
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        delta = fa_bwd.attention_delta(out, do)
+        args, kw = (q, k, v, do, lse, delta), dict(scale=D ** -0.5)
+        plans = (findb.flash_attention_plans if kids[0] == "B1"
+                 else findb.flash_attention_bwd_plans)(torch.bfloat16, D)
+        for qb, kb in plans:
+            t = dict(q_block=qb, kv_block=kb)
+            fns = {"B1": lambda: fa.flash_attention(q, k, v, **t),
+                   "B2": lambda: fa_bwd.dq_kernel(*args, **kw, **t),
+                   "B3": lambda: fa_bwd.dkv_kernel(*args, **kw, **t),
+                   "B2+B3": lambda: (fa_bwd.dq_kernel(*args, **kw, **t),
+                                     fa_bwd.dkv_kernel(*args, **kw, **t))}
+            for kid in kids:
+                ms = cuda_ms(fns[kid], iters=20)
+                flops, nbytes = 0.0, 0.0
+                for part in kid.split("+"):
+                    f_, b_ = attention_work(part, B, S, K, G, D, None, 2)
+                    flops, nbytes = flops + f_, nbytes + b_
+                bound_ms, bound_by = bound(flops, nbytes)
+                lib = fwd_lib if kid == "B1" else bwd_lib
+                what = "forward" if kid == "B1" else "whole backward"
+                print(f"[timing] {card} | plan {kid} ({qb}, {kb}) B={B} "
+                      f"S=T={S} K={K} G={G} D={D} bf16 causal: {ms:.4f} ms "
+                      f"({ms.spread()}), bound {bound_ms:.4f} ms "
+                      f"({bound_by}), {bound_ms / ms:.1%} of bound; SDPA "
+                      f"(flash pinned, {what}) "
+                      f"{lib:.4f} ms", flush=True)
+                rows[kid][f"{qb}x{kb}"] = dict(
+                    ms=ms, bound_ms=bound_ms, share=bound_ms / ms,
+                    library_ms=lib)
+        del q, k, v, do, out, lse, delta
+    return rows
 
 
 def phase_op(ops):
@@ -2914,10 +3158,14 @@ def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
     do = attention_inputs(B, S, S, K, G, D, dtype, seed=601)[0]
     size = torch.empty((), dtype=dtype).element_size()
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    from repro_torch.kernels import findb
     out, lse = fa.flash_attention(q, k, v, causal=True, window=window,
                                   return_lse=True)
     delta = fa_bwd.attention_delta(out, do)
     kw = dict(causal=True, window=window, scale=D ** -0.5)
+    # B2 and B3 at their default plans: the plans with no find-db row
+    t2, t3 = (findb.flash_attention_defaults(x, dtype, D) for x in ("B2",
+                                                                    "B3"))
     args = (q, k, v, do, lse, delta)
     bf16 = dtype == torch.bfloat16
     iters = 20 if bf16 else 3
@@ -2950,9 +3198,9 @@ def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
              lambda: fa.flash_attention_reference(q, k, v, causal=True,
                                                   window=window),
              lib_fwd),
-            ("B2", lambda: fa_bwd.dq_kernel(*args, **kw),
+            ("B2", lambda: fa_bwd.dq_kernel(*args, **kw, **t2),
              lambda: fa_bwd.dq_reference(*args, **kw), lib_bwd),
-            ("B3", lambda: fa_bwd.dkv_kernel(*args, **kw),
+            ("B3", lambda: fa_bwd.dkv_kernel(*args, **kw, **t3),
              lambda: fa_bwd.dkv_reference(*args, **kw), lib_bwd)):
         ms = cuda_ms(kernel, iters=iters)
         plain_ms = cuda_ms(plain, iters=1)
@@ -2969,8 +3217,9 @@ def time_attention(fa, fa_bwd, card, name, B, S, K, G, D, window, dtype):
               f" {what}) {lib:.4f} ms ({lib.spread()})", flush=True)
         rows[kid] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib)
-    both = cuda_ms(lambda: (fa_bwd.dq_kernel(*args, **kw),
-                            fa_bwd.dkv_kernel(*args, **kw)), iters=iters)
+    both = cuda_ms(lambda: (fa_bwd.dq_kernel(*args, **kw, **t2),
+                            fa_bwd.dkv_kernel(*args, **kw, **t3)),
+                   iters=iters)
     print(f"[timing] {card} | B2 + B3 {name} back to back {both:.4f} ms "
           f"({both.spread()}) against SDPA's whole backward ({backend}) "
           f"{lib_bwd:.4f} ms: {both / lib_bwd:.3f}x", flush=True)
@@ -3853,22 +4102,34 @@ def read_all(counters):
 
 
 def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
-    """The slice's main path: the kernel tuner on both full-width
-    workloads, launch counters read around it; then the warm find-db path
-    and the ops resolving to the winners."""
+    """The kernel tuner on the full-width workloads of B4, B5 and (bf16,
+    qwen3-0.6b's serve and train shapes) B1 and B2 + B3, in one fresh
+    find-db, launch counters set to 0 before each workload and read after
+    it; then the warm find-db path and the ops resolving to the winners.
+    Returns (summaries in WORKLOADS order, launches summed over them)."""
     import torch
     db = groundtruth.KernelConfigDB()
-    reset_all(counters)
-    summaries = [tune.tune_kernel(w, db=db, scheduler="grid", reps=3,
-                                  warmup=1, device="cuda")
-                 for w in (MLSTM_WORKLOAD, RGLRU_WORKLOAD)]
-    counts = read_all(counters)
+    workloads = (MLSTM_WORKLOAD, RGLRU_WORKLOAD, FLASH_FWD_WORKLOAD,
+                 FLASH_BWD_WORKLOAD)
+    summaries, per = [], []
+    for w in workloads:
+        reset_all(counters)
+        summaries.append(tune.tune_kernel(w, db=db, scheduler="grid",
+                                          reps=TUNE_REPS, warmup=1,
+                                          device="cuda"))
+        per.append(read_all(counters))
+    counts = {kid: sum(c[kid] for c in per) for kid in per[0]}
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     groundtruth.export_golden(db.rows(), str(GOLDEN))
-    for smry, want in zip(summaries, (4, 16)):
+    for smry, want in zip(summaries, (4, 16, 4, 2)):
+        check(want == len(tune.kernel_space(
+            *tune.parse_workload(smry["workload"])).grid()),
+              f"{smry['workload']}: the grid is not {want} configs")
+        base = (tune.BASELINES[smry["kernel"]]
+                or "{} (each kernel's default plan)")
         print(f"[tune] {smry['workload']}: {smry['trials']} trials, winner "
               f"{smry['winner']} at {smry['winner_s'] * 1e3:.4f} ms against "
-              f"default {tune.BASELINES[smry['kernel']]} at "
+              f"default {base} at "
               f"{smry['default_s'] * 1e3:.4f} ms (spread "
               f"{smry['spread']:.2%}); stored {smry['config']} at "
               f"{smry['tuned_s'] * 1e3:.4f} ms, speedup "
@@ -3884,21 +4145,25 @@ def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
               f"hardware key {smry['hardware']}")
         check(db.get(smry["kernel"], smry["shape"], smry["hardware"])
               == smry["config"], "the stored config is not in the find-db")
-    calls = {"mlstm": summaries[0]["kernel_calls"]["mlstm"],
-             "rglru": summaries[1]["kernel_calls"]["rglru"]}
-    print(f"[tune] launches over the tuner run: {counts}; kernel calls the "
-          f"backend timed: {calls}", flush=True)
-    check(counts["B4"] == calls["mlstm"] > 0
-          and counts["B5"] == calls["rglru"] > 0,
-          "B4/B5 launches differ from the calls the tuner timed")
-    check(counts["B1"] == counts["B2"] == counts["B3"] == 0,
-          "the tuner launched an attention kernel")
+    # each workload launches its own kernels, once a call the backend timed
+    # (the backward's inputs come from one more forward, as in the
+    # reference), and no other kernel
+    calls = [smry["kernel_calls"][smry["kernel"]] for smry in summaries]
+    want = [{"B4": calls[0]}, {"B5": calls[1]}, {"B1": calls[2]},
+            {"B1": 1, "B2": calls[3], "B3": calls[3]}]
+    for smry, got, w in zip(summaries, per, want):
+        w = {kid: w.get(kid, 0) for kid in got}
+        print(f"[tune] launches over {smry['workload']}: {got} (expected "
+              f"{w}: kernel calls the backend timed "
+              f"{smry['kernel_calls'][smry['kernel']]})", flush=True)
+        check(got == w and smry["kernel_calls"][smry["kernel"]] > 0,
+              f"{smry['workload']}: launches {got} differ from the calls "
+              f"the tuner timed ({w})")
     rows = groundtruth.load_golden(str(GOLDEN))
-    check(len(rows) == 2, f"golden table holds {len(rows)} rows")
+    check(len(rows) == 4, f"golden table holds {len(rows)} rows")
 
     reset_all(counters)
-    warm = [tune.tune_kernel(w, db=db, device="cuda")
-            for w in (MLSTM_WORKLOAD, RGLRU_WORKLOAD)]
+    warm = [tune.tune_kernel(w, db=db, device="cuda") for w in workloads]
     warm_counts = read_all(counters)
     print(f"[tune] second run: {[(w['source'], w['trials']) for w in warm]}"
           f", launches {warm_counts}", flush=True)
@@ -3910,7 +4175,7 @@ def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
     # ops with chunk=None on an empty find-db (the defaults), on the golden
     # table (the winners), and on a db holding configs that differ from
     # both, so that each lookup shows whether it hit its row
-    winners = [smry["config"] for smry in summaries]
+    winners = [smry["config"] for smry in summaries[:2]]
     other = [{"chunk": next(c for c in (64, 32) if c != winners[0]["chunk"])},
              next({"chunk": c, "r_block": r} for c in (64, 32)
                   for r in (256, 32) if (c, r) != (winners[1]["chunk"],
@@ -3948,6 +4213,197 @@ def phase_tuner(counters, ml, rg, tune, findb, ops, groundtruth):
           flush=True)
     check(seen == want, "ops do not resolve to the find-db's configs")
     return summaries, counts
+
+
+def tile_spy(fa, fa_bwd, log):
+    """Record the tiles of every B1, B2 and B3 launch in ``log`` while the
+    context is open: (kernel id, (q_block, kv_block))."""
+    launch, dq, dkv = fa._launch, fa_bwd.dq_kernel, fa_bwd.dkv_kernel
+
+    def spied(kid, fn):
+        def call(*a, **kw):
+            log.append((kid, (kw["q_block"], kw["kv_block"]) if kw
+                        else tuple(a[-2:])))
+            return fn(*a, **kw)
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        fa._launch = spied("B1", launch)
+        fa_bwd.dq_kernel = spied("B2", dq)
+        fa_bwd.dkv_kernel = spied("B3", dkv)
+        try:
+            yield log
+        finally:
+            fa._launch, fa_bwd.dq_kernel, fa_bwd.dkv_kernel = \
+                launch, dq, dkv
+    return ctx()
+
+
+def expected_tiles(findb, rows, B, S, K, G, D):
+    """{kernel id: (q_block, kv_block)} that a table's ``rows`` name for a
+    causal bf16 call at (B, S, K, G, D): the row's tiles, each kernel's
+    default where the row (or the table) names none."""
+    import torch
+    key = findb.attention_shape_key(B=B, S=S, K=K, G=G, D=D, T=S,
+                                    causal=True, window=None,
+                                    dtype=torch.bfloat16)
+    got = {}
+    for kid, kernel in (("B1", "flash_attention"),
+                        ("B2", "flash_attention_bwd"),
+                        ("B3", "flash_attention_bwd")):
+        tiles = findb.flash_attention_defaults(kid, torch.bfloat16, D)
+        for row in rows:
+            if row["kernel"] == kernel and row["shape"] == key:
+                tiles.update(row["config"])
+        got[kid] = (tiles["q_block"], tiles["kv_block"])
+    return got
+
+
+def phase_tiles(fa, fa_bwd, findb, groundtruth, train, serve, steps, card,
+                summaries):
+    """[tiles]: the slice's main path at the tiles a find-db names.
+    Full-width qwen3-0.6b, all its layers: ``TILES_STEPS`` train steps
+    (4 x 2048, bf16) through ``launch.train --kernel-db TABLE`` and one
+    8 x 2048 prefill through the step builders with the table set by
+    ``findb.set_find_db``, on three tables: an empty one (each kernel's
+    default plan), the [tune] golden table (its winners) and a planted one
+    naming plans that are neither default nor winner. A spy on the
+    wrappers records each launch's tiles: every B1, B2 and B3 launch must
+    run the table's tiles, 28 B1 per prefill and 28 of each per step. The
+    losses of the golden and planted runs lie within ``TILES_LOSS_TOL`` of
+    the empty table's, and their prefill logits within ``LOGITS_RATIO`` x
+    the bf16 plain path's distance from the fp32 plain path, of both that
+    path and the empty table's logits. Returns the launches of the three
+    runs."""
+    import dataclasses
+    import torch
+    t_phase = time.perf_counter()
+    golden = groundtruth.load_golden(str(GOLDEN))
+    hw = summaries[2]["hardware"]
+    fwd_key, bwd_key = summaries[2]["shape"], summaries[3]["shape"]
+    Bs, S, K, G, D = SERVE_SHAPE
+    Bt = TRAIN_SHAPE[0]
+    train_fwd_key = findb.attention_shape_key(
+        B=Bt, S=S, K=K, G=G, D=D, T=S, causal=True, window=None,
+        dtype=torch.bfloat16)
+    # planted: neither the default nor the golden table's tiles
+    won = expected_tiles(findb, golden, Bs, S, K, G, D)
+    won_t = expected_tiles(findb, golden, Bt, S, K, G, D)
+    dflt = {kid: tuple(findb.flash_attention_defaults(
+        kid, torch.bfloat16, D).values()) for kid in ("B1", "B2", "B3")}
+    fwd_plans = findb.flash_attention_plans(torch.bfloat16, D)
+    plant_fwd = next(p for p in fwd_plans
+                     if p not in (dflt["B1"], won["B1"]))
+    plant_train_fwd = next(p for p in fwd_plans
+                           if p not in (dflt["B1"], won_t["B1"], plant_fwd))
+    # a backward row names one pair for both kernels: one whose launches
+    # differ from the golden run's (no pair launches the defaults, B2's
+    # and B3's being two different pairs)
+    plant_bwd = next(p for p in findb.flash_attention_bwd_plans(
+        torch.bfloat16, D) if (p, p) != (won_t["B2"], won_t["B3"]))
+    planted = []
+    for kernel, key, (qb, kb) in (
+            ("flash_attention", fwd_key, plant_fwd),
+            ("flash_attention", train_fwd_key, plant_train_fwd),
+            ("flash_attention_bwd", bwd_key, plant_bwd)):
+        planted.append({"kernel": kernel, "shape": key, "hardware": hw,
+                        "config": {"q_block": qb, "kv_block": kb},
+                        "objective": None})
+    TILES_TABLES.mkdir(parents=True, exist_ok=True)
+    tables = {"empty": [], "golden": golden, "planted": planted}
+    paths = {}
+    for name, rows in tables.items():
+        paths[name] = TILES_TABLES / f"{name}.json"
+        groundtruth.export_golden(rows, str(paths[name]))
+
+    args = serve.parser().parse_args(["--arch", ARCH, "--requests",
+                                      str(Bs), "--prompt-len", str(S),
+                                      "--seed", "0"])
+    cfg, sys_, params, prompts = serve.setup(args)
+    L = cfg.n_layers
+
+    def prefill(db=None, **change):
+        step = steps.make_prefill_step(
+            cfg, dataclasses.replace(sys_, **change), max_len=S + GEN)
+        prev = findb.set_find_db(db) if db is not None else None
+        try:
+            logits = step(params, {"tokens": prompts})[0]
+            torch.cuda.synchronize()
+        finally:
+            if db is not None:
+                findb.set_find_db(prev)
+        return logits.float()
+
+    exact = prefill(use_pallas=False, precision="fp32")
+    plain = prefill(use_pallas=False)
+    err_plain = float((plain - exact).abs().max())
+    runs = {}
+    for name, rows in tables.items():
+        log = []
+        db = groundtruth.KernelConfigDB()
+        db.merge_rows(rows)
+        with tile_spy(fa, fa_bwd, log):
+            logits = prefill(db)
+            n_pre = len(log)
+            prev = findb.set_find_db(groundtruth.KernelConfigDB())
+            try:
+                res = train.main(["--arch", ARCH, "--batch", str(Bt),
+                                  "--seq", str(S), "--precision", "bf16",
+                                  "--steps", str(TILES_STEPS),
+                                  "--kernel-db", str(paths[name])])
+                torch.cuda.synchronize()
+            finally:
+                findb.set_find_db(prev)
+        pre, trn = log[:n_pre], log[n_pre:]
+        want_pre = expected_tiles(findb, rows, Bs, S, K, G, D)["B1"]
+        want = expected_tiles(findb, rows, Bt, S, K, G, D)
+        counts = {kid: sum(1 for k_, _ in trn if k_ == kid)
+                  for kid in ("B1", "B2", "B3")}
+        print(f"[tiles] {name} table ({len(rows)} rows, --kernel-db "
+              f"installed {res.kernel_db_rows}): prefill B1 {len(pre)} "
+              f"launches at {sorted(set(t for _, t in pre))} (expected "
+              f"{L} at {want_pre}); {TILES_STEPS} train steps: launches "
+              f"{counts} at {dict(sorted(set(trn)))} (expected {L} a step "
+              f"each at {want}); losses "
+              f"{' '.join(f'{x:.4f}' for x in res.losses)}", flush=True)
+        check(pre == [("B1", want_pre)] * L,
+              f"[tiles] {name}: the prefill launched {pre}")
+        check(res.kernel_db_rows == len(rows), f"[tiles] {name}: "
+              f"--kernel-db installed {res.kernel_db_rows} rows")
+        check(counts == {kid: L * TILES_STEPS for kid in counts}
+              and all(t == want[kid] for kid, t in trn),
+              f"[tiles] {name}: train launches {counts} at "
+              f"{set(trn)}, expected {want}")
+        check(all(math.isfinite(x) for x in res.losses),
+              f"[tiles] {name}: non-finite loss")
+        runs[name] = (logits, res.losses, {"B1": counts["B1"] + len(pre),
+                                           "B2": counts["B2"],
+                                           "B3": counts["B3"]})
+        del res
+        torch.cuda.empty_cache()
+    base_logits, base_losses, _ = runs["empty"]
+    for name in ("golden", "planted"):
+        logits, losses, _ = runs[name]
+        d_loss = max(abs(a - b) for a, b in zip(losses, base_losses))
+        d_base = float((logits - base_logits).abs().max())
+        d_exact = float((logits - exact).abs().max())
+        ok = (d_loss <= TILES_LOSS_TOL
+              and max(d_base, d_exact) <= LOGITS_RATIO * err_plain)
+        print(f"[tiles] {name} against the empty table: losses max|diff| "
+              f"{d_loss:.3e} (limit {TILES_LOSS_TOL:g}); prefill logits "
+              f"max|diff| {d_base:.3e}, from the fp32 plain path "
+              f"{d_exact:.3e} (limit {LOGITS_RATIO:g} x the bf16 plain "
+              f"path's {err_plain:.3e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"[tiles] the {name} table's run disagrees")
+    wall = time.perf_counter() - t_phase
+    print(f"[tiles] {card} | phase {wall:.1f} s (limit "
+          f"{TILES_PHASE_LIMIT_S:g} s)", flush=True)
+    check(wall <= TILES_PHASE_LIMIT_S, f"[tiles] took {wall:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return {name: r[2] for name, r in runs.items()}
 
 
 def mlstm_bound(B, S, H, D, itemsize):
@@ -6497,10 +6953,12 @@ def main() -> int:
     for name, lib in libs.items():
         for kernel, report in ptxas_report(lib.with_suffix(".log")):
             print(f"[ptxas] {name}: {kernel}: {report}", flush=True)
+    plan_spills(libs)
 
     phase_hopper(build)
     errs = phase_kernels(fa)
     bwd_errs = phase_bwd_kernels(fa, fa_bwd)
+    plan_errs = phase_plans(fa, fa_bwd, findb)
     phase_op(ops)
     res, launches = phase_serve(fa, fa_bwd, serve, steps)
     print(f"[serve] {card} | prefill {res.prefill_tok_s:.1f} tok/s "
@@ -6531,6 +6989,9 @@ def main() -> int:
                             torch.bfloat16)["B1"]
     bwd_timing = time_attention(fa, fa_bwd, card, "train", *TRAIN_SHAPE,
                                 None, torch.bfloat16)
+    # every plan at those shapes; SDPA's backward time is B2's row's
+    plan_timing = time_plans(fa, fa_bwd, findb, card, timing["library_ms"],
+                             bwd_timing["B2"]["library_ms"])
     hybrid_timing = phase_hybrid_timing(fa, fa_bwd, card)
     vlm_timing = time_attention(fa, fa_bwd, card, "vlm", *VLM_SERVE,
                                 *vlm_shapes()[0][3:], None, torch.bfloat16)
@@ -6538,6 +6999,8 @@ def main() -> int:
     rglru_errs = phase_rglru(rg)
     summaries, tune_counts = phase_tuner(counters, ml, rg, tune, findb, ops,
                                          groundtruth)
+    tiles_counts = phase_tiles(fa, fa_bwd, findb, groundtruth, train, serve,
+                               steps, card, summaries)
     rec_timing = phase_recurrent_timing(build, ml, rg, summaries, card)
     phase_tuneloop(counters, card, idle_w)
     phase_parallel(counters, card)
@@ -6554,6 +7017,18 @@ def main() -> int:
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]
     vlm_errs = bwd_errs["vlm_serve"]
+
+    def plan_rows(kid):
+        """A kernel's plans at head_dim 128 in bf16: max|err| at the serve
+        or train shape, ms, bound and SDPA's ms there."""
+        key = "B1" if kid == "B1" else "bwd"
+        return {f"{p[0]}x{p[1]}": {"max_abs_err": e,
+                                   **plan_timing[kid][f"{p[0]}x{p[1]}"]}
+                for (k_, dt, DP, p), e in plan_errs.items()
+                if k_ == key and dt == "bfloat16" and DP == 128}
+
+    def tiles_launches(kid):
+        return {name: c[kid] for name, c in tiles_counts.items()}
 
     def hybrid_rows(kid, err):
         """A kernel's [hybrid] readings: head_dim 256 at the serve shape
@@ -6573,6 +7048,8 @@ def main() -> int:
          "launches_ckpt_resume": resume_counts[0],
          "launches_dist": dist_counts[0],
          "launches_service": service_counts["B1"],
+         "launches_tune": tune_counts["B1"],
+         "launches_tiles": tiles_launches("B1"), "plans": plan_rows("B1"),
          "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
@@ -6586,6 +7063,9 @@ def main() -> int:
          "launches_ckpt_resume": resume_counts[1],
          "launches_dist": dist_counts[1],
          "launches_service": service_counts["B2"],
+         "launches_tune": tune_counts["B2"],
+         "launches_tiles": tiles_launches("B2"), "plans": plan_rows("B2"),
+         "plans_b2_b3": {p: r for p, r in plan_timing["B2+B3"].items()},
          "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
          **bwd_timing["B2"], **hybrid_rows("B2", rg_errs[0][0])},
@@ -6599,6 +7079,8 @@ def main() -> int:
          "launches_ckpt_resume": resume_counts[2],
          "launches_dist": dist_counts[2],
          "launches_service": service_counts["B3"],
+         "launches_tune": tune_counts["B3"],
+         "launches_tiles": tiles_launches("B3"), "plans": plan_rows("B3"),
          "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
                  **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),

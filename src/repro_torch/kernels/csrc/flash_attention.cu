@@ -9,25 +9,44 @@
 // Layouts (contiguous): q, out (B, S, K, G, D); k, v (B, T, K, D);
 // lse (B, S, K, G). Query head (k, g) reads kv head k.
 //
+// Tiles (the reference's q_block / kv_block). A block owns q_block
+// FLATTENED (position, head) rows of one (batch, kv head) and walks the
+// kv side in tiles of kv_block rows. Because the kernel packs the G query
+// heads of a kv head into one block, q_block counts rows, not positions:
+// a block holds q_block / G positions x G heads. At G = 1 that is the
+// reference's q_block positions. Each (q_block, kv_block) pair is its own
+// compiled plan; the set, per dtype and padded head dim, is
+//   bf16, D <= 128: q_block in {64, 128} (one or two consumer warpgroups of
+//                   64 rows) x kv_block in {64, 128};
+//   bf16, D = 256:  q_block 64 x kv_block in {32, 64};
+//   fp32, D <= 128: q_block 32 x kv_block in {16, 32};
+//   fp32, D = 256:  q_block 32 x kv_block 16.
+// The launcher dispatches on the pair; a pair outside the set returns
+// cudaErrorInvalidValue and launches nothing. The wrapper's default, when
+// no find-db row names a pair, is the plan this kernel had before it took
+// tiles: (128, 128) up to D = 128, (64, 64) at 256 in bf16; (32, 32) and
+// (32, 16) in fp32.
+//
 // What bounds it on an H100. At the serve shape (B=8, S=T=2048, 16 q heads
 // over 8 kv heads, D=128, causal) the two products need about
 // 4*B*S^2*H*D/2 = 1.375e11 FLOP, 0.139 ms at 989 TFLOP/s bf16, while q, k,
 // v, out and lse move about 2.0e8 bytes, 0.060 ms at 3.35 TB/s: it is bound
 // by the tensor cores, whose full rate only wgmma reaches. The bf16 design:
-//   * one block of three warpgroups owns 128 flattened (position, head)
-//     rows of ONE (batch, kv head): Pb = 128 / G positions x all G heads, so
-//     each K/V tile is read once for the group and feeds 128 query rows;
+//   * one block owns q_block flattened (position, head) rows of ONE
+//     (batch, kv head): Pb = q_block / G positions x all G heads, so each
+//     K/V tile is read once for the group and feeds q_block query rows;
 //   * a producer warp (warpgroup 2, cut to 24 registers by setmaxnreg)
-//     issues every load by TMA: the Q tile once, then K and V tiles of 128
-//     rows through a ring of two stages with full and empty mbarriers, so
+//     issues every load by TMA: the Q tile once, then K and V tiles of
+//     kv_block rows through a ring of two stages with full and empty mbarriers, so
 //     the copies of the next tile run under the products of this one and
 //     no consumer spends an instruction or a register on them. TMA writes
 //     zeros past T, past S and in columns D..DP-1 (D = 40 or 72), so nothing
 //     is masked by hand on the way in;
-//   * two consumer warpgroups own 64 rows each (setmaxnreg 240; ptxas of
-//     CUDA 12.8 still allocates within the launch bound of 168 registers,
-//     which S, O and P fit). Per kv tile S = Q K^T is one wgmma chain
-//     (m64n128k16, Q and K read from 128B-swizzled shared memory, K
+//   * q_block / 64 consumer warpgroups own 64 rows each (with two,
+//     setmaxnreg 240; ptxas of CUDA 12.8 still allocates within the launch
+//     bound of 168 registers, which S, O and P fit). Per kv tile S = Q K^T
+//     is one wgmma chain (m64n{kv_block}k16, Q and K read from
+//     128B-swizzled shared memory, K
 //     K-major), the online softmax runs in fp32 registers (exp2, masks only
 //     on tiles that straddle the diagonal, the window edge or T, under one
 //     branch a tile: a branch per element bloats the unrolled loop past the
@@ -37,26 +56,27 @@
 //   * the kv loop is clipped to the visible range (up to the diagonal when
 //     causal, from q_start - window + 1 with a window) and the longest
 //     causal tiles launch first.
-// Shared memory at D = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB, one
-// block an SM. Where it rounds: P to bf16 as the operand of P V (as the
+// Shared memory at D = 128 and the default (128, 128): Q 32 KB + 2 x (K
+// 32 KB + V 32 KB) = 160 KB, one block an SM. Where it rounds: P to bf16 as the operand of P V (as the
 // reference's kernel does); S, the softmax statistics and O are fp32, and
 // out is rounded once. Left for a later change: overlapping one consumer's
 // softmax with the other's products (ping-pong), a persistent scheduler,
 // and fp8.
 //
-// Head dim 256 (recurrentgemma-9b: MQA, G = 16, window 2048) has its own
-// tile plan (FwdPlan): O is 64 rows x 256 fp32, 128 registers a thread,
-// which with S and P does not fit the 168 registers ptxas gives a thread of
-// a 384-thread block. So a block is ONE consumer warpgroup of 64 rows and
-// the producer warpgroup (256 threads, up to 255 registers a thread), kv
-// tiles are 64 rows (S is 32 registers), and O += P V is one m64n256k16
-// chain. Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB. D = 129
+// Head dim 256 (recurrentgemma-9b: MQA, G = 16, window 2048): O is 64 rows
+// x 256 fp32, 128 registers a thread, which with S and P does not fit the
+// 168 registers ptxas gives a thread of a 384-thread block. So q_block is
+// 64: ONE consumer warpgroup and the producer warpgroup (256 threads, up
+// to 255 registers a thread), kv tiles are 64 or 32 rows (S is 32 or 16
+// registers), and O += P V is one m64n256k16 chain. Shared memory: Q 32 KB
+// + 2 x (K 32 KB + V 32 KB) = 160 KB at kv_block 64. D = 129
 // to 255 is padded to 256 by the TMA boxes' zero fill. The price: one
 // consumer warpgroup an SM, with nothing to overlap its softmax with.
 //
 // fp32 inputs take a separate SIMT kernel (fp32 FMA, no tensor cores), so an
-// fp32 caller gets fp32 products and not TF32. At D > 128 its kv tile is 16
-// rows, so that K and V stay within the 48 KB of static shared memory.
+// fp32 caller gets fp32 products and not TF32: 32 rows a block, 4 threads a
+// row. At D > 128 its kv tile is 16 rows, so that K and V stay within the
+// 48 KB of static shared memory.
 //
 // C entry points return cudaGetLastError() after the launch (or the error
 // of encoding a TMA map); they launch on the given stream and do not
@@ -122,33 +142,35 @@ __device__ __forceinline__ bool tile_unmasked(const Args& a, const Tile& t,
 
 constexpr int kStages = 2;       // K/V ring
 
-// The bf16 kernel's tiles for a padded head dim DP: two consumer warpgroups
-// of 64 flattened (position, head) rows and 128-row kv tiles up to DP = 128;
-// one consumer warpgroup and 64-row kv tiles at DP = 256 (see the header).
-// The producer is the warpgroup after the consumers.
-template <int DP>
+// The bf16 kernel's plan for a padded head dim DP: ROWS (q_block)
+// flattened (position, head) rows a block in ROWS / 64 consumer
+// warpgroups, and BN (kv_block) kv rows a tile (see the header). The
+// producer is the warpgroup after the consumers.
+template <int DP, int ROWS, int BN>
 struct FwdPlan {
-  static constexpr int kConsumers = DP <= 128 ? 2 : 1;
-  static constexpr int kRows = 64 * kConsumers;   // flattened rows a block
-  static constexpr int kBN = DP <= 128 ? 128 : 64;   // kv rows a tile
+  static_assert(ROWS == 64 || ROWS == 128, "64 rows a consumer warpgroup");
+  static_assert(BN == 32 || BN == 64 || BN == 128, "a wgmma N of S = Q K^T");
+  static constexpr int kConsumers = ROWS / 64;
+  static constexpr int kRows = ROWS;          // flattened rows a block
+  static constexpr int kBN = BN;              // kv rows a tile
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kQBox = kRows * 128;   // bytes of a Q box (64 columns)
   static constexpr int kKVBox = kBN * 128;    // bytes of a K or V box
 };
 
-template <int DP>
+template <int DP, int ROWS, int BN>
 constexpr int fwd_smem_bytes() {
-  using P = FwdPlan<DP>;
+  using P = FwdPlan<DP, ROWS, BN>;
   return (DP / 64) * (P::kQBox + 2 * kStages * P::kKVBox) +
          8 * (1 + 2 * kStages) + 1024;
 }
 
-template <int DP>
-__global__ void __launch_bounds__(FwdPlan<DP>::kThreads, 1)
+template <int DP, int ROWS, int BN>
+__global__ void __launch_bounds__(FwdPlan<DP, ROWS, BN>::kThreads, 1)
 fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Args a) {
-  using P = FwdPlan<DP>;
+  using P = FwdPlan<DP, ROWS, BN>;
   constexpr int kBN = P::kBN;
   constexpr int kQTile = (DP / 64) * P::kQBox;    // bytes of the Q tile
   constexpr int kKVTile = (DP / 64) * P::kKVBox;  // bytes of a K or V tile
@@ -350,25 +372,41 @@ fa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int DP>
+template <int DP, int ROWS, int BN>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  using P = FwdPlan<DP>;
-  static_assert(fwd_smem_bytes<DP>() <= 232448, "shared memory");
+  using P = FwdPlan<DP, ROWS, BN>;
+  static_assert(fwd_smem_bytes<DP, ROWS, BN>() <= 232448, "shared memory");
   const int bq = P::kRows / a.G;               // positions a block
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, a.G, bq);
   if (err == cudaSuccess) err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, P::kBN);
   if (err == cudaSuccess) err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, P::kBN);
   if (err != cudaSuccess) return err;
-  const int smem = fwd_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(fa_fwd_bf16_kernel<DP>,
+  const int smem = fwd_smem_bytes<DP, ROWS, BN>();
+  err = cudaFuncSetAttribute(fa_fwd_bf16_kernel<DP, ROWS, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + bq - 1) / bq, a.K, a.B);
-  fa_fwd_bf16_kernel<DP><<<grid, P::kThreads, smem, stream>>>(tm_q, tm_k,
-                                                              tm_v, a);
+  fa_fwd_bf16_kernel<DP, ROWS, BN><<<grid, P::kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, a);
   return cudaGetLastError();
+}
+
+// The compiled plan of (q_block, kv_block) at DP, or cudaErrorInvalidValue.
+template <int DP>
+cudaError_t launch_plan_bf16(const Args& a, int qb, int kb,
+                             cudaStream_t st) {
+  if constexpr (DP <= 128) {
+    if (qb == 64 && kb == 64) return launch_bf16<DP, 64, 64>(a, st);
+    if (qb == 64 && kb == 128) return launch_bf16<DP, 64, 128>(a, st);
+    if (qb == 128 && kb == 64) return launch_bf16<DP, 128, 64>(a, st);
+    if (qb == 128 && kb == 128) return launch_bf16<DP, 128, 128>(a, st);
+  } else {
+    if (qb == 64 && kb == 32) return launch_bf16<DP, 64, 32>(a, st);
+    if (qb == 64 && kb == 64) return launch_bf16<DP, 64, 64>(a, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -376,8 +414,9 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
 constexpr int kRowsF = 32;     // flattened rows per block, 4 threads per row
 constexpr int kThreadsF = kRowsF * 4;
 
-// DPF: D padded (128 or 256); BNF: kv rows a tile (32, or 16 at DPF = 256:
-// K and V then take 32 KB of static shared memory).
+// DPF: D padded (128 or 256); BNF: kv rows a tile (kv_block: 16 or 32 at
+// DPF = 128, 16 at DPF = 256, where K and V then take 32 KB of static
+// shared memory). q_block is kRowsF.
 template <int DPF, int BNF>
 __global__ void __launch_bounds__(kThreadsF)
 fa_fwd_f32_kernel(Args a) {
@@ -461,13 +500,19 @@ fa_fwd_f32_kernel(Args a) {
   if (t4 == 0) a.lse[row] = m + logf(l);
 }
 
-cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+// The compiled plan of (q_block, kv_block), or cudaErrorInvalidValue.
+cudaError_t launch_f32(const Args& a, int qb, int kb, cudaStream_t stream) {
   const int bq = kRowsF / a.G;
   dim3 grid((a.S + bq - 1) / bq, a.K, a.B);
-  if (a.D <= 128)
+  if (qb != kRowsF) return cudaErrorInvalidValue;
+  if (a.D <= 128 && kb == 32)
     fa_fwd_f32_kernel<128, 32><<<grid, kThreadsF, 0, stream>>>(a);
-  else
+  else if (a.D <= 128 && kb == 16)
+    fa_fwd_f32_kernel<128, 16><<<grid, kThreadsF, 0, stream>>>(a);
+  else if (a.D > 128 && kb == 16)
     fa_fwd_f32_kernel<256, 16><<<grid, kThreadsF, 0, stream>>>(a);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -494,28 +539,31 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// The Python wrapper checks shapes, dtypes, contiguity, alignment and the
-// limits below before calling: bf16 needs D % 8 == 0, D <= 256, G <= 64;
-// fp32 needs D <= 256, G <= 32.
+// The Python wrapper checks shapes, dtypes, contiguity, alignment, the
+// plan and the limits below before calling: bf16 needs D % 8 == 0,
+// D <= 256, G <= 64; fp32 needs D <= 256, G <= 32. q_block and kv_block
+// name the plan (see the header).
 extern "C" int fa_fwd_bf16(const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int S, int T, int K,
                            int G, int D, float scale, int causal, int window,
-                           void* stream) {
+                           int q_block, int kv_block, void* stream) {
   const Args a = make_args(q, k, v, o, lse, B, S, T, K, G, D, scale, causal,
                            window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D <= 64    ? launch_bf16<64>(a, st)
-                          : D <= 128 ? launch_bf16<128>(a, st)
-                                     : launch_bf16<256>(a, st));
+  const int qb = q_block, kb = kv_block;
+  return static_cast<int>(D <= 64    ? launch_plan_bf16<64>(a, qb, kb, st)
+                          : D <= 128 ? launch_plan_bf16<128>(a, qb, kb, st)
+                                     : launch_plan_bf16<256>(a, qb, kb, st));
 }
 
 extern "C" int fa_fwd_f32(const void* q, const void* k, const void* v,
                           void* o, void* lse, int B, int S, int T, int K,
                           int G, int D, float scale, int causal, int window,
-                          void* stream) {
+                          int q_block, int kv_block, void* stream) {
   const Args a = make_args(q, k, v, o, lse, B, S, T, K, G, D, scale, causal,
                            window);
-  return static_cast<int>(launch_f32(a, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_f32(a, q_block, kv_block,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* fa_error_string(int err) {

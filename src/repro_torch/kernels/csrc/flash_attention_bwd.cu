@@ -16,6 +16,23 @@
 // lse, delta (B, S, K, G) fp32. Query head (k, g) reads kv head k. Rows of
 // the query side are flattened (position, head) pairs of one kv head.
 //
+// Tiles (the reference's q_block / kv_block, one pair for both kernels,
+// read as the reference's kernels read it). Query rows are FLATTENED
+// (position, head) rows of one kv head, as in the forward (B1):
+//   * B2: q_block is the query rows a block owns, kv_block the kv tile it
+//     walks;
+//   * B3: kv_block is the kv rows a block owns, q_block the query tile it
+//     walks.
+// Each kernel compiles its plans; the backward's set is the pairs both
+// compile, per dtype and padded head dim:
+//   bf16, D <= 128: (64, 64) and (128, 64);
+//   bf16, D = 256:  (64, 64);
+//   fp32, D <= 128: (32, 32);  fp32, D = 256: (16, 16).
+// The launchers dispatch on the pair; a pair outside the set returns
+// cudaErrorInvalidValue and launches nothing. Before the kernels took
+// tiles, B2 ran (128, 64) and B3 (64, 64) in bf16 up to D = 128: with no
+// find-db row, the wrapper keeps each kernel at that plan of its own.
+//
 // What bounds them on an H100. At the train shape (B=4, S=T=2048, 16 q heads
 // over 8 kv heads, D=128, bf16, causal: 2,098,176 visible pairs per
 // (batch, head)) B2 runs three products per pair (S, dP, dQ: 6*D FLOP),
@@ -28,18 +45,19 @@
 // element only on tiles that straddle the diagonal, the window edge or the
 // end of the rows.
 //
-// B2 (wgmma, TMA, warp specialisation): one block of three warpgroups owns
-// 128 flattened query rows of one (batch, kv head), Pb positions x Gb heads
-// (Gb = min(G, 128), Pb = 128 / Gb; with G > 128 the grid also steps over
-// blocks of 128 heads), so each K/V tile is read once for the group and
-// feeds 128 rows. The longest causal blocks launch first.
-//   * A producer warp (warpgroup 2) loads Q and dO once by TMA, with the
+// B2 (wgmma, TMA, warp specialisation): one block owns q_block (R = 64 or
+// 128) flattened query rows of one (batch, kv head), Pb positions x Gb
+// heads (Gb = min(G, R), Pb = R / Gb; with G > R the grid also steps over
+// blocks of R heads), so each K/V tile is read once for the group and
+// feeds R rows. The longest causal blocks launch first.
+//   * A producer warp (the warpgroup after the consumers) loads Q and dO
+//     once by TMA, with the
 //     rows' lse and delta by cp.async on the same mbarrier (their rows are 4
 //     bytes, not 16-byte aligned), then K and V tiles of 64 rows by TMA
 //     through a ring of two stages with full and empty mbarriers. TMA writes
 //     zeros past S, T and G and in columns D..DP-1; the rows of Q and dO
 //     past Pb x Gb are zeroed once.
-//   * Warpgroups 0 and 1 own 64 rows each. Per kv tile: S = Q K^T and
+//   * R / 64 consumer warpgroups own 64 rows each. Per kv tile: S = Q K^T and
 //     dP = dO V^T are two wgmma chains (m64n64k16, Q and dO the
 //     shared-memory A operand, K and V K-major), committed one after the
 //     other, so the fp32 P = exp2(S scale log2e - lse log2e) runs while dP
@@ -54,8 +72,9 @@
 //
 // B3 (wgmma, TMA, warp specialisation): one block of three warpgroups owns
 // 64 kv rows of one (batch, kv head) and walks the query side in tiles of
-// Pb positions x Gb heads (Gb = min(G, 64), Pb = 64 / Gb; with G > 64 it
-// also walks the blocks of 64 heads), so the GQA group sum happens in the
+// q_block (BQ = 64 or 128) rows, Pb positions x Gb heads (Gb = min(G, BQ),
+// Pb = BQ / Gb; with G > BQ it also walks the blocks of BQ heads), so the
+// GQA group sum happens in the
 // block, in fp32 registers, with no atomics: the result does not depend on
 // the order blocks run in. The walk starts at the block's first key when
 // causal and ends at its last key + window - 1 or S.
@@ -64,9 +83,9 @@
 //     mbarriers, and each tile's lse and delta by cp.async (their rows are 4
 //     bytes, not 16-byte aligned), which completes on the same full
 //     barrier. The copies of the next tile run under the products of this
-//     one. TMA writes zeros outside q and dO; the rows Pb x Gb..63 it never
-//     writes are zeroed once, since the products sum over them.
-//   * Warpgroup 0 owns dV: per tile S^T = K Q^T (wgmma m64n64k16, K the
+//     one. TMA writes zeros outside q and dO; the rows Pb x Gb..BQ-1 it
+//     never writes are zeroed once, since the products sum over them.
+//   * Warpgroup 0 owns dV: per tile S^T = K Q^T (wgmma m64n{BQ}k16, K the
 //     shared-memory A operand, Q K-major), P^T = exp(S^T scale - lse) in
 //     fp32 registers, then dV += P^T dO (m64nDPk16, P^T in bf16 as the
 //     register A operand, dO MN-major). It hands P^T (fp32) to warpgroup 1
@@ -75,10 +94,12 @@
 //     operand, dO K-major), dS^T = P^T (dP^T - delta) scale with warpgroup
 //     0's P^T, then dK += dS^T Q (dS^T in bf16 registers, Q MN-major). The
 //     two warpgroups' products run side by side; neither computes S^T or
-//     dP^T twice.
+//     dP^T twice. At BQ = 128 and D = 128 the P^T slot is single: two
+//     (2 x 32 KB) with K, V and two stages of Q and dO (128 KB) would pass
+//     the 232,448 bytes a block may have.
 //   * Registers set this split. Each consumer thread holds one 64 x DP fp32
-//     accumulator (64 registers at D = 128) and one 64 x 64 product (32), so
-//     both fit the 168 registers a 384-thread block gets at launch. Holding
+//     accumulator (64 registers at D = 128) and one 64 x BQ product (32 or
+//     64), so both fit the 168 registers a 384-thread block gets at launch. Holding
 //     dK and dV in one warpgroup (128 + 64 registers) spilled: ptxas of
 //     CUDA 12.8 allocates within that launch bound even under setmaxnreg
 //     240, and a smaller block (288 threads) is held to the same 168.
@@ -98,8 +119,9 @@
 //     memory: K, V, and 2 stages of Q and dO at 32 KB each, P^T 2 x 16 KB:
 //     231,752 bytes of the 232,448 a block may have.
 // D = 129 to 255 is padded to 256 by the TMA boxes' zero fill. The fp32
-// kernels at D > 128 give each row 8 threads (32 dims each) and walk tiles
-// of 16 rows, within static shared memory.
+// kernels own 32 rows a block and walk tiles of 32 rows up to D = 128; at
+// D > 128 they give each row 8 threads (32 dims each), own 16 rows and walk
+// tiles of 16, within static shared memory.
 //
 // Where they round: the reference keeps p and ds in fp32 for p^T dO, ds^T q
 // and ds k. Here p and ds are rounded to bf16 (round to nearest) as the A
@@ -203,22 +225,24 @@ constexpr int kStages = 2;           // B2: K / V ring; B3: Q / dO ring
 constexpr int kBox64 = 64 * 128;     // bytes of a 64-row box of 64 columns
 constexpr int kSmemMax = 232448;     // dynamic shared memory a block may have
 
-// B2: dq. One block owns kRows flattened query rows (pb positions x gb
-// heads of one (batch, kv head)): up to DP = 128 warpgroups 0 and 1 own 64
-// of 128 each, at DP = 256 warpgroup 0 owns all 64 (see the header); the
-// first warp of the next warpgroup is the producer.
-template <int DP>
+// B2: dq. One block owns ROWS (q_block) flattened query rows (pb positions
+// x gb heads of one (batch, kv head)) in ROWS / 64 consumer warpgroups of
+// 64 rows (see the header); the first warp of the next warpgroup is the
+// producer.
+template <int DP, int ROWS>
 struct DqPlan {
-  static constexpr int kConsumers = DP <= 128 ? 2 : 1;
-  static constexpr int kRows = 64 * kConsumers;   // query rows a block
+  static_assert(ROWS == 64 || ROWS == 128, "64 rows a consumer warpgroup");
+  static_assert(DP <= 128 || ROWS == 64, "one consumer at head dim 256");
+  static constexpr int kConsumers = ROWS / 64;
+  static constexpr int kRows = ROWS;          // query rows a block
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kQBox = kRows * 128;   // bytes of a Q or dO box
 };
-constexpr int kDqBN = 64;            // kv rows a tile
+constexpr int kDqBN = 64;            // kv rows a tile (kv_block)
 
-template <int DP>
+template <int DP, int ROWS>
 constexpr int dq_smem_bytes() {
-  using P = DqPlan<DP>;
+  using P = DqPlan<DP, ROWS>;
   return (DP / 64) * (2 * P::kQBox + 2 * kStages * kBox64) +
          2 * P::kRows * 4 + 8 * (1 + 2 * kStages) + 1024;
 }
@@ -226,14 +250,14 @@ constexpr int dq_smem_bytes() {
 // gb heads x pb positions make the block's rows: gb = min(G, kRows),
 // pb = kRows / gb; with G > kRows the grid also steps over blocks of kRows
 // heads.
-template <int DP>
-__global__ void __launch_bounds__(DqPlan<DP>::kThreads, 1)
+template <int DP, int ROWS>
+__global__ void __launch_bounds__(DqPlan<DP, ROWS>::kThreads, 1)
 fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, Args a,
                       int gb, int pb) {
-  using P = DqPlan<DP>;
+  using P = DqPlan<DP, ROWS>;
   constexpr int kDqRows = P::kRows;
   constexpr int kQTile = (DP / 64) * P::kQBox;  // bytes of the Q or dO tile
   constexpr int kKTile = (DP / 64) * kBox64;    // bytes of a K or V tile
@@ -442,56 +466,69 @@ fa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// B3: dk and dv. One block owns 64 kv rows: warpgroup 0 computes their dV,
-// warpgroup 1 their dK, and the first warp of warpgroup 2 is the producer.
+// B3: dk and dv. One block owns 64 kv rows (kv_block): warpgroup 0 computes
+// their dV, warpgroup 1 their dK, and the first warp of warpgroup 2 is the
+// producer. It walks query tiles of BQ (q_block) rows.
 constexpr int kWsRowsK = 64;         // kv rows a block
-constexpr int kWsBQ = 64;            // rows of a query tile (Pb x Gb used)
-constexpr int kPBytes = kWsRowsK * kWsBQ * 4;   // P^T of a tile, fp32
 
 // The columns of dK and dV a block computes: all of DP up to 128, one half
-// of 256 at DP = 256 (see the header); kSplit blocks share a kv tile.
-template <int DP>
-struct DkvPlan {
-  static constexpr int kDN = DP <= 128 ? DP : 128;
-  static constexpr int kSplit = DP / kDN;
-};
-
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  return (2 + 2 * kStages) * (DP / 64) * kBox64 + kStages * kPBytes +
-         2 * kStages * kWsBQ * 4 + kWsBQ * 4 + 8 * (1 + 4 * kStages) + 1024;
+// of 256 at DP = 256 (see the header); kSplit blocks share a kv tile. BQ
+// rows of a query tile (Pb x Gb used); the P^T hand-over has two slots
+// where they fit the shared memory, else one.
+template <int DP, int BQ>
+constexpr int dkv_smem_bytes(int p_slots) {
+  return 2 * (DP / 64) * kBox64 + 2 * kStages * (DP / 64) * BQ * 128 +
+         p_slots * kWsRowsK * BQ * 4 + 2 * kStages * BQ * 4 + BQ * 4 +
+         8 * (1 + 2 * kStages + 2 * p_slots) + 1024;
 }
 
-// gb heads x pb positions make a query tile: gb = min(G, 64), pb = 64 / gb;
-// with G > 64 the walk also steps over blocks of 64 heads.
-template <int DP>
+template <int DP, int BQ>
+struct DkvPlan {
+  static_assert(BQ == 64 || BQ == 128, "a wgmma N of S^T = K Q^T");
+  static constexpr int kDN = DP <= 128 ? DP : 128;
+  static constexpr int kSplit = DP / kDN;
+  static constexpr int kQBox = BQ * 128;      // bytes of a Q or dO box
+  static constexpr int kPBytes = kWsRowsK * BQ * 4;   // P^T of a tile, fp32
+  static constexpr int kPSlots =
+      dkv_smem_bytes<DP, BQ>(2) <= kSmemMax ? 2 : 1;
+  static constexpr int kSmem = dkv_smem_bytes<DP, BQ>(kPSlots);
+};
+
+// gb heads x pb positions make a query tile: gb = min(G, BQ), pb = BQ / gb;
+// with G > BQ the walk also steps over blocks of BQ heads.
+template <int DP, int BQ>
 __global__ void __launch_bounds__(kWsThreads, 1)
 fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_do,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, Args a,
                        int gb, int pb) {
-  constexpr int kTile = (DP / 64) * kBox64;    // bytes of a K, V, Q or dO tile
-  constexpr int kDN = DkvPlan<DP>::kDN;         // accumulator columns
+  using P = DkvPlan<DP, BQ>;
+  constexpr int kWsBQ = BQ;
+  constexpr int kPSlots = P::kPSlots;
+  constexpr int kQBox = P::kQBox;
+  constexpr int kTile = (DP / 64) * kBox64;    // bytes of a K or V tile
+  constexpr int kQTile = (DP / 64) * kQBox;    // bytes of a Q or dO tile
+  constexpr int kDN = P::kDN;                  // accumulator columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sK = align_1024(smem_raw);
   unsigned char* sV = sK + kTile;
   unsigned char* sQ = sV + kTile;              // [kStages]
-  unsigned char* sdO = sQ + kStages * kTile;   // [kStages]
-  float* sP = reinterpret_cast<float*>(sdO + kStages * kTile);  // [kStages]
-  float* sLse = sP + kStages * kPBytes / 4;                     // [kStages]
-  float* sDelta = sLse + kStages * kWsBQ;                       // [kStages]
+  unsigned char* sdO = sQ + kStages * kQTile;  // [kStages]
+  float* sP = reinterpret_cast<float*>(sdO + kStages * kQTile);  // [kPSlots]
+  float* sLse = sP + kPSlots * P::kPBytes / 4;                   // [kStages]
+  float* sDelta = sLse + kStages * kWsBQ;                        // [kStages]
   int* sRow = reinterpret_cast<int*>(sDelta + kStages * kWsBQ);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRow + kWsBQ);
   uint64_t* full = kv_full + 1;                // [kStages] Q, dO, lse, delta
   uint64_t* empty = full + kStages;            // [kStages]
-  uint64_t* p_full = empty + kStages;          // [kStages] P^T handed over
-  uint64_t* p_empty = p_full + kStages;        // [kStages]
+  uint64_t* p_full = empty + kStages;          // [kPSlots] P^T handed over
+  uint64_t* p_empty = p_full + kPSlots;        // [kPSlots]
 
   // this block's kv head, and its columns c0 .. c0 + kDN - 1 of dK and dV
   // (box c0 / 64 of the Q and dO tiles)
-  const int kh = blockIdx.y / DkvPlan<DP>::kSplit, b = blockIdx.z;
-  const int c0 = (blockIdx.y % DkvPlan<DP>::kSplit) * kDN;
+  const int kh = blockIdx.y / P::kSplit, b = blockIdx.z;
+  const int c0 = (blockIdx.y % P::kSplit) * kDN;
   const KTile t = k_tile(a, kWsRowsK);
   const int p_lo = t.f_lo / a.G, p_hi = t.f_hi / a.G;
   const int n_hb = (a.G + gb - 1) / gb;         // head blocks
@@ -503,6 +540,8 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1 + 32);    // the TMA arrival, 32 cp.async lanes
       mbar_init(&empty[s], 8);        // one per consumer warp
+    }
+    for (int s = 0; s < kPSlots; ++s) {
       mbar_init(&p_full[s], 128);     // every thread of the dV warpgroup
       mbar_init(&p_empty[s], 128);    // every thread of the dK warpgroup
     }
@@ -514,13 +553,13 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r = threadIdx.x;
     sRow[r] = r < used ? (r / gb) << 8 | (r % gb) : -1;
   }
-  // Rows used..63 of the Q and dO buffers are never loaded. The products
+  // Rows used..BQ-1 of the Q and dO buffers are never loaded. The products
   // sum over them (with p = 0), so they must hold finite values: zeros.
   const int pad = kWsBQ - used;
   for (int i = threadIdx.x; i < 2 * kStages * (DP / 64) * pad * 8;
        i += kWsThreads) {
     const int box = i / (pad * 8), c = i % (pad * 8);
-    *reinterpret_cast<uint4*>(sQ + box * kBox64 + (used + c / 8) * 128 +
+    *reinterpret_cast<uint4*>(sQ + box * kQBox + (used + c / 8) * 128 +
                               (c % 8) * 16) = make_uint4(0, 0, 0, 0);
   }
   fence_proxy_async();
@@ -538,8 +577,10 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_load_4d(sV + h * kBox64, &tm_v, kv_full, 64 * h, kh, t.k0, b);
       }
     }
-    // this lane copies the lse and delta of tile rows lane and lane + 32
-    const int row0 = sRow[lane], row1 = sRow[lane + 32];
+    // this lane copies the lse and delta of tile rows lane + 32 h
+    int rows[kWsBQ / 32];
+#pragma unroll
+    for (int h = 0; h < kWsBQ / 32; ++h) rows[h] = sRow[lane + 32 * h];
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       const int p0 = p_lo + (i / n_hb) * pb, g0 = (i % n_hb) * gb;
@@ -547,17 +588,17 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], 2 * (DP / 64) * 128 * used);
         for (int h = 0; h < DP / 64; ++h) {
-          tma_load_5d(sQ + s * kTile + h * kBox64, &tm_q, &full[s], 64 * h,
+          tma_load_5d(sQ + s * kQTile + h * kQBox, &tm_q, &full[s], 64 * h,
                       g0, kh, p0, b);
-          tma_load_5d(sdO + s * kTile + h * kBox64, &tm_do, &full[s], 64 * h,
+          tma_load_5d(sdO + s * kQTile + h * kQBox, &tm_do, &full[s], 64 * h,
                       g0, kh, p0, b);
         }
       }
       // lse and delta: (B, S, K, G) fp32 rows need not be 16-byte aligned,
       // so cp.async, 4 bytes each (zeros outside the tensor)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rc = h ? row1 : row0;
+      for (int h = 0; h < kWsBQ / 32; ++h) {
+        const int rc = rows[h];
         const int p = p0 + (rc >> 8), g = g0 + (rc & 255);
         const bool ok = rc >= 0 && p < a.S && g < a.G;
         const size_t idx =
@@ -575,10 +616,10 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   // acc is this warpgroup's dV (warpgroup 0) or dK (1): 64 kv rows x kDN
   // columns from c0. acc[4 i + 2 h + e] is kv row kpos[h], column
   // c0 + 8 i + 2 t4 + e; the
-  // products' accumulators st / dpt (64 kv rows x 64 query rows) follow the
+  // products' accumulators st / dpt (64 kv rows x BQ query rows) follow the
   // same pattern with query rows for columns. P^T goes from warpgroup 0 to
   // warpgroup 1 through shared memory, in fp32, thread by thread:
-  // sP[s][e][tid] is element e of thread tid.
+  // sP[slot][e][tid] is element e of thread tid.
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g4 = lane / 4, t4 = lane % 4;      // accumulator coordinates
   const int kpos[2] = {t.k0 + warp * 16 + g4, t.k0 + warp * 16 + g4 + 8};
@@ -601,8 +642,10 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = i % kStages;
       const uint32_t ph = (i / kStages) & 1;
       const int p0 = p_lo + (i / n_hb) * pb, g0 = (i % n_hb) * gb;
-      const unsigned char* tQ = sQ + s * kTile;
-      const unsigned char* tdO = sdO + s * kTile;
+      const int ps = i % kPSlots;                // P^T slot, its phase
+      const uint32_t pph = (i / kPSlots) & 1;
+      const unsigned char* tQ = sQ + s * kQTile;
+      const unsigned char* tdO = sdO + s * kQTile;
       const float* tLse = sLse + s * kWsBQ;
       mbar_wait(&full[s], ph);
 
@@ -613,8 +656,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const int off = (kk / 4) * kBox64 + (kk % 4) * 32;
-        wgmma_ss<0>(st, desc_k(sK + off), desc_k(tQ + off), kk > 0);
+        const int in_box = (kk % 4) * 32;
+        wgmma_ss<0>(st, desc_k(sK + (kk / 4) * kBox64 + in_box),
+                    desc_k(tQ + (kk / 4) * kQBox + in_box), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -654,11 +698,11 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // hand P^T to the dK warpgroup
-      mbar_wait(&p_empty[s], ph ^ 1);
-      float* pt = sP + s * (kPBytes / 4) + tid;
+      mbar_wait(&p_empty[ps], pph ^ 1);
+      float* pt = sP + ps * (P::kPBytes / 4) + tid;
 #pragma unroll
       for (int e = 0; e < kWsBQ / 2; ++e) pt[e * 128] = st[e];
-      mbar_arrive(&p_full[s]);
+      mbar_arrive(&p_full[ps]);
 
       // dV += P^T dO: P^T in bf16 as the register A operand (elements
       // 8 ks .. 8 ks + 7 are its k16 step ks), dO MN-major (16 query rows,
@@ -673,7 +717,7 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int ks = 0; ks < kWsBQ / 16; ++ks)
         wgmma_rs<1>(acc, pa[ks],
-                    desc_mn(tdO + (c0 / 64) * kBox64 + ks * 16 * 128, kBox64),
+                    desc_mn(tdO + (c0 / 64) * kQBox + ks * 16 * 128, kQBox),
                     1);
       wgmma_commit();
       wgmma_wait<0>();
@@ -686,8 +730,10 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       const uint32_t ph = (i / kStages) & 1;
-      const unsigned char* tQ = sQ + s * kTile;
-      const unsigned char* tdO = sdO + s * kTile;
+      const int ps = i % kPSlots;                // P^T slot, its phase
+      const uint32_t pph = (i / kPSlots) & 1;
+      const unsigned char* tQ = sQ + s * kQTile;
+      const unsigned char* tdO = sdO + s * kQTile;
       const float* tDelta = sDelta + s * kWsBQ;
       mbar_wait(&full[s], ph);
 
@@ -698,8 +744,9 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const int off = (kk / 4) * kBox64 + (kk % 4) * 32;
-        wgmma_ss<0>(dpt, desc_k(sV + off), desc_k(tdO + off), kk > 0);
+        const int in_box = (kk % 4) * 32;
+        wgmma_ss<0>(dpt, desc_k(sV + (kk / 4) * kBox64 + in_box),
+                    desc_k(tdO + (kk / 4) * kQBox + in_box), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -708,8 +755,8 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       // dS^T from the dV warpgroup's P^T, in bf16 as the register A operand
       // of dK += dS^T Q (elements 8 ks + 2 q, + 1 are query rows
       // 16 ks + 8 (q / 2) + 2 t4, + 1)
-      mbar_wait(&p_full[s], ph);
-      const float* pt = sP + s * (kPBytes / 4) + tid;
+      mbar_wait(&p_full[ps], pph);
+      const float* pt = sP + ps * (P::kPBytes / 4) + tid;
       uint32_t da[kWsBQ / 16][4];
 #pragma unroll
       for (int ks = 0; ks < kWsBQ / 16; ++ks) {
@@ -723,12 +770,12 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                                     a.scale);
         }
       }
-      mbar_arrive(&p_empty[s]);
+      mbar_arrive(&p_empty[ps]);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kWsBQ / 16; ++ks)
         wgmma_rs<1>(acc, da[ks],
-                    desc_mn(tQ + (c0 / 64) * kBox64 + ks * 16 * 128, kBox64),
+                    desc_mn(tQ + (c0 / 64) * kQBox + ks * 16 * 128, kQBox),
                     1);
       wgmma_commit();
       wgmma_wait<0>();
@@ -755,10 +802,10 @@ fa_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int DP>
+template <int DP, int ROWS>
 cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
-  using P = DqPlan<DP>;
-  static_assert(dq_smem_bytes<DP>() <= kSmemMax, "shared memory");
+  using P = DqPlan<DP, ROWS>;
+  static_assert(dq_smem_bytes<DP, ROWS>() <= kSmemMax, "shared memory");
   const int gb = min(a.G, P::kRows), pb = P::kRows / gb;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, gb, pb);
@@ -767,22 +814,23 @@ cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
   if (err == cudaSuccess) err = map_kv(&tm_k, a.k, a.B, a.T, a.K, a.D, kDqBN);
   if (err == cudaSuccess) err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, kDqBN);
   if (err != cudaSuccess) return err;
-  const int smem = dq_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<DP>,
+  const int smem = dq_smem_bytes<DP, ROWS>();
+  err = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<DP, ROWS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   const int n_hb = (a.G + gb - 1) / gb;
   dim3 grid((a.S + pb - 1) / pb * n_hb, a.K, a.B);
-  fa_bwd_dq_bf16_kernel<DP><<<grid, P::kThreads, smem, stream>>>(
+  fa_bwd_dq_bf16_kernel<DP, ROWS><<<grid, P::kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, a, gb, pb);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int BQ>
 cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
-  static_assert(dkv_smem_bytes<DP>() <= kSmemMax, "shared memory");
-  const int gb = min(a.G, 64), pb = kWsBQ / gb;
+  using P = DkvPlan<DP, BQ>;
+  static_assert(P::kSmem <= kSmemMax, "shared memory");
+  const int gb = min(a.G, BQ), pb = BQ / gb;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   cudaError_t err = map_q(&tm_q, a.q, a.B, a.S, a.K, a.G, a.D, gb, pb);
   if (err == cudaSuccess)
@@ -792,15 +840,36 @@ cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = map_kv(&tm_v, a.v, a.B, a.T, a.K, a.D, kWsRowsK);
   if (err != cudaSuccess) return err;
-  const int smem = dkv_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(fa_bwd_dkv_bf16_kernel<DP>,
+  const int smem = P::kSmem;
+  err = cudaFuncSetAttribute(fa_bwd_dkv_bf16_kernel<DP, BQ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.T + kWsRowsK - 1) / kWsRowsK, a.K * DkvPlan<DP>::kSplit, a.B);
-  fa_bwd_dkv_bf16_kernel<DP><<<grid, kWsThreads, smem, stream>>>(
+  dim3 grid((a.T + kWsRowsK - 1) / kWsRowsK, a.K * P::kSplit, a.B);
+  fa_bwd_dkv_bf16_kernel<DP, BQ><<<grid, kWsThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, a, gb, pb);
   return cudaGetLastError();
+}
+
+// The compiled plans of (q_block, kv_block) at DP, or cudaErrorInvalidValue.
+template <int DP>
+cudaError_t launch_dq_plan(const Args& a, int qb, int kb, cudaStream_t st) {
+  if (kb != kDqBN) return cudaErrorInvalidValue;
+  if constexpr (DP <= 128) {
+    if (qb == 128) return launch_dq_bf16<DP, 128>(a, st);
+  }
+  if (qb == 64) return launch_dq_bf16<DP, 64>(a, st);
+  return cudaErrorInvalidValue;
+}
+
+template <int DP>
+cudaError_t launch_dkv_plan(const Args& a, int qb, int kb, cudaStream_t st) {
+  if (kb != kWsRowsK) return cudaErrorInvalidValue;
+  if constexpr (DP <= 128) {
+    if (qb == 128) return launch_dkv_bf16<DP, 128>(a, st);
+  }
+  if (qb == 64) return launch_dkv_bf16<DP, 64>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -809,7 +878,8 @@ constexpr int kThreadsF = 128;
 
 // The fp32 kernels' tiles: D padded to DPF, LPR threads a row (each holding
 // dims d = t4 + LPR * i), rows kThreadsF / LPR a block, TILE rows of the
-// walked side a step. <128, 4, 32> up to D = 128, <256, 8, 16> above.
+// walked side a step. <128, 4, 32> up to D = 128 (the pair (32, 32)),
+// <256, 8, 16> above ((16, 16)).
 template <int DPF, int LPR, int TILE>
 struct F32Plan {
   static constexpr int kRows = kThreadsF / LPR;
@@ -1022,19 +1092,28 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// The Python wrapper checks shapes, dtypes, contiguity, alignment and the
-// limits below before calling: bf16 needs D % 8 == 0 and D <= 256; fp32
-// needs D <= 256. Every entry point takes the same arguments; dq (B2) writes
-// out0 and ignores out1, dk and dv (B3) write out0 and out1.
-typedef cudaError_t (*Launch)(const Args&, cudaStream_t);
+// The Python wrapper checks shapes, dtypes, contiguity, alignment, the
+// plan and the limits below before calling: bf16 needs D % 8 == 0 and
+// D <= 256; fp32 needs D <= 256. Every entry point takes the same
+// arguments; dq (B2) writes out0 and ignores out1, dk and dv (B3) write
+// out0 and out1. q_block and kv_block name the plan (see the header).
+typedef cudaError_t (*Launch)(const Args&, int, int, cudaStream_t);
 
 static int run(Launch launch, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                void* out0, void* out1, int B, int S, int T, int K, int G,
-               int D, float scale, int causal, int window, void* stream) {
+               int D, float scale, int causal, int window, int q_block,
+               int kv_block, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, out0, out1, B, S, T, K,
                            G, D, scale, causal, window);
-  return static_cast<int>(launch(a, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(a, q_block, kv_block,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The fp32 kernels have one plan each per padded head dim.
+template <cudaError_t (*L)(const Args&, cudaStream_t), int QB, int KB>
+cudaError_t f32_plan(const Args& a, int qb, int kb, cudaStream_t st) {
+  return qb == QB && kb == KB ? L(a, st) : cudaErrorInvalidValue;
 }
 
 extern "C" int fa_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -1042,12 +1121,12 @@ extern "C" int fa_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               const void* delta, void* out0, void* out1,
                               int B, int S, int T, int K, int G, int D,
                               float scale, int causal, int window,
-                              void* stream) {
-  return run(D <= 64    ? &launch_dq_bf16<64>
-             : D <= 128 ? &launch_dq_bf16<128>
-                        : &launch_dq_bf16<256>,
+                              int q_block, int kv_block, void* stream) {
+  return run(D <= 64    ? &launch_dq_plan<64>
+             : D <= 128 ? &launch_dq_plan<128>
+                        : &launch_dq_plan<256>,
              q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
-             causal, window, stream);
+             causal, window, q_block, kv_block, stream);
 }
 
 extern "C" int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -1055,12 +1134,12 @@ extern "C" int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* delta, void* out0, void* out1,
                                int B, int S, int T, int K, int G, int D,
                                float scale, int causal, int window,
-                               void* stream) {
-  return run(D <= 64    ? &launch_dkv_bf16<64>
-             : D <= 128 ? &launch_dkv_bf16<128>
-                        : &launch_dkv_bf16<256>,
+                               int q_block, int kv_block, void* stream) {
+  return run(D <= 64    ? &launch_dkv_plan<64>
+             : D <= 128 ? &launch_dkv_plan<128>
+                        : &launch_dkv_plan<256>,
              q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
-             causal, window, stream);
+             causal, window, q_block, kv_block, stream);
 }
 
 extern "C" int fa_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -1068,11 +1147,11 @@ extern "C" int fa_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* delta, void* out0, void* out1,
                              int B, int S, int T, int K, int G, int D,
                              float scale, int causal, int window,
-                             void* stream) {
-  return run(D <= 128 ? &launch_dq_f32<128, 4, 32>
-                      : &launch_dq_f32<256, 8, 16>,
+                             int q_block, int kv_block, void* stream) {
+  return run(D <= 128 ? &f32_plan<launch_dq_f32<128, 4, 32>, 32, 32>
+                      : &f32_plan<launch_dq_f32<256, 8, 16>, 16, 16>,
              q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
-             causal, window, stream);
+             causal, window, q_block, kv_block, stream);
 }
 
 extern "C" int fa_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -1080,11 +1159,11 @@ extern "C" int fa_bwd_dkv_f32(const void* q, const void* k, const void* v,
                               const void* delta, void* out0, void* out1,
                               int B, int S, int T, int K, int G, int D,
                               float scale, int causal, int window,
-                              void* stream) {
-  return run(D <= 128 ? &launch_dkv_f32<128, 4, 32>
-                      : &launch_dkv_f32<256, 8, 16>,
+                              int q_block, int kv_block, void* stream) {
+  return run(D <= 128 ? &f32_plan<launch_dkv_f32<128, 4, 32>, 32, 32>
+                      : &f32_plan<launch_dkv_f32<256, 8, 16>, 16, 16>,
              q, k, v, dout, lse, delta, out0, out1, B, S, T, K, G, D, scale,
-             causal, window, stream);
+             causal, window, q_block, kv_block, stream);
 }
 
 extern "C" const char* fa_bwd_error_string(int err) {

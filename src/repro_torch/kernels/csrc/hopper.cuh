@@ -10,7 +10,7 @@
 //   * wgmma: shared-memory descriptors of 128B-swizzled tiles in the K-major
 //     and the MN-major (transposed B) layout, fence / commit / wait, and
 //     m64nNk16 bf16 -> fp32 products with A from shared memory (ss) or from
-//     registers (rs), N = 64 or 128, and rs at N = 256;
+//     registers (rs), N = 64 or 128, ss at N = 32 and rs at N = 256;
 //   * setmaxnreg, which moves registers from the producer warpgroup to the
 //     consumers;
 //   * thread-block clusters: the block's rank, the cluster barrier, mapa
@@ -386,6 +386,24 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // 8 j + 2 (t % 4) + e. In the rs form, A is four registers of bf16 pairs in
 // the same row pattern (columns 2 (t % 4) and + 8). TransB = 0: B is
 // K-major; 1: MN-major.
+// N = 32 (B1's 32-row kv tiles at head dim 256): d holds 16 fp32 a thread
+// in the same pattern, columns 8 j + 2 (t % 4) (+ 1) for j = 0..3.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
 template <int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {

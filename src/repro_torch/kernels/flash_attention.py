@@ -2,17 +2,30 @@
 
 ``flash_attention`` has the signature and layout of
 ``repro.kernels.flash_attention.flash_attention`` minus the TPU-only
-``q_block``, ``kv_block`` and ``interpret``: the kernel's tiles are its own.
+``interpret``. ``q_block`` and ``kv_block`` name one of the kernel's
+compiled tile plans (``findb.flash_attention_plans``). ``q_block`` counts
+the block's FLATTENED (position, head) rows, because the kernel packs the G
+query heads of a kv head into one block: that equals the reference's
+positions at G = 1. Left None, they resolve through the find-db
+(``findb.lookup_or_default``, kernel ``"flash_attention"``, key
+``findb.attention_shape_key`` with the dtype rule, the inputs' device's
+hardware key); on a miss they are the kernel's plan of before it took tiles
+for the dtype and padded head dim (``findb.flash_attention_defaults``). An
+explicit value wins; a pair outside the plan set raises ``ValueError`` on
+every device, so a CPU caller finds a plan the card would refuse.
 
 * On CUDA tensors it launches ``csrc/flash_attention.cu`` (built by
   ``repro_torch.kernels.build``) on the current stream, or raises. There is
   no fallback: a tensor on the card reaches the kernel or an exception.
 * On CPU tensors it runs ``flash_attention_reference``, the plain PyTorch
   version of the same function, built on the online-softmax recurrence of
-  ``layers.chunked_attention``.
-* On meta tensors (the dry-run, ``launch/dryrun.py``) it returns empty
-  outputs of the kernel's shapes and dtypes and reports the kernel's work
-  to ``analysis.cost``; nothing launches and nothing is computed.
+  ``layers.chunked_attention``, with the resolved tiles as its
+  ``q_chunk``/``kv_chunk`` (so a test can see which find-db row a call
+  read; the result does not depend on them).
+* On meta tensors (the dry-run, ``launch/dryrun.py``) it validates the
+  tiles, returns empty outputs of the kernel's shapes and dtypes and
+  reports the kernel's work to ``analysis.cost`` (the same whatever plan
+  runs); nothing launches and nothing is computed.
 
 ``launches`` counts kernel launches (never plain-version calls), so a run can
 show that its main path went through the kernel.
@@ -50,8 +63,8 @@ def _kernel(dtype):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in _DTYPES.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 5 + [i32] * 6 + [ctypes.c_float, i32, i32,
-                                                   ptr]
+            fn.argtypes = [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + \
+                [i32] * 4 + [ptr]
             fn.restype = i32
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -60,7 +73,38 @@ def _kernel(dtype):
     return _fns[dtype]
 
 
-def _launch(q, k, v, causal, window, scale):
+def resolve_tiles(q, k, *, causal=True, window=None, q_block=None,
+                  kv_block=None, find_db=True):
+    """(q_block, kv_block) of a call on q (B, S, K, G, D) and k (B, T, K, D).
+
+    Explicit values win. None resolves through the find-db row
+    ``"flash_attention"`` for these inputs' shape, dtype and device, or,
+    on a miss or with ``find_db`` False, to the kernel's default plan.
+    Raises ``ValueError`` for a pair outside the kernel's plans.
+    """
+    from repro_torch.kernels import findb
+    B, S, K, G, D = q.shape
+    default = findb.flash_attention_defaults("B1", q.dtype, D)
+    if q_block is None or kv_block is None:
+        tuned = default
+        if find_db:
+            tuned = findb.lookup_or_default(
+                "flash_attention", findb.attention_shape_key(
+                    B=B, S=S, K=K, G=G, D=D, T=k.shape[1], causal=causal,
+                    window=window, dtype=q.dtype),
+                default=default, hardware=findb.hardware_key(q.device))
+        q_block = tuned["q_block"] if q_block is None else q_block
+        kv_block = tuned["kv_block"] if kv_block is None else kv_block
+    plans = findb.flash_attention_plans(q.dtype, D)
+    if (q_block, kv_block) not in plans:
+        raise ValueError(
+            f"flash_attention has no plan q_block={q_block}, "
+            f"kv_block={kv_block} for {q.dtype} at head_dim {D}; its "
+            f"(q_block, kv_block) plans there: {list(plans)}")
+    return int(q_block), int(kv_block)
+
+
+def _launch(q, k, v, causal, window, scale, q_block, kv_block):
     global launches
     B, S, K, G, D = q.shape
     T = k.shape[1]
@@ -88,7 +132,7 @@ def _launch(q, k, v, causal, window, scale):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, S, T, K, G, D, scale, int(causal),
-            int(window or 0), stream)
+            int(window or 0), q_block, kv_block, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
@@ -113,10 +157,15 @@ def _meta(q, k, v, causal, window):
 
 
 def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
-                    softmax_scale=None, return_lse=False):
+                    q_block: Optional[int] = None,
+                    kv_block: Optional[int] = None, softmax_scale=None,
+                    return_lse=False):
     """q: (B, S, K, G, D); k, v: (B, T, K, D) -> (B, S, K, G, D).
 
     return_lse additionally returns the per-row logsumexp (B, S, K, G) fp32.
+    ``q_block`` (flattened (position, head) rows a block) and ``kv_block``
+    pick the kernel's tile plan; None resolves through the find-db (see
+    the module docstring and ``resolve_tiles``).
     """
     B, S, K, G, D = q.shape
     if k.shape != (B, k.shape[1], K, D) or v.shape != k.shape:
@@ -124,13 +173,17 @@ def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    q_block, kv_block = resolve_tiles(q, k, causal=causal, window=window,
+                                      q_block=q_block, kv_block=kv_block)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cuda":
-        out, lse = _launch(q, k, v, causal, window, scale)
+        out, lse = _launch(q, k, v, causal, window, scale, q_block, kv_block)
     elif q.device.type == "cpu" and k.device == q.device == v.device:
         out, lse = flash_attention_reference(q, k, v, causal=causal,
                                              window=window,
-                                             softmax_scale=scale)
+                                             softmax_scale=scale,
+                                             q_chunk=q_block,
+                                             kv_chunk=kv_block)
     elif q.device.type == "meta" and k.device == q.device == v.device:
         out, lse = _meta(q, k, v, causal, window)
     else:

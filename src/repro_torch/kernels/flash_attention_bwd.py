@@ -3,20 +3,36 @@ and their plain version.
 
 ``flash_attention_bwd`` has the signature and layouts of
 ``repro.kernels.flash_attention_bwd.flash_attention_bwd`` minus the TPU-only
-``q_block``, ``kv_block`` and ``interpret``: the kernels' tiles are their own.
-As in the reference, ``delta = rowsum(dO * O)`` is computed in fp32 outside
-the kernels, by a torch op.
+``interpret``. As in the reference, ``delta = rowsum(dO * O)`` is computed
+in fp32 outside the kernels, by a torch op.
+
+Tiles. One ``(q_block, kv_block)`` pair names the plan of both kernels,
+read as the reference's kernels read it: B2 owns ``q_block`` query rows and
+walks kv tiles of ``kv_block``; B3 owns ``kv_block`` kv rows and walks query
+tiles of ``q_block``. Query rows are flattened (position, head) rows, as in
+the forward. The pairs are those both kernels compile
+(``findb.flash_attention_bwd_plans``). Left None, they resolve through the
+find-db row ``"flash_attention_bwd"`` (key ``findb.attention_shape_key``
+with the dtype rule, the inputs' device's hardware key). On a miss, or
+where a row names no tile (the tuner stores ``{}`` when it keeps the
+default), each kernel runs its own plan of before the kernels took tiles
+(``findb.flash_attention_defaults``: in bf16 up to head dim 128, B2 (128,
+64) and B3 (64, 64); these are two pairs of the set, not one). An explicit
+value wins; a pair outside the set raises ``ValueError`` on every device.
+``resolve_tiles`` returns the per-kernel pairs and ``flash_attention_bwd_at``
+runs the backward at them.
 
 * On CUDA tensors it launches ``csrc/flash_attention_bwd.cu`` (built by
   ``repro_torch.kernels.build``) on the current stream: ``dq_kernel`` (B2)
   and ``dkv_kernel`` (B3), or raises. There is no fallback.
-* On CPU tensors it runs ``flash_attention_bwd_reference``, the plain
-  PyTorch version: chunked, fp32 inside, recomputing
-  ``p = exp(s * scale - lse)`` from the saved LSE with the reference
-  kernels' masks and ``NEG_INF``.
-* On meta tensors (the dry-run) it computes delta as the card does and
-  returns empty dq, dk, dv, reporting B2's and B3's work to
-  ``analysis.cost``; nothing launches.
+* On CPU tensors it runs the plain PyTorch versions ``dq_reference`` and
+  ``dkv_reference`` (``flash_attention_bwd_reference`` is both): chunked,
+  fp32 inside, recomputing ``p = exp(s * scale - lse)`` from the saved LSE
+  with the reference kernels' masks and ``NEG_INF``, each with its
+  kernel's resolved tiles as its ``q_chunk``/``kv_chunk``.
+* On meta tensors (the dry-run) it validates the tiles, computes delta as
+  the card does and returns empty dq, dk, dv, reporting B2's and B3's work
+  (the same whatever plan runs) to ``analysis.cost``; nothing launches.
 
 ``launches_dq`` and ``launches_dkv`` count kernel launches (never
 plain-version calls), so a run can show that its main path went through the
@@ -141,6 +157,50 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=True,
 # ---------------------------------------------------------------------------
 
 
+def resolve_tiles(q, k, *, causal=True, window=None, q_block=None,
+                  kv_block=None, find_db=True):
+    """{"dq": (q_block, kv_block) of B2, "dkv": (q_block, kv_block) of B3}.
+
+    Explicit values win and go to both kernels. None resolves through the
+    find-db row ``"flash_attention_bwd"`` for these inputs' shape, dtype
+    and device; what neither names (a miss, ``find_db`` False, a row of
+    ``{}``) is each kernel's default plan. Raises ``ValueError`` for a pair
+    outside the backward's plans.
+    """
+    from repro_torch.kernels import findb
+    B, S, K, G, D = q.shape
+    tuned = {}
+    if find_db and (q_block is None or kv_block is None):
+        tuned = findb.lookup_or_default(
+            "flash_attention_bwd", findb.attention_shape_key(
+                B=B, S=S, K=K, G=G, D=D, T=k.shape[1], causal=causal,
+                window=window, dtype=q.dtype),
+            default={}, hardware=findb.hardware_key(q.device))
+    tiles = {}
+    for name, kid in (("dq", "B2"), ("dkv", "B3")):
+        pick = findb.flash_attention_defaults(kid, q.dtype, D)
+        pick.update({t: tuned[t] for t in pick if t in tuned})
+        pick.update({t: v for t, v in (("q_block", q_block),
+                                       ("kv_block", kv_block))
+                     if v is not None})
+        tiles[name] = (pick["q_block"], pick["kv_block"])
+    return _checked(tiles, q.dtype, D)
+
+
+def _checked(tiles, dtype, D):
+    """``tiles`` as ints, or ValueError naming the backward's plans."""
+    from repro_torch.kernels import findb
+    plans = findb.flash_attention_bwd_plans(dtype, D)
+    for name, pair in tiles.items():
+        if tuple(pair) not in plans:
+            raise ValueError(
+                f"flash_attention_bwd has no plan q_block={pair[0]}, "
+                f"kv_block={pair[1]} ({name}) for {dtype} at head_dim {D};"
+                f" its (q_block, kv_block) plans there: {list(plans)}")
+    return {name: (int(pair[0]), int(pair[1]))
+            for name, pair in tiles.items()}
+
+
 def _kernels(dtype):
     if dtype not in _fns:
         from repro_torch.kernels import build
@@ -149,8 +209,8 @@ def _kernels(dtype):
         for names in _NAMES.values():
             for name in names:
                 fn = getattr(lib, name)
-                fn.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float, i32,
-                                                       i32, ptr]
+                fn.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float] + \
+                    [i32] * 4 + [ptr]
                 fn.restype = i32
         lib.fa_bwd_error_string.argtypes = [i32]
         lib.fa_bwd_error_string.restype = ctypes.c_char_p
@@ -192,37 +252,44 @@ def _check(q, k, v, do, lse, delta):
 
 
 def _call(fn, err_str, q, k, v, do, lse, delta, out0, out1, causal, window,
-          scale):
+          scale, tiles):
     B, S, K, G, D = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
             0 if out1 is None else out1.data_ptr(), B, S, k.shape[1], K, G,
-            D, scale, int(causal), int(window or 0), stream)
+            D, scale, int(causal), int(window or 0), *tiles, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"{err_str(rc).decode()} ({rc})")
 
 
-def dq_kernel(q, k, v, do, lse, delta, *, causal=True, window=None, scale):
-    """B2 on CUDA tensors: dq in q's dtype."""
+def dq_kernel(q, k, v, do, lse, delta, *, causal=True, window=None, scale,
+              q_block, kv_block):
+    """B2 on CUDA tensors at plan (q_block, kv_block): dq in q's dtype."""
     global launches_dq
     _check(q, k, v, do, lse, delta)
+    tiles = _checked({"dq": (q_block, kv_block)}, q.dtype, q.shape[-1])["dq"]
     fn, _, err_str = _kernels(q.dtype)
     dq = torch.empty_like(q)
     _call(fn, err_str, q, k, v, do, lse, delta, dq, None, causal, window,
-          scale)
+          scale, tiles)
     launches_dq += 1
     return dq
 
 
-def dkv_kernel(q, k, v, do, lse, delta, *, causal=True, window=None, scale):
-    """B3 on CUDA tensors: (dk, dv) in k's dtype."""
+def dkv_kernel(q, k, v, do, lse, delta, *, causal=True, window=None, scale,
+               q_block, kv_block):
+    """B3 on CUDA tensors at plan (q_block, kv_block): (dk, dv) in k's
+    dtype."""
     global launches_dkv
     _check(q, k, v, do, lse, delta)
+    tiles = _checked({"dkv": (q_block, kv_block)}, q.dtype,
+                     q.shape[-1])["dkv"]
     _, fn, err_str = _kernels(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call(fn, err_str, q, k, v, do, lse, delta, dk, dv, causal, window, scale)
+    _call(fn, err_str, q, k, v, do, lse, delta, dk, dv, causal, window, scale,
+          tiles)
     launches_dkv += 1
     return dk, dv
 
@@ -253,9 +320,21 @@ def _meta(q, k, v, out, do, causal, window):
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True,
-                        window: Optional[int] = None, softmax_scale=None):
+                        window: Optional[int] = None,
+                        q_block: Optional[int] = None,
+                        kv_block: Optional[int] = None, softmax_scale=None):
     """q, out, do: (B, S, K, G, D); k, v: (B, T, K, D); lse: (B, S, K, G)
-    fp32 from the forward. Returns (dq, dk, dv) in the inputs' dtypes."""
+    fp32 from the forward. Returns (dq, dk, dv) in the inputs' dtypes.
+    ``q_block``/``kv_block``: see the module docstring."""
+    _check_shapes(q, k, v, out, do, window)
+    tiles = resolve_tiles(q, k, causal=causal, window=window,
+                          q_block=q_block, kv_block=kv_block)
+    return flash_attention_bwd_at(q, k, v, out, lse, do, tiles,
+                                  causal=causal, window=window,
+                                  softmax_scale=softmax_scale)
+
+
+def _check_shapes(q, k, v, out, do, window):
     B, S, K, G, D = q.shape
     if k.shape != (B, k.shape[1], K, D) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
@@ -265,19 +344,35 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True,
                          f"must have q's shape {tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+
+
+def flash_attention_bwd_at(q, k, v, out, lse, do, tiles, *, causal=True,
+                           window: Optional[int] = None, softmax_scale=None):
+    """The backward with B2 at ``tiles["dq"]`` and B3 at ``tiles["dkv"]``,
+    each a (q_block, kv_block) pair of the backward's plans: the find-db
+    is not read. Returns (dq, dk, dv)."""
+    _check_shapes(q, k, v, out, do, window)
+    tiles = _checked(tiles, q.dtype, q.shape[-1])
     do = do.contiguous()        # autograd may hand in a strided gradient
     scale = _scale(q, softmax_scale)
     if q.device.type == "cuda":
         delta = attention_delta(out, do)
         kw = dict(causal=causal, window=window, scale=scale)
-        dq = dq_kernel(q, k, v, do, lse, delta, **kw)
-        dk, dv = dkv_kernel(q, k, v, do, lse, delta, **kw)
+        dq = dq_kernel(q, k, v, do, lse, delta, **kw,
+                       q_block=tiles["dq"][0], kv_block=tiles["dq"][1])
+        dk, dv = dkv_kernel(q, k, v, do, lse, delta, **kw,
+                            q_block=tiles["dkv"][0], kv_block=tiles["dkv"][1])
         return dq, dk, dv
     if q.device.type == "cpu" and all(
             t.device == q.device for t in (k, v, out, lse, do)):
-        return flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                             causal=causal, window=window,
-                                             softmax_scale=scale)
+        delta = attention_delta(out, do)
+        kw = dict(causal=causal, window=window, scale=scale)
+        dq = dq_reference(q, k, v, do, lse, delta, **kw,
+                          q_chunk=tiles["dq"][0], kv_chunk=tiles["dq"][1])
+        dk, dv = dkv_reference(q, k, v, do, lse, delta, **kw,
+                               q_chunk=tiles["dkv"][0],
+                               kv_chunk=tiles["dkv"][1])
+        return dq, dk, dv
     if q.device.type == "meta" and all(
             t.device == q.device for t in (k, v, out, lse, do)):
         return _meta(q, k, v, out, do, causal, window)

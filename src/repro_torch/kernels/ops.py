@@ -14,6 +14,16 @@ the gradient is the same function.
 Without autograd (``torch.no_grad``, ``torch.inference_mode``, or no input
 that requires grad) the op calls B1 alone and saves nothing.
 
+Tiles. ``q_block``/``kv_block`` given explicitly go to B1 and to B2/B3, as
+the reference's op hands them to both (``repro/kernels/ops.py:96-103``).
+Left None, the forward resolves the find-db row ``"flash_attention"`` and
+the backward resolves the row ``"flash_attention_bwd"`` itself, at
+``backward`` time. This departs from the reference, which resolves the
+forward's blocks before the ``custom_vjp`` boundary and hands them to the
+backward: the port's forward and backward kernels compile different plan
+sets (``findb.flash_attention_plans``, ``flash_attention_bwd_plans``), so
+a forward plan such as ``kv_block = 128`` is no backward plan.
+
 ``mlstm`` (B4) and ``rglru`` (B5) are the reference's ops of those names:
 the forward is the kernel, the backward recomputes the plain version
 (``mlstm_chunkwise_reference``, ``rglru_reference``) under autograd and
@@ -38,31 +48,38 @@ from repro_torch.kernels import rglru as rglru_kernel
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = fa_kernel.flash_attention(q, k, v, causal=causal,
-                                             window=window, return_lse=True)
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
+        out, lse = fa_kernel.flash_attention(
+            q, k, v, causal=causal, window=window, q_block=q_block,
+            kv_block=kv_block, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
+        ctx.q_block, ctx.kv_block = q_block, kv_block
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = fa_bwd_kernel.flash_attention_bwd(
-            q, k, v, out, lse, do, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+            q, k, v, out, lse, do, causal=ctx.causal, window=ctx.window,
+            q_block=ctx.q_block, kv_block=ctx.kv_block)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_fused(q, k, v, causal=True, window=None):
+def flash_attention_fused(q, k, v, causal=True, window=None, q_block=None,
+                          kv_block=None):
     """q: (B, S, K, G, D); k, v: (B, T, K, D) -> (B, S, K, G, D)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_block,
+                                     kv_block)
+    return fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_block=q_block, kv_block=kv_block)
 
 
-def flash_attention(q, k, v, causal=True, window=None):
+def flash_attention(q, k, v, causal=True, window=None, q_block=None,
+                    kv_block=None):
     """The fused op under the reference's name (see the module docstring)."""
-    return flash_attention_fused(q, k, v, causal, window)
+    return flash_attention_fused(q, k, v, causal, window, q_block, kv_block)
 
 
 # ------------------------------------------------------------------- rglru

@@ -3,13 +3,15 @@
 PipeTune's thesis is that system parameters deserve the same tuning loop
 as hyperparameters. This module, the port of ``repro.kernels.tune``, closes
 that loop on the port itself: a ``Backend``-protocol implementation whose
-"trials" time kernel variants — ``chunk`` for the mLSTM kernel (B4),
-``chunk`` and ``r_block`` for the RG-LRU kernel (B5), ``remat`` and
-``microbatches`` for a Table-3 train step — per workload shape, through the
-port's own ask/tell schedulers, ``TrialRunner`` and serial executor
-(``repro_torch.api.Experiment``). Winning configs land in a
+"trials" time kernel variants — ``q_block`` and ``kv_block`` for the
+flash-attention forward (B1) and backward (B2 + B3), ``chunk`` for the
+mLSTM kernel (B4), ``chunk`` and ``r_block`` for the RG-LRU kernel (B5),
+``remat`` and ``microbatches`` for a Table-3 train step — per workload
+shape, through the port's own ask/tell schedulers, ``TrialRunner`` and
+serial executor (``repro_torch.api.Experiment``). Winning configs land in a
 :class:`KernelConfigDB` find-db keyed by ``(kernel, shape_key,
-hardware_key)``, where ``ops.mlstm``/``ops.rglru`` resolve them through
+hardware_key)``, where the attention wrappers (and so ``ops`` and the
+models), ``ops.mlstm`` and ``ops.rglru`` resolve them through
 ``repro_torch.kernels.findb.lookup_or_default`` and
 ``TorchRealBackend._effective_sys`` fills the sys-config keys its caller
 left unset.
@@ -18,15 +20,27 @@ Differences from the reference: ``device`` (``cuda`` unless the caller asks
 for ``cpu``) takes the place of ``interpret``; on the card each rep is timed
 with CUDA events on the current stream, on the CPU with the host clock (the
 CPU runs the plain versions, so its times say nothing of the kernels). The
-flash-attention workloads parse (their shape keys are the reference's) but
-do not tune: the port's B1-B3 have no ``q_block``/``kv_block`` (ROADMAP
-queue A, item 8). A ``train_step`` config's time is the median step time of
-one epoch of a ``TorchRealBackend`` trial kept per config, as in the
-reference, after ``warmup`` untimed epochs of a new config (the reference
-times its first epoch). The default and the trials' winner are re-timed
-in three interleaved rounds, not two, and the winner is persisted only if
-it beats the default by more than the default's spread over them (the
-reference persists it whatever the margin). Rows go to and come from a
+flash-attention workloads take an optional ``dtype`` dim (``fp32``, the
+reference's, by default; ``bf16`` appends ``dtype=bf16`` to the shape key,
+as ``findb.attention_shape_key`` does for bf16 inputs) and their variant
+space departs from the reference's: the reference's grid (q_block x
+kv_block over 32..256, pruned to the shape) filtered to the pairs the
+port's kernels compile for the workload's dtype and head dim
+(``findb.flash_attention_plans``, ``flash_attention_bwd_plans``), with
+q_block pruned to S x G since it counts flattened (position, head) rows;
+where that leaves nothing, the plan set itself. Their baseline is ``{}``:
+each kernel's own plan of before the kernels took tiles, spelled out at
+call time without the find-db (for the backward, B2's and B3's defaults
+are two different pairs), so a variant's ``accuracy`` is its speedup over
+what the port runs with no find-db row, and a stored ``{}`` (the default
+kept) leaves every kernel at that plan. A ``train_step`` config's time
+is the median step time of one epoch of a ``TorchRealBackend`` trial kept
+per config, as in the reference, after ``warmup`` untimed epochs of a new
+config (the reference times its first epoch). The default and the
+trials' winner are re-timed in three interleaved rounds, not two, and the
+winner is persisted only if it beats the default by more than the
+default's spread over them (the reference persists it whatever the
+margin). Rows go to and come from a
 live store (``--store tcp://HOST:PORT`` of a ``python -m
 repro_torch.service``, one batched ``kernel_db`` round-trip a workload) or
 a stopped service's journal (``--journal``) as well as a golden table;
@@ -40,6 +54,8 @@ Workload specs
 
     mlstm@B=8,S=2048,H=4,D=512     # xlstm-350m width
     rglru@B=8,S=2048,R=4096        # recurrentgemma-9b width
+    flash_attention@B=8,S=2048,K=8,G=2,D=128,dtype=bf16      # qwen3 serve
+    flash_attention_bwd@B=4,S=2048,K=8,G=2,D=128,dtype=bf16  # qwen3 train
     train_step@arch=lenet-mnist,batch=64      # hillclimb system dims
 
 CLI::
@@ -48,6 +64,8 @@ CLI::
     python -m repro_torch.kernels.tune tune --workload mlstm-smoke \\
         --device cpu --golden golden.json
     python -m repro_torch.kernels.tune tune --workload train-smoke
+    python -m repro_torch.kernels.tune tune --workload flash-fwd-smoke \\
+        --device cpu
     python -m repro_torch.kernels.tune show --golden golden.json
     python -m repro_torch.kernels.tune export --golden golden.json --out copy.json
     python -m repro_torch.kernels.tune tune --workload rglru-smoke \\
@@ -93,7 +111,10 @@ PRESETS = {
 }
 
 # the presets the CLI tunes by default: the kernels the port can tune
-DEFAULT_WORKLOADS = ("mlstm-smoke", "rglru-smoke")
+DEFAULT_WORKLOADS = ("flash-fwd-smoke", "flash-bwd-smoke", "mlstm-smoke",
+                     "rglru-smoke")
+
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 # which variant keys each kernel understands (hparams and recognized
 # sys_cfg keys both feed these; everything else is ignored)
@@ -112,26 +133,15 @@ KERNEL_KEYS = {
 BASELINES = dict(findb.DEFAULTS)
 BASELINES["train_step"] = {"remat": "none", "microbatches": 1,
                            "precision": "fp32"}
+# the attention kernels' plans depend on the workload's dtype and head dim:
+# {} is each kernel's own default plan there (see the module docstring)
+BASELINES.update({kernel: {} for kernel in FLASH_KERNELS})
 
 # rounds of the default and the trials' winner, interleaved, behind the
 # stored config and the summary's times
 HEADLINE_ROUNDS = 3
 
 _INT_KEYS = ("q_block", "kv_block", "chunk", "r_block", "microbatches")
-
-# kernels the port cannot time yet, and why
-_NOT_YET = {
-    kernel: "the port's flash-attention kernels (B1-B3) take no "
-            "q_block/kv_block yet; their tile choices come with or after "
-            "ROADMAP section B 2, the second round on those kernels "
-            "(ROADMAP queue A, item 8)"
-    for kernel in ("flash_attention", "flash_attention_bwd")
-}
-
-
-def _check_tunable(kernel: str) -> None:
-    if kernel in _NOT_YET:
-        raise ValueError(f"cannot tune {kernel!r}: {_NOT_YET[kernel]}")
 
 
 def parse_workload(spec: str) -> Tuple[str, Dict[str, Any]]:
@@ -156,13 +166,19 @@ def parse_workload(spec: str) -> Tuple[str, Dict[str, Any]]:
             dims[k] = None
         else:
             dims[k] = v
-    if kernel in ("flash_attention", "flash_attention_bwd"):
+    if kernel in FLASH_KERNELS:
         for d in ("B", "S", "K", "G", "D"):
             if d not in dims:
                 raise ValueError(f"{kernel} workload needs dim {d}")
         dims.setdefault("T", dims["S"])
         dims.setdefault("causal", True)
         dims.setdefault("window", None)
+        if "dtype" in dims:              # absent: the reference's fp32
+            if str(dims["dtype"]) not in ("bf16", "bfloat16", "fp32",
+                                          "float32"):
+                raise ValueError(f"dtype {dims['dtype']!r}: the attention "
+                                 "kernels take bf16 or fp32")
+            dims["dtype"] = findb.flash_dtype(dims["dtype"])
     elif kernel == "mlstm":
         for d in ("B", "S", "H", "D"):
             if d not in dims:
@@ -182,11 +198,11 @@ def parse_workload(spec: str) -> Tuple[str, Dict[str, Any]]:
 def workload_shape_key(kernel: str, dims: Dict[str, Any]) -> str:
     """The exact key the kernel call sites look up — writing tuned entries
     under it is what makes them take effect with no extra plumbing."""
-    if kernel in ("flash_attention", "flash_attention_bwd"):
+    if kernel in FLASH_KERNELS:
         return findb.attention_shape_key(
             B=dims["B"], S=dims["S"], K=dims["K"], G=dims["G"],
             D=dims["D"], T=dims["T"], causal=dims["causal"],
-            window=dims["window"])
+            window=dims["window"], dtype=dims.get("dtype"))
     if kernel == "mlstm":
         return findb.mlstm_shape_key(B=dims["B"], S=dims["S"],
                                      H=dims["H"], D=dims["D"])
@@ -195,13 +211,28 @@ def workload_shape_key(kernel: str, dims: Dict[str, Any]) -> str:
     return findb.train_step_shape_key(arch=dims["arch"], batch=dims["batch"])
 
 
+def flash_plans(kernel: str, dims: Dict[str, Any]) -> tuple:
+    """The (q_block, kv_block) pairs the kernel compiles for a workload."""
+    plans = (findb.flash_attention_plans if kernel == "flash_attention"
+             else findb.flash_attention_bwd_plans)
+    return plans(dims.get("dtype", "fp32"), dims["D"])
+
+
 def kernel_space(kernel: str, dims: Dict[str, Any]) -> SearchSpace:
     """The variant search space for one kernel workload, pruned to blocks
-    that fit the shape (and, for mlstm, divide the sequence)."""
+    that fit the shape (and, for mlstm, divide the sequence); for the
+    attention kernels, filtered to their plans (see the module docstring)."""
     sizes = (32, 64, 128, 256)
-    if kernel in ("flash_attention", "flash_attention_bwd"):
-        qs = tuple(c for c in sizes if c <= dims["S"]) or (dims["S"],)
+    if kernel in FLASH_KERNELS:
+        rows = dims["S"] * dims["G"]           # q_block counts flattened rows
+        qs = tuple(c for c in sizes if c <= rows) or (rows,)
         ks = tuple(c for c in sizes if c <= dims["T"]) or (dims["T"],)
+        plans = flash_plans(kernel, dims)
+        pairs = [(q, k) for q in qs for k in ks if (q, k) in plans] or \
+            list(plans)
+        qs = tuple(dict.fromkeys(q for q, _ in pairs))
+        ks = tuple(dict.fromkeys(k for _, k in pairs))
+        assert len(qs) * len(ks) == len(pairs), "plan sets are products"
         return SearchSpace([Param("q_block", "choice", choices=qs),
                             Param("kv_block", "choice", choices=ks)])
     if kernel == "mlstm":
@@ -251,8 +282,9 @@ class KernelTuneBackend:
         self.reps = max(1, int(reps))
         self.warmup = max(0, int(warmup))
         self.device = device_lib.resolve(device)
-        self.kernel_calls: Dict[str, int] = {"mlstm": 0, "rglru": 0,
-                                             "train_step": 0}
+        self.kernel_calls: Dict[str, int] = {
+            "flash_attention": 0, "flash_attention_bwd": 0, "mlstm": 0,
+            "rglru": 0, "train_step": 0}
         self._baselines: Dict[str, float] = {}
         self._variants: Dict[tuple, Any] = {}
         self._inputs: Dict[tuple, dict] = {}
@@ -267,7 +299,6 @@ class KernelTuneBackend:
     def init_trial(self, workload: str, hparams: dict, seed: int = 0
                    ) -> TrialState:
         kernel, dims = parse_workload(workload)
-        _check_tunable(kernel)
         data = self._make_inputs(kernel, dims, seed)
         return TrialState(workload=workload, hparams=dict(hparams),
                           cfg={"kernel": kernel, "dims": dims}, params=None,
@@ -310,7 +341,28 @@ class KernelTuneBackend:
             return torch.from_numpy(np.asarray(x, np.float32)).to(
                 self.device)
 
-        if kernel == "mlstm":
+        if kernel in FLASH_KERNELS:
+            B, S, K, G, D, T = (dims[k] for k in
+                                ("B", "S", "K", "G", "D", "T"))
+            dt = (torch.bfloat16 if dims.get("dtype") == "bf16"
+                  else torch.float32)
+
+            def draw(*shape):
+                return f32(rng.randn(*shape)).to(dt)
+
+            q, k, v = draw(B, S, K, G, D), draw(B, T, K, D), draw(B, T, K, D)
+            if kernel == "flash_attention":
+                args = (q, k, v)
+            else:
+                # out and lse from one forward at B1's default plan, then
+                # dO: the reference's draws in its order
+                from repro_torch.kernels import flash_attention as fa
+                out, lse = fa.flash_attention(
+                    q, k, v, causal=dims["causal"], window=dims["window"],
+                    return_lse=True, **findb.flash_attention_defaults(
+                        "B1", dt, D))
+                args = (q, k, v, out, lse, draw(B, S, K, G, D))
+        elif kernel == "mlstm":
             B, S, H, D = (dims[k] for k in ("B", "S", "H", "D"))
             args = tuple(f32(rng.randn(*shape)) for shape in
                          ((B, S, H, D),) * 3 + ((B, S, H),) * 2)
@@ -325,8 +377,23 @@ class KernelTuneBackend:
         """(callable, args) for one variant: a partial over the kernel's
         wrapper with the variant's config spelled out (so the find-db is
         never consulted while timing)."""
-        kernel = ts.cfg["kernel"]
-        if kernel == "mlstm":
+        kernel, dims = ts.cfg["kernel"], ts.cfg["dims"]
+        if kernel in FLASH_KERNELS:
+            where = dict(causal=dims["causal"], window=dims["window"])
+            q, k = ts.data["args"][:2]
+            pick = dict(q_block=cfg.get("q_block"),
+                        kv_block=cfg.get("kv_block"), find_db=False)
+        if kernel == "flash_attention":
+            from repro_torch.kernels import flash_attention as fa
+            q_block, kv_block = fa.resolve_tiles(q, k, **where, **pick)
+            fn = functools.partial(fa.flash_attention, **where,
+                                   q_block=q_block, kv_block=kv_block)
+        elif kernel == "flash_attention_bwd":
+            from repro_torch.kernels import flash_attention_bwd as fab
+            fn = functools.partial(
+                fab.flash_attention_bwd_at, **where,
+                tiles=fab.resolve_tiles(q, k, **where, **pick))
+        elif kernel == "mlstm":
             from repro_torch.kernels import mlstm
             fn = functools.partial(mlstm.mlstm_chunkwise, chunk=cfg["chunk"])
         else:
@@ -466,7 +533,6 @@ def tune_kernel(workload: str, *, db: Optional[KernelConfigDB] = None,
     db = db if db is not None else findb.get_find_db()
     hw = findb.hardware_key(dev)
     kernel, dims = parse_workload(workload)
-    _check_tunable(kernel)
     skey = workload_shape_key(kernel, dims)
     if not force:
         cached = db.get(kernel, skey, hw)

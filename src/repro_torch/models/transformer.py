@@ -150,8 +150,14 @@ class SystemConfig:
     whose wrapper launches the hand-written Hopper kernel on CUDA tensors.
     On the card that kernel is the normal runtime path, the counterpart of
     the reference's TPU runtime; on the CPU the wrapper runs its plain
-    PyTorch version. ``q_chunk``/``kv_chunk`` size the plain chunked path;
-    the kernel's tiles are its own.
+    PyTorch version. ``q_chunk``/``kv_chunk`` size the plain chunked path
+    only. The reference also hands them to its kernel as
+    ``q_block``/``kv_block`` (``repro/models/transformer.py:209-212``); on
+    the card 1024 is no plan (a 1024-row Q tile does not fit a block's
+    shared memory), so the model passes no tiles and the kernels' tiles
+    come from the find-db (``kernels.findb``: rows ``"flash_attention"``
+    and ``"flash_attention_bwd"``, installed by ``launch.train
+    --kernel-db``), else each kernel's default plan.
     """
     dp: int = 1
     tp: int = 1

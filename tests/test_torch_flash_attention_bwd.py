@@ -11,7 +11,11 @@ Tolerances: fp32 1e-4 (tests/test_kernels.py's fused-backward test), bf16
 2e-2. The port's differentiable ``ops.flash_attention`` is held against
 ``jax.grad`` of the reference's ``ops.flash_attention`` (backward through the
 jnp oracle) and ``ops.flash_attention_fused`` (backward through the Pallas
-kernels) in fp32 at 1e-4. The CUDA kernels run only on the card
+kernels) in fp32 at 1e-4. Every pair of the backward's plan sets runs
+through the wrapper with explicit ``q_block``/``kv_block`` against the Pallas
+backward at the same blocks (fp32 1e-4, bf16 2e-2), and through ``ops``
+with the same pair given to the forward and the backward. The CUDA kernels
+run only on the card
 (``chip_smoke.py`` holds them against the plain version there); CPU tensors
 take the plain version.
 """
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention as pallas_fa
 from repro.kernels.flash_attention_bwd import flash_attention_bwd as pallas_bwd
+from repro_torch.kernels import findb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fa_bwd
 from repro_torch.kernels import ops
@@ -133,3 +138,58 @@ def test_backward_rejects_bad_inputs():
         fa_bwd.flash_attention_bwd(q, k, v, out, lse, do, window=0)
     with pytest.raises(ValueError):
         fa_bwd.flash_attention_bwd(q, k, v, out, lse, do.to("meta"))
+
+
+# every pair of the backward's plan sets: (dtype, head_dim, q_block, kv_block)
+PLANS = [(dt, D, qb, kb)
+         for dt, D in (("float32", 64), ("float32", 256), ("bfloat16", 64),
+                       ("bfloat16", 256))
+         for qb, kb in findb.flash_attention_bwd_plans(getattr(torch, dt), D)]
+
+
+@pytest.mark.parametrize("dtype,D,q_block,kv_block", PLANS)
+def test_every_plan_matches_pallas_at_its_blocks(dtype, D, q_block,
+                                                 kv_block):
+    """B2 and B3 at an explicit pair against the Pallas backward at the
+    same blocks: ragged S, T != S, a window and G = 3 (MQA, G = 4 at
+    D = 256)."""
+    B, S, T, K, G, window = 1, 70, 90, 2, 3, 40
+    if D == 256:
+        S, T, K, G = 40, 40, 1, 4
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(getattr(jnp, dtype))
+                       for a in _inputs(B, S, T, K, G, D, seed=5))
+    j_out, j_lse = pallas_fa(jq, jk, jv, causal=True, window=window,
+                             q_block=32, kv_block=32, interpret=True,
+                             return_lse=True)
+    j_grads = pallas_bwd(jq, jk, jv, j_out, j_lse, jdo, causal=True,
+                         window=window, q_block=q_block, kv_block=kv_block,
+                         interpret=True)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo, t_out = (torch.from_numpy(_np(a)).to(tdt)
+                              for a in (jq, jk, jv, jdo, j_out))
+    t_grads = fa_bwd.flash_attention_bwd(
+        tq, tk, tv, t_out, torch.from_numpy(_np(j_lse)), tdo, causal=True,
+        window=window, q_block=q_block, kv_block=kv_block)
+    for t, j in zip(t_grads, j_grads):
+        assert t.dtype == tdt and tuple(t.shape) == j.shape
+        np.testing.assert_allclose(_np(t), _np(j), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("q_block,kv_block", [(32, 32)])
+def test_op_grad_at_explicit_tiles_matches_jax(q_block, kv_block):
+    """ops hands explicit tiles to B1 and to B2/B3, as the reference's op
+    does: fp32 gradients against jax.grad of the fused op at 1e-4."""
+    B, S, T, K, G, D, causal, window = SWEEP[1]
+    q, k, v, co = _inputs(B, S, T, K, G, D, seed=2)
+    j_grads = jax.grad(
+        lambda q, k, v: (jops.flash_attention_fused(
+            q, k, v, causal, window, q_block, kv_block, True) * co).sum(),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    loss = (ops.flash_attention(tq, tk, tv, causal, window, q_block,
+                                kv_block) * torch.from_numpy(co)).sum()
+    t_grads = torch.autograd.grad(loss, (tq, tk, tv))
+    for t, j in zip(t_grads, j_grads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-4)

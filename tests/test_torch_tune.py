@@ -1,7 +1,9 @@
 """The port's kernel tuner and find-db against the reference's.
 
 Workload parsing, shape keys, variant spaces and configs equal
-``repro.kernels.tune``'s for the same specs; the ``KernelConfigDB`` cases of
+``repro.kernels.tune``'s for the same specs (for the attention kernels, the
+reference's grid filtered to the port's plan set, and ``dtype=bf16`` specs
+whose keys carry the dtype); the ``KernelConfigDB`` cases of
 tests/test_kernel_tune.py run over both packages; golden tables written by
 either package load in the other with identical lookups; the port's
 ``tune_kernel`` on the CPU (plain versions) proposes the same trials, in the
@@ -41,17 +43,59 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def _filtered_reference_grid(kernel, dims):
+    """The reference's grid, q_block pruned to the flattened rows S x G,
+    filtered to the port's plans (the plan set itself where that leaves
+    nothing)."""
+    rows = dict(dims, S=dims["S"] * dims["G"])
+    plans = tune.flash_plans(kernel, dims)
+    grid = [hp for hp in jtune.kernel_space(kernel, rows).grid()
+            if (hp["q_block"], hp["kv_block"]) in plans]
+    return grid or [{"q_block": q, "kv_block": k} for q, k in plans]
+
+
 @pytest.mark.parametrize("spec", SPECS)
 def test_workload_parsing_matches_reference(spec):
     kernel, dims = tune.parse_workload(spec)
     assert (kernel, dims) == jtune.parse_workload(spec)
     assert tune.workload_shape_key(kernel, dims) == \
         jtune.workload_shape_key(kernel, dims)
-    assert tune.kernel_space(kernel, dims).grid() == \
-        jtune.kernel_space(kernel, dims).grid()
-    for hp in tune.kernel_space(kernel, dims).grid() + [{}]:
+    grid = tune.kernel_space(kernel, dims).grid()
+    if kernel in tune.FLASH_KERNELS:
+        assert grid == _filtered_reference_grid(kernel, dims)
+        # the baseline is each kernel's own default plan
+        assert tune.variant_config(kernel, {}, {"chunk": 64}) == {}
+    else:
+        assert grid == jtune.kernel_space(kernel, dims).grid()
+        grid = grid + [{}]
+    for hp in grid:
         assert tune.variant_config(kernel, hp, {"chunk": 64}) == \
             jtune.variant_config(kernel, hp, {"chunk": 64})
+
+
+# bf16 specs: the reference parses them alike (dtype a plain dim) but its
+# key has no dtype; the port's key appends dtype=bf16
+@pytest.mark.parametrize("spec,n", [
+    ("flash_attention@B=8,S=2048,K=8,G=2,D=128,dtype=bf16", 4),
+    ("flash_attention_bwd@B=4,S=2048,K=8,G=2,D=128,dtype=bf16", 2),
+    ("flash_attention@B=1,S=256,K=2,G=1,D=32,dtype=bf16", 4),
+    ("flash_attention_bwd@B=1,S=256,K=2,G=1,D=32,dtype=bfloat16", 2),
+    ("flash_attention@B=8,S=2048,K=1,G=16,D=256,window=2048,dtype=bf16", 2),
+    ("flash_attention_bwd@B=1,S=4096,K=1,G=16,D=256,dtype=bf16", 1)])
+def test_bf16_workloads_key_their_dtype(spec, n):
+    kernel, dims = tune.parse_workload(spec)
+    assert dims["dtype"] == "bf16"
+    key = tune.workload_shape_key(kernel, dims)
+    ref = jtune.workload_shape_key(kernel, dims)
+    assert key != ref and sorted(key.split(",")) == sorted(
+        ref.split(",") + ["dtype=bf16"])
+    assert key == tune.workload_shape_key(
+        kernel, dict(dims, dtype="bfloat16"))
+    grid = tune.kernel_space(kernel, dims).grid()
+    assert grid == _filtered_reference_grid(kernel, dims) and len(grid) == n
+    fp32 = tune.parse_workload(spec.replace("bfloat16", "fp32")
+                               .replace("bf16", "fp32"))[1]
+    assert tune.workload_shape_key(kernel, fp32) == ref
 
 
 def test_full_width_grids_and_bad_specs():
@@ -62,6 +106,8 @@ def test_full_width_grids_and_bad_specs():
         with pytest.raises(ValueError):
             tune.parse_workload(bad)
     assert findb.DEFAULTS == jtune.findb.DEFAULTS
+    with pytest.raises(ValueError, match="dtype"):
+        tune.parse_workload("flash_attention@B=1,S=8,K=1,G=1,D=8,dtype=fp16")
 
 
 @pytest.mark.parametrize("pkg", ["reference", "port"])
@@ -211,14 +257,16 @@ def test_kernel_tune_backend_is_registered():
     assert isinstance(be, tune.KernelTuneBackend) and be.reps == 2
 
 
-# train_step tunes since the tuner's train_step workload was ported (its
-# case keeps its id and now runs the grid: 6 trials, then 0 when warm)
-@pytest.mark.parametrize("spec,match", [
-    ("flash-fwd-smoke", "item 8"), ("flash-bwd-smoke", "item 8"),
-    pytest.param("train-smoke", None, id="train-smoke-2b")])
-def test_untunable_workloads_name_their_roadmap_item(spec, match,
-                                                    monkeypatch):
-    if match is None:
+# Each case keeps its id and now tunes on the CPU: train_step since its
+# workload was ported (the grid: 6 trials, then 0 when warm), the
+# attention workloads since the kernels took tiles (their port's grid,
+# the row under cpu/cpu, then 0 trials and 0 calls when warm)
+@pytest.mark.parametrize("spec", [
+    pytest.param("flash-fwd-smoke", id="flash-fwd-smoke-item 8"),
+    pytest.param("flash-bwd-smoke", id="flash-bwd-smoke-item 8"),
+    pytest.param("train-smoke", id="train-smoke-2b")])
+def test_untunable_workloads_name_their_roadmap_item(spec, monkeypatch):
+    if spec == "train-smoke":
         db = tgt.KernelConfigDB()
         runs = _spy_runs(monkeypatch, texperiment)
         got = tune.tune_kernel(spec, db=db, device="cpu")
@@ -237,8 +285,14 @@ def test_untunable_workloads_name_their_roadmap_item(spec, match,
         assert warm["source"] == "find-db" and warm["trials"] == 0
         assert warm["config"] == got["config"]
     else:
-        with pytest.raises(ValueError, match=match):
-            tune.tune_kernel(spec, db=tgt.KernelConfigDB(), device="cpu")
+        runs = _spy_runs(monkeypatch, texperiment)
+        got = _tune_and_warm(spec, tgt.KernelConfigDB())
+        kernel, dims = tune.parse_workload(spec)
+        grid = tune.kernel_space(kernel, dims).grid()
+        assert got["trials"] == len(grid) == len(runs[0].records)
+        assert sorted(tuple(sorted(hp.items()))
+                      for _, hp in _trials(runs[0])) == sorted(
+            tuple(sorted(hp.items())) for hp in grid)
     # a tcp:// spec now reaches the service package: a store that is not
     # there raises naming its address
     from repro_torch.service import TransportError
