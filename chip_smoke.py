@@ -5,6 +5,7 @@
     python3 chip_smoke.py --lane-probe [REPS]   # the [parallel] lanes only
     python3 chip_smoke.py --service | --obs     # one phase alone
     python3 chip_smoke.py --dryrun              # [serve], [train], [dryrun]
+    python3 chip_smoke.py --shard               # build, then [shard]
 
 Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
@@ -391,17 +392,41 @@ Phases (any failure raises, and the script exits non-zero):
      ``attention_work``, ``mlstm_bound``, ``rglru_bound``) equal
      ``analysis.roofline``'s at every timed shape within
      ``DRYRUN_BOUND_RTOL``. Within ``DRYRUN_PHASE_LIMIT_S``.
+ 18. the dense family's sharded step (``[shard]``, ``launch.steps`` with a
+     ``DeviceMesh``): (a) ``SHARD_STEPS`` full-width train steps through
+     ``make_train_step(..., mesh=single_device_mesh())`` over NCCL (world
+     1) against the unsharded step from the same seed: 28 launches of each
+     of B1-B3 a step, the first loss within [train]'s loss limit, and the
+     steps' change of the loss and of every parameter leaf
+     (``full_tensor()``) within ``SHARD_UPDATE_RTOL`` of the unsharded
+     change (an unchanged state, planted, must fail); (b) a REQUESTS x
+     PROMPT_LEN prefill (28 B1) and GEN greedy decode steps on DTensor
+     parameters, twice (cold, then warm): logits bit for bit, else within
+     [serve]'s limit, and the same tokens; (c) rank 0 of a ``fake`` 16x16
+     group over "cuda" runs each of ``SHARD_CELLS``' local steps on the
+     card on random shards (its numbers unchecked: the fake collectives
+     write nothing): B1 at the local shape, its launches (and B2's, B3's)
+     equal to the dry-run's kernel calls, and max_memory_allocated
+     against the dry-run's per-device peak within ``SHARD_PEAK_LIMITS``;
+     (d) the four dense archs' train_4k,
+     prefill_32k and decode_32k on 16x16 and 2x16x16 (24 cells) through
+     ``python -m repro_torch.launch.dryrun`` on meta, one process an
+     (arch, mesh): each cell ok, with its per-device GB, fits, collective
+     bytes by kind, dominant roofline term and trace seconds printed, and
+     the wall time. The phase within ``SHARD_PHASE_LIMIT_S``.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
 ``launches_vlm`` and ``vlm`` timing rows, their ``launches_ckpt``,
 ``launches_ckpt_resume``, ``launches_dist``, ``launches_service``,
-``launches_tune`` and ``launches_tiles`` and their ``plans`` rows, B4
+``launches_tune``, ``launches_tiles`` and ``launches_shard`` and their
+``plans`` rows, B4
 and B5 with their ``launches_ssm`` and ``launches_service``), the card
 line, and last ``{"ok": true, "device": {...}}``.
 
 ``--service`` builds the kernels and runs ``[service]`` alone, printing
 its launches as JSON; ``--obs`` runs ``[obs]`` alone (it builds nothing:
 no kernel runs in it); ``--dryrun`` builds the kernels and runs 3 and 4
-(``[serve]``, ``[train]``), then ``[dryrun]`` on what they measured.
+(``[serve]``, ``[train]``), then ``[dryrun]`` on what they measured;
+``--shard`` builds the kernels and runs ``[shard]`` alone.
 ``--train-child LAYERS ARGS`` (used by [ckpt]) runs
 ``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
 prints its start step, losses, step times and B1-B3 launches as JSON.
@@ -859,6 +884,30 @@ DRYRUN_BOUND_RTOL = 1e-9        # chip_smoke's bounds against the analysis's
 DRYRUN_PHASE_LIMIT_S = 60.0
 # (kernel, shape, bound ms) of every bound the timing phases print
 BOUNDS_TIMED = []
+
+# [shard]: the dense family's sharded step (launch.steps with a DeviceMesh).
+# (a) SHARD_STEPS full-width train steps on a 1x1 mesh over NCCL against the
+# unsharded step from the same seed, the steps' change of the loss and of
+# each parameter leaf within SHARD_UPDATE_RTOL of the unsharded change (an
+# L2 ratio: adamw's first steps move each weight by about one learning
+# rate, so a reordered sum that flips a near-zero gradient's sign moves
+# one element by two, and a max-abs ratio would read that as 1; an
+# unchanged state reads 1 either way); (b) a REQUESTS x PROMPT_LEN prefill
+# and GEN decode steps on it; (c) rank 0 of a fake 16x16 group runs each of
+# SHARD_CELLS' local steps on the card, its max_memory_allocated held
+# against the dry-run's per-device peak within SHARD_PEAK_LIMITS (the 1x1
+# cells read 0.997-0.999); (d) the 24 dense cells of the production meshes
+# on meta, one process an (arch, mesh).
+SHARD_STEPS = 2
+SHARD_UPDATE_RTOL = 0.05
+SHARD_CELLS = (("prefill_32k", "16x16"), ("train_4k", "16x16"))
+SHARD_PEAK_LIMITS = (0.9, 1.1)
+SHARD_DENSE = ("yi-34b", "qwen2-1.5b", "qwen3-0.6b", "deepseek-coder-33b")
+SHARD_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SHARD_MESHES = ("16x16", "2x16x16")
+SHARD_PHASE_LIMIT_S = 240.0
+SHARD_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "shard"
 
 
 class SmokeFailure(RuntimeError):
@@ -6874,6 +6923,410 @@ def phase_dryrun(card, serve_info, runs):
           f"{phase_s:.1f} s")
 
 
+def shard_train(fa, fa_bwd, steps, card, mesh):
+    """[shard] (a): SHARD_STEPS full-width train steps through
+    ``make_train_step(..., mesh=)`` against the unsharded step from the
+    same seed; returns the launches of each sharded step."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs, weights
+    from repro_torch.data import synthetic
+    from repro_torch.optim import optimizers
+    cfg = configs.get(ARCH)
+    sys_cfg = steps.default_sys(cfg, configs.SHAPES["train_4k"], dp=1, tp=1)
+    sys_cfg = dataclasses.replace(sys_cfg, microbatches=1, remat="none")
+    opt = optimizers.adamw(3e-4, weight_decay=0.01)
+    toks = synthetic.make_lm_dataset(0, TRAIN_BATCH * TRAIN_SEQ * SHARD_STEPS,
+                                     cfg.vocab).reshape(SHARD_STEPS,
+                                                        TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{"tokens": torch.from_numpy(t).cuda().long(),
+                "labels": torch.from_numpy(np.roll(t, -1, -1)).cuda().long()}
+               for t in toks]
+
+    def run(mesh_):
+        state = steps.make_train_state(
+            torch.Generator(device="cuda").manual_seed(0), cfg, opt, "cuda",
+            mesh=mesh_, sys=sys_cfg)
+        if mesh_ is None:
+            init.update((p, t.clone()) for p, t in
+                        weights.flatten(state["params"]).items())
+        step = steps.make_train_step(cfg, sys_cfg, opt, mesh=mesh_)
+        losses, ms, counts = [], [], []
+        for batch in batches:
+            if mesh_ is not None:
+                batch = steps.distribute_batch(batch, mesh_)
+            reset_counts(fa, fa_bwd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            counts.append(read_counts(fa, fa_bwd))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"])
+        return state, losses, ms, counts
+
+    init = {}
+    plain, plain_losses, plain_ms, _ = run(None)
+    sharded, losses, ms, counts = run(mesh)
+    L = cfg.n_layers
+    kinds = {type(t).__name__ for t in weights.flatten(sharded).values()
+             if torch.is_tensor(t)}
+    first_diff = abs(float(losses[0]) - float(plain_losses[0]))
+    equal = all(torch.equal(a, b) for a, b in zip(losses, plain_losses))
+    ref = weights.flatten(plain["params"])
+    got = {p: t.full_tensor() for p, t in
+           weights.flatten(sharded["params"]).items()}
+    del plain, sharded
+    n = len(ref)
+    n_equal = sum(bool(torch.equal(got[p], ref[p])) for p in ref)
+    worst = max(float((got[p].float() - ref[p].float()).abs().max())
+                for p in ref)
+
+    def loss_change_err(ls):
+        want = float(plain_losses[-1]) - float(plain_losses[0])
+        return abs(float(ls[-1]) - float(ls[0]) - want) / abs(want)
+    loss_err = loss_change_err(losses)
+    update_err, leaf = update_error(init, ref, got)
+    update_ok = max(loss_err, update_err) <= SHARD_UPDATE_RTOL
+    # planted: a step that leaves the state (and so the loss) unchanged
+    fault_err, _ = update_error(init, ref, init)
+    fault_loss = loss_change_err([losses[0]] * len(losses))
+    caught = min(fault_err, fault_loss) > SHARD_UPDATE_RTOL
+    del ref, got, init
+    torch.cuda.empty_cache()
+    print(f"[shard] (a) {card} | train on a 1x1 mesh (NCCL, world 1), "
+          f"full-width {ARCH} {TRAIN_BATCH} x {TRAIN_SEQ}, {SHARD_STEPS} "
+          f"steps: state leaves {sorted(kinds)}; launches B1/B2/B3 a step "
+          f"{counts} (expected {(L,) * 3}); losses "
+          f"{' '.join(f'{float(x):.6f}' for x in losses)} against unsharded "
+          f"{' '.join(f'{float(x):.6f}' for x in plain_losses)} "
+          f"({'bit for bit' if equal else f'first |diff| {first_diff:.3e}'}"
+          f"); updated params full_tensor(): {n_equal} of {n} leaves equal "
+          f"bit for bit, max|diff| {worst:.3e}; the steps' change against "
+          f"the unsharded change: loss {loss_err:.3e}, worst leaf "
+          f"||d_sharded - d_plain|| / ||d_plain|| {update_err:.3e} ({leaf}), "
+          f"limit {SHARD_UPDATE_RTOL:g} {'ok' if update_ok else 'FAIL'}; "
+          f"planted unchanged state: loss {fault_loss:.3f}, params "
+          f"{fault_err:.3f} {'caught' if caught else 'MISSED'}; step ms "
+          f"sharded "
+          f"{' '.join(f'{x:.1f}' for x in ms)}, unsharded "
+          f"{' '.join(f'{x:.1f}' for x in plain_ms)} (host clock, first step "
+          f"with warm-up)", flush=True)
+    check(kinds == {"DTensor"}, f"[shard] the sharded state holds {kinds}")
+    check(all(c == (L,) * 3 for c in counts),
+          f"[shard] expected {L} launches of each kernel a step, got "
+          f"{counts}")
+    check(all(math.isfinite(float(x)) for x in losses), "[shard] non-finite "
+          "loss")
+    # the first loss comes from equal parameters: [train]'s limit on a loss
+    # (its remat check); the rest is held by what the steps changed
+    check(first_diff <= 1e-2, f"[shard] first losses differ by {first_diff}")
+    check(loss_err <= SHARD_UPDATE_RTOL, f"[shard] the loss changed by "
+          f"{loss_err:.3e} of the unsharded change off it")
+    check(update_err <= SHARD_UPDATE_RTOL, f"[shard] {leaf}'s update is "
+          f"{update_err:.3e} of the unsharded update off it")
+    check(caught, "[shard] the update check misses an unchanged state")
+    return counts[-1], ms
+
+
+def update_error(init, ref, got):
+    """(the worst leaf's ||(got - init) - (ref - init)|| / ||ref - init||,
+    that leaf's path): how far the update that ``got`` holds is from the
+    reference update, per parameter leaf (dicts path -> tensor)."""
+    import torch
+    worst, leaf = -1.0, None
+    for path, p0 in init.items():
+        want = ref[path].float() - p0.float()
+        err = float(torch.linalg.vector_norm(got[path].float() - p0.float()
+                                             - want))
+        scale = float(torch.linalg.vector_norm(want))
+        ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if ratio > worst:
+            worst, leaf = ratio, path
+    return worst, leaf
+
+
+def shard_serve(fa, fa_bwd, steps, card, mesh):
+    """[shard] (b): a REQUESTS x PROMPT_LEN prefill and GEN decode steps on
+    DTensor parameters against the unsharded ones; returns B1's launches
+    of the sharded prefill."""
+    import torch
+    from repro_torch import configs, weights
+    from repro_torch.distributed import sharding
+    cfg = configs.get(ARCH)
+    sys_cfg = steps.default_sys(cfg, configs.SHAPES["prefill_32k"], dp=1,
+                                tp=1)
+    params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, "cuda")
+    params = weights.unflatten({p: t.to(torch.bfloat16) for p, t in
+                                weights.flatten(params).items()})
+    placed = steps.place(params, sharding.param_specs(params, cfg, mesh,
+                                                      sys_cfg), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    prefill = steps.make_prefill_step(cfg, sys_cfg, max_len=PROMPT_LEN + GEN)
+    decode = steps.make_decode_step(cfg, sys_cfg)
+
+    def serve(p, sharded):
+        batch = {"tokens": prompts}
+        if sharded:
+            batch = steps.distribute_batch(batch, mesh)
+        reset_counts(fa, fa_bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, batch)
+        torch.cuda.synchronize()
+        b1 = read_counts(fa, fa_bwd)[0]
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        logits = logits.full_tensor() if sharded else logits
+        first = logits.clone()
+        tok = logits.argmax(-1)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(GEN - 1):
+            t = steps.distribute_batch({"t": tok}, mesh)["t"] if sharded \
+                else tok
+            logits, cache = decode(p, cache, t, PROMPT_LEN + i)
+            logits = logits.full_tensor() if sharded else logits
+            tok = logits.argmax(-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
+        return first, torch.cat(toks, 1), b1, pre_ms, dec_ms
+
+    # each path twice: the first pass holds each step's first calls (and
+    # the allocator's growth after [shard] (a) emptied its cache), the
+    # second is warm, as [serve]'s timed run is
+    ref, ref_toks, _, ref_pre, ref_dec = serve(params, False)
+    got, toks, b1, pre_ms, dec_ms = serve(placed, True)
+    _, ref_toks2, _, ref_pre2, ref_dec2 = serve(params, False)
+    _, toks2, b1_warm, pre_ms2, dec_ms2 = serve(placed, True)
+    diff = float((got - ref).abs().max())
+    equal = bool(torch.equal(got, ref))
+    same = bool(torch.equal(toks, ref_toks))
+    logits_text = ("equal the unsharded prefill bit for bit" if equal
+                   else f"max|diff| {diff:.3e} from the unsharded")
+    print(f"[shard] (b) {card} | prefill {REQUESTS} x {PROMPT_LEN} on a 1x1 "
+          f"mesh: B1 launches {b1} (expected {cfg.n_layers}); logits "
+          f"{logits_text}; {GEN} tokens greedy "
+          f"{'equal' if same else 'DIFFER'}; host clock, cold pass then "
+          f"warm pass: prefill {pre_ms:.1f} / {pre_ms2:.1f} ms (unsharded "
+          f"{ref_pre:.1f} / {ref_pre2:.1f}), decode {dec_ms:.1f} / "
+          f"{dec_ms2:.1f} ms/step (unsharded {ref_dec:.1f} / "
+          f"{ref_dec2:.1f})", flush=True)
+    check(b1 == b1_warm == cfg.n_layers,
+          f"[shard] prefill launched B1 {b1}, {b1_warm} times")
+    check(same, "[shard] the sharded decode generated other tokens")
+    check(torch.equal(toks2, toks) and torch.equal(ref_toks2, ref_toks),
+          "[shard] a second pass generated other tokens")
+    if not equal:
+        # [serve]'s limit: the bf16 plain path's distance from fp32, doubled
+        exact = steps.make_prefill_step(
+            cfg, dataclasses.replace(sys_cfg, use_pallas=False,
+                                     precision="fp32"),
+            max_len=PROMPT_LEN + GEN)(params, {"tokens": prompts})[0]
+        plain = steps.make_prefill_step(
+            cfg, dataclasses.replace(sys_cfg, use_pallas=False),
+            max_len=PROMPT_LEN + GEN)(params, {"tokens": prompts})[0]
+        limit = LOGITS_RATIO * float((plain - exact).abs().max())
+        err = float((got - exact).abs().max())
+        print(f"[shard] (b) sharded logits {err:.3e} from the fp32 plain "
+              f"path, limit {limit:.3e} {'ok' if err <= limit else 'FAIL'}",
+              flush=True)
+        check(err <= limit, "[shard] sharded logits beyond [serve]'s limit")
+    del params, placed
+    torch.cuda.empty_cache()
+    return b1
+
+
+def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name):
+    """[shard] (c): rank 0 of a fake group runs one production cell's
+    local step on the card (numbers unchecked: the fake collectives write
+    nothing): the kernels' launches against the dry-run's calls, B1's
+    local shape, and max_memory_allocated against the dry-run's
+    per-device peak. Returns (launches B1-B3, ratio)."""
+    import torch
+    from repro_torch import configs, spmd
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_map
+    rec = dryrun.run_cell(ARCH, shape_name, mesh=mesh_name, verbose=False)
+    check(rec["status"] == "ok", f"[shard] dry-run cell: {rec}")
+    mem = rec["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    cfg = configs.get(ARCH)
+    shape = configs.SHAPES[shape_name]
+    amesh = dryrun._abstract_mesh(mesh_name)
+    sizes = dict(zip(amesh.mesh_dim_names, amesh.shape))
+    sys_cfg = steps.default_sys(cfg, shape, dp=sizes["data"],
+                                tp=sizes["model"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    seen = []
+    launch = fa._launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # what earlier phases left allocated is not the cell's
+    before = torch.cuda.memory_allocated()
+    with dryrun.fake_group(amesh) as mesh:
+        def real(t):
+            """A meta DTensor's shard made on the card (random)."""
+            if not torch.is_tensor(t):
+                return t
+            local = t.to_local()
+            if local.dtype.is_floating_point:
+                local = torch.randn(local.shape, generator=gen,
+                                    device="cuda").mul_(0.02).to(local.dtype)
+            else:
+                local = torch.randint(0, cfg.vocab, local.shape,
+                                      generator=gen, device="cuda",
+                                      dtype=local.dtype)
+            return spmd.wrap(local, mesh, t.placements, t.shape)
+        batch = tree_map(real, dryrun._placed(
+            steps.input_specs(cfg, shape, mesh), mesh))
+        if shape.kind == "train":
+            opt = dryrun.train_optimizer()
+            state = tree_map(real, dryrun._placed(
+                steps.state_specs_abstract(cfg, opt, mesh, sys_cfg), mesh))
+            args = (state, batch)
+            step = steps.make_train_step(cfg, sys_cfg, opt, mesh=mesh)
+        else:
+            args = (tree_map(real, dryrun._placed(
+                steps.param_specs_abstract(cfg, mesh, sys_cfg), mesh)),
+                batch)
+            step = steps.make_prefill_step(cfg, sys_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - before
+        reset_counts(fa, fa_bwd)
+
+        def spy(q, *rest):
+            seen.append(tuple(q.shape))
+            return launch(q, *rest)
+        with patched(fa, "_launch", spy):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(fa, fa_bwd)
+        peak = torch.cuda.max_memory_allocated() - before
+        del args, batch, out
+    torch.cuda.empty_cache()
+    ratio = predicted / peak
+    lo, hi = SHARD_PEAK_LIMITS
+    rows = shape.global_batch // sizes["data"]
+    if shape.kind == "train":
+        rows //= sys_cfg.microbatches
+    want = (rows, shape.seq_len, 1, cfg.n_heads // cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    calls = tuple(rec["kernels"].get(k, 0) for k in ("B1", "B2", "B3"))
+    print(f"[shard] (c) {card} | rank 0 of a fake {mesh_name} group on the "
+          f"card, {ARCH} {shape_name} (microbatches "
+          f"{sys_cfg.microbatches}, remat {sys_cfg.remat}): launches "
+          f"B1/B2/B3 {counts} (dry-run calls {calls}) at local q "
+          f"{sorted(set(seen))} (expected {want}); {ms:.1f} ms (host clock, "
+          f"numbers unchecked); arguments {base / 2 ** 30:.3f} GiB, "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB against the "
+          f"dry-run's per-device peak {predicted / 2 ** 30:.3f} GiB "
+          f"(arguments {mem['argument_size_in_bytes'] / 2 ** 30:.3f}, temp "
+          f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f}): predicted / measured "
+          f"{ratio:.4f}, limits {lo}-{hi} "
+          f"{'ok' if lo <= ratio <= hi else 'FAIL'}; dry-run trace "
+          f"{rec['trace_s']:.1f} s", flush=True)
+    check(counts == calls, f"[shard] fake rank launched {counts}, the "
+          f"dry-run counts {calls}")
+    check(set(seen) == {want}, f"[shard] B1 saw {set(seen)}")
+    check(lo <= ratio <= hi, f"[shard] {shape_name}: predicted peak "
+          f"{ratio:.4f} of the measured")
+    return counts, ratio
+
+
+def shard_dryrun_cells(card):
+    """[shard] (d): the dense archs' train_4k, prefill_32k and decode_32k
+    cells on both production meshes through ``python -m
+    repro_torch.launch.dryrun``, one process an (arch, mesh), all at once,
+    on meta."""
+    import os
+    t0 = time.perf_counter()
+    SHARD_ROOT.mkdir(parents=True, exist_ok=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    env["OMP_NUM_THREADS"] = "1"        # meta tensors: no compute to share
+    cells = [(a, s, m) for m in SHARD_MESHES for a in SHARD_DENSE
+             for s in SHARD_SHAPES]
+    # one process an (arch, mesh): its shapes in turn, one import a process
+    procs, done = [], {}
+    for m in SHARD_MESHES:
+        for a in SHARD_DENSE:
+            out = SHARD_ROOT / f"{a}_{m}.json"
+            log = open(SHARD_ROOT / f"{a}_{m}.log", "w")
+            procs.append(((a, m), out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 a, "--mesh", m, "--out", str(out)],
+                stdout=log, stderr=subprocess.STDOUT, env=env)))
+            log.close()
+    for (a, m), out, proc in procs:
+        proc.wait()
+        log = out.with_suffix(".log").read_text()
+        check(proc.returncode == 0 and out.exists(),
+              f"[shard] dry-run {a} {m} exited {proc.returncode}: "
+              f"{log[-2000:]}")
+        for r in json.loads(out.read_text()):
+            done[(r["arch"], r["shape"], r["mesh"])] = r
+    wall = time.perf_counter() - t0
+    for cell in cells:
+        r = done[cell]
+        check(r["status"] == "ok", f"[shard] dry-run {cell}: {r}")
+        coll = ", ".join(f"{k} {v:,}" for k, v in r["collectives"].items()
+                         if v)
+        print(f"[shard] (d) {cell[0]} {cell[1]} {cell[2]}: per device "
+              f"{r['per_device_gb']:.3f} GB, fits {r['fits']}, collectives "
+              f"(bytes) {coll or 'none'}; dominant "
+              f"{r['roofline']['dominant']}, step "
+              f"{r['roofline']['step_time_s']:.4e} s; trace "
+              f"{r['trace_s']:.1f} s", flush=True)
+    print(f"[shard] (d) {len(cells)} cells in {wall:.1f} s on {len(procs)} "
+          f"processes ({sum(done[c]['trace_s'] for c in cells):.1f} s of "
+          f"traces; {os.cpu_count()} CPU cores)", flush=True)
+    shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    return done
+
+
+def phase_shard(fa, fa_bwd, steps, card):
+    """[shard]: the dense family's step on a DeviceMesh (module docstring,
+    18); returns B1-B3's launches ("train_step", B1's "prefill", and each
+    fake cell's, "fake_16x16_prefill_32k" and so on), the train step
+    times and the fake cells' peak ratios."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    SHARD_ROOT.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(SHARD_ROOT / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_lib.single_device_mesh()
+        train_counts, train_ms = shard_train(fa, fa_bwd, steps, card, mesh)
+        prefill_b1 = shard_serve(fa, fa_bwd, steps, card, mesh)
+    finally:
+        dist.destroy_process_group()
+    fake = {f"fake_{m}_{c}": shard_fake_cell(fa, fa_bwd, steps, card, c, m)
+            for c, m in SHARD_CELLS}
+    shard_dryrun_cells(card)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[shard] phase {phase_s:.1f} s (limit {SHARD_PHASE_LIMIT_S:.0f} "
+          f"s)", flush=True)
+    check(phase_s < SHARD_PHASE_LIMIT_S, f"the shard phase took "
+          f"{phase_s:.1f} s")
+    return {"train_step": train_counts, "prefill": prefill_b1,
+            "train_ms": train_ms,
+            **{name: counts for name, (counts, _) in fake.items()},
+            "peak_ratios": {name: r for name, (_, r) in fake.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6930,6 +7383,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_dryrun(card, serve_info, train_runs(phase_train(
             fa, fa_bwd, train, card)))
+        return 0
+    if sys.argv[1:2] == ["--shard"]:
+        print(f"[card] {card}", flush=True)
+        device_lib.resolve("cuda")
+        t0 = time.perf_counter()
+        build.build()
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps(phase_shard(fa, fa_bwd, steps, card)), flush=True)
         return 0
     if sys.argv[1:2] == ["--service"]:
         print(f"[card] {card}", flush=True)
@@ -7013,6 +7474,19 @@ def main() -> int:
     obs_counts = phase_obs(counters, card)
     check(not any(obs_counts.values()), f"[obs] launched {obs_counts}")
     phase_dryrun(card, serve_info, train_runs(trained))
+    shard = phase_shard(fa, fa_bwd, steps, card)
+
+    def shard_launches(i):
+        """A kernel's [shard] launches: a 1x1 sharded train step's, a 1x1
+        prefill's (B1) and each fake 16x16 rank's step's."""
+        out = {"train_step": shard["train_step"][i]}
+        if i == 0:
+            out["prefill"] = shard["prefill"]
+        for c, m in SHARD_CELLS:
+            name = f"fake_{m}_{c}"
+            if shard[name][i]:
+                out[name] = shard[name][i]
+        return out
 
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     train_errs, rg_errs = bwd_errs["train"], bwd_errs["rg_serve"]
@@ -7050,6 +7524,7 @@ def main() -> int:
          "launches_service": service_counts["B1"],
          "launches_tune": tune_counts["B1"],
          "launches_tiles": tiles_launches("B1"), "plans": plan_rows("B1"),
+         "launches_shard": shard_launches(0),
          "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
@@ -7065,6 +7540,7 @@ def main() -> int:
          "launches_service": service_counts["B2"],
          "launches_tune": tune_counts["B2"],
          "launches_tiles": tiles_launches("B2"), "plans": plan_rows("B2"),
+         "launches_shard": shard_launches(1),
          "plans_b2_b3": {p: r for p, r in plan_timing["B2+B3"].items()},
          "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
@@ -7081,6 +7557,7 @@ def main() -> int:
          "launches_service": service_counts["B3"],
          "launches_tune": tune_counts["B3"],
          "launches_tiles": tiles_launches("B3"), "plans": plan_rows("B3"),
+         "launches_shard": shard_launches(2),
          "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
                  **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),

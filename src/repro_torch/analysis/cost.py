@@ -18,7 +18,8 @@ conventions:
     its kin allocate and move nothing.
   * score_bytes: the bytes of ops whose result is attention-score-class
     (``_is_score_like``), which a flash kernel keeps on chip.
-  * collectives: operand bytes per kind, c10d and functional alike.
+  * collectives: operand bytes per kind, c10d and functional alike, and
+    DTensor's own all-to-all (``_dtensor.shard_dim_alltoall``).
   * kernels: the hand-written kernels run behind ctypes, out of the mode's
     sight, so their wrappers' meta branches report their work
     (``report_kernel``; ``analysis.roofline.Work``), counted per kernel.
@@ -27,6 +28,13 @@ conventions:
 
 The numbers describe one device's program; ``analysis.roofline`` turns
 them into times on the card.
+
+DTensors (the sharded step, on a mesh): the mode passes an op on DTensors
+to DTensor's own dispatch and counts the ops it issues on the local shards
+and the collectives of its redistributions, so the counts are one rank's.
+DTensor works out each result's global shape by running the op on fake
+tensors; those runs are not the rank's work and are not counted. Argument
+and output bytes are the local shards'.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import weakref
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -44,7 +53,8 @@ from repro_torch.analysis import roofline
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
-# collective op name (c10d or _c10d_functional) -> kind, first match wins
+# collective op name (c10d, _c10d_functional, or DTensor's own
+# _dtensor.shard_dim_alltoall) -> kind, first match wins
 _COLLECTIVE_NAMES = (
     ("reduce_scatter", "reduce-scatter"), ("allreduce", "all-reduce"),
     ("all_reduce", "all-reduce"), ("allgather", "all-gather"),
@@ -58,6 +68,10 @@ _COLLECTIVE_INPUTS = ("input_tensors", "input_tensor", "input", "inputs",
 
 _ALLOCATORS = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "empty_permuted"}
+
+# ops that wrap their input for autograd (a functional collective's
+# result): a new storage object over no new memory, counted as a view
+_WRAPPERS = {"_wrap_tensor_autograd"}
 
 _TRANSCENDENTAL = {"exp", "exp2", "expm1", "log", "log2", "log10", "log1p",
                    "tanh", "sigmoid", "sin", "cos", "tan", "erf", "erfc",
@@ -109,9 +123,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _tensors(tree, out=None) -> List[torch.Tensor]:
     """The tensors in nested tuples, lists and dicts (an op's arguments and
-    results), in order."""
+    results), in order; a DTensor as its local shard."""
     out = [] if out is None else out
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, DTensor):
+        out.append(tree.to_local())
+    elif isinstance(tree, torch.Tensor):
         out.append(tree)
     elif isinstance(tree, (tuple, list)):
         for x in tree:
@@ -315,6 +331,11 @@ class CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # DTensor's dispatch, then its ops
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return func(*args, **kwargs)     # DTensor's shape propagation
         if _rule(func).decompose:
             # a composite that reached the mode whole (autograd's
             # decomposition skipped, as under inference_mode): count the
@@ -328,8 +349,9 @@ class CostMode(TorchDispatchMode):
             out = func(*args, **kwargs)
         outs = _tensors(out)
         self._count(func, args, kwargs, out, outs)
-        for t in outs:
-            self._track(t)
+        if not _rule(func).view:
+            for t in outs:
+                self._track(t)
         return out
 
 
@@ -352,7 +374,7 @@ class _Rule(NamedTuple):
 def _rule(func) -> _Rule:
     name = func.overloadpacket.__name__
     collective = None
-    if func.namespace in ("c10d", "_c10d_functional"):
+    if func.namespace in ("c10d", "_c10d_functional", "_dtensor"):
         collective = next((k for n, k in _COLLECTIVE_NAMES if n in name),
                           None)
     writes = any(r.alias_info is not None and r.alias_info.is_write
@@ -380,7 +402,8 @@ def _rule(func) -> _Rule:
     pure = (kind == "pointwise" and not writes and not func.is_view
             and len(func._schema.returns) == 1
             and str(func._schema.returns[0].type) == "Tensor")
-    return _Rule(allocates=name in _ALLOCATORS, view=func.is_view,
+    return _Rule(allocates=name in _ALLOCATORS,
+                 view=func.is_view or name in _WRAPPERS,
                  writes=writes, collective=collective, kind=kind, flops=per,
                  transcendentals=trans, source=source, pure_pointwise=pure,
                  decompose=func._can_decompose() and not

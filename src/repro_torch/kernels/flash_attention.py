@@ -173,6 +173,12 @@ def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if B == 0 or K == 0:
+        # a rank's empty share of an uneven split of the batch or the kv
+        # heads (the sharded step): nothing to compute, nothing launched
+        out = torch.empty_like(q)
+        lse = torch.empty((B, S, K, G), dtype=torch.float32, device=q.device)
+        return (out, lse) if return_lse else out
     q_block, kv_block = resolve_tiles(q, k, causal=causal, window=window,
                                       q_block=q_block, kv_block=kv_block)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)

@@ -327,6 +327,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True,
     fp32 from the forward. Returns (dq, dk, dv) in the inputs' dtypes.
     ``q_block``/``kv_block``: see the module docstring."""
     _check_shapes(q, k, v, out, do, window)
+    if q.shape[0] == 0 or q.shape[2] == 0:
+        # an empty share of an uneven split (see flash_attention): empty
+        # gradients, nothing launched
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     tiles = resolve_tiles(q, k, causal=causal, window=window,
                           q_block=q_block, kv_block=kv_block)
     return flash_attention_bwd_at(q, k, v, out, lse, do, tiles,

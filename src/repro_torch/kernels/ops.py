@@ -14,6 +14,11 @@ the gradient is the same function.
 Without autograd (``torch.no_grad``, ``torch.inference_mode``, or no input
 that requires grad) the op calls B1 alone and saves nothing.
 
+On DTensors (the sharded step) the op runs on each rank's local shards
+(``spmd.local_apply``): q, k and v keep their split of the batch (dim 0)
+and of the kv heads (dim 2), so B1, B2 and B3 see only a rank's own rows
+and heads, and the wrappers see plain tensors only.
+
 Tiles. ``q_block``/``kv_block`` given explicitly go to B1 and to B2/B3, as
 the reference's op hands them to both (``repro/kernels/ops.py:96-103``).
 Left None, the forward resolves the find-db row ``"flash_attention"`` and
@@ -39,7 +44,9 @@ does not depend on ``chunk`` or ``r_block``, so they pass through to
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate
 
+from repro_torch import spmd
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import flash_attention_bwd as fa_bwd_kernel
 from repro_torch.kernels import mlstm as mlstm_kernel
@@ -69,11 +76,28 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_fused(q, k, v, causal=True, window=None, q_block=None,
                           kv_block=None):
     """q: (B, S, K, G, D); k, v: (B, T, K, D) -> (B, S, K, G, D)."""
+    if spmd.is_dtensor(q, k, v):
+        return _flash_attention_sharded(q, k, v, causal, window, q_block,
+                                        kv_block)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, q_block,
                                      kv_block)
     return fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
                                      q_block=q_block, kv_block=kv_block)
+
+
+def _flash_attention_sharded(q, k, v, causal, window, q_block, kv_block):
+    """DTensor q, k, v: each rank's B1 (and B2/B3 in the backward) on its
+    own batch rows and kv heads. A mesh dim that splits q's batch (dim 0)
+    or its kv heads (dim 2) keeps that split, on k and v alike; any other
+    placement is gathered first, so softmax never crosses a device. A rank
+    whose share is empty (an uneven split) launches nothing."""
+    keep = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in q.placements]
+    return spmd.local_apply(
+        lambda a, b, c: flash_attention_fused(a, b, c, causal, window,
+                                              q_block, kv_block),
+        (q, k, v), (keep, keep, keep), keep, q.shape)
 
 
 def flash_attention(q, k, v, causal=True, window=None, q_block=None,

@@ -15,24 +15,38 @@ report their work instead of launching. It records:
 It is a prediction: the reference's dry-run compiles for a TPU it does not
 run on, and this one describes a card it does not touch.
 
-Only the 1x1 mesh runs: a cell on more chips needs a sharded train step,
-which the port does not have (ROADMAP.md, "Configurations the port does not
-run"), so such cells, ``--multi-pod`` and ``--both-meshes`` are recorded as
-skipped.
+A mesh past 1x1 (``--mesh 16x16``, ``--multi-pod``, ``--both-meshes``: the
+reference's production meshes) runs the sharded step (``launch.steps``
+with a ``DeviceMesh``) as rank 0 of that many: a ``fake`` process group
+(``FakeStore``, rank 0, world = the mesh's size) is started for the cell,
+the state, batch and cache are meta DTensors placed by
+``distributed.sharding``, and every count is rank 0's own (its local ops
+and the collectives it issues; the fake collectives move nothing). Rank 0
+holds ``torch.chunk``'s largest piece of an uneven split, so its peak is
+the per-device bound. The group is destroyed at the end of the cell; a
+process that already has a group is refused. Only the dense family has a
+sharded step: the other families' cells on such a mesh are recorded as
+skipped, naming their item (ROADMAP.md, "Configurations the port does not
+run").
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--mesh 1x1] [--out EXP.json]
+  python -m repro_torch.launch.dryrun --all [--mesh 16x16] [--out EXP.json]
+  python -m repro_torch.launch.dryrun --all --both-meshes
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import time
 import traceback
 from typing import Optional
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import configs
 from repro_torch.analysis import cost as cost_lib
@@ -61,9 +75,50 @@ def _abstract_mesh(mesh) -> mesh_lib.AbstractMesh:
 _MAX_TRACED = 3     # microbatches a train cell runs at most (see _train)
 
 
-def _train(cfg, sys, shape):
-    """A train cell: adamw, as the reference's dry-run, on meta state and
-    batch. Returns (mode, result, params, microbatches traced).
+@contextlib.contextmanager
+def fake_group(amesh: mesh_lib.AbstractMesh):
+    """Rank 0 of a ``fake`` process group as large as ``amesh``, and the
+    ``DeviceMesh`` over it (None for one chip: no group). Its collectives
+    complete at once and write nothing. The group is destroyed on exit.
+
+    The mesh is a "cuda" one on any host (the fake group touches no
+    device): its device type picks DTensor's collectives, and the card's
+    are what a cell predicts. On a "cpu" mesh DTensor stands an
+    all-gather and a chunk in for each all-to-all (gloo has none), which
+    would count an all-to-all's bytes as a larger all-gather."""
+    world = math.prod(amesh.shape)
+    if world == 1:
+        yield None
+        return
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run starts its own fake process group; "
+                           "this process already has one")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield init_device_mesh("cuda", amesh.shape,
+                               mesh_dim_names=amesh.mesh_dim_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed(abstract: steps.Abstract, mesh):
+    """An abstract tree as meta DTensors on ``mesh`` (as it is without)."""
+    if mesh is None:
+        return abstract.tree
+    return steps.place(abstract.tree, abstract.specs, mesh)
+
+
+def train_optimizer():
+    """A train cell's optimizer: adamw, as the reference's dry-run."""
+    return optimizers.adamw(optimizers.warmup_cosine(3e-4, 100, 10000),
+                            weight_decay=0.1)
+
+
+def _train(cfg, sys, shape, mesh=None):
+    """A train cell (``train_optimizer``) on meta state and batch. Returns
+    (mode, result, params, microbatches traced).
 
     A step of n > 3 microbatches runs at 2 and at 3 microbatches of the
     cell's microbatch size, and its counts are extrapolated to n: the
@@ -73,25 +128,30 @@ def _train(cfg, sys, shape):
     second on each runs with the same storages alive, so the peak is the
     3-microbatch step's. The arguments are the whole cell's: the state and
     the batch of n microbatches."""
-    opt = optimizers.adamw(optimizers.warmup_cosine(3e-4, 100, 10000),
-                           weight_decay=0.1)
+    opt = train_optimizer()
     n = sys.microbatches
-    batch = steps.input_specs(cfg, shape).tree
+
+    def state_of():
+        if mesh is None:
+            return steps.abstract_state(cfg, opt)
+        return _placed(steps.state_specs_abstract(cfg, opt, mesh, sys), mesh)
+
+    batch = _placed(steps.input_specs(cfg, shape, mesh), mesh)
     if n <= _MAX_TRACED:
-        state = steps.abstract_state(cfg, opt)
-        out, mode = cost_lib.count(steps.make_train_step(cfg, sys, opt),
-                                   state, batch)
+        state = state_of()
+        out, mode = cost_lib.count(
+            steps.make_train_step(cfg, sys, opt, mesh=mesh), state, batch)
         return mode, out, state["params"], None
     rows = shape.global_batch // n
     runs = []
     for m in (2, 3):
         cut = dataclasses.replace(shape, global_batch=rows * m)
-        state = steps.abstract_state(cfg, opt)
+        state = state_of()
         runs.append(cost_lib.count(
             steps.make_train_step(cfg, dataclasses.replace(sys,
                                                            microbatches=m),
-                                  opt),
-            state, steps.input_specs(cfg, cut).tree))
+                                  opt, mesh=mesh),
+            state, _placed(steps.input_specs(cfg, cut, mesh), mesh)))
     (_, two), (out, three) = runs
     mode = cost_lib.CostMode()
     mode.cost.add(three.cost, n - 2)
@@ -101,17 +161,19 @@ def _train(cfg, sys, shape):
     return mode, out, state["params"], [2, 3]
 
 
-def _serve_step(cfg, sys, shape, max_len, mesh):
-    """A prefill or decode cell on meta parameters (and cache)."""
-    batch = steps.input_specs(cfg, shape).tree
-    params = steps.param_specs_abstract(cfg, mesh, sys).tree
+def _serve_step(cfg, sys, shape, max_len, amesh, mesh=None):
+    """A prefill or decode cell on meta parameters (and cache); DTensors
+    on ``mesh`` where one is given."""
+    batch = _placed(steps.input_specs(cfg, shape, mesh), mesh)
+    params = steps.param_specs_abstract(cfg, mesh or amesh, sys)
+    params = _placed(params, mesh)
     if shape.kind == "prefill":
         step_fn = steps.make_prefill_step(cfg, sys, max_len=max_len)
         args = (params, batch)
     else:
         step_fn = steps.make_decode_step(cfg, sys)
-        cache = steps.cache_specs_abstract(cfg, shape,
-                                           quant=sys.kv_quant).tree
+        cache = _placed(steps.cache_specs_abstract(cfg, shape, mesh,
+                                                   quant=sys.kv_quant), mesh)
         args = (params, cache, batch["tokens"], batch["pos"])
     out, mode = cost_lib.count(step_fn, *args)
     return mode, out, params
@@ -142,11 +204,13 @@ def run_cell(arch: str, shape_name: str, *, mesh=None,
                           "serving")
         return rec
     chips = math.prod(amesh.shape)
-    if chips > 1:
+    fam = steps.family(cfg)
+    if chips > 1 and fam not in steps.SHARDED_FAMILIES:
         rec.update(status="skipped",
-                   reason=f"a {rec['mesh']} mesh needs a sharded train step "
-                          "(steps.make_train_step with a mesh), which the "
-                          "port does not have; only 1x1 runs")
+                   reason=f"the {fam} family has no sharded step on a "
+                          f"{rec['mesh']} mesh: ROADMAP.md queue A item "
+                          f"{steps.MESH_ITEMS[fam]} (\"Configurations the "
+                          "port does not run\")")
         return rec
 
     sizes = dict(zip(amesh.mesh_dim_names, amesh.shape))
@@ -159,11 +223,15 @@ def run_cell(arch: str, shape_name: str, *, mesh=None,
 
     t0 = time.time()
     try:
-        if shape.kind == "train":
-            mode, out, params, traced = _train(cfg, sys, shape)
-        else:
-            mode, out, params = _serve_step(cfg, sys, shape, max_len, amesh)
-            traced = None
+        with fake_group(amesh) as mesh:
+            if shape.kind == "train":
+                mode, out, params, traced = _train(cfg, sys, shape, mesh)
+            else:
+                mode, out, params = _serve_step(cfg, sys, shape, max_len,
+                                                amesh, mesh)
+                traced = None
+            counts, terms = _record(cfg, shape, chips, mode, out, params,
+                                    traced)
         trace_s = time.time() - t0
     except Exception as e:  # a failing cell is a bug; surface it loudly
         rec.update(status="FAILED", error=f"{type(e).__name__}: {e}",
@@ -172,11 +240,25 @@ def run_cell(arch: str, shape_name: str, *, mesh=None,
             print(f"[dryrun] {arch} x {shape_name} FAILED: {e}")
         return rec
 
+    rec.update(status="ok", trace_s=round(trace_s, 2), **counts)
+    if verbose:
+        print(f"[dryrun] {arch:20s} {shape_name:12s} {rec['mesh']:8s} ok "
+              f"trace={trace_s:6.1f}s perdev={rec['per_device_gb']:7.3f}GB "
+              f"of {roofline.HBM_BYTES / 2**30:.1f} "
+              f"dom={terms.dominant:10s} "
+              f"c/m/n={terms.compute_s:.2e}/{terms.memory_s:.2e}/"
+              f"{terms.collective_s:.2e}s mfu={terms.mfu:.2f}")
+    return rec
+
+
+def _record(cfg, shape, chips, mode, out, params, traced):
+    """(a run cell's counts, its roofline terms): memory (rank 0's on a
+    mesh), cost, kernels, collectives, the roofline over ``chips`` and
+    whether it fits."""
     c = mode.cost
     mflops = roofline.model_flops(cfg, shape, params)
     terms = roofline.terms_from_dispatch(c, chips, mflops)
-    rec.update(
-        status="ok", trace_s=round(trace_s, 2),
+    rec = dict(
         memory={"argument_size_in_bytes": int(mode.argument_bytes),
                 "output_size_in_bytes": int(mode.output_bytes(out)),
                 "temp_size_in_bytes": int(mode.peak_bytes)},
@@ -192,14 +274,7 @@ def run_cell(arch: str, shape_name: str, *, mesh=None,
                      + rec["memory"]["temp_size_in_bytes"])
     rec["per_device_gb"] = round(per_dev_bytes / 2**30, 3)
     rec["fits"] = per_dev_bytes <= roofline.HBM_BYTES
-    if verbose:
-        print(f"[dryrun] {arch:20s} {shape_name:12s} {rec['mesh']:8s} ok "
-              f"trace={trace_s:6.1f}s perdev={rec['per_device_gb']:7.3f}GB "
-              f"of {roofline.HBM_BYTES / 2**30:.1f} "
-              f"dom={terms.dominant:10s} "
-              f"c/m/n={terms.compute_s:.2e}/{terms.memory_s:.2e}/"
-              f"{terms.collective_s:.2e}s mfu={terms.mfu:.2f}")
-    return rec
+    return rec, terms
 
 
 def main(argv=None):
@@ -208,11 +283,11 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", default="1x1",
-                    help="AxB (data x model) or PxAxB; only 1x1 runs")
+                    help="AxB (data x model) or PxAxB")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's 2x16x16 mesh (skipped)")
+                    help="the reference's 2x16x16 mesh")
     ap.add_argument("--both-meshes", action="store_true",
-                    help="the reference's 16x16 and 2x16x16 (skipped)")
+                    help="the reference's 16x16 and 2x16x16")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 

@@ -9,11 +9,26 @@ returns its self-attention cache prompt-long, whatever ``max_len`` says,
 with the cross cache.
 
 ``make_train_state``, ``make_train_step``, ``make_prefill_step`` and
-``make_decode_step`` keep the reference's signatures, less the mesh (a
-train step sharded over a mesh is not ported: ROADMAP.md, "Distributed")
-and with an explicit ``torch.Generator`` and device in place of a PRNG key.
-PyTorch runs eagerly, so the returned functions need no ``jit``; prefill
-and decode run under ``torch.inference_mode()``.
+``make_decode_step`` keep the reference's signatures, with an explicit
+``torch.Generator`` and device in place of a PRNG key. PyTorch runs
+eagerly, so the returned functions need no ``jit``; prefill and decode run
+under ``torch.inference_mode()`` (``torch.no_grad()`` on DTensors).
+
+On a mesh (a ``DeviceMesh``) the dense family's steps run sharded, as the
+reference's do: ``make_train_state(..., mesh=)`` places the state by
+``sharding.state_specs``, ``distribute_batch`` places a batch as the
+reference's ``NamedSharding`` of ``input_specs`` would, and
+``make_train_step(..., mesh=)`` splits the batch into microbatches that
+keep the reference's membership (microbatch i is global rows
+[i·m, (i+1)·m), spread over the batch axes), resolves each gradient to its
+parameter's placement and clips by the global norm over all shards. The
+prefill and decode steps take DTensor parameters, batches and caches and
+need no new argument: the shardings come from the inputs, as in the
+reference. The models pin the batch and the kv heads
+(``layers.shard_batch``, ``shard_heads``) and run B1-B3 on each rank's own
+shards (``kernels.ops``). Losses and metrics come back as plain tensors,
+equal on every rank. The other families raise ``NotImplementedError`` on a
+mesh past 1x1 (``require_shardable``).
 
 The dry-run's helpers (``default_sys``, ``abstract_state``,
 ``input_specs``, ``cache_specs_abstract``, ``state_specs_abstract``,
@@ -24,11 +39,14 @@ and dtypes: nothing is allocated. Where a mesh (a ``DeviceMesh`` or a
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch import weights
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch import spmd, weights
 from repro_torch.configs import ShapeSpec
 from repro_torch.distributed import sharding
 from repro_torch.models import encdec, transformer
@@ -53,12 +71,81 @@ def model_init(gen: torch.Generator, cfg, device=None):
     return transformer.init(gen, cfg, device)
 
 
+# families whose steps run sharded on a mesh past 1x1, and the ROADMAP
+# item (queue A) of each other family
+SHARDED_FAMILIES = ("dense",)
+MESH_ITEMS = {"moe": "16. The MoE family on a mesh",
+              "hybrid": "17. The hybrid and ssm families on a mesh",
+              "ssm": "17. The hybrid and ssm families on a mesh",
+              "vlm": "18. The vlm and whisper on a mesh",
+              "audio": "18. The vlm and whisper on a mesh"}
+
+
+def family(cfg) -> str:
+    return "audio" if is_encdec(cfg) else cfg.family
+
+
+def mesh_of(tree):
+    """The ``DeviceMesh`` of the first DTensor in ``tree``, else None."""
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, DTensor):
+            return leaf.device_mesh
+    return None
+
+
+def require_shardable(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` for a family with no sharded step on a
+    mesh past 1x1, naming its ROADMAP item."""
+    if mesh is None or mesh.size() == 1:
+        return
+    fam = family(cfg)
+    if fam not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"the {fam} family has no sharded step on a mesh past 1x1 "
+            f"(mesh {tuple(mesh.shape)}): ROADMAP.md queue A item "
+            f"{MESH_ITEMS[fam]}")
+
+
 def make_train_state(gen: torch.Generator, cfg, opt: optimizers.Optimizer,
-                     device=None):
+                     device=None, mesh=None,
+                     sys: Optional[SystemConfig] = None):
     """{"params", "opt", "step"}: parameters from ``model_init``, the
-    optimizer's state, and the step as a Python int."""
+    optimizer's state, and the step as a Python int. On a ``mesh`` every
+    rank draws the same state and keeps its own shards of it, placed by
+    ``sharding.state_specs`` under ``sys`` (default: ``SystemConfig()``,
+    2-D sharding)."""
+    require_shardable(cfg, mesh)
     params = model_init(gen, cfg, device)
-    return {"params": params, "opt": opt.init(params), "step": 0}
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+    if mesh is None:
+        return state
+    specs = sharding.state_specs(state, cfg, mesh, sys or SystemConfig())
+    return place(state, specs, mesh)
+
+
+def place(tree, specs, mesh):
+    """Each tensor of ``tree`` (the same whole tensor on every rank, or a
+    meta tensor) as a DTensor on ``mesh`` placed by its spec; each rank
+    keeps its own shard, with no communication. Other leaves stay."""
+    named = weights.flatten(sharding.named(specs, mesh))
+    return weights.unflatten({
+        p: named[p].distribute(t) if isinstance(t, torch.Tensor) else t
+        for p, t in weights.flatten(tree).items()})
+
+
+def distribute_batch(batch, mesh):
+    """A batch (the same whole tensors on every rank) placed as the
+    reference's ``NamedSharding`` of ``input_specs`` places it: rows over
+    the batch axes where they split evenly, else replicated; "pos" and
+    other non-tensors stay."""
+    rows = next(t.shape[0] for t in batch.values()
+                if isinstance(t, torch.Tensor))
+    axes = [a for a in sharding.BATCH_AXES if a in mesh.mesh_dim_names]
+    split = axes and rows % spmd.mesh_size(mesh, axes) == 0
+    baxes = (tuple(axes) if len(axes) > 1 else axes[0]) if split else None
+    specs = {k: (baxes,) + (None,) * (t.ndim - 1)
+             if isinstance(t, torch.Tensor) else () for k, t in batch.items()}
+    return place(batch, specs, mesh)
 
 
 def default_sys(cfg, shape: ShapeSpec, *, dp=16, tp=16, pods=1
@@ -75,8 +162,8 @@ def default_sys(cfg, shape: ShapeSpec, *, dp=16, tp=16, pods=1
                         batch_axes=baxes)
 
 
-def make_train_step(cfg, sys: SystemConfig,
-                    opt: optimizers.Optimizer) -> Callable:
+def make_train_step(cfg, sys: SystemConfig, opt: optimizers.Optimizer,
+                    mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, {"loss", "accuracy"}).
 
     Gradients accumulate over ``sys.microbatches`` (the batch split along
@@ -86,9 +173,16 @@ def make_train_step(cfg, sys: SystemConfig,
     reference's donated state. A leaf the loss does not use (the vlm's
     ``embed``: its forward starts from the adapter) gets a zero gradient,
     as under ``jax.grad``, and the optimizer still updates it.
+
+    With a ``mesh`` the state and batch are DTensors on it
+    (``make_train_state(..., mesh=)``, ``distribute_batch``): each
+    microbatch keeps the reference's rows, spread over the batch axes, each
+    gradient comes back in its parameter's placement (a partial sum
+    reduced), and loss and accuracy come back as plain tensors.
     """
     if not is_encdec(cfg):
         transformer.require_ported(cfg)
+    require_shardable(cfg, mesh)
     n_micro = sys.microbatches
 
     def grads_of(params, batch):
@@ -98,26 +192,34 @@ def make_train_step(cfg, sys: SystemConfig,
         grads = torch.autograd.grad(loss, list(flat.values()),
                                     allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), metrics["accuracy"], list(grads), list(flat)
+        grads = [spmd.placed(g, p.placements) if isinstance(g, DTensor)
+                 else g for g, p in zip(grads, flat.values())]
+        return loss.detach(), metrics["accuracy"], grads, list(flat)
 
     def train_step(state, batch):
+        with spmd.replication(batch):
+            state, metrics = _train_step(state, batch)
+        return state, {k: _plain(v) for k, v in metrics.items()}
+
+    def _train_step(state, batch):
         params = state["params"]
         if n_micro > 1:
             B = next(iter(batch.values())).shape[0]
             if B % n_micro:
                 raise ValueError(f"batch {B} does not split into {n_micro} "
                                  "microbatches")
+            mbs = {k: _microbatches(x, n_micro) for k, x in batch.items()}
             g_sum, loss_sum, acc_sum = None, 0.0, 0.0
             for i in range(n_micro):
-                mb = {k: x.reshape((n_micro, B // n_micro) + x.shape[1:])[i]
-                      for k, x in batch.items()}
+                mb = {k: x[i] for k, x in mbs.items()}
                 loss, acc, grads, paths = grads_of(params, mb)
                 if g_sum is None:
                     g_sum = grads
                 else:
-                    torch._foreach_add_(g_sum, grads)
+                    torch._foreach_add_(spmd.locals_of(g_sum),
+                                        spmd.locals_of(grads))
                 loss_sum, acc_sum = loss_sum + loss, acc_sum + acc
-            torch._foreach_mul_(g_sum, 1.0 / n_micro)
+            torch._foreach_mul_(spmd.locals_of(g_sum), 1.0 / n_micro)
             grads = g_sum
             loss, acc = loss_sum / n_micro, acc_sum / n_micro
         else:
@@ -126,11 +228,45 @@ def make_train_step(cfg, sys: SystemConfig,
         updates, state["opt"] = opt.update(grads, state["opt"], params,
                                            state["step"])
         with torch.no_grad():
-            torch._foreach_add_(tree_leaves(params), tree_leaves(updates))
+            torch._foreach_add_(spmd.locals_of(tree_leaves(params)),
+                                spmd.locals_of(tree_leaves(updates)))
         state["step"] += 1
         return state, {"loss": loss, "accuracy": acc}
 
     return train_step
+
+
+def _microbatches(x, n):
+    """(B, ...) -> (n, B / n, ...): microbatch i is rows [i·m, (i+1)·m).
+    A DTensor split over the batch axes is gathered, reshaped and split on
+    dim 1, so each microbatch is spread over those axes (the reference's
+    ``P(None, baxes)`` constraint). Gathered first: DTensor's reshape of a
+    dim split over two mesh dims (pod, data) gets the local shape wrong."""
+    if not isinstance(x, DTensor):
+        return x.reshape((n, x.shape[0] // n) + x.shape[1:])
+    whole = spmd.placed(x, [Replicate()] * len(x.placements))
+    y = whole.reshape((n, x.shape[0] // n) + x.shape[1:])
+    return spmd.placed(y, [Shard(1) if p.is_shard(0) else Replicate()
+                           for p in x.placements])
+
+
+def _plain(x):
+    """A metric as a plain tensor (a DTensor gathered whole)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _serving(fn):
+    """Runs ``fn`` under ``torch.inference_mode()``, or under
+    ``torch.no_grad()`` where its parameters are DTensors: a DTensor view
+    (a layer's slice of a cache made outside inference mode) cannot be
+    taken in inference mode."""
+    @functools.wraps(fn)
+    def serve(params, *args):
+        mode = (torch.no_grad() if mesh_of(params) is not None
+                else torch.inference_mode())
+        with mode:
+            return fn(params, *args)
+    return serve
 
 
 def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
@@ -143,6 +279,7 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
     if is_encdec(cfg):
         @torch.inference_mode()
         def prefill(params, batch):
+            require_shardable(cfg, mesh_of(params))
             dtype = sys.compute_dtype
             cparams = transformer._cast(params, dtype)
             enc = encdec.encode(cparams, batch["frames"].to(dtype), cfg, sys)
@@ -155,8 +292,9 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
         return prefill
     transformer.require_ported(cfg)
 
-    @torch.inference_mode()
+    @_serving
     def prefill(params, batch):
+        require_shardable(cfg, mesh_of(params))
         S = (batch["tokens"].shape[1] if "tokens" in batch
              else batch["embeddings"].shape[1])
         logits, _, cache = transformer.forward(
@@ -171,12 +309,14 @@ def make_decode_step(cfg, sys: SystemConfig) -> Callable:
     if is_encdec(cfg):
         @torch.inference_mode()
         def decode(params, cache, tokens, pos):
+            require_shardable(cfg, mesh_of(params))
             return encdec.decode_step(params, cache, tokens, pos, cfg, sys)
         return decode
     transformer.require_ported(cfg)
 
-    @torch.inference_mode()
+    @_serving
     def decode(params, cache, tokens, pos):
+        require_shardable(cfg, mesh_of(params))
         return transformer.decode_step(params, cache, tokens, pos, cfg, sys)
     return decode
 

@@ -21,6 +21,13 @@ same conventions:
   head), as the reference does.
 
 * GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+
+* On DTensors (the sharded step, ``distributed.spmd``) ``shard_batch`` and
+  ``shard_heads`` pin the batch and the kv heads as the reference's
+  sharding constraints do, and every product with a weight goes through
+  ``spmd.contract`` (weights gathered over the batch axes, never the
+  activations). On plain tensors both pins return ``x`` and the products
+  are the plain ones.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from repro_torch import spmd
 
 Params = Any
 
@@ -65,6 +75,11 @@ def init_rmsnorm(dim, dtype=torch.float32, device=None):
 
 def rmsnorm(params, x, eps: float = 1e-6):
     """RMSNorm in float32, cast back to the input dtype."""
+    if spmd.is_dtensor(x):
+        y = spmd.rowwise(lambda a, s: rmsnorm({"scale": s}, a, eps), x,
+                         params["scale"])
+        if y is not None:
+            return y
     dtype = x.dtype
     x = x.float()
     var = x.square().mean(-1, keepdim=True)
@@ -103,10 +118,27 @@ def apply_rope(x, positions, theta: float = 10000.0):
     """x: (B, S, *H, D); positions (B, S).
 
     Rotates ADJACENT pairs (2i, 2i+1), as the reference does, not the
-    half-split ``rotate_half`` layout common in PyTorch code.
+    half-split ``rotate_half`` layout common in PyTorch code. On DTensors
+    each rank rotates its own shard with its own slice of the frequencies
+    (``spmd.rope_pieces``).
     """
+    if spmd.is_dtensor(x):
+        x, positions, lo = spmd.rope_pieces(x, positions)
+        d = x.shape[-1]
+
+        def rotate(a, pos):
+            freqs = rope_freqs(d, theta, device=a.device)
+            return _rotate(a, pos, freqs[lo:lo + a.shape[-1] // 2])
+        return spmd.local_apply(rotate, (x, positions),
+                                (x.placements, positions.placements),
+                                x.placements, x.shape)
+    return _rotate(x, positions, rope_freqs(x.shape[-1], theta,
+                                            device=x.device))
+
+
+def _rotate(x, positions, freqs):
+    """``apply_rope`` with the frequencies (D/2,) of x's pairs given."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)          # (D/2,)
     angles = positions.float()[..., None] * freqs           # (B, S, D/2)
     while angles.ndim < x.ndim:                             # over head axes
         angles = angles.unsqueeze(-2)
@@ -122,6 +154,46 @@ def apply_rope(x, positions, theta: float = 10000.0):
 # ---------------------------------------------------------------------------
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def shard_batch(x, batch_axes):
+    """Pin dim 0 (batch) to the data axes; the other mesh dims keep their
+    placements, less any split of dim 0.
+
+    The reference's constraint: with FSDP weights (d_in over "data") the
+    batch must stay split, or every device computes every row. A plain
+    tensor (no mesh in scope) comes back as it is, and so does a batch that
+    does not split evenly over the axes (the reference's ``input_specs``
+    leaves such a batch replicated).
+    """
+    if not batch_axes or not spmd.is_dtensor(x):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    axes = [a for a in batch_axes if a in names]
+    if not axes or x.shape[0] % spmd.mesh_size(x.device_mesh, axes):
+        return x
+    return spmd.placed(x, [
+        Shard(0) if name in axes else
+        (Replicate() if p.is_shard(0) else p)
+        for name, p in zip(names, x.placements)])
+
+
+def shard_heads(x, enabled: bool, axis: int = 2):
+    """Pin the kv-head axis to the "model" mesh dim.
+
+    Head-sharded attention keeps softmax and score math local to a device.
+    Active only on a DTensor whose mesh has a "model" dim, and with
+    ``enabled`` (sys.shard_attn). An uneven split leaves the last ranks
+    without heads (``torch.chunk``; GSPMD pads instead).
+    """
+    if not enabled or not spmd.is_dtensor(x):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return x
+    out = list(x.placements)
+    out[names.index("model")] = Shard(axis)
+    return spmd.placed(x, out)
 
 
 def _mask_bias(q_pos, k_pos, causal: bool, window: Optional[int]):
@@ -274,7 +346,7 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig,
 
 def _proj(x, w):
     """x (B, S, d) @ w (d, *out) -> (B, S, *out), contiguous."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+    return spmd.contract(x, w, 1)
 
 
 def attention_qkv(params, x, cfg: AttnConfig, positions):
@@ -296,8 +368,7 @@ def attention_qkv(params, x, cfg: AttnConfig, positions):
 
 def attn_out(out, wo):
     """(B, S, K, G, D) @ wo (K, G, D, d) -> (B, S, d)."""
-    B, S = out.shape[:2]
-    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return spmd.contract(out, wo, 3)
 
 
 def apply_attention_decode(params, x, cfg: AttnConfig, cache, pos: int):
@@ -320,13 +391,13 @@ def apply_attention_decode(params, x, cfg: AttnConfig, cache, pos: int):
     if "k_scale" in cache:
         for name, new in (("k", k), ("v", v)):
             values, scale = quantize_kv(new[:, 0])
-            cache[name][:, slot] = values
-            cache[name + "_scale"][:, slot] = scale
+            spmd.write_row(cache[name], slot, values)
+            spmd.write_row(cache[name + "_scale"], slot, scale)
         ck = dequantize_kv(cache["k"], cache["k_scale"])
         cv = dequantize_kv(cache["v"], cache["v_scale"])
     else:
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        spmd.write_row(cache["k"], slot, k[:, 0].to(cache["k"].dtype))
+        spmd.write_row(cache["v"], slot, v[:, 0].to(cache["v"].dtype))
         ck, cv = cache["k"], cache["v"]
     # validity + causality via explicit per-slot positions
     idx = torch.arange(W, device=x.device)
@@ -335,12 +406,47 @@ def apply_attention_decode(params, x, cfg: AttnConfig, cache, pos: int):
     if cfg.window is not None:
         valid &= slot_pos > (pos - cfg.window)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    s = torch.einsum("bskgh,btkh->bkgst", q.float(), ck.float()) * scale
-    s = s.masked_fill(~valid, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", p.float(),
-                       cv.to(x.dtype).float()).to(x.dtype)
+
+    def scores(q, ck):
+        return torch.einsum("bskgh,btkh->bkgst", q.float(), ck.float()) * scale
+
+    def mix(s, cv):
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        return torch.einsum("bkgst,btkh->bskgh", p.float(),
+                            cv.to(x.dtype).float()).to(x.dtype)
+
+    if spmd.is_dtensor(q, ck):
+        out = _decode_attention_sharded(scores, mix, q, ck, cv)
+    else:
+        out = mix(scores(q, ck), cv)
     return attn_out(out, params["wo"]), cache
+
+
+def _decode_attention_sharded(scores, mix, q, ck, cv):
+    """``mix(scores(q, ck), cv)`` on each rank's shards, following the
+    cache's split (B, W, K, D): the batch and the kv heads split q, the
+    scores and the output alike; a split head_dim leaves partial scores,
+    summed across ranks before the softmax."""
+    qp, sp, op, reduce = [], [], [], False
+    for p in ck.placements:
+        if p.is_shard(0) or p.is_replicate():
+            qp.append(p), sp.append(p), op.append(p)
+        elif p.is_shard(2):
+            qp.append(Shard(2)), sp.append(Shard(1)), op.append(Shard(2))
+        elif p.is_shard(3):
+            qp.append(Shard(4)), sp.append(Partial()), op.append(Shard(4))
+            reduce = True
+        else:
+            raise ValueError(f"a decode cache split as {ck.placements}")
+    B, _, K, G, _ = q.shape
+    s = spmd.local_apply(scores, (q, ck), (qp, ck.placements), sp,
+                         (B, K, G, 1, ck.shape[1]))
+    if reduce:
+        s = spmd.placed(s, [Replicate() if p.is_partial() else p
+                            for p in sp])
+    return spmd.local_apply(mix, (s, cv), (s.placements, ck.placements), op,
+                            q.shape)
 
 
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -393,9 +499,15 @@ def init_swiglu(gen: torch.Generator, d_model, d_ff,
 
 
 def apply_swiglu(params, x):
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    return (F.silu(g) * u) @ params["w_down"]
+    g = spmd.contract(x, params["w_gate"], 1)
+    u = spmd.contract(x, params["w_up"], 1)
+    if spmd.is_dtensor(g):
+        h = spmd.local_apply(lambda a, b: F.silu(a) * b, (g, u),
+                             (g.placements, g.placements), g.placements,
+                             g.shape)
+    else:
+        h = F.silu(g) * u
+    return spmd.contract(h, params["w_down"], 1)
 
 
 def init_mlp(gen: torch.Generator, d_model, d_ff,

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_lib
+from repro_torch import spmd
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
@@ -191,7 +192,7 @@ DEFAULT_SYS = SystemConfig()
 def _tree_stack(trees):
     if isinstance(trees[0], dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return spmd.stack(trees)
 
 
 def _cast(params, dtype):
@@ -266,10 +267,16 @@ def _apply_ffn(p, h, cfg: ModelConfig):
 def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
                       collect_cache=False, max_cache=None):
     acfg = cfg.attn_cfg(window)
+    x = layers.shard_batch(x, sys.batch_axes)
     h = layers.rmsnorm(p["attn_norm"], x)
     B, S, _ = h.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-    q, k, v = layers.attention_qkv(p["attn"], h, acfg, positions)
+    positions = spmd.replicated(
+        torch.arange(S, dtype=torch.int32, device=x.device)[None], x)
+    q, k, v = layers.attention_qkv(_heads_pinned(p["attn"], sys), h, acfg,
+                                   positions)
+    q = layers.shard_heads(q, sys.shard_attn)
+    k = layers.shard_heads(k, sys.shard_attn)
+    v = layers.shard_heads(v, sys.shard_attn)
     if sys.use_pallas:
         out = kernel_ops.flash_attention(q, k, v, True, acfg.window)
     elif S > 2048:
@@ -293,8 +300,30 @@ def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
     return x, aux, cache
 
 
+def _heads_pinned(pa, sys: SystemConfig):
+    """The attention weights with their kv-head axis pinned to "model"
+    (``layers.shard_heads``): q, k and v then come out of the projections
+    split by heads, as the pins on them ask, so qk-norm and RoPE stay local
+    to a device. A no-op on plain tensors and with ``shard_attn`` off."""
+    if not sys.shard_attn or not spmd.is_dtensor(pa["wq"]):
+        return pa
+    out = dict(pa)
+    for name in ("wq", "wk", "wv", "bq", "bk", "bv", "wo"):
+        if name in pa:      # (d, K, ...) projections, (K, ...) the rest
+            axis = 1 if name in ("wq", "wk", "wv") else 0
+            out[name] = layers.shard_heads(pa[name], True, axis=axis)
+    return out
+
+
 def _ring_layout(kv, S, window, max_cache):
-    """(B, S, K, D) -> the ring cache (B, W, K, D), bf16 at any precision."""
+    """(B, S, K, D) -> the ring cache (B, W, K, D), bf16 at any precision
+    (on DTensors shard by shard: W is never split)."""
+    if spmd.is_dtensor(kv):
+        W = (max(max_cache or S, S) if window is None else window)
+        return spmd.local_apply(
+            lambda t: _ring_layout(t, S, window, max_cache), (kv,),
+            (kv.placements,), kv.placements,
+            (kv.shape[0], W) + tuple(kv.shape[2:]))
     kv = kv.to(torch.bfloat16)
     if window is None:
         W = max(max_cache or S, S)
@@ -443,7 +472,7 @@ def _lm_head(params, cparams, x, cfg: ModelConfig):
     """Final norm (on the uncast scale) and the head, accumulated in fp32."""
     x = layers.rmsnorm(params["final_norm"], x)
     head = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
-    return x.float() @ head.float()
+    return spmd.contract(x.float(), head.float(), 1)
 
 
 def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
@@ -456,15 +485,22 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
     projects the LM head on the final position only (prefill).
     """
     require_ported(cfg)
+    with spmd.replication(params, batch):
+        return _forward(params, batch, cfg, sys, collect_cache, max_cache,
+                        last_only)
+
+
+def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only):
     dtype = sys.compute_dtype
     cparams = _cast(_outside_layers(params), dtype)
     if cfg.takes_embeddings:
         x = batch["embeddings"].to(dtype) @ cparams["adapter"]
     else:
-        x = cparams["embed"][batch["tokens"]]
+        x = spmd.embed(cparams["embed"], batch["tokens"])
 
     if cfg.family == "hybrid":
         def body(lp, x):
+            x = layers.shard_batch(x, sys.batch_axes)
             lp = _cast(lp, dtype)
             for rp in _unstack(lp["recs"], cfg.rec_per_attn):
                 x = _apply_rec_block(rp, x, cfg)
@@ -477,6 +513,7 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
         mcfg = cfg.mlstm_cfg()
 
         def body(lp, x):
+            x = layers.shard_batch(x, sys.batch_axes)
             lp = _cast(lp, dtype)
             for mp in _unstack(lp["mlstms"], cfg.mlstm_per_slstm):
                 h = layers.rmsnorm(mp["norm"], x)
@@ -537,19 +574,27 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
     ``loss``, ``aux_loss``, ``tokens`` and ``accuracy``.
     """
     logits, aux = forward(params, batch, cfg, sys)
-    return lm_loss(logits, aux, batch["labels"])
+    with spmd.replication(logits):
+        return lm_loss(logits, aux, batch["labels"])
 
 
 def lm_loss(logits, aux, labels):
     """``loss_fn``'s loss and metrics from the logits (B, S, V) fp32, the
-    aux loss and the labels (< 0 = ignored)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    aux loss and the labels (< 0 = ignored). DTensor logits keep their
+    vocab split (``spmd.vocab_stats``)."""
+    if spmd.is_dtensor(logits):
+        lse, gold, top = spmd.vocab_stats(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        top = None
     mask = (labels >= 0).float()
     n = mask.sum().clamp(min=1.0)
     loss = ((lse - gold) * mask).sum() / n
     with torch.no_grad():
-        accuracy = ((logits.argmax(-1) == labels).float() * mask).sum() / n
+        if top is None:
+            top = logits.argmax(-1)
+        accuracy = ((top == labels).float() * mask).sum() / n
     metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
                "tokens": mask.sum(),
                "accuracy": accuracy}
@@ -611,10 +656,14 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
     (see ``layers.apply_attention_decode``).
     """
     require_ported(cfg)
-    pos = int(pos)
+    with spmd.replication(params, cache):
+        return _decode_step(params, cache, tokens, int(pos), cfg, sys)
+
+
+def _decode_step(params, cache, tokens, pos: int, cfg, sys):
     dtype = sys.compute_dtype
     cparams = _cast(_outside_layers(params), dtype)
-    x = cparams["embed"][tokens]
+    x = spmd.embed(cparams["embed"], tokens)
     if cfg.takes_embeddings:
         x = x @ cparams["adapter"]
     stacked = _stacked(params["layers"], dtype)

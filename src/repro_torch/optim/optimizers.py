@@ -18,7 +18,9 @@ beside them (about 60 GB more at 2.99 B parameters, more than an 80 GB
 card holds). The step is a Python int and a schedule
 maps it to a Python float, so a new learning rate needs no new tensor. The
 order of work is the reference's: clip by global norm, fp32 moments, bias
-correction, then weight decay on the parameter before the update.
+correction, then weight decay on the parameter before the update. DTensor
+leaves (the sharded step) update shard by shard, the clip's norm taken over
+every shard.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -65,10 +68,17 @@ def warmup_cosine(lr, warmup_steps, total_steps, final_frac=0.1):
 
 def _clip_scale(grads, max_norm):
     """(the factor that brings grads to a global L2 norm of at most
-    max_norm, the norm)."""
-    gnorm = torch.sqrt(sum(g.float().square().sum()
-                           for g in tree_leaves(grads)))
+    max_norm, the norm). DTensor gradients: the norm over every shard."""
+    gnorm = torch.sqrt(spmd.sum_of_squares(tree_leaves(grads)))
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), gnorm
+
+
+def _leafwise(upd, *args):
+    """``upd(param, grad, *moments, scale)`` of one leaf; DTensor leaves
+    (all of one placement, the scale replicated) shard by shard."""
+    if spmd.is_dtensor(args[0]):
+        return spmd.elementwise(upd, *args)
+    return upd(*args)
 
 
 def _clipped(g, scale):
@@ -100,7 +110,7 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
         mhat_scale = 1.0 / (1.0 - b1 ** t)
         vhat_scale = 1.0 / (1.0 - b2 ** t)
 
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, scale):
             g = _clipped(g, scale)
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g.square())
@@ -109,7 +119,8 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
                 u = u + weight_decay * p.float()
             return (-lr * u).to(p.dtype)
         with torch.no_grad():
-            updates = tree_map(upd, params, grads, state["m"], state["v"])
+            updates = tree_map(lambda *a: _leafwise(upd, *a, scale), params,
+                               grads, state["m"], state["v"])
         return updates, state
 
     return Optimizer(init, update)
@@ -129,13 +140,14 @@ def sgd(schedule, momentum=0.9, nesterov=False,
                  else None)
         lr = schedule(step) * lr_scale
 
-        def upd(p, g, mu):
+        def upd(p, g, mu, scale):
             g = _clipped(g, scale)
             mu.copy_(momentum * mu + g)
             u = g + momentum * mu if nesterov else mu
             return (-lr * u).to(p.dtype)
         with torch.no_grad():
-            updates = tree_map(upd, params, grads, state["mu"])
+            updates = tree_map(lambda *a: _leafwise(upd, *a, scale), params,
+                               grads, state["mu"])
         return updates, state
 
     return Optimizer(init, update)

@@ -87,6 +87,25 @@ def test_collective_counted_by_kind(tmp_path):
     assert functional.cost.coll_count == 1
 
 
+def test_dtensor_all_to_all_counted_as_all_to_all():
+    """A meta DTensor moved from Shard(0) to Shard(1) over a mesh dim of 2
+    on the dry-run's fake group: one all-to-all of the local shard's bytes
+    (8 x 16 fp32 of a 16 x 16), as the card's DTensor runs it; no
+    all-gather stands in for it."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    with dryrun.fake_group(mesh_lib.abstract_mesh(1, 2)) as mesh:
+        x = DTensor.from_local(torch.empty(8, 16, device="meta"), mesh,
+                               (Shard(0), Shard(0)), run_check=False)
+        with cost.CostMode() as mode:
+            y = x.redistribute(mesh, (Shard(0), Shard(1)))
+        assert tuple(y.to_local().shape) == (16, 8)
+    assert not dist.is_initialized()
+    assert mode.cost.coll["all-to-all"] == 8 * 16 * 4
+    assert mode.cost.coll["all-gather"] == 0
+    assert mode.cost.coll_count == 1
+
+
 def test_bytes_nonzero_and_sane():
     c = _analyze(lambda x: (x * 2 + 1).sum(), _meta(256, 256))
     assert c.bytes >= 256 * 256 * 4          # at least one read

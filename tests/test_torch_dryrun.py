@@ -112,9 +112,23 @@ def test_kernel_calls_of_a_train_step():
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
 def test_meshes_past_one_chip_are_skipped(mesh):
-    rec = dryrun.run_cell("qwen3-0.6b", "train_4k", mesh=mesh, verbose=False)
-    assert rec["status"] == "skipped" and rec["mesh"] == mesh
-    assert "sharded train step" in rec["reason"]
+    """A dense cell runs on a production mesh as rank 0 of a fake group
+    (one kv head and 32768 x 32 / dp rows a rank: B1 once a layer, the
+    weights gathered); a family with no sharded step is skipped, naming its
+    ROADMAP item."""
+    rec = dryrun.run_cell("qwen3-0.6b", "prefill_32k", mesh=mesh,
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["mesh"] == mesh, rec.get("traceback")
+    assert rec["kernels"] == {"B1": configs.get_config("qwen3-0.6b").n_layers}
+    assert rec["fits"] and rec["collectives"]["all-gather"] > 0
+    assert rec["roofline"]["chips"] == math.prod(
+        int(d) for d in mesh.split("x"))
+    skip = dryrun.run_cell("mixtral-8x22b", "train_4k", mesh=mesh,
+                           verbose=False)
+    assert skip["status"] == "skipped" and skip["mesh"] == mesh
+    assert "queue A item 16. The MoE family on a mesh" in skip["reason"]
+    assert "Configurations the port does not run" in skip["reason"]
+    assert not torch.distributed.is_initialized()
 
 
 def test_long_500k_skips_full_attention_archs():
@@ -130,7 +144,7 @@ def test_cli(tmp_path, capsys):
     assert rec["status"] == "ok" and rec["mesh"] == "1x1"
     assert "perdev=" in capsys.readouterr().out
     assert dryrun.main(["--both-meshes", "--arch", "qwen3-0.6b", "--shape",
-                        "train_4k", "--out", str(out)]) == 0
+                        "decode_32k", "--out", str(out)]) == 0
     assert [r["mesh"] for r in json.loads(out.read_text())] == \
         ["16x16", "2x16x16"]
 

@@ -427,7 +427,7 @@ def test_later_items_stand_in_the_roadmap():
         for note in kind.values():
             num, title = re.match(r"(\d+) \((.+)\)$", note).groups()
             assert _item_title(num) == title
-    # items 8, 13 and 14 are done and pruned: queue A is empty
+    # items 8, 13 and 14 are done and pruned
     for done in (8, 13, 14):
         assert not re.search(rf"^{done}\. \*\*", ROADMAP, re.M)
 

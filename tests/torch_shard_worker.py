@@ -1,0 +1,128 @@
+"""One rank of the port's sharded-step checks: ``tests/test_torch_sharded.py``
+starts a group of these and reads what rank 0 writes.
+
+    PYTHONPATH=src python tests/torch_shard_worker.py GROUP RANK WORLD OUT_DIR
+
+The ranks of a group meet through a ``FileStore`` in OUT_DIR (no TCP port)
+over gloo and give up after 60 s. OUT_DIR holds ``cases.json`` (the cases,
+each with its group) and ``inputs.npz`` (each arch's parameters as the
+port's flattened leaves, from the reference's init, and the tokens and
+labels). For each case of its group, every rank:
+  * places the parameters and an sgd state (momentum, global-norm clipping)
+    on the case's mesh (``sharding.state_specs``) and the batch as the
+    reference's ``NamedSharding`` would (``steps.distribute_batch``), takes
+    one ``make_train_step(..., mesh=)`` step per microbatch count, and
+    gathers the loss, the accuracy and every updated parameter whole;
+  * with ``serve``, runs the prefill step on the placed parameters and
+    ``DECODE_STEPS`` greedy decode steps from its cache;
+and rank 0 writes ``{case}.npz``.
+"""
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch import configs, weights
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+from repro_torch.models.transformer import SystemConfig
+from repro_torch.optim import optimizers
+
+DECODE_STEPS = 3
+LR = 0.1
+
+
+def system(case, microbatches=1):
+    """The case's sys: fp32, the reference's pins (batch axes, heads)."""
+    baxes = ("pod", "data") if len(case["mesh"]) == 3 else ("data",)
+    return SystemConfig(precision="fp32", q_chunk=16, kv_chunk=16,
+                        use_pallas=case["pallas"], shard_attn=True,
+                        batch_axes=baxes, microbatches=microbatches)
+
+
+def optimizer():
+    return optimizers.sgd(LR, momentum=0.9, clip_norm=1.0)
+
+
+def whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def make_mesh(case):
+    dims = case["mesh"]
+    pods = dims[0] if len(dims) == 3 else 1
+    return mesh_lib.make_mesh(dims[-2], dims[-1], pods=pods, device="cpu")
+
+
+def run_case(case, inputs, out_dir, rank):
+    cfg = configs.get_reduced(case["arch"])
+    mesh = make_mesh(case)
+    prefix = case["arch"] + "/"
+    flat = {k[len(prefix):]: torch.from_numpy(inputs[k])
+            for k in inputs.files if k.startswith(prefix)}
+    batch = {"tokens": torch.from_numpy(inputs["tokens"]).long(),
+             "labels": torch.from_numpy(inputs["labels"]).long()}
+    out = {}
+    for m in case["micro"]:
+        sys_cfg = system(case, m)
+        opt = optimizer()
+        params = weights.unflatten({p: t.clone() for p, t in flat.items()})
+        state = {"params": params, "opt": opt.init(params), "step": 0}
+        state = steps.place(state, sharding.state_specs(state, cfg, mesh,
+                                                        sys_cfg), mesh)
+        step = steps.make_train_step(cfg, sys_cfg, opt, mesh=mesh)
+        state, metrics = step(state, steps.distribute_batch(batch, mesh))
+        out[f"m{m}/loss"] = metrics["loss"].numpy()
+        out[f"m{m}/accuracy"] = metrics["accuracy"].numpy()
+        for p, t in weights.flatten(state["params"]).items():
+            out[f"m{m}/params/{p}"] = whole(t).numpy()
+        kinds = {type(t).__name__
+                 for t in weights.flatten(state["params"]).values()}
+        out[f"m{m}/all_dtensors"] = np.array(kinds == {"DTensor"})
+    if case["serve"]:
+        sys_cfg = system(case)
+        params = steps.place(
+            weights.unflatten(dict(flat)),
+            sharding.param_specs(weights.unflatten(dict(flat)), cfg, mesh,
+                                 sys_cfg), mesh)
+        S = batch["tokens"].shape[1]
+        prefill = steps.make_prefill_step(cfg, sys_cfg,
+                                          max_len=S + DECODE_STEPS)
+        decode = steps.make_decode_step(cfg, sys_cfg)
+        logits, cache = prefill(params, steps.distribute_batch(
+            {"tokens": batch["tokens"]}, mesh))
+        out["prefill_logits"] = whole(logits).numpy()
+        tok = whole(logits).argmax(-1)
+        toks = [tok]
+        for i in range(DECODE_STEPS):
+            logits, cache = decode(params, cache, steps.distribute_batch(
+                {"t": tok}, mesh)["t"], S + i)
+            tok = whole(logits).argmax(-1)
+            toks.append(tok)
+        out["tokens"] = torch.cat(toks, 1).numpy()
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"{case['name']}.npz"), **out)
+
+
+def main(group, rank, world, out_dir):
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(out_dir, f"store_{group}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    with open(os.path.join(out_dir, "cases.json")) as f:
+        cases = [c for c in json.load(f) if c["group"] == group]
+    inputs = np.load(os.path.join(out_dir, "inputs.npz"))
+    for case in cases:
+        run_case(case, inputs, out_dir, rank)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
