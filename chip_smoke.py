@@ -6,6 +6,7 @@
     python3 chip_smoke.py --service | --obs     # one phase alone
     python3 chip_smoke.py --dryrun              # [serve], [train], [dryrun]
     python3 chip_smoke.py --shard               # build, then [shard]
+    python3 chip_smoke.py --shardfam            # build, then [shardfam]
 
 Phases (any failure raises, and the script exits non-zero):
   1. print the card (nvidia-smi name and power limit); build every kernel of
@@ -414,11 +415,34 @@ Phases (any failure raises, and the script exits non-zero):
      (arch, mesh): each cell ok, with its per-device GB, fits, collective
      bytes by kind, dominant roofline term and trace seconds printed, and
      the wall time. The phase within ``SHARD_PHASE_LIMIT_S``.
+ 19. the MoE, vlm and audio families' sharded steps (``[shardfam]``), on a
+     1x1 mesh over NCCL as in 18: (a) qwen2-moe-a2.7b at full width, cut
+     to the depth whose adamw step fits the card by the bytes
+     ``shardfam_train_layers`` reckons, ``SHARD_STEPS`` train steps
+     against the unsharded steps as 18 (a) holds them, B1-B3 once a layer
+     a step; (b) qwen2-moe-a2.7b (24 layers, 8 x 2048) and mixtral-8x22b
+     (4 layers, 2 x 8192, window 4096) prefilled and decoded on DTensor
+     parameters against the plain ones under deterministic algorithms:
+     the prefill's and every decode step's logits bit for bit, the same
+     tokens, B1 once a layer; (c) internvl2-26b served at full
+     depth and trained at ``VLM_CUT_LAYERS``, whisper-small served and
+     trained whole (no kernel), each checked as (a) and (b); (d) rank 0 of
+     a fake 16x16 group runs ``SHARDFAM_CELLS``' local steps as 18 (c)
+     does (the MoE cell with the dry-run's balanced routing put in place
+     by ``patched``); (e) the 26 production cells of these archs (13 a
+     mesh) through ``python -m repro_torch.launch.dryrun``, one process a
+     cell: each cell's status, GB a device and largest collective, held
+     on status and ``fits``. The phase within ``SHARDFAM_PHASE_LIMIT_S``.
+     18 (d)'s and 19 (e)'s processes run in one ``DryrunPool`` started
+     after the build, ``DRYRUN_WORKERS`` at a time at nice 19, beside the
+     phases from [hopper] on (stopped at exit, whatever the outcome); the
+     run prints how long after the build its last job ended, and the
+     phases that ended before then ran beside it.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
 ``launches_vlm`` and ``vlm`` timing rows, their ``launches_ckpt``,
 ``launches_ckpt_resume``, ``launches_dist``, ``launches_service``,
-``launches_tune``, ``launches_tiles`` and ``launches_shard`` and their
-``plans`` rows, B4
+``launches_tune``, ``launches_tiles``, ``launches_shard`` and
+``launches_shardfam`` and their ``plans`` rows, B4
 and B5 with their ``launches_ssm`` and ``launches_service``), the card
 line, and last ``{"ok": true, "device": {...}}``.
 
@@ -426,7 +450,8 @@ line, and last ``{"ok": true, "device": {...}}``.
 its launches as JSON; ``--obs`` runs ``[obs]`` alone (it builds nothing:
 no kernel runs in it); ``--dryrun`` builds the kernels and runs 3 and 4
 (``[serve]``, ``[train]``), then ``[dryrun]`` on what they measured;
-``--shard`` builds the kernels and runs ``[shard]`` alone.
+``--shard`` builds the kernels and runs ``[shard]`` alone, and
+``--shardfam`` ``[shardfam]``.
 ``--train-child LAYERS ARGS`` (used by [ckpt]) runs
 ``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
 prints its start step, losses, step times and B1-B3 launches as JSON.
@@ -439,6 +464,7 @@ exit code, so a crash is put down to the lanes or to the profiler. Without CUDA,
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -897,7 +923,7 @@ BOUNDS_TIMED = []
 # SHARD_CELLS' local steps on the card, its max_memory_allocated held
 # against the dry-run's per-device peak within SHARD_PEAK_LIMITS (the 1x1
 # cells read 0.997-0.999); (d) the 24 dense cells of the production meshes
-# on meta, one process an (arch, mesh).
+# on meta, one process an (arch, mesh), in the DryrunPool below.
 SHARD_STEPS = 2
 SHARD_UPDATE_RTOL = 0.05
 SHARD_CELLS = (("prefill_32k", "16x16"), ("train_4k", "16x16"))
@@ -908,6 +934,55 @@ SHARD_MESHES = ("16x16", "2x16x16")
 SHARD_PHASE_LIMIT_S = 240.0
 SHARD_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
     "shard"
+
+# [shardfam]: the MoE, vlm and audio families' sharded steps, held as
+# [shard] holds the dense family's. (a) qwen2-moe-a2.7b at full width
+# trained SHARD_STEPS steps on a 1x1 mesh against the unsharded steps, at
+# the depth whose adamw run fits SHARDFAM_MEMORY_SHARE of the card: a
+# parameter costs SHARDFAM_STATE_BYTES through the update (fp32 master 4,
+# adamw's m and v 8, the fp32 gradient 4, the update 4; the bf16 copy of
+# the forward, 2, is gone by then), adamw's fp32 temporaries over the
+# largest leaf SHARDFAM_TEMP_BYTES an element (the clipped gradient, m, v,
+# the step), and the fp32 logits SHARDFAM_LOGIT_BYTES a (token, vocab)
+# entry (the logits, their gradient, logsumexp's temporary). Full depth is
+# 14.3 B parameters, 57 GB in fp32 before the optimizer. One state is on
+# the card at a time: the unsharded run's start and end go to the host.
+# (b) qwen2-moe-a2.7b and mixtral-8x22b at [archs]' depth and prompt,
+# prefill and SHARDFAM_GEN - 1 decode steps, on DTensor parameters
+# against the plain ones, under deterministic algorithms (index_add_'s
+# atomics would reorder top_k = 4 sums); (c) internvl2-26b at [vlm]'s
+# depths (served whole, trained at VLM_CUT_LAYERS) and whisper-small whole,
+# each trained as (a) and served as (b); (d) rank 0 of a fake 16x16 group
+# runs SHARDFAM_CELLS' local steps as [shard] (c), the MoE cell with the
+# dry-run's balanced routing put in place; (e) the 13 cells a mesh of
+# these archs on the production meshes through ``python -m
+# repro_torch.launch.dryrun``, one process a cell. In the whole command
+# [shard] (d)'s and (e)'s jobs run in one DryrunPool of DRYRUN_WORKERS
+# processes at nice 19, with no card visible to them, started after the
+# build: beside the other phases they add no wall time of their own (one
+# host put [shardfam] at 220 s and the whole command at 1197.1 s when (e)
+# ran in its phase alone; started before [shard] with 7 processes, the
+# pool still held [shard] at 103.7 s and [shardfam] at 139.9 s). The
+# phases they overlap share the host's cores with them, so those phases'
+# host-timed readings are taken beside the pool. ``--shard`` and
+# ``--shardfam`` start their own pool.
+SHARDFAM_MOE = "qwen2-moe-a2.7b"
+SHARDFAM_STATE_BYTES = 20
+SHARDFAM_TEMP_BYTES = 16
+SHARDFAM_LOGIT_BYTES = 12
+SHARDFAM_MEMORY_SHARE = 0.85
+SHARDFAM_SERVE = ARCHS_RUNS[:2]
+SHARDFAM_GEN = 8
+SHARDFAM_CELLS = (("internvl2-26b", "prefill_32k", "16x16"),
+                  ("qwen2-moe-a2.7b", "train_4k", "16x16"))
+SHARDFAM_ARCHS = ("mixtral-8x22b", "qwen2-moe-a2.7b", "internvl2-26b",
+                  "whisper-small")
+SHARDFAM_PHASE_LIMIT_S = 300.0
+SHARDFAM_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "shardfam"
+DRYRUN_WORKERS = 4
+DRYRUN_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "dryrun_pool"
 
 
 class SmokeFailure(RuntimeError):
@@ -7032,12 +7107,16 @@ def shard_train(fa, fa_bwd, steps, card, mesh):
 def update_error(init, ref, got):
     """(the worst leaf's ||(got - init) - (ref - init)|| / ||ref - init||,
     that leaf's path): how far the update that ``got`` holds is from the
-    reference update, per parameter leaf (dicts path -> tensor)."""
+    reference update, per parameter leaf (dicts path -> tensor; a leaf
+    on the host or a DTensor is taken whole onto the card one at a time)."""
     import torch
     worst, leaf = -1.0, None
     for path, p0 in init.items():
-        want = ref[path].float() - p0.float()
-        err = float(torch.linalg.vector_norm(got[path].float() - p0.float()
+        g = got[path]
+        g = g.full_tensor() if hasattr(g, "full_tensor") else g
+        p0 = p0.to("cuda").float()
+        want = ref[path].to("cuda").float() - p0
+        err = float(torch.linalg.vector_norm(g.to("cuda").float() - p0
                                              - want))
         scale = float(torch.linalg.vector_norm(want))
         ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
@@ -7140,21 +7219,29 @@ def shard_serve(fa, fa_bwd, steps, card, mesh):
     return b1
 
 
-def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name):
+def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name,
+                    arch=ARCH, rec=None, patches=(), tag="[shard] (c)"):
     """[shard] (c): rank 0 of a fake group runs one production cell's
     local step on the card (numbers unchecked: the fake collectives write
     nothing): the kernels' launches against the dry-run's calls, B1's
     local shape, and max_memory_allocated against the dry-run's
-    per-device peak. Returns (launches B1-B3, ratio)."""
+    per-device peak (argument, unused argument and temp bytes). ``rec`` is
+    the cell's dry-run record (run here if None); ``patches`` are
+    (owner, name, value) set for the card's step. Returns (launches
+    B1-B3, ratio)."""
     import torch
     from repro_torch import configs, spmd
     from repro_torch.launch import dryrun
     from repro_torch.tree import tree_map
-    rec = dryrun.run_cell(ARCH, shape_name, mesh=mesh_name, verbose=False)
-    check(rec["status"] == "ok", f"[shard] dry-run cell: {rec}")
+    if rec is None:
+        rec = dryrun.run_cell(arch, shape_name, mesh=mesh_name,
+                              verbose=False)
+    check(rec["status"] == "ok", f"{tag} dry-run cell: {rec}")
     mem = rec["memory"]
-    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-    cfg = configs.get(ARCH)
+    predicted = (mem["argument_size_in_bytes"]
+                 + mem.get("unused_argument_bytes", 0)
+                 + mem["temp_size_in_bytes"])
+    cfg = configs.get(arch)
     shape = configs.SHAPES[shape_name]
     amesh = dryrun._abstract_mesh(mesh_name)
     sizes = dict(zip(amesh.mesh_dim_names, amesh.shape))
@@ -7202,7 +7289,10 @@ def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name):
         def spy(q, *rest):
             seen.append(tuple(q.shape))
             return launch(q, *rest)
-        with patched(fa, "_launch", spy):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(fa, "_launch", spy))
+            for owner, name, value in patches:
+                stack.enter_context(patched(owner, name, value))
             t0 = time.perf_counter()
             out = step(*args)
             torch.cuda.synchronize()
@@ -7219,61 +7309,37 @@ def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name):
     want = (rows, shape.seq_len, 1, cfg.n_heads // cfg.n_kv_heads,
             cfg.resolved_head_dim)
     calls = tuple(rec["kernels"].get(k, 0) for k in ("B1", "B2", "B3"))
-    print(f"[shard] (c) {card} | rank 0 of a fake {mesh_name} group on the "
-          f"card, {ARCH} {shape_name} (microbatches "
+    print(f"{tag} {card} | rank 0 of a fake {mesh_name} group on the "
+          f"card, {arch} {shape_name} (microbatches "
           f"{sys_cfg.microbatches}, remat {sys_cfg.remat}): launches "
           f"B1/B2/B3 {counts} (dry-run calls {calls}) at local q "
           f"{sorted(set(seen))} (expected {want}); {ms:.1f} ms (host clock, "
           f"numbers unchecked); arguments {base / 2 ** 30:.3f} GiB, "
           f"max_memory_allocated {peak / 2 ** 30:.3f} GiB against the "
           f"dry-run's per-device peak {predicted / 2 ** 30:.3f} GiB "
-          f"(arguments {mem['argument_size_in_bytes'] / 2 ** 30:.3f}, temp "
+          f"(arguments {mem['argument_size_in_bytes'] / 2 ** 30:.3f}, "
+          f"unused {mem.get('unused_argument_bytes', 0) / 2 ** 30:.3f}, temp "
           f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f}): predicted / measured "
           f"{ratio:.4f}, limits {lo}-{hi} "
           f"{'ok' if lo <= ratio <= hi else 'FAIL'}; dry-run trace "
           f"{rec['trace_s']:.1f} s", flush=True)
-    check(counts == calls, f"[shard] fake rank launched {counts}, the "
+    check(counts == calls, f"{tag} fake rank launched {counts}, the "
           f"dry-run counts {calls}")
-    check(set(seen) == {want}, f"[shard] B1 saw {set(seen)}")
-    check(lo <= ratio <= hi, f"[shard] {shape_name}: predicted peak "
+    check(set(seen) == {want}, f"{tag} B1 saw {set(seen)}")
+    check(lo <= ratio <= hi, f"{tag} {shape_name}: predicted peak "
           f"{ratio:.4f} of the measured")
     return counts, ratio
 
 
-def shard_dryrun_cells(card):
+def shard_dryrun_cells(card, pool):
     """[shard] (d): the dense archs' train_4k, prefill_32k and decode_32k
-    cells on both production meshes through ``python -m
-    repro_torch.launch.dryrun``, one process an (arch, mesh), all at once,
-    on meta."""
+    cells on both production meshes, from ``pool``'s jobs (one process an
+    (arch, mesh)), on meta."""
     import os
-    t0 = time.perf_counter()
-    SHARD_ROOT.mkdir(parents=True, exist_ok=True)
-    src = str(Path(__file__).resolve().parent / "src")
-    env = dict(os.environ, PYTHONPATH=src + os.pathsep +
-               os.environ.get("PYTHONPATH", ""))
-    env["OMP_NUM_THREADS"] = "1"        # meta tensors: no compute to share
     cells = [(a, s, m) for m in SHARD_MESHES for a in SHARD_DENSE
              for s in SHARD_SHAPES]
-    # one process an (arch, mesh): its shapes in turn, one import a process
-    procs, done = [], {}
-    for m in SHARD_MESHES:
-        for a in SHARD_DENSE:
-            out = SHARD_ROOT / f"{a}_{m}.json"
-            log = open(SHARD_ROOT / f"{a}_{m}.log", "w")
-            procs.append(((a, m), out, subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 a, "--mesh", m, "--out", str(out)],
-                stdout=log, stderr=subprocess.STDOUT, env=env)))
-            log.close()
-    for (a, m), out, proc in procs:
-        proc.wait()
-        log = out.with_suffix(".log").read_text()
-        check(proc.returncode == 0 and out.exists(),
-              f"[shard] dry-run {a} {m} exited {proc.returncode}: "
-              f"{log[-2000:]}")
-        for r in json.loads(out.read_text()):
-            done[(r["arch"], r["shape"], r["mesh"])] = r
-    wall = time.perf_counter() - t0
+    got = {c: pool.record(c, "[shard] (d)") for c in cells}
+    done = {c: r for c, (r, _) in got.items()}
     for cell in cells:
         r = done[cell]
         check(r["status"] == "ok", f"[shard] dry-run {cell}: {r}")
@@ -7285,18 +7351,20 @@ def shard_dryrun_cells(card):
               f"{r['roofline']['dominant']}, step "
               f"{r['roofline']['step_time_s']:.4e} s; trace "
               f"{r['trace_s']:.1f} s", flush=True)
-    print(f"[shard] (d) {len(cells)} cells in {wall:.1f} s on {len(procs)} "
-          f"processes ({sum(done[c]['trace_s'] for c in cells):.1f} s of "
-          f"traces; {os.cpu_count()} CPU cores)", flush=True)
-    shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    print(f"[shard] (d) {len(cells)} cells done "
+          f"{max(t for _, t in got.values()):.1f} s after the pool's "
+          f"start, {DRYRUN_WORKERS} processes at a time "
+          f"({sum(done[c]['trace_s'] for c in cells):.1f} s of traces; "
+          f"{os.cpu_count()} CPU cores)", flush=True)
     return done
 
 
-def phase_shard(fa, fa_bwd, steps, card):
+def phase_shard(fa, fa_bwd, steps, card, pool=None):
     """[shard]: the dense family's step on a DeviceMesh (module docstring,
-    18); returns B1-B3's launches ("train_step", B1's "prefill", and each
-    fake cell's, "fake_16x16_prefill_32k" and so on), the train step
-    times and the fake cells' peak ratios."""
+    18), (d)'s cells from ``pool`` (started here if None); returns B1-B3's
+    launches ("train_step", B1's "prefill", and each fake cell's,
+    "fake_16x16_prefill_32k" and so on), the train step times and the fake
+    cells' peak ratios."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -7313,9 +7381,18 @@ def phase_shard(fa, fa_bwd, steps, card):
         prefill_b1 = shard_serve(fa, fa_bwd, steps, card, mesh)
     finally:
         dist.destroy_process_group()
-    fake = {f"fake_{m}_{c}": shard_fake_cell(fa, fa_bwd, steps, card, c, m)
-            for c, m in SHARD_CELLS}
-    shard_dryrun_cells(card)
+    own = pool is None
+    if own:
+        pool = DryrunPool(shard_jobs())
+    try:
+        fake = {f"fake_{m}_{c}": shard_fake_cell(fa, fa_bwd, steps, card, c,
+                                                 m)
+                for c, m in SHARD_CELLS}
+        shard_dryrun_cells(card, pool)
+    finally:
+        if own:
+            pool.stop()
+    shutil.rmtree(SHARD_ROOT, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     print(f"[shard] phase {phase_s:.1f} s (limit {SHARD_PHASE_LIMIT_S:.0f} "
           f"s)", flush=True)
@@ -7325,6 +7402,470 @@ def phase_shard(fa, fa_bwd, steps, card):
             "train_ms": train_ms,
             **{name: counts for name, (counts, _) in fake.items()},
             "peak_ratios": {name: r for name, (_, r) in fake.items()}}
+
+
+def shardfam_train_layers(cfg, total_bytes):
+    """(a)'s depth: the most layers whose adamw step fits
+    SHARDFAM_MEMORY_SHARE of ``total_bytes`` (the bytes a parameter, the
+    largest leaf's temporaries and the logits, as the constants say), and
+    the bytes reckoned for it."""
+    from repro_torch import weights
+    shapes = weights.leaf_shapes(cfg)
+    layer = {p: math.prod(s[1:]) for p, s in shapes.items()
+             if p.startswith("layers/")}
+    outside = {p: math.prod(s) for p, s in shapes.items()
+               if not p.startswith("layers/")}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def reckon(n):
+        params = sum(outside.values()) + n * sum(layer.values())
+        largest = max(max(outside.values()), n * max(layer.values()))
+        return (SHARDFAM_STATE_BYTES * params + SHARDFAM_TEMP_BYTES * largest
+                + SHARDFAM_LOGIT_BYTES * tokens * cfg.padded_vocab)
+    fits = [n for n in range(1, cfg.n_layers + 1)
+            if reckon(n) <= SHARDFAM_MEMORY_SHARE * total_bytes]
+    check(fits, f"[shardfam] no depth of {cfg.name} fits")
+    return fits[-1], reckon(fits[-1])
+
+
+def shardfam_train(fa, fa_bwd, steps, card, mesh, label, cfg, batches,
+                   want):
+    """A SHARD_STEPS-step train run on a 1x1 mesh against the unsharded run
+    from the same seed, held as [shard] (a) holds it: the first loss, the
+    steps' change of the loss and of every leaf within SHARD_UPDATE_RTOL
+    of the unsharded change, a planted unchanged state caught, ``want``
+    launches of B1-B3 a step. Returns the launches of each sharded step."""
+    import torch
+    from repro_torch import configs, weights
+    from repro_torch.optim import optimizers
+    sys_cfg = steps.default_sys(cfg, configs.SHAPES["train_4k"], dp=1, tp=1)
+    sys_cfg = dataclasses.replace(sys_cfg, microbatches=1, remat="none")
+    opt = optimizers.adamw(3e-4, weight_decay=0.01)
+
+    def run(mesh_):
+        torch.cuda.empty_cache()
+        state = steps.make_train_state(
+            torch.Generator(device="cuda").manual_seed(0), cfg, opt, "cuda",
+            mesh=mesh_, sys=sys_cfg)
+        start = None if mesh_ is not None else {
+            p: t.to("cpu") for p, t in weights.flatten(state["params"]).items()}
+        step = steps.make_train_step(cfg, sys_cfg, opt, mesh=mesh_)
+        losses, ms, counts = [], [], []
+        for batch in batches:
+            if mesh_ is not None:
+                batch = steps.distribute_batch(batch, mesh_)
+            reset_counts(fa, fa_bwd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            counts.append(read_counts(fa, fa_bwd))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        return state, start, losses, ms, counts
+
+    plain, init, plain_losses, plain_ms, _ = run(None)
+    ref = {p: t.to("cpu") for p, t in weights.flatten(plain["params"]).items()}
+    del plain
+    sharded, _, losses, ms, counts = run(mesh)
+    kinds = {type(t).__name__ for t in weights.flatten(sharded).values()
+             if torch.is_tensor(t)}
+    got = weights.flatten(sharded["params"])
+    n = len(ref)
+    n_equal = sum(bool(torch.equal(got[p].full_tensor(), ref[p].cuda()))
+                  for p in ref)
+
+    def loss_change_err(ls):
+        want_d = plain_losses[-1] - plain_losses[0]
+        return abs(ls[-1] - ls[0] - want_d) / abs(want_d)
+    first_diff = abs(losses[0] - plain_losses[0])
+    loss_err = loss_change_err(losses)
+    update_err, leaf = update_error(init, ref, got)
+    fault_err, _ = update_error(init, ref, init)
+    fault_loss = loss_change_err([losses[0]] * len(losses))
+    caught = min(fault_err, fault_loss) > SHARD_UPDATE_RTOL
+    n_params = sum(t.numel() for t in ref.values())
+    del sharded, got, ref, init
+    torch.cuda.empty_cache()
+    ok = max(loss_err, update_err) <= SHARD_UPDATE_RTOL
+    print(f"[shardfam] {label} {card} | train on a 1x1 mesh (NCCL, world 1), "
+          f"{cfg.name} at full width, {cfg.n_layers} layers "
+          f"({n_params:,} parameters), {SHARD_STEPS} steps: state leaves "
+          f"{sorted(kinds)}; launches B1/B2/B3 a step {counts} (expected "
+          f"{want}); losses {' '.join(f'{x:.6f}' for x in losses)} against "
+          f"unsharded {' '.join(f'{x:.6f}' for x in plain_losses)} (first "
+          f"|diff| {first_diff:.3e}); {n_equal} of {n} leaves equal bit for "
+          f"bit; the steps' change against the unsharded change: loss "
+          f"{loss_err:.3e}, worst leaf {update_err:.3e} ({leaf}), limit "
+          f"{SHARD_UPDATE_RTOL:g} {'ok' if ok else 'FAIL'}; planted unchanged "
+          f"state: loss {fault_loss:.3f}, params {fault_err:.3f} "
+          f"{'caught' if caught else 'MISSED'}; step ms sharded "
+          f"{' '.join(f'{x:.1f}' for x in ms)}, unsharded "
+          f"{' '.join(f'{x:.1f}' for x in plain_ms)} (host clock, first step "
+          f"with warm-up)", flush=True)
+    check(kinds == {"DTensor"}, f"[shardfam] {label}: the sharded state "
+          f"holds {kinds}")
+    check(all(c == want for c in counts), f"[shardfam] {label}: launches "
+          f"{counts}, expected {want} a step")
+    check(all(math.isfinite(x) for x in losses), f"[shardfam] {label}: "
+          "non-finite loss")
+    check(first_diff <= 1e-2, f"[shardfam] {label}: first losses differ by "
+          f"{first_diff}")
+    check(ok, f"[shardfam] {label}: loss change {loss_err:.3e}, {leaf}'s "
+          f"update {update_err:.3e} off the unsharded")
+    check(caught, f"[shardfam] {label}: the update check misses an "
+          "unchanged state")
+    return counts
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside
+    the block (its warnings silenced), the setting of before after it."""
+    import warnings
+    import torch
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def shardfam_serve(fa, fa_bwd, steps, card, mesh, label, cfg, prompt,
+                   want_b1):
+    """A prefill of ``prompt`` (bf16 parameters from a seed) and
+    SHARDFAM_GEN - 1 greedy decode steps, on the plain parameters, then on
+    DTensor parameters on a 1x1 mesh (moved leaf by leaf, so one copy is
+    held), under deterministic algorithms: the prefill's and every decode
+    step's logits bit for bit, the same tokens, ``want_b1`` B1 launches a
+    prefill. Returns B1's launches of the sharded prefill."""
+    import torch
+    from repro_torch import configs, weights
+    from repro_torch.distributed import sharding
+    sys_cfg = steps.default_sys(cfg, configs.SHAPES["prefill_32k"], dp=1,
+                                tp=1)
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    S = prompt["tokens" if "tokens" in prompt else "embeddings"].shape[1]
+    torch.cuda.empty_cache()
+    params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, "cuda")
+    n_params = sum(t.numel() for t in weights.flatten(params).values())
+    prefill = steps.make_prefill_step(cfg, sys_cfg, max_len=S + SHARDFAM_GEN)
+    decode = steps.make_decode_step(cfg, sys_cfg)
+
+    def serve(p, sharded):
+        batch = steps.distribute_batch(prompt, mesh) if sharded else prompt
+        reset_counts(fa, fa_bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, batch)
+        b1 = read_counts(fa, fa_bwd)[0]
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        logits = logits.full_tensor() if sharded else logits
+        outs = [logits.float().clone()]
+        tok = logits[:, -1].argmax(-1)[:, None]
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(SHARDFAM_GEN - 1):
+            t = steps.distribute_batch({"t": tok}, mesh)["t"] if sharded \
+                else tok
+            logits, cache = decode(p, cache, t, S + i)
+            logits = logits.full_tensor() if sharded else logits
+            outs.append(logits.float().clone())
+            tok = logits[:, -1].argmax(-1)[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (SHARDFAM_GEN - 1)
+        del cache
+        return outs, torch.cat(toks, 1), b1, pre_ms, dec_ms
+
+    with deterministic_algorithms():
+        ref, ref_toks, ref_b1, ref_pre, ref_dec = serve(params, False)
+        specs = sharding.param_specs(params, cfg, mesh, sys_cfg)
+        flat = weights.flatten(params)
+        del params
+        placed = steps.place_leaves(flat, specs, mesh)
+        got, toks, b1, pre_ms, dec_ms = serve(placed, True)
+    del placed
+    torch.cuda.empty_cache()
+    # step 0 the prefill, step i > 0 the i-th decode step
+    differ = [i for i, (g, r) in enumerate(zip(got, ref))
+              if not torch.equal(g, r)]
+    equal = len(got) == len(ref) and not differ
+    same = bool(torch.equal(toks, ref_toks))
+    if equal:
+        text = (f"of the prefill and the {SHARDFAM_GEN - 1} decode steps "
+                "equal the unsharded ones bit for bit")
+    else:
+        text = (f"NOT bit-equal at steps {differ} (0 the prefill), max|diff| "
+                f"{max(float((got[i] - ref[i]).abs().max()) for i in differ):.3e}"
+                if differ else f"{len(got)} steps against {len(ref)}")
+    print(f"[shardfam] {label} {card} | {cfg.name} {cfg.n_layers} layers "
+          f"({n_params:,} parameters, bf16), prefill "
+          f"{' x '.join(str(d) for d in next(iter(prompt.values())).shape[:2])}"
+          f" on a 1x1 mesh: B1 launches {b1} (unsharded {ref_b1}, expected "
+          f"{want_b1}); logits {text}; {SHARDFAM_GEN} tokens greedy "
+          f"{'equal' if same else 'DIFFER'}; host clock, deterministic "
+          f"algorithms on: prefill {pre_ms:.1f} ms (unsharded {ref_pre:.1f}), "
+          f"decode {dec_ms:.1f} ms/step (unsharded {ref_dec:.1f})",
+          flush=True)
+    check(b1 == ref_b1 == want_b1, f"[shardfam] {label}: prefill launched "
+          f"B1 {b1} and {ref_b1} times, expected {want_b1}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"[shardfam] {label}: logits not finite")
+    check(equal, f"[shardfam] {label}: the sharded logits {text}")
+    check(same, f"[shardfam] {label}: the sharded run's tokens differ")
+    return b1
+
+
+def shard_jobs():
+    """[shard] (d)'s dry-run jobs: one process an (arch, mesh), its shapes
+    in turn (one import a process)."""
+    return [(a, m, None) for m in SHARD_MESHES for a in SHARD_DENSE]
+
+
+def shardfam_jobs():
+    """[shardfam] (e)'s dry-run jobs: one process a cell, SHARDFAM_CELLS'
+    first, the long ones next (train cells, whisper's 32768-token decoder
+    on meta: about a minute each on one core)."""
+    from repro_torch import configs
+    cells = [(a, m, s) for m in SHARD_MESHES for a in SHARDFAM_ARCHS
+             for s in configs.SHAPES
+             if configs.shape_applicable(configs.get(a), configs.SHAPES[s])]
+    first = [(a, m, s) for a, s, m in SHARDFAM_CELLS]
+    return first + sorted((c for c in cells if c not in first),
+                          key=lambda c: c[2] != "train_4k" and (
+                              c[0], c[2]) != ("whisper-small", "prefill_32k"))
+
+
+class DryrunPool:
+    """Production-mesh dry-run jobs through ``python -m
+    repro_torch.launch.dryrun``, ``DRYRUN_WORKERS`` processes at a time. A
+    job is (arch, mesh, shape), shape None for every shape of the arch.
+    The children see no card (``CUDA_VISIBLE_DEVICES`` empty: the fake
+    group's "cuda" mesh needs none) and run at nice 19, beside the card's
+    phases. ``stop`` ends them (safe to call twice)."""
+
+    def __init__(self, jobs):
+        import os
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+        DRYRUN_ROOT.mkdir(parents=True, exist_ok=True)
+        src = str(Path(__file__).resolve().parent / "src")
+        self.env = dict(os.environ, PYTHONPATH=src + os.pathsep +
+                        os.environ.get("PYTHONPATH", ""),
+                        OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        self.lock, self.procs, self.stopped = threading.Lock(), set(), False
+        self.t0 = time.perf_counter()
+        self.executor = ThreadPoolExecutor(DRYRUN_WORKERS)
+        self.futures = {job: self.executor.submit(self._job, job)
+                        for job in jobs}
+
+    def _job(self, job):
+        """(exit code, its records by cell, seconds after the pool's start
+        it ended, its log's end)."""
+        import os
+        a, m, s = job
+        out = DRYRUN_ROOT / f"{a}_{m}_{s or 'all'}.json"
+        with self.lock, open(out.with_suffix(".log"), "w") as log:
+            if self.stopped:
+                return -1, {}, 0.0, "stopped"
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 a, "--mesh", m, "--out", str(out)]
+                + (["--shape", s] if s else []),
+                stdout=log, stderr=subprocess.STDOUT, env=self.env)
+            self.procs.add(proc)
+        try:
+            os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+        except OSError:
+            pass
+        proc.wait()
+        recs = json.loads(out.read_text()) if out.exists() else []
+        return (proc.returncode,
+                {(r["arch"], r["shape"], r["mesh"]): r for r in recs},
+                time.perf_counter() - self.t0,
+                out.with_suffix(".log").read_text()[-2000:])
+
+    def record(self, cell, tag):
+        """The dry-run record of ``cell`` (arch, shape, mesh) and the
+        seconds after the pool's start its job ended, waiting for it."""
+        a, s, m = cell
+        job = (a, m, s) if (a, m, s) in self.futures else (a, m, None)
+        rc, recs, ended, log = self.futures[job].result()
+        check(rc == 0 and cell in recs, f"{tag} dry-run {cell} exited "
+              f"{rc}: {log}")
+        return recs[cell], ended
+
+    def pending(self):
+        """The jobs not yet ended."""
+        return sum(not f.done() for f in self.futures.values())
+
+    def last_end(self):
+        """Seconds after the pool's start its last job ended (all ended)."""
+        return max(f.result()[2] for f in self.futures.values())
+
+    def stop(self):
+        """End every job still running and drop those not started (a
+        failed phase leaves no process behind)."""
+        with self.lock:
+            self.stopped = True
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+        self.executor.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(DRYRUN_ROOT, ignore_errors=True)
+
+
+def shardfam_cells(card, pool):
+    """[shardfam] (e): each cell's status, GB a device and largest
+    collective, held on status and ``fits``."""
+    import os
+    cells = [(a, s, m) for a, m, s in shardfam_jobs()]
+    got = [pool.record(c, "[shardfam] (e)") for c in cells]
+    recs = [r for r, _ in got]
+    for cell, r in zip(cells, recs):
+        coll = {k: v for k, v in r["collectives"].items() if v}
+        top = max(coll.items(), key=lambda kv: kv[1]) if coll else None
+        print(f"[shardfam] (e) {card} host | {cell[0]} {cell[1]} {cell[2]}: "
+              f"{r['status']}, per device {r['per_device_gb']:.3f} GB, fits "
+              f"{r['fits']}, largest collective "
+              f"{f'{top[0]} {top[1]:,} bytes' if top else 'none'}; kernels "
+              f"{r['kernels']}; dominant {r['roofline']['dominant']}; trace "
+              f"{r['trace_s']:.1f} s", flush=True)
+        check(r["status"] == "ok", f"[shardfam] dry-run {cell}: {r}")
+        check(r["fits"], f"[shardfam] dry-run {cell} does not fit: "
+              f"{r['per_device_gb']} GB")
+    print(f"[shardfam] (e) {len(cells)} cells done "
+          f"{max(t for _, t in got):.1f} s after the pool's "
+          f"start, {DRYRUN_WORKERS} processes at a time "
+          f"({sum(r['trace_s'] for r in recs):.1f} s of traces; "
+          f"{os.cpu_count()} CPU cores)", flush=True)
+
+
+def phase_shardfam(fa, fa_bwd, steps, card, pool=None):
+    """[shardfam]: the MoE, vlm and audio families' steps on a DeviceMesh
+    (module docstring, 19), (e)'s cells from ``pool`` (started here if
+    None). Returns B1-B3's launches of each run."""
+    t_phase = time.perf_counter()
+    own = pool is None
+    if own:
+        pool = DryrunPool(shardfam_jobs())
+    try:
+        out = shardfam_runs(fa, fa_bwd, steps, card, pool)
+        shardfam_cells(card, pool)
+    finally:
+        if own:
+            pool.stop()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[shardfam] phase {phase_s:.1f} s (limit "
+          f"{SHARDFAM_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < SHARDFAM_PHASE_LIMIT_S, f"the shardfam phase took "
+          f"{phase_s:.1f} s")
+    return out
+
+
+def shardfam_runs(fa, fa_bwd, steps, card, pool):
+    """[shardfam] (a)-(d), the cells of (e) running meanwhile: B1-B3's
+    launches of each run."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    out = {}
+    SHARDFAM_ROOT.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(SHARDFAM_ROOT / "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_lib.single_device_mesh()
+        # (a) MoE train at the depth that fits
+        full = configs.get(SHARDFAM_MOE)
+        total = torch.cuda.get_device_properties(0).total_memory
+        layers, need = shardfam_train_layers(full, total)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        print(f"[shardfam] (a) {SHARDFAM_MOE}: {layers} of {full.n_layers} "
+              f"layers, reckoned {need / 1e9:.1f} GB of the card's "
+              f"{total / 1e9:.1f} GB (share {SHARDFAM_MEMORY_SHARE}): "
+              f"{SHARDFAM_STATE_BYTES} B a parameter, "
+              f"{SHARDFAM_TEMP_BYTES} B an element of the largest leaf, "
+              f"{SHARDFAM_LOGIT_BYTES} B a logit", flush=True)
+        toks = synthetic.make_lm_dataset(
+            0, TRAIN_BATCH * TRAIN_SEQ * SHARD_STEPS, cfg.vocab).reshape(
+                SHARD_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+        batches = [{"tokens": torch.from_numpy(t).cuda().long(),
+                    "labels": torch.from_numpy(np.roll(t, -1, -1)).cuda()
+                    .long()} for t in toks]
+        out["moe_train_step"] = shardfam_train(
+            fa, fa_bwd, steps, card, mesh, "(a)", cfg, batches,
+            (layers,) * 3)[-1]
+        # (b) MoE serve at [archs]' depth and prompt
+        for arch, n, B, S in SHARDFAM_SERVE:
+            full = configs.get(arch)
+            cfg = dataclasses.replace(full, n_layers=n or full.n_layers)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            prompt = {"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                              generator=g, device="cuda")}
+            out[f"{arch}_prefill"] = shardfam_serve(
+                fa, fa_bwd, steps, card, mesh, "(b)", cfg, prompt,
+                cfg.n_layers)
+        # (c) the vlm at [vlm]'s depths, whisper whole
+        vcfg = configs.get(VLM_ARCH)
+        B, S = VLM_SERVE
+        out["vlm_prefill"] = shardfam_serve(
+            fa, fa_bwd, steps, card, mesh, "(c)", vcfg,
+            {"embeddings": vlm_embeddings(B, S, vcfg.d_model, 1)},
+            vcfg.n_layers)
+        cut = dataclasses.replace(vcfg, n_layers=VLM_CUT_LAYERS)
+        B, S = VLM_TRAIN
+        rng = np.random.default_rng(3)
+        batches = [{"embeddings": vlm_embeddings(B, S, cut.d_model, 10 + i),
+                    "labels": torch.from_numpy(rng.integers(
+                        0, cut.vocab, (B, S))).cuda()}
+                   for i in range(SHARD_STEPS)]
+        out["vlm_train_step"] = shardfam_train(
+            fa, fa_bwd, steps, card, mesh, "(c)", cut, batches,
+            (VLM_CUT_LAYERS,) * 3)[-1]
+        ecfg = configs.get(ENC_ARCH)
+        rng = np.random.default_rng(4)
+
+        def enc_batch(i, labels=True):
+            t = rng.integers(0, ecfg.vocab, (ENC_SERVE, ENC_PROMPT))
+            b = {"frames": enc_frames(ENC_SERVE, ecfg, 20 + i,
+                                      torch.bfloat16),
+                 "tokens": torch.from_numpy(t).cuda()}
+            if labels:
+                b["labels"] = torch.from_numpy(np.roll(t, -1, -1)).cuda()
+            return b
+        out["whisper_train_step"] = shardfam_train(
+            fa, fa_bwd, steps, card, mesh, "(c)", ecfg,
+            [enc_batch(i) for i in range(SHARD_STEPS)], (0, 0, 0))[-1]
+        out["whisper_prefill"] = shardfam_serve(
+            fa, fa_bwd, steps, card, mesh, "(c)", ecfg, enc_batch(9, False),
+            0)
+        print(f"[shardfam] (c) whisper-small launched no kernel: its "
+              "attention is plain in the reference too", flush=True)
+    finally:
+        dist.destroy_process_group()
+    # (d) fake 16x16 cells, their records from (e)
+    for arch, shape, mesh_name in SHARDFAM_CELLS:
+        rec, _ = pool.record((arch, shape, mesh_name), "[shardfam] (d)")
+        # the dry-run's balanced router, on the card
+        patches = ((moe, "_route", moe.balanced_route),) if \
+            configs.get(arch).family == "moe" else ()
+        counts, _ = shard_fake_cell(fa, fa_bwd, steps, card, shape,
+                                    mesh_name, arch=arch, rec=rec,
+                                    patches=patches, tag="[shardfam] (d)")
+        out[f"fake_{mesh_name}_{arch}_{shape}"] = counts
+    return out
 
 
 def main() -> int:
@@ -7392,6 +7933,15 @@ def main() -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         print(json.dumps(phase_shard(fa, fa_bwd, steps, card)), flush=True)
         return 0
+    if sys.argv[1:2] == ["--shardfam"]:
+        print(f"[card] {card}", flush=True)
+        device_lib.resolve("cuda")
+        t0 = time.perf_counter()
+        build.build()
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps(phase_shardfam(fa, fa_bwd, steps, card)),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--service"]:
         print(f"[card] {card}", flush=True)
         device_lib.resolve("cuda")
@@ -7415,6 +7965,10 @@ def main() -> int:
         for kernel, report in ptxas_report(lib.with_suffix(".log")):
             print(f"[ptxas] {name}: {kernel}: {report}", flush=True)
     plan_spills(libs)
+    # [shard] (d)'s and [shardfam] (e)'s dry-run cells (CPU only) beside
+    # the phases from here on, done well before those phases read them
+    pool = DryrunPool(shard_jobs() + shardfam_jobs())
+    atexit.register(pool.stop)
 
     phase_hopper(build)
     errs = phase_kernels(fa)
@@ -7425,7 +7979,8 @@ def main() -> int:
     print(f"[serve] {card} | prefill {res.prefill_tok_s:.1f} tok/s "
           f"({res.prefill_ms:.3f} ms for {REQUESTS}x{PROMPT_LEN}), decode "
           f"{res.decode_tok_s:.1f} tok/s ({res.decode_ms / (GEN - 1):.3f} "
-          f"ms/step at batch {REQUESTS})", flush=True)
+          f"ms/step at batch {REQUESTS}); {pool.pending()} dry-run jobs "
+          f"of the pool still running beside it", flush=True)
     serve_info = (launches, res.prefills, res.sys, res.prefill_ms)
     del res
     torch.cuda.empty_cache()
@@ -7436,6 +7991,8 @@ def main() -> int:
     ssm_counts = phase_ssm(counters, steps, card, ml)
     phase_encdec(counters, steps, card)
     trained = phase_train(fa, fa_bwd, train, card)
+    print(f"[train] {pool.pending()} dry-run jobs of the pool still running "
+          f"at the phase's end", flush=True)
     train_counts = trained[1]
     phase_grad(fa_bwd)
     try:
@@ -7474,7 +8031,21 @@ def main() -> int:
     obs_counts = phase_obs(counters, card)
     check(not any(obs_counts.values()), f"[obs] launched {obs_counts}")
     phase_dryrun(card, serve_info, train_runs(trained))
-    shard = phase_shard(fa, fa_bwd, steps, card)
+    shard = phase_shard(fa, fa_bwd, steps, card, pool)
+    shardfam = phase_shardfam(fa, fa_bwd, steps, card, pool)
+    print(f"[pool] {len(pool.futures)} dry-run jobs, the last ended "
+          f"{pool.last_end():.1f} s after the build: the phases that ended "
+          f"before then ran beside the pool", flush=True)
+    pool.stop()
+
+    def shardfam_launches(i):
+        """A kernel's [shardfam] launches: each 1x1 sharded train step's
+        and prefill's (B1), each fake 16x16 rank's step's; zeros left
+        out."""
+        return {name: c if isinstance(c, int) else c[i]
+                for name, c in shardfam.items()
+                if (c if isinstance(c, int) else c[i])
+                and (i == 0 or not isinstance(c, int))}
 
     def shard_launches(i):
         """A kernel's [shard] launches: a 1x1 sharded train step's, a 1x1
@@ -7525,6 +8096,7 @@ def main() -> int:
          "launches_tune": tune_counts["B1"],
          "launches_tiles": tiles_launches("B1"), "plans": plan_rows("B1"),
          "launches_shard": shard_launches(0),
+         "launches_shardfam": shardfam_launches(0),
          "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
@@ -7541,6 +8113,7 @@ def main() -> int:
          "launches_tune": tune_counts["B2"],
          "launches_tiles": tiles_launches("B2"), "plans": plan_rows("B2"),
          "launches_shard": shard_launches(1),
+         "launches_shardfam": shardfam_launches(1),
          "plans_b2_b3": {p: r for p, r in plan_timing["B2+B3"].items()},
          "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
@@ -7558,6 +8131,7 @@ def main() -> int:
          "launches_tune": tune_counts["B3"],
          "launches_tiles": tiles_launches("B3"), "plans": plan_rows("B3"),
          "launches_shard": shard_launches(2),
+         "launches_shardfam": shardfam_launches(2),
          "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
                  **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),

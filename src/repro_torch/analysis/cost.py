@@ -94,6 +94,19 @@ _FUSED = {"_softmax": (5, 1), "_log_softmax": (5, 1),
           "cumsum": (1, 0), "cumprod": (1, 0), "nll_loss_forward": (0, 0),
           "embedding_dense_backward": (1, 0)}
 
+# Autograd formulas that make zeros of their own and scatter into them in
+# place (gather's backward: new_zeros, then scatter_add_; index's:
+# index_put_), by their node's name. Under a tensor subclass or a dispatch
+# mode (``isTensorSubclassLike``), and this mode is one, they take the
+# out-of-place scatter instead. The step run without the mode writes into
+# the zeros in place, and nothing but the formula holds them, so there the
+# scatter's result takes the zeros' storage over. Zeros made anywhere
+# else, and scatters anywhere else, count as they run.
+_SCATTER_NODES = {"GatherBackward0": "scatter_add",
+                  "IndexBackward0": "index_put"}
+_ZEROS = {"new_zeros", "zeros", "zeros_like"}
+_INTO_ZEROS = set(_SCATTER_NODES.values())
+
 # in-place accumulations: flops = the elements of their source
 _ACCUMULATE = {"index_add": "source", "index_add_": "source",
                "scatter_add": "src", "scatter_add_": "src",
@@ -205,7 +218,11 @@ class CostMode(TorchDispatchMode):
     the bytes of the storages the ops allocate.
 
     ``arguments(tree)`` registers the step's inputs, whose storages live
-    through the step (``argument_bytes``); every storage an op allocates
+    through the step (``argument_bytes``); ``unused_argument_bytes`` are
+    the registered storages that no op read (a view is no read), the
+    arguments a jitted step would drop (``jax.jit``'s ``keep_unused=False``:
+    the vlm's embedding table in a prefill, the encoder in whisper's
+    decode). Every storage an op allocates
     counts from the op until it dies, and ``peak_bytes`` is the most such
     bytes alive at once: the step's temporaries, its outputs among them.
     """
@@ -216,9 +233,12 @@ class CostMode(TorchDispatchMode):
         self.argument_bytes = 0
         self.live_bytes = 0
         self.peak_bytes = 0
-        self._args = set()
+        self._args: Dict[int, int] = {}
+        self._read = set()
         self._live: Dict[int, int] = {}
         self._refs: Dict[int, weakref.ref] = {}
+        self._pins: Dict[int, torch.UntypedStorage] = {}
+        self._zeros: Dict[int, str] = {}
         self._layouts: Dict[tuple, tuple] = {}
 
     def __enter__(self):
@@ -236,9 +256,21 @@ class CostMode(TorchDispatchMode):
         for t in _tensors(tree):
             key = _storage_key(t)
             if key not in self._args:
-                self._args.add(key)
-                self.argument_bytes += t.untyped_storage().nbytes()
+                self._args[key] = t.untyped_storage().nbytes()
+                self.argument_bytes += self._args[key]
         return self.argument_bytes
+
+    def mark_read(self, tree=None, like: Optional["CostMode"] = None):
+        """Count ``tree``'s storages, and those ``like`` read, as read: a
+        step counted by other runs (an extrapolated train cell)."""
+        self._read.update(_storage_key(t) for t in _tensors(tree))
+        if like is not None:
+            self._read |= like._read
+
+    @property
+    def unused_argument_bytes(self) -> int:
+        return sum(n for key, n in self._args.items()
+                   if key not in self._read)
 
     def output_bytes(self, tree) -> int:
         """Bytes of ``tree``'s storages that are not arguments."""
@@ -253,6 +285,7 @@ class CostMode(TorchDispatchMode):
     def _freed(self, key, _ref):
         self.live_bytes -= self._live.pop(key, 0)
         self._refs.pop(key, None)
+        self._zeros.pop(key, None)
 
     def _track(self, t: torch.Tensor):
         storage = t.untyped_storage()
@@ -296,6 +329,9 @@ class CostMode(TorchDispatchMode):
         if rule.allocates:
             return
         ins = _tensors((args, kwargs))
+        if not rule.view:
+            self._read.update(k for k in map(_storage_key, ins)
+                              if k in self._args)
         if rule.collective is not None:
             sent = _named_tensors(func, args, kwargs, _COLLECTIVE_INPUTS)
             c.coll[rule.collective] += sum(_nbytes(t) for t in sent or ins)
@@ -349,10 +385,65 @@ class CostMode(TorchDispatchMode):
             out = func(*args, **kwargs)
         outs = _tensors(out)
         self._count(func, args, kwargs, out, outs)
-        if not _rule(func).view:
+        name = func.overloadpacket.__name__
+        if _rule(func).view:
+            self._pin(_tensors((args, kwargs)), outs)
+        elif name in _INTO_ZEROS and len(outs) == 1 and self._take_over(
+                name, args[0], outs[0]):
+            pass
+        else:
             for t in outs:
                 self._track(t)
+            node = _autograd_node() if name in _ZEROS else None
+            if node in _SCATTER_NODES:
+                self._zeros.update((_storage_key(t), node) for t in outs)
         return out
+
+    def _take_over(self, name, zeros, result) -> bool:
+        """``result`` (``name``, a scatter into ``zeros``) takes the live
+        bytes of ``zeros``' storage over, as the in-place scatter would;
+        False unless ``zeros`` are the current autograd formula's own (one
+        of ``_SCATTER_NODES``, ``name`` its scatter) of the same bytes."""
+        src = _storage_key(zeros)
+        node = self._zeros.get(src)
+        if node is None or _SCATTER_NODES[node] != name or \
+                _autograd_node() != node or src not in self._live or \
+                zeros.untyped_storage().nbytes() != \
+                result.untyped_storage().nbytes():
+            return False
+        del self._zeros[src]
+        storage = result.untyped_storage()
+        key = storage._cdata
+        self._live[key] = self._live.pop(src)
+        self._refs.pop(src, None)
+        self._refs[key] = weakref.ref(storage,
+                                      functools.partial(self._freed, key))
+        return True
+
+    def _pin(self, ins, outs):
+        """A view whose result has a storage object of its own over its
+        input's memory (a functional collective's autograd wrapper; on
+        meta tensors its result is all the step goes on using, where a
+        device's goes on using the collective's own output): the input's
+        storage is kept alive, and counted, while the result lives."""
+        live = [t.untyped_storage() for t in ins
+                if _storage_key(t) in self._live]
+        if not live:
+            return
+        keys = {_storage_key(t) for t in ins}
+        for t in outs:
+            key = _storage_key(t)
+            if key in keys or key in self._pins or key in self._live \
+                    or key in self._args:
+                continue
+            self._pins[key] = live[0]
+            weakref.finalize(t.untyped_storage(), self._pins.pop, key, None)
+
+
+def _autograd_node():
+    """The name of the autograd node whose formula is running, or None."""
+    node = torch._C._current_autograd_node()
+    return None if node is None else node.name()
 
 
 class _Rule(NamedTuple):

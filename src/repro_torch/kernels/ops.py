@@ -44,7 +44,6 @@ does not depend on ``chunk`` or ``r_block``, so they pass through to
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate
 
 from repro_torch import spmd
 from repro_torch.kernels import flash_attention as fa_kernel
@@ -88,16 +87,10 @@ def flash_attention_fused(q, k, v, causal=True, window=None, q_block=None,
 
 def _flash_attention_sharded(q, k, v, causal, window, q_block, kv_block):
     """DTensor q, k, v: each rank's B1 (and B2/B3 in the backward) on its
-    own batch rows and kv heads. A mesh dim that splits q's batch (dim 0)
-    or its kv heads (dim 2) keeps that split, on k and v alike; any other
-    placement is gathered first, so softmax never crosses a device. A rank
-    whose share is empty (an uneven split) launches nothing."""
-    keep = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
-            for p in q.placements]
-    return spmd.local_apply(
+    own batch rows and kv heads (``spmd.local_heads``)."""
+    return spmd.local_heads(
         lambda a, b, c: flash_attention_fused(a, b, c, causal, window,
-                                              q_block, kv_block),
-        (q, k, v), (keep, keep, keep), keep, q.shape)
+                                              q_block, kv_block), q, k, v)
 
 
 def flash_attention(q, k, v, causal=True, window=None, q_block=None,

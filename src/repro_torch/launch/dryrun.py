@@ -7,7 +7,11 @@ decode) on meta inputs (``launch.steps``' abstract helpers) under
 card is needed. The kernels' wrappers take their meta branches, so they
 report their work instead of launching. It records:
   * memory  -- the step's arguments and the peak bytes its own allocations
-    hold (argument + temp = the step's peak): does the cell fit the card?
+    hold (argument + unused argument + temp = the step's peak): does the
+    cell fit the card? ``argument_size_in_bytes`` counts the arguments the
+    step reads, as the reference's (jit drops unused arguments);
+    ``unused_argument_bytes`` the ones it holds unread (the vlm's
+    embedding table in a prefill, whisper's encoder in a decode).
   * cost    -- flops, bytes, transcendentals and the kernels' calls,
   * collective bytes by kind,
   * the roofline (``analysis.roofline``) on the card.
@@ -24,10 +28,11 @@ the state, batch and cache are meta DTensors placed by
 and the collectives it issues; the fake collectives move nothing). Rank 0
 holds ``torch.chunk``'s largest piece of an uneven split, so its peak is
 the per-device bound. The group is destroyed at the end of the cell; a
-process that already has a group is refused. Only the dense family has a
-sharded step: the other families' cells on such a mesh are recorded as
-skipped, naming their item (ROADMAP.md, "Configurations the port does not
-run").
+process that already has a group is refused. The dense, moe, vlm and
+audio families have sharded steps; the hybrid and ssm families' cells on
+such a mesh are recorded as skipped, naming their item (ROADMAP.md,
+"Configurations the port does not run"). On meta tensors an MoE layer
+routes as a balanced router would (``models.moe.balanced_route``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
@@ -157,6 +162,8 @@ def _train(cfg, sys, shape, mesh=None):
     mode.cost.add(three.cost, n - 2)
     mode.cost.add(two.cost, -(n - 3))
     mode.arguments((state, batch))
+    # what the 3-microbatch step read of the state, and the whole batch
+    mode.mark_read(batch, like=three)
     mode.peak_bytes = max(two.peak_bytes, three.peak_bytes)
     return mode, out, state["params"], [2, 3]
 
@@ -258,8 +265,10 @@ def _record(cfg, shape, chips, mode, out, params, traced):
     c = mode.cost
     mflops = roofline.model_flops(cfg, shape, params)
     terms = roofline.terms_from_dispatch(c, chips, mflops)
+    unused = mode.unused_argument_bytes
     rec = dict(
-        memory={"argument_size_in_bytes": int(mode.argument_bytes),
+        memory={"argument_size_in_bytes": int(mode.argument_bytes - unused),
+                "unused_argument_bytes": int(unused),
                 "output_size_in_bytes": int(mode.output_bytes(out)),
                 "temp_size_in_bytes": int(mode.peak_bytes)},
         cost={"flops": c.flops, "bytes accessed": c.bytes,
@@ -270,7 +279,7 @@ def _record(cfg, shape, chips, mode, out, params, traced):
         collective_count=int(c.coll_count),
         roofline=terms.to_dict(),
     )
-    per_dev_bytes = (rec["memory"]["argument_size_in_bytes"]
+    per_dev_bytes = (mode.argument_bytes
                      + rec["memory"]["temp_size_in_bytes"])
     rec["per_device_gb"] = round(per_dev_bytes / 2**30, 3)
     rec["fits"] = per_dev_bytes <= roofline.HBM_BYTES

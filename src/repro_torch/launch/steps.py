@@ -14,8 +14,8 @@ with the cross cache.
 eagerly, so the returned functions need no ``jit``; prefill and decode run
 under ``torch.inference_mode()`` (``torch.no_grad()`` on DTensors).
 
-On a mesh (a ``DeviceMesh``) the dense family's steps run sharded, as the
-reference's do: ``make_train_state(..., mesh=)`` places the state by
+On a mesh (a ``DeviceMesh``) the dense, moe, vlm and audio families'
+steps run sharded, as the reference's do: ``make_train_state(..., mesh=)`` places the state by
 ``sharding.state_specs``, ``distribute_batch`` places a batch as the
 reference's ``NamedSharding`` of ``input_specs`` would, and
 ``make_train_step(..., mesh=)`` splits the batch into microbatches that
@@ -26,9 +26,10 @@ prefill and decode steps take DTensor parameters, batches and caches and
 need no new argument: the shardings come from the inputs, as in the
 reference. The models pin the batch and the kv heads
 (``layers.shard_batch``, ``shard_heads``) and run B1-B3 on each rank's own
-shards (``kernels.ops``). Losses and metrics come back as plain tensors,
-equal on every rank. The other families raise ``NotImplementedError`` on a
-mesh past 1x1 (``require_shardable``).
+shards (``kernels.ops``); an MoE layer routes each rank's own rows
+(``moe._apply_moe_sharded``). Losses and metrics come back as plain
+tensors, equal on every rank. The hybrid and ssm families raise
+``NotImplementedError`` on a mesh past 1x1 (``require_shardable``).
 
 The dry-run's helpers (``default_sys``, ``abstract_state``,
 ``input_specs``, ``cache_specs_abstract``, ``state_specs_abstract``,
@@ -73,12 +74,9 @@ def model_init(gen: torch.Generator, cfg, device=None):
 
 # families whose steps run sharded on a mesh past 1x1, and the ROADMAP
 # item (queue A) of each other family
-SHARDED_FAMILIES = ("dense",)
-MESH_ITEMS = {"moe": "16. The MoE family on a mesh",
-              "hybrid": "17. The hybrid and ssm families on a mesh",
-              "ssm": "17. The hybrid and ssm families on a mesh",
-              "vlm": "18. The vlm and whisper on a mesh",
-              "audio": "18. The vlm and whisper on a mesh"}
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio")
+MESH_ITEMS = {"hybrid": "17. The hybrid and ssm families on a mesh",
+              "ssm": "17. The hybrid and ssm families on a mesh"}
 
 
 def family(cfg) -> str:
@@ -120,17 +118,30 @@ def make_train_state(gen: torch.Generator, cfg, opt: optimizers.Optimizer,
     if mesh is None:
         return state
     specs = sharding.state_specs(state, cfg, mesh, sys or SystemConfig())
-    return place(state, specs, mesh)
+    flat = weights.flatten(state)
+    del state, params
+    return place_leaves(flat, specs, mesh)
 
 
 def place(tree, specs, mesh):
     """Each tensor of ``tree`` (the same whole tensor on every rank, or a
     meta tensor) as a DTensor on ``mesh`` placed by its spec; each rank
     keeps its own shard, with no communication. Other leaves stay."""
+    return place_leaves(weights.flatten(tree), specs, mesh)
+
+
+def place_leaves(flat, specs, mesh):
+    """``place`` on a flat {path: leaf} dict that it empties as it goes:
+    a whole leaf the caller holds nowhere else is freed once its shard is
+    made, so placing a tree costs one leaf beside it, not a second copy
+    (a full-width state on one card)."""
     named = weights.flatten(sharding.named(specs, mesh))
-    return weights.unflatten({
-        p: named[p].distribute(t) if isinstance(t, torch.Tensor) else t
-        for p, t in weights.flatten(tree).items()})
+    out = {}
+    for p in list(flat):
+        t = flat.pop(p)
+        out[p] = named[p].distribute(t) if isinstance(t, torch.Tensor) else t
+        del t
+    return weights.unflatten(out)
 
 
 def distribute_batch(batch, mesh):
@@ -277,16 +288,19 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
     An encoder-decoder ignores it, as the reference does.
     """
     if is_encdec(cfg):
-        @torch.inference_mode()
+        @_serving
         def prefill(params, batch):
             require_shardable(cfg, mesh_of(params))
-            dtype = sys.compute_dtype
-            cparams = transformer._cast(params, dtype)
-            enc = encdec.encode(cparams, batch["frames"].to(dtype), cfg, sys)
-            logits, sk, sv = encdec.decode_train(
-                cparams, batch["tokens"], enc, cfg, sys, collect_cache=True,
-                last_only=True)
-            ck, cv = encdec.build_cross_cache(cparams, enc, cfg)
+            with spmd.replication(params, batch):
+                dtype = sys.compute_dtype
+                cparams = transformer._cast(params, dtype)
+                enc = encdec.encode(cparams, batch["frames"].to(dtype), cfg,
+                                    sys)
+                logits, sk, sv = encdec.decode_train(
+                    cparams, batch["tokens"], enc, cfg, sys,
+                    collect_cache=True, last_only=True)
+                ck, cv = encdec.build_cross_cache(cparams, enc, cfg,
+                                                  shard=sys.shard_attn)
             return logits, {"self_k": sk, "self_v": sv, "cross_k": ck,
                             "cross_v": cv}
         return prefill
@@ -307,7 +321,7 @@ def make_prefill_step(cfg, sys: SystemConfig, max_len: Optional[int] = None
 def make_decode_step(cfg, sys: SystemConfig) -> Callable:
     """decode(params, cache, tokens, pos) -> (logits, cache)."""
     if is_encdec(cfg):
-        @torch.inference_mode()
+        @_serving
         def decode(params, cache, tokens, pos):
             require_shardable(cfg, mesh_of(params))
             return encdec.decode_step(params, cache, tokens, pos, cfg, sys)

@@ -25,10 +25,11 @@ from typing import Any
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import spmd
 from repro_torch.models import layers
 from repro_torch.models.transformer import (DEFAULT_SYS, SystemConfig, _cast,
-                                            _layer, _remat, _stack_init,
-                                            _unstack, lm_loss)
+                                            _heads_pinned, _layer, _remat,
+                                            _stack_init, _unstack, lm_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,24 +80,22 @@ def _init_mha(gen, d, H, D, dtype):
                                     dtype=dtype)}
 
 
-def _heads_out(o, wo):
-    """(B, S, H, D) @ wo (H, D, d) -> (B, S, d)."""
-    B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
-
-
 def _mha(p, xq, xkv, *, causal, chunked=False, q_chunk=1024,
-         kv_chunk=1024):
-    # grouped layout with K = n_heads, G = 1 -> q (B, S, H, 1, D)
-    q = layers._proj(xq, p["wq"])[:, :, :, None, :]
-    k = layers._proj(xkv, p["wk"])
-    v = layers._proj(xkv, p["wv"])
+         kv_chunk=1024, shard=False):
+    # grouped layout with K = n_heads, G = 1 -> q (B, S, H, 1, D); the
+    # heads pinned on the weights (and on q, k, v, as the reference's
+    # ``shard=sys.shard_attn`` pins them)
+    p = _heads_pinned(p, shard)
+    q = layers.shard_heads(layers._proj(xq, p["wq"]), shard)
+    k = layers.shard_heads(layers._proj(xkv, p["wk"]), shard)
+    v = layers.shard_heads(layers._proj(xkv, p["wv"]), shard)
+    q = q.unsqueeze(3)
     if chunked:
         out = layers.chunked_attention(q, k, v, causal=causal,
                                        q_chunk=q_chunk, kv_chunk=kv_chunk)
     else:
         out = layers.attention(q, k, v, causal=causal)
-    return _heads_out(out[:, :, :, 0, :], p["wo"])
+    return spmd.contract(out.squeeze(3), p["wo"], 2)
 
 
 def _init_block(gen, cfg: EncDecConfig, cross: bool, dtype):
@@ -133,11 +132,14 @@ def encode(params, frames, cfg: EncDecConfig, sys: SystemConfig = DEFAULT_SYS):
     """frames: (B, S_enc, d) precomputed embeddings (the conv stub's
     output)."""
     S = frames.shape[1]
-    x = frames + sinusoid(S, cfg.d_model, frames.device).to(frames.dtype)
+    x = _add_rows(frames, sinusoid(S, cfg.d_model,
+                                   frames.device).to(frames.dtype))
 
     def body(lp, x):
+        x = layers.shard_batch(x, sys.batch_axes)
         h = layers.layernorm(lp["self_norm"], x)
-        x = x + _mha(lp["self"], h, h, causal=False, chunked=S > 2048)
+        x = x + _mha(lp["self"], h, h, causal=False, chunked=S > 2048,
+                     shard=sys.shard_attn)
         h = layers.layernorm(lp["mlp_norm"], x)
         return x + layers.apply_mlp(lp["mlp"], h)
     body = _remat(body, sys)
@@ -146,10 +148,21 @@ def encode(params, frames, cfg: EncDecConfig, sys: SystemConfig = DEFAULT_SYS):
     return layers.layernorm(params["enc_norm"], x)
 
 
-def _self_kv(lp, h):
+def _add_rows(x, pe):
+    """x (B, S, d) + pe (S, d), the same for every row (on DTensors each
+    rank adds it to its own rows)."""
+    if spmd.is_dtensor(x):
+        out = spmd.rowwise(lambda a, b: a + b, x, pe)
+        if out is not None:
+            return out
+    return x + pe
+
+
+def _self_kv(lp, h, shard=False):
     """The decoder self-attention's k, v of ``h`` for the cache, bf16."""
-    return (layers._proj(h, lp["self"]["wk"]).to(torch.bfloat16),
-            layers._proj(h, lp["self"]["wv"]).to(torch.bfloat16))
+    p = _heads_pinned(lp["self"], shard)
+    return (layers._proj(h, p["wk"]).to(torch.bfloat16),
+            layers._proj(h, p["wv"]).to(torch.bfloat16))
 
 
 def decode_train(params, tokens, enc_out, cfg: EncDecConfig,
@@ -159,17 +172,19 @@ def decode_train(params, tokens, enc_out, cfg: EncDecConfig,
     ``collect_cache`` also the self-attention k and v (L, B, S, H, D)
     bf16."""
     S = tokens.shape[1]
-    x = params["embed"][tokens]
-    x = x + sinusoid(S, cfg.d_model, x.device).to(x.dtype)
+    x = spmd.embed(params["embed"], tokens)
+    x = _add_rows(x, sinusoid(S, cfg.d_model, x.device).to(x.dtype))
 
     def body(lp, x):
+        x = layers.shard_batch(x, sys.batch_axes)
         h = layers.layernorm(lp["self_norm"], x)
-        kv = _self_kv(lp, h) if collect_cache else None
+        kv = _self_kv(lp, h, sys.shard_attn) if collect_cache else None
         x = x + _mha(lp["self"], h, h, causal=True, chunked=S > 2048,
-                     q_chunk=sys.q_chunk, kv_chunk=sys.kv_chunk)
+                     q_chunk=sys.q_chunk, kv_chunk=sys.kv_chunk,
+                     shard=sys.shard_attn)
         h = layers.layernorm(lp["cross_norm"], x)
         x = x + _mha(lp["cross"], h, enc_out, causal=False,
-                     chunked=S > 2048)
+                     chunked=S > 2048, shard=sys.shard_attn)
         h = layers.layernorm(lp["mlp_norm"], x)
         return x + layers.apply_mlp(lp["mlp"], h), kv
     body = _remat(body, sys)
@@ -180,28 +195,31 @@ def decode_train(params, tokens, enc_out, cfg: EncDecConfig,
     if last_only:
         x = x[:, -1:]
     x = layers.layernorm(params["dec_norm"], x)
-    logits = x.float() @ params["embed"].float().T
+    # the tied head, accumulated in fp32 (on DTensors the vocab stays split)
+    logits = spmd.contract(x.float(), params["embed"].float().T, 1)
     if collect_cache:
-        return (logits, torch.stack([k for k, _ in kvs]),
-                torch.stack([v for _, v in kvs]))
+        return (logits, spmd.stack([k for k, _ in kvs]),
+                spmd.stack([v for _, v in kvs]))
     return logits
 
 
 def forward(params, batch, cfg: EncDecConfig, sys: SystemConfig = DEFAULT_SYS):
     """batch: {"frames": (B, S_enc, d), "tokens": (B, S) int} -> (logits
     (B, S, V) fp32, aux loss 0)."""
-    dtype = sys.compute_dtype
-    cparams = _cast(params, dtype)
-    enc_out = encode(cparams, batch["frames"].to(dtype), cfg, sys)
-    logits = decode_train(cparams, batch["tokens"], enc_out, cfg, sys)
-    return logits, torch.zeros((), device=logits.device)
+    with spmd.replication(params, batch):
+        dtype = sys.compute_dtype
+        cparams = _cast(params, dtype)
+        enc_out = encode(cparams, batch["frames"].to(dtype), cfg, sys)
+        logits = decode_train(cparams, batch["tokens"], enc_out, cfg, sys)
+        return logits, torch.zeros((), device=logits.device)
 
 
 def loss_fn(params, batch, cfg: EncDecConfig, sys: SystemConfig = DEFAULT_SYS):
     """``transformer.loss_fn`` on the encoder-decoder's logits; batch also
     carries "labels" (B, S), < 0 = ignored."""
     logits, aux = forward(params, batch, cfg, sys)
-    return lm_loss(logits, aux, batch["labels"])
+    with spmd.replication(logits):
+        return lm_loss(logits, aux, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -224,27 +242,40 @@ def init_cache(cfg: EncDecConfig, batch: int, max_len: int,
 
 
 def build_cross_cache(params, enc_out, cfg: EncDecConfig,
-                      dtype=torch.bfloat16):
+                      dtype=torch.bfloat16, shard=False):
     """Every decoder layer's cross-attention k and v of ``enc_out``:
-    (L, B, S_enc, H, D) each, in ``dtype``."""
+    (L, B, S_enc, H, D) each, in ``dtype`` (head-split on DTensors with
+    ``shard``, as the prefill's attention computed them)."""
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)
         h = layers.layernorm(lp["cross_norm"], enc_out)
-        ks.append(layers._proj(h, lp["cross"]["wk"]).to(dtype))
-        vs.append(layers._proj(h, lp["cross"]["wv"]).to(dtype))
-    return torch.stack(ks), torch.stack(vs)
+        p = _heads_pinned(lp["cross"], shard)
+        ks.append(layers._proj(h, p["wk"]).to(dtype))
+        vs.append(layers._proj(h, p["wv"]).to(dtype))
+    return spmd.stack(ks), spmd.stack(vs)
 
 
 def _cached_attention(q, k, v, scale, valid=None):
     """One query row against cached k, v: q (B, 1, H, D), k/v (B, T, H, D)
-    -> (B, 1, H, D) in q's dtype; probabilities rounded to v's dtype."""
-    s = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
-    if valid is not None:
-        s = s.masked_fill(~valid, layers.NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bthk->bshk", p.float(),
-                        v.float()).to(q.dtype)
+    -> (B, 1, H, D) in q's dtype; probabilities rounded to v's dtype. On
+    DTensors each rank takes its own rows and heads of the cache's split
+    (a split head_dim sums partial scores first:
+    ``layers.decode_attention_sharded``)."""
+    def scores(q, k):
+        return torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+
+    def mix(s, v):
+        if valid is not None:
+            s = s.masked_fill(~valid, layers.NEG_INF)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bthk->bshk", p.float(),
+                            v.float()).to(q.dtype)
+    if spmd.is_dtensor(q, k):
+        B, _, H, _ = q.shape
+        return layers.decode_attention_sharded(scores, mix, q, k, v,
+                                               (B, H, 1, k.shape[1]))
+    return mix(scores(q, k), v)
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: EncDecConfig,
@@ -252,12 +283,21 @@ def decode_step(params, cache, tokens, pos: int, cfg: EncDecConfig,
     """tokens: (B, 1). The cache holds the decoder's self KV ring and the
     encoder's cross KV; the new k/v row is written into it in place.
     Returns (logits (B, 1, V) fp32, cache)."""
-    pos = int(pos)
-    cparams = _cast(params, sys.compute_dtype)
-    x = cparams["embed"][tokens]
+    with spmd.replication(params, cache):
+        return _decode_step(params, cache, tokens, int(pos), cfg, sys)
+
+
+def _decode_step(params, cache, tokens, pos: int, cfg: EncDecConfig, sys):
+    # the leaves decode reads: no encoder weight, and of the cross
+    # attention only wq and wo (its k and v are in the cache)
+    layers_ = dict(params["dec_layers"])
+    layers_["cross"] = {k: layers_["cross"][k] for k in ("wq", "wo")}
+    cparams = _cast({"embed": params["embed"], "dec_layers": layers_},
+                    sys.compute_dtype)
+    x = spmd.embed(cparams["embed"], tokens)
     W = cache["self_k"].shape[2]
     pe = sinusoid(W, cfg.d_model, x.device)
-    x = x + pe[pos % W][None, None].to(x.dtype)
+    x = _add_rows(x, pe[pos % W][None].to(x.dtype))
     scale = 1.0 / math.sqrt(cfg.head_dim)
     slot = pos % W
     idx = torch.arange(W, device=x.device)
@@ -269,19 +309,20 @@ def decode_step(params, cache, tokens, pos: int, cfg: EncDecConfig,
         sk, sv = cache["self_k"][i], cache["self_v"][i]
         h = layers.layernorm(lp["self_norm"], x)
         q = layers._proj(h, lp["self"]["wq"])
-        sk[:, slot] = layers._proj(h, lp["self"]["wk"])[:, 0].to(sk.dtype)
-        sv[:, slot] = layers._proj(h, lp["self"]["wv"])[:, 0].to(sv.dtype)
+        spmd.write_row(sk, slot,
+                       layers._proj(h, lp["self"]["wk"])[:, 0].to(sk.dtype))
+        spmd.write_row(sv, slot,
+                       layers._proj(h, lp["self"]["wv"])[:, 0].to(sv.dtype))
         o = _cached_attention(q, sk, sv, scale, valid)
-        x = x + _heads_out(o, lp["self"]["wo"])
+        x = x + spmd.contract(o, lp["self"]["wo"], 2)
         # cross attention against the precomputed encoder k, v
         h = layers.layernorm(lp["cross_norm"], x)
         q = layers._proj(h, lp["cross"]["wq"])
         o = _cached_attention(q, cache["cross_k"][i], cache["cross_v"][i],
                               scale)
-        x = x + _heads_out(o, lp["cross"]["wo"])
+        x = x + spmd.contract(o, lp["cross"]["wo"], 2)
         h = layers.layernorm(lp["mlp_norm"], x)
         x = x + layers.apply_mlp(lp["mlp"], h)
     # the uncast final norm, as in the reference
     x = layers.layernorm(params["dec_norm"], x)
-    logits = x.float() @ cparams["embed"].float().T
-    return logits, cache
+    return spmd.contract(x.float(), cparams["embed"].float().T, 1), cache

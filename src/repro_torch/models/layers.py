@@ -94,6 +94,12 @@ def init_layernorm(dim, dtype=torch.float32, device=None):
 
 def layernorm(params, x, eps: float = 1e-5):
     """LayerNorm in float32, cast back to the input dtype."""
+    if spmd.is_dtensor(x):
+        y = spmd.rowwise(lambda a, s, b: layernorm({"scale": s, "bias": b},
+                                                   a, eps),
+                         x, params["scale"], params["bias"])
+        if y is not None:
+            return y
     dtype = x.dtype
     x = x.float()
     mu = x.mean(-1, keepdim=True)
@@ -213,8 +219,14 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
     """Direct (materialised-scores) GQA attention.
 
     q: (B, Sq, K, G, D)  k, v: (B, Sk, K, D)  ->  (B, Sq, K, G, D)
-    kv_mask: optional (B, Sk) bool validity mask.
+    kv_mask: optional (B, Sk) bool validity mask (plain tensors only).
+    On DTensors each rank attends over its own heads (``spmd.local_heads``).
     """
+    if spmd.is_dtensor(q, k, v) and kv_mask is None:
+        return spmd.local_heads(
+            lambda a, b, c: attention(a, b, c, causal=causal, window=window,
+                                      q_offset=q_offset,
+                                      softmax_scale=softmax_scale), q, k, v)
     B, Sq, K, G, D = q.shape
     Sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
@@ -293,7 +305,14 @@ def online_softmax_attention(q, k, v, *, causal=True, window=None,
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       kv_mask=None, q_chunk=1024, kv_chunk=1024,
                       softmax_scale=None):
-    """Online-softmax attention; memory O(q_chunk * kv_chunk) per step."""
+    """Online-softmax attention; memory O(q_chunk * kv_chunk) per step. On
+    DTensors each rank attends over its own heads (``spmd.local_heads``)."""
+    if spmd.is_dtensor(q, k, v) and kv_mask is None:
+        return spmd.local_heads(
+            lambda a, b, c: chunked_attention(
+                a, b, c, causal=causal, window=window, q_offset=q_offset,
+                q_chunk=q_chunk, kv_chunk=kv_chunk,
+                softmax_scale=softmax_scale), q, k, v)
     out, _ = online_softmax_attention(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         kv_mask=kv_mask, q_chunk=q_chunk, kv_chunk=kv_chunk,
@@ -417,17 +436,22 @@ def apply_attention_decode(params, x, cfg: AttnConfig, cache, pos: int):
                             cv.to(x.dtype).float()).to(x.dtype)
 
     if spmd.is_dtensor(q, ck):
-        out = _decode_attention_sharded(scores, mix, q, ck, cv)
+        B, _, K, G, _ = q.shape
+        out = decode_attention_sharded(scores, mix, q, ck, cv,
+                                       (B, K, G, 1, ck.shape[1]))
     else:
         out = mix(scores(q, ck), cv)
     return attn_out(out, params["wo"]), cache
 
 
-def _decode_attention_sharded(scores, mix, q, ck, cv):
+def decode_attention_sharded(scores, mix, q, ck, cv, s_shape):
     """``mix(scores(q, ck), cv)`` on each rank's shards, following the
-    cache's split (B, W, K, D): the batch and the kv heads split q, the
-    scores and the output alike; a split head_dim leaves partial scores,
-    summed across ranks before the softmax."""
+    cache's split (B, W, K, D). q is (B, 1, K, G, D) or (B, 1, K, D), the
+    scores ``s_shape`` with the batch first and the kv heads second. The
+    batch and the kv heads split q, the scores and the output alike; a
+    split head_dim leaves partial scores, summed across ranks before the
+    softmax."""
+    last = q.ndim - 1
     qp, sp, op, reduce = [], [], [], False
     for p in ck.placements:
         if p.is_shard(0) or p.is_replicate():
@@ -435,13 +459,12 @@ def _decode_attention_sharded(scores, mix, q, ck, cv):
         elif p.is_shard(2):
             qp.append(Shard(2)), sp.append(Shard(1)), op.append(Shard(2))
         elif p.is_shard(3):
-            qp.append(Shard(4)), sp.append(Partial()), op.append(Shard(4))
+            qp.append(Shard(last)), sp.append(Partial())
+            op.append(Shard(last))
             reduce = True
         else:
             raise ValueError(f"a decode cache split as {ck.placements}")
-    B, _, K, G, _ = q.shape
-    s = spmd.local_apply(scores, (q, ck), (qp, ck.placements), sp,
-                         (B, K, G, 1, ck.shape[1]))
+    s = spmd.local_apply(scores, (q, ck), (qp, ck.placements), sp, s_shape)
     if reduce:
         s = spmd.placed(s, [Replicate() if p.is_partial() else p
                             for p in sp])
@@ -523,6 +546,20 @@ def init_mlp(gen: torch.Generator, d_model, d_ff,
 
 
 def apply_mlp(params, x):
-    """GELU (tanh approximation) MLP with biases."""
+    """GELU (tanh approximation) MLP with biases. On DTensors the products
+    go through ``spmd.contract`` (up column-parallel, down row-parallel),
+    as ``apply_swiglu``'s do, and each rank adds its own slice of the
+    up-projection's bias."""
+    if spmd.is_dtensor(x):
+        u = spmd.contract(x, params["w_up"], 1)
+        last = u.ndim - 1
+        bias = [Shard(0) if p.is_shard(last) else Replicate()
+                for p in u.placements]
+        h = spmd.local_apply(
+            lambda a, b: F.gelu(a + b, approximate="tanh"),
+            (u, params["b_up"]), (u.placements, bias), u.placements, u.shape)
+        y = spmd.contract(h, params["w_down"], 1)
+        out = spmd.rowwise(lambda a, b: a + b, y, params["b_down"])
+        return y + params["b_down"] if out is None else out
     h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
     return h @ params["w_down"] + params["b_down"]

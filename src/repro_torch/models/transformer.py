@@ -30,6 +30,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_lib
@@ -272,8 +273,8 @@ def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
     B, S, _ = h.shape
     positions = spmd.replicated(
         torch.arange(S, dtype=torch.int32, device=x.device)[None], x)
-    q, k, v = layers.attention_qkv(_heads_pinned(p["attn"], sys), h, acfg,
-                                   positions)
+    q, k, v = layers.attention_qkv(_heads_pinned(p["attn"], sys.shard_attn),
+                                   h, acfg, positions)
     q = layers.shard_heads(q, sys.shard_attn)
     k = layers.shard_heads(k, sys.shard_attn)
     v = layers.shard_heads(v, sys.shard_attn)
@@ -300,12 +301,13 @@ def _apply_attn_block(p, x, cfg: ModelConfig, sys: SystemConfig, window=None,
     return x, aux, cache
 
 
-def _heads_pinned(pa, sys: SystemConfig):
+def _heads_pinned(pa, shard: bool):
     """The attention weights with their kv-head axis pinned to "model"
     (``layers.shard_heads``): q, k and v then come out of the projections
     split by heads, as the pins on them ask, so qk-norm and RoPE stay local
-    to a device. A no-op on plain tensors and with ``shard_attn`` off."""
-    if not sys.shard_attn or not spmd.is_dtensor(pa["wq"]):
+    to a device. A no-op on plain tensors and with ``shard`` (the sys's
+    ``shard_attn``) off."""
+    if not shard or not spmd.is_dtensor(pa["wq"]):
         return pa
     out = dict(pa)
     for name in ("wq", "wk", "wv", "bq", "bk", "bv", "wo"):
@@ -492,9 +494,12 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
 
 def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only):
     dtype = sys.compute_dtype
-    cparams = _cast(_outside_layers(params), dtype)
+    outside = _outside_layers(params)
+    if cfg.takes_embeddings and not cfg.tie_embeddings:
+        del outside["embed"]        # the forward starts from the adapter
+    cparams = _cast(outside, dtype)
     if cfg.takes_embeddings:
-        x = batch["embeddings"].to(dtype) @ cparams["adapter"]
+        x = _adapt(batch["embeddings"].to(dtype), cparams["adapter"])
     else:
         x = spmd.embed(cparams["embed"], batch["tokens"])
 
@@ -542,11 +547,23 @@ def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only):
     if last_only:
         x = x[:, -1:]
     logits = _lm_head(params, cparams, x, cfg)
-    aux_total = torch.stack(auxs).sum()
+    aux_total = spmd.stack(auxs).sum()
     if collect_cache:
         cache = None if cfg.family == "ssm" else _tree_stack(caches)
         return logits, aux_total, cache
     return logits, aux_total
+
+
+def _adapt(x, adapter):
+    """The vlm's adapter, x (B, S, d) @ (d, d). On DTensors a column-split
+    product (``spmd.contract``), gathered over "model" before it enters the
+    residual stream, as GSPMD does for the reference's ``[None, model]``
+    adapter."""
+    y = spmd.contract(x, adapter, 1)
+    if not spmd.is_dtensor(y):
+        return y
+    return spmd.placed(y, [p if p.is_shard(0) else Replicate()
+                           for p in y.placements])
 
 
 def _outside_layers(params):
@@ -665,7 +682,7 @@ def _decode_step(params, cache, tokens, pos: int, cfg, sys):
     cparams = _cast(_outside_layers(params), dtype)
     x = spmd.embed(cparams["embed"], tokens)
     if cfg.takes_embeddings:
-        x = x @ cparams["adapter"]
+        x = _adapt(x, cparams["adapter"])
     stacked = _stacked(params["layers"], dtype)
     if cfg.family == "ssm":
         x = _decode_ssm(stacked, cache, x, cfg, dtype)

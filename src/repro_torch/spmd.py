@@ -128,6 +128,18 @@ def local_apply(fn, args, placements, out_placements, out_shapes):
                  for o, p, s in zip(outs, out_placements, out_shapes))
 
 
+def local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's own rows and kv heads of DTensors q
+    (B, S, K, G, D) and k, v (B, T, K, D): a mesh dim that splits q's
+    batch (dim 0) or kv heads (dim 2) keeps that split on all three, any
+    other placement is gathered, so the softmax never crosses a device. A
+    rank whose share is empty (an uneven split) computes on empty shards
+    and launches no kernel."""
+    keep = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in q.placements]
+    return local_apply(fn, (q, k, v), (keep, keep, keep), keep, q.shape)
+
+
 def rowwise(fn, x, *args):
     """``fn(x, *args)`` on each rank's rows of DTensor ``x`` whose last dim
     is whole (split on leading dims only, no partial sums); ``args`` (a
@@ -151,6 +163,26 @@ def _replicated(p):
     """A placement that is not a Shard resolves to Replicate (a Partial is
     reduced)."""
     return p if p.is_shard() else Replicate()
+
+
+def resolved(x):
+    """DTensor ``x`` with every partial sum reduced (its splits kept): the
+    one reduce a ``local_apply`` with ``Partial`` results needs."""
+    return placed(x, [_replicated(p) for p in x.placements])
+
+
+def batch_mean(x):
+    """The mean of every element of ``x``, as a scalar: ``x.mean()`` on a
+    plain tensor; on a DTensor split on leading dims only (rows over the
+    batch axes, equal rows a rank), each rank's mean weighted by its share,
+    the pieces summed into a replicated scalar."""
+    if not is_dtensor(x):
+        return x.mean()
+    n = x.numel()
+    out = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+    y = local_apply(lambda a: a.mean() * (a.numel() / n), (x,),
+                    (x.placements,), out, ())
+    return resolved(y)
 
 
 def contract(x, w, n: int):
@@ -197,9 +229,8 @@ def contract(x, w, n: int):
             xp.append(Replicate()), wp.append(Replicate())
             op.append(Replicate())
     shape = tuple(x.shape[:lead]) + tuple(w.shape[n:])
-    y = local_apply(lambda a, b: contract(a, b, n), (x, w), (xp, wp), op,
-                    shape)
-    return placed(y, [_replicated(p) for p in op])
+    return resolved(local_apply(lambda a, b: contract(a, b, n), (x, w),
+                                (xp, wp), op, shape))
 
 
 def embed(table, tokens):
@@ -228,9 +259,8 @@ def embed(table, tokens):
         if tab.shape[0] == 0:
             return tab.new_zeros(tok.shape + tab.shape[1:])
         return tab[rows] * hit[..., None].to(tab.dtype)
-    y = local_apply(lookup, (table, tokens), (tp, kp), op,
-                    tuple(tokens.shape) + tuple(table.shape[1:]))
-    return placed(y, [_replicated(p) for p in op])
+    return resolved(local_apply(lookup, (table, tokens), (tp, kp), op,
+                                tuple(tokens.shape) + tuple(table.shape[1:])))
 
 
 def _row_starts(mesh, placements, n_rows, dim=0) -> int:

@@ -106,6 +106,69 @@ def test_dtensor_all_to_all_counted_as_all_to_all():
     assert mode.cost.coll_count == 1
 
 
+def test_a_collectives_result_stays_counted_while_it_lives():
+    """A meta DTensor's partial sum reduced (Partial -> Replicate) on the
+    dry-run's fake group: on meta the step goes on with the collective's
+    autograd wrapper, whose storage is its own, so the all-reduce's output
+    is kept alive, and counted, as long as the result lives (a card's step
+    goes on using that output itself)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    mib = 1024 * 1024
+    with dryrun.fake_group(mesh_lib.abstract_mesh(2, 2)) as mesh:
+        x = DTensor.from_local(torch.empty(512, 512, device="meta"), mesh,
+                               (Partial(), Replicate()), run_check=False)
+        with cost.CostMode() as mode:
+            y = x.redistribute(mesh, (Replicate(), Replicate()))
+            held = mode.live_bytes
+            z = y.to_local() * 2
+            both = mode.live_bytes
+            del y
+            after = mode.live_bytes
+        del z
+    assert not dist.is_initialized()
+    assert (held, both, after) == (mib, 2 * mib, mib)
+
+
+@pytest.mark.parametrize("op", ["gather", "index"])
+def test_autograds_scatter_into_its_own_zeros_counts_one_buffer(op):
+    """gather's and index's backward make zeros and scatter into them in
+    place; under the mode autograd takes the out-of-place scatter, whose
+    result is counted in the zeros' place: one buffer of the input's size
+    at the peak, not two."""
+    mib4 = 1024 * 1024 * 4
+    x = torch.empty(1024, 1024, device="meta", requires_grad=True)
+    idx = torch.zeros(1024, 1, dtype=torch.long, device="meta")
+    rows = torch.zeros(8, dtype=torch.long, device="meta")
+    with cost.CostMode() as mode:
+        y = torch.gather(x, 1, idx) if op == "gather" else x[rows]
+        y.sum().backward()
+    assert mib4 <= mode.peak_bytes < mib4 + 64 * 1024
+
+
+def test_a_scatter_into_zeros_outside_autograd_counts_both():
+    """Zeros made by the step itself may stay live after an out-of-place
+    scatter into them: the zeros and the result count apart."""
+    mib4 = 1024 * 1024 * 4
+    idx = torch.zeros(1024, 1, dtype=torch.long, device="meta")
+    src = torch.empty(1024, 1, device="meta")
+    with cost.CostMode() as mode:
+        z = x = torch.zeros(1024, 1024, device="meta")
+        y = z.scatter_add(1, idx, src)
+        live = mode.live_bytes
+    del x, y, z
+    assert live == 2 * mib4
+
+
+def test_arguments_no_op_reads_are_counted_apart():
+    """An argument that only a view touched is unread: the reference's jit
+    drops it from the executable's arguments."""
+    a, b = _meta(256, 256), _meta(512, 512)
+    _, mode = cost.count(lambda a, b: (a * 2, b.view(-1)), a, b)
+    assert mode.argument_bytes == (256 * 256 + 512 * 512) * 4
+    assert mode.unused_argument_bytes == 512 * 512 * 4
+
+
 def test_bytes_nonzero_and_sane():
     c = _analyze(lambda x: (x * 2 + 1).sum(), _meta(256, 256))
     assert c.bytes >= 256 * 256 * 4          # at least one read

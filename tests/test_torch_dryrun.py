@@ -91,6 +91,32 @@ def test_argument_bytes_are_the_state_and_the_batch():
     assert _leaf_bytes(state) == 3 * 4 * n
 
 
+@pytest.mark.parametrize("arch,kind", [("internvl2-26b", "prefill"),
+                                       ("whisper-small", "decode")])
+def test_unread_arguments_are_counted_apart(arch, kind):
+    """The vlm's prefill starts from the adapter and reads no embedding
+    table; whisper's decode reads no encoder weight and takes the cross
+    attention's k and v from the cache. Those arguments are
+    ``unused_argument_bytes``, out of ``argument_size_in_bytes`` (the
+    reference's jit drops them) and in ``per_device_gb`` (the card holds
+    them)."""
+    cfg = configs.get_reduced(arch)
+    shape = configs.ShapeSpec(kind, kind, 32, 2)
+    rec = dryrun.run_cell(arch, kind, reduced=True, shape=shape,
+                          verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    unread = [p for p in weights.leaf_shapes(cfg)
+              if p == "embed" or p.startswith(("enc_", "dec_layers/cross/wk",
+                                               "dec_layers/cross/wv"))]
+    unread = [p for p in unread if (kind == "prefill") == (p == "embed")]
+    want = sum(math.prod(weights.leaf_shapes(cfg)[p]) * 4 for p in unread)
+    mem = rec["memory"]
+    assert unread and mem["unused_argument_bytes"] == want
+    assert rec["per_device_gb"] == round(
+        (mem["argument_size_in_bytes"] + want + mem["temp_size_in_bytes"])
+        / 2 ** 30, 3)
+
+
 def test_kernel_calls_of_a_train_step():
     """B1, B2, B3 once a layer (use_pallas on, the port's default); under
     remat block with 2 microbatches B1 twice a layer and microbatch."""
@@ -115,18 +141,22 @@ def test_meshes_past_one_chip_are_skipped(mesh):
     """A dense cell runs on a production mesh as rank 0 of a fake group
     (one kv head and 32768 x 32 / dp rows a rank: B1 once a layer, the
     weights gathered); a family with no sharded step is skipped, naming its
-    ROADMAP item."""
-    rec = dryrun.run_cell("qwen3-0.6b", "prefill_32k", mesh=mesh,
-                          verbose=False)
-    assert rec["status"] == "ok" and rec["mesh"] == mesh, rec.get("traceback")
-    assert rec["kernels"] == {"B1": configs.get_config("qwen3-0.6b").n_layers}
-    assert rec["fits"] and rec["collectives"]["all-gather"] > 0
-    assert rec["roofline"]["chips"] == math.prod(
-        int(d) for d in mesh.split("x"))
-    skip = dryrun.run_cell("mixtral-8x22b", "train_4k", mesh=mesh,
+    ROADMAP item. mixtral-8x22b (141 B parameters, more than one card
+    holds) runs there too: its prefill launches B1 once a layer on a
+    rank's own heads and fits."""
+    for arch in ("qwen3-0.6b", "mixtral-8x22b"):
+        rec = dryrun.run_cell(arch, "prefill_32k", mesh=mesh, verbose=False)
+        assert rec["status"] == "ok" and rec["mesh"] == mesh, \
+            rec.get("traceback")
+        assert rec["kernels"] == {"B1": configs.get_config(arch).n_layers}
+        assert rec["fits"] and rec["collectives"]["all-gather"] > 0
+        assert rec["roofline"]["chips"] == math.prod(
+            int(d) for d in mesh.split("x"))
+    skip = dryrun.run_cell("recurrentgemma-9b", "train_4k", mesh=mesh,
                            verbose=False)
     assert skip["status"] == "skipped" and skip["mesh"] == mesh
-    assert "queue A item 16. The MoE family on a mesh" in skip["reason"]
+    assert ("queue A item 17. The hybrid and ssm families on a mesh"
+            in skip["reason"])
     assert "Configurations the port does not run" in skip["reason"]
     assert not torch.distributed.is_initialized()
 

@@ -5,18 +5,22 @@ starts a group of these and reads what rank 0 writes.
 
 The ranks of a group meet through a ``FileStore`` in OUT_DIR (no TCP port)
 over gloo and give up after 60 s. OUT_DIR holds ``cases.json`` (the cases,
-each with its group) and ``inputs.npz`` (each arch's parameters as the
-port's flattened leaves, from the reference's init, and the tokens and
-labels). For each case of its group, every rank:
+each with its group) and ``inputs.npz`` (each case's parameters as the
+port's flattened leaves, from the reference's init, under the case's
+``params`` key or its arch, and the tokens, labels, patch embeddings and
+frames). A case's ``cfg`` replaces fields of its reduced config. For each case of its group, every rank:
   * places the parameters and an sgd state (momentum, global-norm clipping)
     on the case's mesh (``sharding.state_specs``) and the batch as the
     reference's ``NamedSharding`` would (``steps.distribute_batch``), takes
     one ``make_train_step(..., mesh=)`` step per microbatch count, and
     gathers the loss, the accuracy and every updated parameter whole;
   * with ``serve``, runs the prefill step on the placed parameters and
-    ``DECODE_STEPS`` greedy decode steps from its cache;
+    ``DECODE_STEPS`` greedy decode steps from its cache, and for an MoE
+    arch keeps the experts each layer of the prefill chose for each of its
+    rows (``moe._gate``'s indices, gathered from every rank);
 and rank 0 writes ``{case}.npz``.
 """
+import dataclasses
 import datetime
 import json
 import os
@@ -27,10 +31,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch import configs, weights
+from repro_torch import configs, spmd, weights
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
+from repro_torch.models import moe
 from repro_torch.models.transformer import SystemConfig
 from repro_torch.optim import optimizers
 
@@ -54,6 +59,25 @@ def whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def config(case):
+    """The case's reduced config, with its ``cfg`` fields replaced."""
+    return dataclasses.replace(configs.get_reduced(case["arch"]),
+                               **case.get("cfg", {}))
+
+
+def batch_of(cfg, inputs, kind="train"):
+    """The family's batch from the inputs: tokens (a vlm's patch
+    embeddings, whisper's frames and tokens), with labels to train."""
+    fam = steps.family(cfg)
+    keys = {"vlm": ["embeddings"], "audio": ["frames", "tokens"]}.get(
+        fam, ["tokens"]) + (["labels"] if kind == "train" else [])
+    out = {}
+    for k in keys:
+        t = torch.from_numpy(np.asarray(inputs[k]))
+        out[k] = t.long() if k in ("tokens", "labels") else t
+    return out
+
+
 def make_mesh(case):
     dims = case["mesh"]
     pods = dims[0] if len(dims) == 3 else 1
@@ -61,13 +85,12 @@ def make_mesh(case):
 
 
 def run_case(case, inputs, out_dir, rank):
-    cfg = configs.get_reduced(case["arch"])
+    cfg = config(case)
     mesh = make_mesh(case)
-    prefix = case["arch"] + "/"
+    prefix = case.get("params", case["arch"]) + "/"
     flat = {k[len(prefix):]: torch.from_numpy(inputs[k])
             for k in inputs.files if k.startswith(prefix)}
-    batch = {"tokens": torch.from_numpy(inputs["tokens"]).long(),
-             "labels": torch.from_numpy(inputs["labels"]).long()}
+    batch = batch_of(cfg, inputs)
     out = {}
     for m in case["micro"]:
         sys_cfg = system(case, m)
@@ -91,12 +114,34 @@ def run_case(case, inputs, out_dir, rank):
             weights.unflatten(dict(flat)),
             sharding.param_specs(weights.unflatten(dict(flat)), cfg, mesh,
                                  sys_cfg), mesh)
-        S = batch["tokens"].shape[1]
+        S = batch["labels"].shape[1]
         prefill = steps.make_prefill_step(cfg, sys_cfg,
                                           max_len=S + DECODE_STEPS)
         decode = steps.make_decode_step(cfg, sys_cfg)
-        logits, cache = prefill(params, steps.distribute_batch(
-            {"tokens": batch["tokens"]}, mesh))
+        prompt = steps.distribute_batch(batch_of(cfg, inputs, "prefill"),
+                                        mesh)
+        routes, gate = [], moe._gate
+
+        def spy(x, *args):
+            out = gate(x, *args)
+            routes.append(out[1].numpy())
+            return out
+        moe._gate = spy
+        try:
+            logits, cache = prefill(params, prompt)
+        finally:
+            moe._gate = gate
+        if routes:
+            first = next(iter(prompt.values()))
+            row0 = spmd._row_starts(mesh, first.placements, first.shape[0])
+            pieces = [None] * dist.get_world_size()
+            dist.all_gather_object(pieces, (row0, routes))
+            for layer in range(len(routes)):
+                whole_idx = np.zeros((first.shape[0],) + routes[0].shape[1:],
+                                     np.int64)
+                for start, rs in pieces:
+                    whole_idx[start:start + len(rs[layer])] = rs[layer]
+                out[f"routes/{layer}"] = whole_idx
         out["prefill_logits"] = whole(logits).numpy()
         tok = whole(logits).argmax(-1)
         toks = [tok]
