@@ -355,7 +355,10 @@ Phases (any failure raises, and the script exits non-zero):
      store SIGKILLed and restarted from its journal: its entry count,
      centroid model and kernel rows equal the ones before, bit for bit; a
      restart missing one entry and a journal with a corrupt line mid-way
-     must be caught. Within ``SERVICE_PHASE_LIMIT_S``.
+     must be caught. Runs (3) and (4) go while the servers start ((3)
+     needs none of them, (4) the first store alone), and the loopback
+     round trips while the store restarts. Within
+     ``SERVICE_PHASE_LIMIT_S``.
  16. observability and chaos (``[obs]``): three stores, a coordinator and
      two real trial workers (on the card), each a ``python -m`` process on
      port 0, a warm-up trial each. PipeTune hyperband on lenet-mnist
@@ -373,10 +376,11 @@ Phases (any failure raises, and the script exits non-zero):
      against the trace's wall, which lies within the job's. Planted: a
      forwarded batch dropped (its receipt flagged), a driver's dispatch
      lost (an orphan flagged), a torn last line (tolerated, counted).
-     Then ``python -m repro_torch.obs chaos sigkill_worker --trace
-     --json`` (sim backend, its own worker processes) passes its SLOs;
-     its artifact re-judged by ``_evaluate`` passes, and with one
-     accuracy one ulp up fails. B1-B5 launch 0. Within
+     ``python -m repro_torch.obs chaos sigkill_worker --trace --json``
+     (sim backend, its own worker processes; started with the servers,
+     it runs beside their start and warm-up and ends before the jobs)
+     passes its SLOs; its artifact re-judged by ``_evaluate`` passes, and
+     with one accuracy one ulp up fails. B1-B5 launch 0. Within
      ``OBS_PHASE_LIMIT_S``.
  17. the dry-run against the card (``[dryrun]``; no step on the card):
      ``repro_torch.launch.dryrun.run_cell`` on meta tensors for the cells
@@ -420,12 +424,13 @@ Phases (any failure raises, and the script exits non-zero):
      to the depth whose adamw step fits the card by the bytes
      ``shardfam_train_layers`` reckons, ``SHARD_STEPS`` train steps
      against the unsharded steps as 18 (a) holds them, B1-B3 once a layer
-     a step; (b) qwen2-moe-a2.7b (24 layers, 8 x 2048) and mixtral-8x22b
-     (4 layers, 2 x 8192, window 4096) prefilled and decoded on DTensor
-     parameters against the plain ones under deterministic algorithms:
-     the prefill's and every decode step's logits bit for bit, the same
-     tokens, B1 once a layer; (c) internvl2-26b served at full
-     depth and trained at ``VLM_CUT_LAYERS``, whisper-small served and
+     a step; (b) qwen2-moe-a2.7b (6 of 24 layers, 8 x 2048) and
+     mixtral-8x22b (4 layers, 2 x 8192, window 4096) prefilled and decoded
+     on DTensor parameters against the plain ones under deterministic
+     algorithms: the prefill's and every decode step's logits bit for bit,
+     the same tokens, B1 once a layer; (c) internvl2-26b served at
+     ``SHARDFAM_VLM_SERVE_LAYERS`` of 48 layers and trained at
+     ``VLM_CUT_LAYERS``, whisper-small served and
      trained whole (no kernel), each checked as (a) and (b); (d) rank 0 of
      a fake 16x16 group runs ``SHARDFAM_CELLS``' local steps as 18 (c)
      does (the MoE cell with the dry-run's balanced routing put in place
@@ -433,16 +438,40 @@ Phases (any failure raises, and the script exits non-zero):
      mesh) through ``python -m repro_torch.launch.dryrun``, one process a
      cell: each cell's status, GB a device and largest collective, held
      on status and ``fits``. The phase within ``SHARDFAM_PHASE_LIMIT_S``.
-     18 (d)'s and 19 (e)'s processes run in one ``DryrunPool`` started
-     after the build, ``DRYRUN_WORKERS`` at a time at nice 19, beside the
+     (d)'s MoE train_4k cell, and 18 (c)'s, run cut by ``FAKE_LAYERS``,
+     on the card and in a dry-run job of their own (``--layers``); 18 (d)
+     and 19 (e) hold the cells whole.
+ 20. the hybrid and ssm families' sharded steps (``[shardrec]``), on a 1x1
+     mesh over NCCL as in 18: (a) recurrentgemma-9b at full width, at most
+     ``HYBRID_TRAIN_LAYERS`` deep (1 group + 1 tail) as far as
+     ``shardfam_train_layers`` reckons an sgd step fits, ``SHARD_STEPS``
+     steps at ``HYBRID_TRAIN`` tokens against the unsharded steps as 18
+     (a) holds them, B1-B3 once per attention block a step; (b)
+     recurrentgemma-9b at [hybrid]'s depth and prompt prefilled (B1 once a
+     group), then ``SHARDREC_GEN`` prompt tokens decoded from
+     ``init_cache`` (placed by ``cache_specs``) on DTensor parameters
+     against the plain ones under deterministic algorithms: every step's
+     logits bit for bit, the same tokens; (c) xlstm-350m trained at
+     ``SSM_TRAIN_LAYERS`` and served whole, as (a) and (b), at the
+     shortened ``SHARDREC_SSM_TRAIN`` and ``SHARDREC_SSM_SERVE``, no
+     kernel; (d) rank 0 of a fake 16x16 group runs ``SHARDREC_CELLS``'
+     local steps as 18 (c) does (recurrentgemma-9b prefill_32k: rank 0
+     holds the one kv head, B1 12 launches at local q (2, 32768, 1, 16,
+     256); xlstm-350m decode_32k: none); (e) ``SHARDREC_POOL``'s 12
+     production cells, one process a cell, held as 19 (e). Within
+     ``SHARDREC_PHASE_LIMIT_S``.
+     18 (c)'s and (d)'s, 19 (d)'s and (e)'s and 20 (d)'s and (e)'s
+     dry-run records come from one ``DryrunPool`` started after the
+     build, ``DRYRUN_WORKERS`` processes at a time at nice 19, beside the
      phases from [hopper] on (stopped at exit, whatever the outcome); the
      run prints how long after the build its last job ended, and the
      phases that ended before then ran beside it.
 Then it prints the ``{"kernels": [...]}`` line (B1-B3 with their
 ``launches_vlm`` and ``vlm`` timing rows, their ``launches_ckpt``,
 ``launches_ckpt_resume``, ``launches_dist``, ``launches_service``,
-``launches_tune``, ``launches_tiles``, ``launches_shard`` and
-``launches_shardfam`` and their ``plans`` rows, B4
+``launches_tune``, ``launches_tiles``, ``launches_shard``,
+``launches_shardfam`` and ``launches_shardrec`` and their ``plans`` rows,
+B4
 and B5 with their ``launches_ssm`` and ``launches_service``), the card
 line, and last ``{"ok": true, "device": {...}}``.
 
@@ -450,8 +479,8 @@ line, and last ``{"ok": true, "device": {...}}``.
 its launches as JSON; ``--obs`` runs ``[obs]`` alone (it builds nothing:
 no kernel runs in it); ``--dryrun`` builds the kernels and runs 3 and 4
 (``[serve]``, ``[train]``), then ``[dryrun]`` on what they measured;
-``--shard`` builds the kernels and runs ``[shard]`` alone, and
-``--shardfam`` ``[shardfam]``.
+``--shard`` builds the kernels and runs ``[shard]`` alone,
+``--shardfam`` ``[shardfam]`` and ``--shardrec`` ``[shardrec]``.
 ``--train-child LAYERS ARGS`` (used by [ckpt]) runs
 ``repro_torch.launch.train.main(ARGS)`` with ``ARCH`` at LAYERS layers and
 prints its start step, losses, step times and B1-B3 launches as JSON.
@@ -794,7 +823,11 @@ HYBRID_SCAN_RANGE = "hybrid.plain_rglru_scan"
 SSM_ARCH = "xlstm-350m"
 SSM_SERVE = (8, 2048)
 SSM_GEN = 32
-SSM_TRAIN = (4, 2048)
+# 512 tokens a row since the [shardrec] slice made room (2048 before: 8
+# layers' 3 steps took 17.0 s and the remat step 22.6 s of the phase's
+# 98.9 s on an NVIDIA H100 80GB HBM3 at 700 W); the sLSTM's loop runs a
+# step per token
+SSM_TRAIN = (4, 512)
 SSM_TRAIN_STEPS = 3
 # Training is cut to one group (8 of 24 layers, full width): the sLSTM's
 # time loop is host-bound under autograd, and at full depth a step took
@@ -947,11 +980,12 @@ SHARD_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
 # entry (the logits, their gradient, logsumexp's temporary). Full depth is
 # 14.3 B parameters, 57 GB in fp32 before the optimizer. One state is on
 # the card at a time: the unsharded run's start and end go to the host.
-# (b) qwen2-moe-a2.7b and mixtral-8x22b at [archs]' depth and prompt,
-# prefill and SHARDFAM_GEN - 1 decode steps, on DTensor parameters
-# against the plain ones, under deterministic algorithms (index_add_'s
-# atomics would reorder top_k = 4 sums); (c) internvl2-26b at [vlm]'s
-# depths (served whole, trained at VLM_CUT_LAYERS) and whisper-small whole,
+# (b) qwen2-moe-a2.7b and mixtral-8x22b at SHARDFAM_SERVE's depth and
+# [archs]' prompt, prefill and SHARDFAM_GEN - 1 decode steps, on DTensor
+# parameters against the plain ones, under deterministic algorithms
+# (index_add_'s atomics would reorder top_k = 4 sums); (c) internvl2-26b
+# served at SHARDFAM_VLM_SERVE_LAYERS and trained at VLM_CUT_LAYERS, and
+# whisper-small whole,
 # each trained as (a) and served as (b); (d) rank 0 of a fake 16x16 group
 # runs SHARDFAM_CELLS' local steps as [shard] (c), the MoE cell with the
 # dry-run's balanced routing put in place; (e) the 13 cells a mesh of
@@ -971,7 +1005,10 @@ SHARDFAM_STATE_BYTES = 20
 SHARDFAM_TEMP_BYTES = 16
 SHARDFAM_LOGIT_BYTES = 12
 SHARDFAM_MEMORY_SHARE = 0.85
-SHARDFAM_SERVE = ARCHS_RUNS[:2]
+# (b) and (c)'s served depths, cut to make room for [shardrec] (24 and 48
+# layers before: 8.5 and 10.0 s of the phase)
+SHARDFAM_SERVE = (("qwen2-moe-a2.7b", 6, 8, 2048), ARCHS_RUNS[1])
+SHARDFAM_VLM_SERVE_LAYERS = 12
 SHARDFAM_GEN = 8
 SHARDFAM_CELLS = (("internvl2-26b", "prefill_32k", "16x16"),
                   ("qwen2-moe-a2.7b", "train_4k", "16x16"))
@@ -980,6 +1017,52 @@ SHARDFAM_ARCHS = ("mixtral-8x22b", "qwen2-moe-a2.7b", "internvl2-26b",
 SHARDFAM_PHASE_LIMIT_S = 300.0
 SHARDFAM_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
     "shardfam"
+# Fake-rank train_4k cells ([shard] (c), [shardfam] (d)) cut in depth, on
+# the card and in a dry-run job of their own (``--layers``), to make room
+# for [shardrec]: their local steps run 16 microbatches under remat, and
+# took 20.6 s (qwen3-0.6b, 28 layers) and 49.4 s (qwen2-moe-a2.7b, 24
+# layers: the expert loop's host syncs) on an NVIDIA H100 80GB HBM3 at
+# 700 W. The production cells of [shard] (d) and [shardfam] (e) stay
+# whole.
+FAKE_LAYERS = {("qwen3-0.6b", "train_4k"): 7,
+               ("qwen2-moe-a2.7b", "train_4k"): 4}
+
+# [shardrec]: the hybrid and ssm families' sharded steps, held as
+# [shardfam] holds the others', on a 1x1 mesh over NCCL. (a)
+# recurrentgemma-9b at full width trained SHARD_STEPS steps against the
+# unsharded steps, at most HYBRID_TRAIN_LAYERS deep (1 group + 1 tail) and
+# no deeper than ``shardfam_train_layers`` reckons at HYBRID_TRAIN tokens,
+# with sgd: under adamw's moments no depth with an attention block fits
+# the reckoning (the untied 256,000-row embedding and head hold 2.1 B of
+# the 2.99 B parameters); sgd reckons SHARDREC_STATE_BYTES a parameter
+# (fp32 master, momentum, gradient, update) and SHARDREC_TEMP_BYTES an
+# element of the largest leaf. (b) recurrentgemma-9b at [hybrid]'s depth
+# and prompt prefilled, then SHARDREC_GEN of the prompt's tokens decoded
+# from init_cache (as [hybrid] decodes it; the cache placed by
+# ``cache_specs``), on DTensor parameters against the plain ones under
+# deterministic algorithms: the prefill's and every decode step's logits
+# bit for bit, the same greedy tokens. (c) xlstm-350m trained at
+# SSM_TRAIN_LAYERS (one group, adamw) and served whole, as (a) and (b), at
+# SHARDREC_SSM_TRAIN and SHARDREC_SSM_SERVE tokens: the sLSTM's
+# host-bound time loop runs 512 steps a layer, not [ssm]'s 2048. (d)
+# rank 0 of a fake 16x16 group runs SHARDREC_CELLS' local steps as
+# [shard] (c) does. (e) SHARDREC_POOL's 12 production cells through the
+# dry-run CLI in the DryrunPool, train cells first. xlstm-350m's train_4k
+# and prefill_32k cells stay out of the pool: their sLSTM loops take
+# 4,096 and 32,768 steps a layer on meta, many minutes a cell on one core.
+SHARDREC_STATE_BYTES = 16
+SHARDREC_TEMP_BYTES = 8
+SHARDREC_GEN = 8
+SHARDREC_SSM_TRAIN = (4, 512)
+SHARDREC_SSM_SERVE = (8, 512)
+SHARDREC_CELLS = (("recurrentgemma-9b", "prefill_32k", "16x16"),
+                  ("xlstm-350m", "decode_32k", "16x16"))
+SHARDREC_POOL = (("recurrentgemma-9b", ("train_4k", "prefill_32k",
+                                        "decode_32k", "long_500k")),
+                 ("xlstm-350m", ("decode_32k", "long_500k")))
+SHARDREC_PHASE_LIMIT_S = 180.0
+SHARDREC_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "shardrec"
 DRYRUN_WORKERS = 4
 DRYRUN_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
     "dryrun_pool"
@@ -5797,8 +5880,10 @@ SERVICE_LM_TRIALS = 2
 SERVICE_LM_STEPS = 2
 SERVICE_ONE_TRIAL_REPS = 3      # one lenet trial, remote and in process
 SERVICE_START_S = 120.0         # bound on a server's first lines
-# the phase read 64.7 s in a whole run and 101.8 s alone (a cold main
-# process) on an NVIDIA H100 80GB HBM3 at 700 W
+# the phase read 75.8-121.2 s in whole runs with its runs one after
+# another, and 62.3 s alone with runs 3 and 4 beside the servers' start
+# (33.8 s) and the loopback round trips beside the store's restart, on an
+# NVIDIA H100 80GB HBM3 at 700 W
 SERVICE_PHASE_LIMIT_S = 120.0
 
 
@@ -6333,11 +6418,11 @@ def service_kernels(card, counters, tune, findb, groundtruth, dev, store,
     return cold_n["B5"], b123
 
 
-def service_restart(card, groundtruth, store, journal, procs):
-    """Run 5 of [service]: SIGKILL the store, restart it from its journal;
-    its snapshot must equal the one before, bit for bit. Planted: a
-    journal missing one entry, and one with a corrupt line mid-way."""
-    from repro_torch.service import GroundTruthService, get_codec
+def service_kill_store(store, journal, procs):
+    """Run 5 of [service], its first half: the store's snapshot, then
+    SIGKILL it and start a new process on its journal. Returns what
+    ``service_restart`` takes: (the snapshot's tlv bytes, its fields, the
+    restart's start time)."""
     before, snap = store_snapshot(store)
     procs["store"].kill()
     procs["store"].wait(timeout=10)
@@ -6345,6 +6430,16 @@ def service_restart(card, groundtruth, store, journal, procs):
     procs["store_restart"] = start_server(
         ["repro_torch.service", "--port", "0", "--journal", str(journal)],
         "store_restart")
+    return before, snap, t0
+
+
+def service_restart(card, groundtruth, journal, procs, killed):
+    """Run 5 of [service], its second half: the store restarted from its
+    journal (``service_kill_store``) must serve a snapshot equal to the
+    one before, bit for bit. Planted: a journal missing one entry, and
+    one with a corrupt line mid-way."""
+    from repro_torch.service import GroundTruthService, get_codec
+    before, snap, t0 = killed
     addr = server_addr(procs["store_restart"], "ground-truth service on")
     up_s = time.perf_counter() - t0
     after, _ = store_snapshot(addr)
@@ -6352,8 +6447,9 @@ def service_restart(card, groundtruth, store, journal, procs):
     adds = [i for i, line in enumerate(lines) if '"op": "add"' in line]
     print(f"[service] {card} | store restart: {snap['n_entries']} entries, "
           f"{len(lines) - len(adds)} kernel rows, journal "
-          f"{journal.stat().st_size} bytes; the new process served in "
-          f"{up_s:.2f} s; snapshot {len(before)} tlv bytes, equal bit for "
+          f"{journal.stat().st_size} bytes; the new process served "
+          f"{up_s:.2f} s after its start (the loopback timings ran beside "
+          f"it); snapshot {len(before)} tlv bytes, equal bit for "
           f"bit: {before == after}", flush=True)
     check(before == after, "the restarted store's snapshot differs")
     check(adds, "the journal holds no entry to leave out")
@@ -6407,6 +6503,8 @@ def phase_service(counters, card, fa, fa_bwd, tune, findb, groundtruth,
                                         "0"], "store2")
         procs["coord"] = start_server(["repro_torch.coordinator", "--port",
                                        "0", "--ttl", "10"], "coord")
+        # run 3 needs no server: it runs while the servers start
+        b123_wire = service_lm(card, counters, fa, fa_bwd, dev)
         store = server_addr(procs["store"], "ground-truth service on")
         coord = server_addr(procs["coord"], "coordinator on")
         dev_args = [] if dev == "cuda" else ["--device", dev]
@@ -6414,6 +6512,9 @@ def phase_service(counters, card, fa, fa_bwd, tune, findb, groundtruth,
             procs[name] = start_server(
                 ["repro_torch.worker", "--port", "0", "--backend", "real",
                  "--store", store, "--announce", coord, *dev_args], name)
+        # run 4 needs the store alone: it runs while the workers start
+        b5, b123_train = service_kernels(card, counters, tune, findb,
+                                         groundtruth, dev, store, journal)
         store2 = server_addr(procs["store2"], "ground-truth service on")
         w1, w2 = (server_addr(procs[n], "trial worker on")
                   for n in ("w1", "w2"))
@@ -6421,7 +6522,8 @@ def phase_service(counters, card, fa, fa_bwd, tune, findb, groundtruth,
             server_line(procs[n], "announced to")
         print(f"[service] store {store} (journal), store {store2}, "
               f"coordinator {coord}, workers {w1} and {w2} up in "
-              f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+              f"{time.perf_counter() - t_phase:.2f} s, runs 3 and 4 beside "
+              f"them", flush=True)
         reset_all(counters)
         c, wall_c, wall_e = service_lenet(card, tune_launch, dev, store,
                                           store2, w1, w2, coord, procs)
@@ -6431,12 +6533,11 @@ def phase_service(counters, card, fa, fa_bwd, tune, findb, groundtruth,
               f"{wall_c:.2f} s, elastic with a kill {wall_e:.2f} s",
               flush=True)
         service_one_trial(card, dev, w1)
+        # the loopback timings (the second store) while the first restarts
+        killed = service_kill_store(store, journal, procs)
         codecs = []
         service_timings(card, store2, codecs)
-        b123_wire = service_lm(card, counters, fa, fa_bwd, dev)
-        b5, b123_train = service_kernels(card, counters, tune, findb,
-                                         groundtruth, dev, store, journal)
-        service_restart(card, groundtruth, store, journal, procs)
+        service_restart(card, groundtruth, journal, procs, killed)
     finally:
         stop_servers(list(procs.values()))
     shutil.rmtree(SERVICE_ROOT, ignore_errors=True)
@@ -6456,8 +6557,9 @@ OBS_SCENARIO = "sigkill_worker"
 OBS_CHAOS_TIMEOUT_S = 100.0     # bound on the chaos subprocess
 OBS_SCRAPE_S = 0.25             # interval of the live endpoint scrapes
 OBS_SKEW_S = 0.005              # slack on times two clocks of one host give
-# 75.4 s alone on an NVIDIA H100 80GB HBM3 at 700 W (servers 18.5 s,
-# warm-up 18.8 s, the lenet jobs 13 s, chaos 24.8 s)
+# 44.4 s alone on an NVIDIA H100 80GB HBM3 at 700 W with chaos (34.2 s)
+# beside the servers' start (20.9 s) and warm-up (6.9 s); 87.5-114.5 s in
+# whole runs with chaos after the lenet jobs
 OBS_PHASE_LIMIT_S = 120.0
 
 
@@ -6684,33 +6786,61 @@ def obs_planted(card, path, records, report):
           "a torn last line was not tolerated")
 
 
-def obs_chaos(card):
-    """``python -m repro_torch.obs chaos sigkill_worker --trace`` in a
-    process of its own; its verdict re-derived from the artifact by
-    ``_evaluate``, and a perturbed result that ``_evaluate`` must flag."""
+def obs_chaos_start():
+    """Start ``python -m repro_torch.obs chaos sigkill_worker --trace
+    --json`` in a process of its own (the sim backend: it needs no card),
+    its output in ``OBS_ROOT``. Returns (the process, its start time)."""
+    root = Path(__file__).resolve().parent
+    with open(OBS_ROOT / "chaos.out", "w") as out, \
+            open(OBS_ROOT / "chaos.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.obs", "chaos", OBS_SCENARIO,
+             "--trace", str(OBS_ROOT / "chaos.jsonl"), "--json"],
+            stdout=out, stderr=err, cwd=str(root), start_new_session=True,
+            env={**__import__("os").environ, "PYTHONPATH": str(root / "src")})
+    return proc, time.perf_counter()
+
+
+def obs_chaos_stop(proc):
+    """SIGKILL the chaos process's group (it and its workers) if it is
+    still running."""
+    import os
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=10)
+
+
+def obs_chaos(card, started):
+    """Wait (within ``OBS_CHAOS_TIMEOUT_S`` of its start) for the chaos
+    process of ``obs_chaos_start``; its verdict re-derived from the
+    artifact by ``_evaluate``, and a perturbed result that ``_evaluate``
+    must flag."""
     import copy
     from repro_torch.obs import chaos, events, scenarios, sinks
-    root = Path(__file__).resolve().parent
+    proc, t0 = started
     path = OBS_ROOT / "chaos.jsonl"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.obs", "chaos", OBS_SCENARIO,
-         "--trace", str(path), "--json"], capture_output=True, text=True,
-        cwd=str(root), timeout=OBS_CHAOS_TIMEOUT_S,
-        env={**__import__("os").environ, "PYTHONPATH": str(root / "src")})
+    try:
+        proc.wait(timeout=max(OBS_CHAOS_TIMEOUT_S
+                              - (time.perf_counter() - t0), 0.1))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"chaos ran past {OBS_CHAOS_TIMEOUT_S:.0f} s")
     chaos_s = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
+    stdout = (OBS_ROOT / "chaos.out").read_text()
+    stderr = (OBS_ROOT / "chaos.err").read_text()
+    lines = stdout.strip().splitlines()
     for line in lines[:-1]:
         print(f"[obs]   {line}", flush=True)
     check(proc.returncode == 0, f"chaos exited {proc.returncode}: "
-          f"{(proc.stdout + proc.stderr)[-2000:]}")
+          f"{(stdout + stderr)[-2000:]}")
     rep = json.loads(lines[-1])
     print(f"[obs] {card} | chaos {OBS_SCENARIO}: passed {rep['passed']}, "
           f"retire time {rep['recovery_s']} s (budget "
           f"{scenarios.SCENARIOS[OBS_SCENARIO].retire_budget_s():.1f} s), "
           f"{rep['replaced']} trial(s) re-placed, {rep['n_events']} events, "
-          f"{rep['wall_s']} s scenario wall, {chaos_s:.2f} s with the "
-          f"process", flush=True)
+          f"{rep['wall_s']} s scenario wall, {chaos_s:.2f} s from the "
+          f"process's start to its end (beside the servers' start and "
+          f"warm-up)", flush=True)
     check(rep["passed"], "the chaos scenario failed its SLOs")
     records = sinks.read_trace(str(path))
     check(len(records) == rep["n_events"], f"{len(records)} records in the "
@@ -6755,6 +6885,9 @@ def phase_obs(counters, card, dev="cuda"):
     shutil.rmtree(OBS_ROOT, ignore_errors=True)
     OBS_ROOT.mkdir(parents=True)
     procs, inproc = {}, []
+    # the chaos scenario needs no card and none of the servers below: it
+    # runs while they start and warm up, and ends before the timed jobs
+    chaos_started = obs_chaos_start()
 
     def fresh_store():
         """A store served in this process, empty, on its own bus."""
@@ -6794,6 +6927,7 @@ def phase_obs(counters, card, dev="cuda"):
               f"workers {w1} and {w2} up in {up_s:.2f} s; warm-up trial "
               f"{', '.join(f'{w} {s:.2f} s' for w, s in walls.items())}",
               flush=True)
+        obs_chaos(card, chaos_started)
         job = SERVICE_JOB + ([] if dev == "cuda" else ["--device", dev])
         reset_all(counters)
         # the elastic job untraced (a store process of its own; again after
@@ -6840,11 +6974,11 @@ def phase_obs(counters, card, dev="cuda"):
                                        scrapes, bus_counters, last)
         obs_planted(card, path, records, report)
     finally:
+        obs_chaos_stop(chaos_started[0])
         stop_servers(list(procs.values()))
         for srv, svc in inproc:
             srv.shutdown()
             svc.close()
-    obs_chaos(card)
     shutil.rmtree(OBS_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
@@ -7061,10 +7195,10 @@ def shard_train(fa, fa_bwd, steps, card, mesh):
         want = float(plain_losses[-1]) - float(plain_losses[0])
         return abs(float(ls[-1]) - float(ls[0]) - want) / abs(want)
     loss_err = loss_change_err(losses)
-    update_err, leaf = update_error(init, ref, got)
-    update_ok = max(loss_err, update_err) <= SHARD_UPDATE_RTOL
     # planted: a step that leaves the state (and so the loss) unchanged
-    fault_err, _ = update_error(init, ref, init)
+    (update_err, leaf, _), (fault_err, _, _) = update_errors(
+        init, ref, (got, init))
+    update_ok = max(loss_err, update_err) <= SHARD_UPDATE_RTOL
     fault_loss = loss_change_err([losses[0]] * len(losses))
     caught = min(fault_err, fault_loss) > SHARD_UPDATE_RTOL
     del ref, got, init
@@ -7104,25 +7238,33 @@ def shard_train(fa, fa_bwd, steps, card, mesh):
     return counts[-1], ms
 
 
-def update_error(init, ref, got):
-    """(the worst leaf's ||(got - init) - (ref - init)|| / ||ref - init||,
-    that leaf's path): how far the update that ``got`` holds is from the
-    reference update, per parameter leaf (dicts path -> tensor; a leaf
-    on the host or a DTensor is taken whole onto the card one at a time)."""
+def update_errors(init, ref, gots):
+    """For each state of ``gots``: (the worst leaf's ||(got - init) - (ref
+    - init)|| / ||ref - init||, that leaf's path, the leaves equal to
+    ``ref``'s bit for bit): how far the update that ``got`` holds is from
+    the reference update, per parameter leaf (dicts path -> tensor; a leaf
+    on the host or a DTensor is taken whole onto the card). One pass over
+    the leaves takes each leaf of ``init`` and ``ref`` onto the card once;
+    a state that is ``init`` itself (the planted unchanged state) reuses
+    ``init``'s copy."""
     import torch
-    worst, leaf = -1.0, None
+    out = [[-1.0, None, 0] for _ in gots]
     for path, p0 in init.items():
-        g = got[path]
-        g = g.full_tensor() if hasattr(g, "full_tensor") else g
-        p0 = p0.to("cuda").float()
-        want = ref[path].to("cuda").float() - p0
-        err = float(torch.linalg.vector_norm(g.to("cuda").float() - p0
-                                             - want))
+        r = ref[path].to("cuda")
+        p0 = p0.to("cuda")
+        want = r.float() - p0.float()
         scale = float(torch.linalg.vector_norm(want))
-        ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
-        if ratio > worst:
-            worst, leaf = ratio, path
-    return worst, leaf
+        for o, got in zip(out, gots):
+            g = p0 if got is init else got[path]
+            g = g.full_tensor() if hasattr(g, "full_tensor") else g
+            g = g.to("cuda")
+            o[2] += bool(torch.equal(g, r))
+            err = float(torch.linalg.vector_norm(g.float() - p0.float()
+                                                 - want))
+            ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
+            if ratio > o[0]:
+                o[0], o[1] = ratio, path
+    return [tuple(o) for o in out]
 
 
 def shard_serve(fa, fa_bwd, steps, card, mesh):
@@ -7220,28 +7362,34 @@ def shard_serve(fa, fa_bwd, steps, card, mesh):
 
 
 def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name,
-                    arch=ARCH, rec=None, patches=(), tag="[shard] (c)"):
+                    arch=ARCH, rec=None, patches=(), tag="[shard] (c)",
+                    layers=None):
     """[shard] (c): rank 0 of a fake group runs one production cell's
     local step on the card (numbers unchecked: the fake collectives write
     nothing): the kernels' launches against the dry-run's calls, B1's
-    local shape, and max_memory_allocated against the dry-run's
-    per-device peak (argument, unused argument and temp bytes). ``rec`` is
-    the cell's dry-run record (run here if None); ``patches`` are
-    (owner, name, value) set for the card's step. Returns (launches
-    B1-B3, ratio)."""
+    local shape (none in a decode cell), and max_memory_allocated against
+    the dry-run's per-device peak (argument, unused argument and temp
+    bytes). ``rec`` is the cell's dry-run record (run here if None);
+    ``patches`` are (owner, name, value) set for the card's step;
+    ``layers`` cuts the arch's depth (the record's too). Returns
+    (launches B1-B3, ratio)."""
     import torch
     from repro_torch import configs, spmd
     from repro_torch.launch import dryrun
     from repro_torch.tree import tree_map
+    cut = {"n_layers": layers} if layers else None
     if rec is None:
         rec = dryrun.run_cell(arch, shape_name, mesh=mesh_name,
-                              verbose=False)
+                              verbose=False, cfg_overrides=cut)
     check(rec["status"] == "ok", f"{tag} dry-run cell: {rec}")
+    check(rec.get("layers") == layers, f"{tag} the dry-run cell's depth "
+          f"{rec.get('layers')}, the card's {layers}")
     mem = rec["memory"]
     predicted = (mem["argument_size_in_bytes"]
                  + mem.get("unused_argument_bytes", 0)
                  + mem["temp_size_in_bytes"])
-    cfg = configs.get(arch)
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, **(cut or {}))
     shape = configs.SHAPES[shape_name]
     amesh = dryrun._abstract_mesh(mesh_name)
     sizes = dict(zip(amesh.mesh_dim_names, amesh.shape))
@@ -7276,6 +7424,13 @@ def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name,
                 steps.state_specs_abstract(cfg, opt, mesh, sys_cfg), mesh))
             args = (state, batch)
             step = steps.make_train_step(cfg, sys_cfg, opt, mesh=mesh)
+        elif shape.kind == "decode":
+            cache = tree_map(real, dryrun._placed(steps.cache_specs_abstract(
+                cfg, shape, mesh, quant=sys_cfg.kv_quant), mesh))
+            args = (tree_map(real, dryrun._placed(
+                steps.param_specs_abstract(cfg, mesh, sys_cfg), mesh)),
+                cache, batch["tokens"], batch["pos"])
+            step = steps.make_decode_step(cfg, sys_cfg)
         else:
             args = (tree_map(real, dryrun._placed(
                 steps.param_specs_abstract(cfg, mesh, sys_cfg), mesh)),
@@ -7308,12 +7463,16 @@ def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name,
         rows //= sys_cfg.microbatches
     want = (rows, shape.seq_len, 1, cfg.n_heads // cfg.n_kv_heads,
             cfg.resolved_head_dim)
+    want_seen = set() if shape.kind == "decode" else {want}
     calls = tuple(rec["kernels"].get(k, 0) for k in ("B1", "B2", "B3"))
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers" if layers else
+             f"{cfg.n_layers} layers")
     print(f"{tag} {card} | rank 0 of a fake {mesh_name} group on the "
-          f"card, {arch} {shape_name} (microbatches "
+          f"card, {arch} {shape_name}, {depth} (microbatches "
           f"{sys_cfg.microbatches}, remat {sys_cfg.remat}): launches "
           f"B1/B2/B3 {counts} (dry-run calls {calls}) at local q "
-          f"{sorted(set(seen))} (expected {want}); {ms:.1f} ms (host clock, "
+          f"{sorted(set(seen))} (expected {sorted(want_seen)}); {ms:.1f} ms "
+          f"(host clock, "
           f"numbers unchecked); arguments {base / 2 ** 30:.3f} GiB, "
           f"max_memory_allocated {peak / 2 ** 30:.3f} GiB against the "
           f"dry-run's per-device peak {predicted / 2 ** 30:.3f} GiB "
@@ -7325,7 +7484,7 @@ def shard_fake_cell(fa, fa_bwd, steps, card, shape_name, mesh_name,
           f"{rec['trace_s']:.1f} s", flush=True)
     check(counts == calls, f"{tag} fake rank launched {counts}, the "
           f"dry-run counts {calls}")
-    check(set(seen) == {want}, f"{tag} B1 saw {set(seen)}")
+    check(set(seen) == want_seen, f"{tag} B1 saw {set(seen)}")
     check(lo <= ratio <= hi, f"{tag} {shape_name}: predicted peak "
           f"{ratio:.4f} of the measured")
     return counts, ratio
@@ -7370,23 +7529,28 @@ def phase_shard(fa, fa_bwd, steps, card, pool=None):
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     t_phase = time.perf_counter()
-    SHARD_ROOT.mkdir(parents=True, exist_ok=True)
-    dist.init_process_group(
-        "nccl", store=dist.FileStore(str(SHARD_ROOT / "store"), 1), rank=0,
-        world_size=1, device_id=torch.device("cuda", 0),
-        timeout=datetime.timedelta(seconds=60))
-    try:
-        mesh = mesh_lib.single_device_mesh()
-        train_counts, train_ms = shard_train(fa, fa_bwd, steps, card, mesh)
-        prefill_b1 = shard_serve(fa, fa_bwd, steps, card, mesh)
-    finally:
-        dist.destroy_process_group()
     own = pool is None
     if own:
         pool = DryrunPool(shard_jobs())
     try:
-        fake = {f"fake_{m}_{c}": shard_fake_cell(fa, fa_bwd, steps, card, c,
-                                                 m)
+        SHARD_ROOT.mkdir(parents=True, exist_ok=True)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(SHARD_ROOT / "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0),
+            timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = mesh_lib.single_device_mesh()
+            train_counts, train_ms = shard_train(fa, fa_bwd, steps, card,
+                                                 mesh)
+            prefill_b1 = shard_serve(fa, fa_bwd, steps, card, mesh)
+        finally:
+            dist.destroy_process_group()
+        # (c)'s dry-run records from the pool
+        fake = {f"fake_{m}_{c}": shard_fake_cell(
+                    fa, fa_bwd, steps, card, c, m,
+                    rec=pool.record((ARCH, c, m), "[shard] (c)",
+                                    FAKE_LAYERS.get((ARCH, c)))[0],
+                    layers=FAKE_LAYERS.get((ARCH, c)))
                 for c, m in SHARD_CELLS}
         shard_dryrun_cells(card, pool)
     finally:
@@ -7404,43 +7568,41 @@ def phase_shard(fa, fa_bwd, steps, card, pool=None):
             "peak_ratios": {name: r for name, (_, r) in fake.items()}}
 
 
-def shardfam_train_layers(cfg, total_bytes):
-    """(a)'s depth: the most layers whose adamw step fits
-    SHARDFAM_MEMORY_SHARE of ``total_bytes`` (the bytes a parameter, the
-    largest leaf's temporaries and the logits, as the constants say), and
-    the bytes reckoned for it."""
+def shardfam_train_layers(cfg, total_bytes, tokens=TRAIN_BATCH * TRAIN_SEQ,
+                          depths=None, state_bytes=SHARDFAM_STATE_BYTES,
+                          temp_bytes=SHARDFAM_TEMP_BYTES):
+    """(a)'s depth: the most layers (of ``depths``, default 1 to the
+    config's) whose step fits SHARDFAM_MEMORY_SHARE of ``total_bytes``:
+    ``state_bytes`` a parameter (adamw's by default), ``temp_bytes`` an
+    element of the largest leaf and SHARDFAM_LOGIT_BYTES a logit of
+    ``tokens``, as the constants say; and the bytes reckoned for it."""
     from repro_torch import weights
-    shapes = weights.leaf_shapes(cfg)
-    layer = {p: math.prod(s[1:]) for p, s in shapes.items()
-             if p.startswith("layers/")}
-    outside = {p: math.prod(s) for p, s in shapes.items()
-               if not p.startswith("layers/")}
-    tokens = TRAIN_BATCH * TRAIN_SEQ
 
     def reckon(n):
-        params = sum(outside.values()) + n * sum(layer.values())
-        largest = max(max(outside.values()), n * max(layer.values()))
-        return (SHARDFAM_STATE_BYTES * params + SHARDFAM_TEMP_BYTES * largest
+        sizes = [math.prod(s) for s in weights.leaf_shapes(
+            dataclasses.replace(cfg, n_layers=n)).values()]
+        return (state_bytes * sum(sizes) + temp_bytes * max(sizes)
                 + SHARDFAM_LOGIT_BYTES * tokens * cfg.padded_vocab)
-    fits = [n for n in range(1, cfg.n_layers + 1)
+    fits = [n for n in (depths or range(1, cfg.n_layers + 1))
             if reckon(n) <= SHARDFAM_MEMORY_SHARE * total_bytes]
-    check(fits, f"[shardfam] no depth of {cfg.name} fits")
+    check(fits, f"no depth of {cfg.name} fits")
     return fits[-1], reckon(fits[-1])
 
 
 def shardfam_train(fa, fa_bwd, steps, card, mesh, label, cfg, batches,
-                   want):
+                   want, opt=None, tag="[shardfam]"):
     """A SHARD_STEPS-step train run on a 1x1 mesh against the unsharded run
     from the same seed, held as [shard] (a) holds it: the first loss, the
     steps' change of the loss and of every leaf within SHARD_UPDATE_RTOL
     of the unsharded change, a planted unchanged state caught, ``want``
-    launches of B1-B3 a step. Returns the launches of each sharded step."""
+    launches of B1-B3 a step. ``opt`` defaults to adamw. Returns the
+    launches of each sharded step."""
     import torch
     from repro_torch import configs, weights
     from repro_torch.optim import optimizers
     sys_cfg = steps.default_sys(cfg, configs.SHAPES["train_4k"], dp=1, tp=1)
     sys_cfg = dataclasses.replace(sys_cfg, microbatches=1, remat="none")
-    opt = optimizers.adamw(3e-4, weight_decay=0.01)
+    opt = opt or optimizers.adamw(3e-4, weight_decay=0.01)
 
     def run(mesh_):
         torch.cuda.empty_cache()
@@ -7471,23 +7633,21 @@ def shardfam_train(fa, fa_bwd, steps, card, mesh, label, cfg, batches,
              if torch.is_tensor(t)}
     got = weights.flatten(sharded["params"])
     n = len(ref)
-    n_equal = sum(bool(torch.equal(got[p].full_tensor(), ref[p].cuda()))
-                  for p in ref)
 
     def loss_change_err(ls):
         want_d = plain_losses[-1] - plain_losses[0]
         return abs(ls[-1] - ls[0] - want_d) / abs(want_d)
     first_diff = abs(losses[0] - plain_losses[0])
     loss_err = loss_change_err(losses)
-    update_err, leaf = update_error(init, ref, got)
-    fault_err, _ = update_error(init, ref, init)
+    (update_err, leaf, n_equal), (fault_err, _, _) = update_errors(
+        init, ref, (got, init))
     fault_loss = loss_change_err([losses[0]] * len(losses))
     caught = min(fault_err, fault_loss) > SHARD_UPDATE_RTOL
     n_params = sum(t.numel() for t in ref.values())
     del sharded, got, ref, init
     torch.cuda.empty_cache()
     ok = max(loss_err, update_err) <= SHARD_UPDATE_RTOL
-    print(f"[shardfam] {label} {card} | train on a 1x1 mesh (NCCL, world 1), "
+    print(f"{tag} {label} {card} | train on a 1x1 mesh (NCCL, world 1), "
           f"{cfg.name} at full width, {cfg.n_layers} layers "
           f"({n_params:,} parameters), {SHARD_STEPS} steps: state leaves "
           f"{sorted(kinds)}; launches B1/B2/B3 a step {counts} (expected "
@@ -7502,17 +7662,17 @@ def shardfam_train(fa, fa_bwd, steps, card, mesh, label, cfg, batches,
           f"{' '.join(f'{x:.1f}' for x in ms)}, unsharded "
           f"{' '.join(f'{x:.1f}' for x in plain_ms)} (host clock, first step "
           f"with warm-up)", flush=True)
-    check(kinds == {"DTensor"}, f"[shardfam] {label}: the sharded state "
+    check(kinds == {"DTensor"}, f"{tag} {label}: the sharded state "
           f"holds {kinds}")
-    check(all(c == want for c in counts), f"[shardfam] {label}: launches "
+    check(all(c == want for c in counts), f"{tag} {label}: launches "
           f"{counts}, expected {want} a step")
-    check(all(math.isfinite(x) for x in losses), f"[shardfam] {label}: "
+    check(all(math.isfinite(x) for x in losses), f"{tag} {label}: "
           "non-finite loss")
-    check(first_diff <= 1e-2, f"[shardfam] {label}: first losses differ by "
+    check(first_diff <= 1e-2, f"{tag} {label}: first losses differ by "
           f"{first_diff}")
-    check(ok, f"[shardfam] {label}: loss change {loss_err:.3e}, {leaf}'s "
+    check(ok, f"{tag} {label}: loss change {loss_err:.3e}, {leaf}'s "
           f"update {update_err:.3e} off the unsharded")
-    check(caught, f"[shardfam] {label}: the update check misses an "
+    check(caught, f"{tag} {label}: the update check misses an "
           "unchanged state")
     return counts
 
@@ -7535,25 +7695,33 @@ def deterministic_algorithms():
 
 
 def shardfam_serve(fa, fa_bwd, steps, card, mesh, label, cfg, prompt,
-                   want_b1):
-    """A prefill of ``prompt`` (bf16 parameters from a seed) and
-    SHARDFAM_GEN - 1 greedy decode steps, on the plain parameters, then on
-    DTensor parameters on a 1x1 mesh (moved leaf by leaf, so one copy is
-    held), under deterministic algorithms: the prefill's and every decode
-    step's logits bit for bit, the same tokens, ``want_b1`` B1 launches a
-    prefill. Returns B1's launches of the sharded prefill."""
+                   want_b1, from_init=False, gen=SHARDFAM_GEN,
+                   tag="[shardfam]"):
+    """A prefill of ``prompt`` (bf16 parameters from a seed) and ``gen`` - 1
+    greedy decode steps from its cache, or with ``from_init`` (a hybrid's
+    or an ssm's prefill hands decode no state, as the reference's) ``gen``
+    decode steps over the prompt's first tokens from ``init_cache``
+    (placed by ``cache_specs`` on the mesh), on the plain parameters, then
+    on DTensor parameters on a 1x1 mesh (moved leaf by leaf, so one copy
+    is held), under deterministic algorithms: the prefill's and every
+    decode step's logits bit for bit, the same greedy tokens, ``want_b1``
+    B1 launches a prefill. Returns B1's launches of the sharded
+    prefill."""
     import torch
     from repro_torch import configs, weights
     from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
     sys_cfg = steps.default_sys(cfg, configs.SHAPES["prefill_32k"], dp=1,
                                 tp=1)
     cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    S = prompt["tokens" if "tokens" in prompt else "embeddings"].shape[1]
+    first = prompt["tokens" if "tokens" in prompt else "embeddings"]
+    B, S = first.shape[:2]
+    n_dec = gen if from_init else gen - 1
     torch.cuda.empty_cache()
     params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
                               cfg, "cuda")
     n_params = sum(t.numel() for t in weights.flatten(params).values())
-    prefill = steps.make_prefill_step(cfg, sys_cfg, max_len=S + SHARDFAM_GEN)
+    prefill = steps.make_prefill_step(cfg, sys_cfg, max_len=S + gen)
     decode = steps.make_decode_step(cfg, sys_cfg)
 
     def serve(p, sharded):
@@ -7568,17 +7736,23 @@ def shardfam_serve(fa, fa_bwd, steps, card, mesh, label, cfg, prompt,
         outs = [logits.float().clone()]
         tok = logits[:, -1].argmax(-1)[:, None]
         toks = [tok]
+        if from_init:
+            cache = transformer.init_cache(cfg, B, S, device="cuda")
+            if sharded:
+                cache = steps.place(
+                    cache, sharding.cache_specs(cache, cfg, mesh), mesh)
         t0 = time.perf_counter()
-        for i in range(SHARDFAM_GEN - 1):
+        for i in range(n_dec):
+            tok = prompt["tokens"][:, i:i + 1] if from_init else tok
             t = steps.distribute_batch({"t": tok}, mesh)["t"] if sharded \
                 else tok
-            logits, cache = decode(p, cache, t, S + i)
+            logits, cache = decode(p, cache, t, i if from_init else S + i)
             logits = logits.full_tensor() if sharded else logits
             outs.append(logits.float().clone())
             tok = logits[:, -1].argmax(-1)[:, None]
             toks.append(tok)
         torch.cuda.synchronize()
-        dec_ms = (time.perf_counter() - t0) * 1e3 / (SHARDFAM_GEN - 1)
+        dec_ms = (time.perf_counter() - t0) * 1e3 / n_dec
         del cache
         return outs, torch.cat(toks, 1), b1, pre_ms, dec_ms
 
@@ -7596,55 +7770,79 @@ def shardfam_serve(fa, fa_bwd, steps, card, mesh, label, cfg, prompt,
               if not torch.equal(g, r)]
     equal = len(got) == len(ref) and not differ
     same = bool(torch.equal(toks, ref_toks))
+    decoded = (f"{n_dec} decode steps from init_cache" if from_init
+               else f"{n_dec} decode steps")
     if equal:
-        text = (f"of the prefill and the {SHARDFAM_GEN - 1} decode steps "
-                "equal the unsharded ones bit for bit")
+        text = (f"of the prefill and the {decoded} equal the unsharded "
+                "ones bit for bit")
     else:
         text = (f"NOT bit-equal at steps {differ} (0 the prefill), max|diff| "
                 f"{max(float((got[i] - ref[i]).abs().max()) for i in differ):.3e}"
                 if differ else f"{len(got)} steps against {len(ref)}")
-    print(f"[shardfam] {label} {card} | {cfg.name} {cfg.n_layers} layers "
+    print(f"{tag} {label} {card} | {cfg.name} {cfg.n_layers} layers "
           f"({n_params:,} parameters, bf16), prefill "
           f"{' x '.join(str(d) for d in next(iter(prompt.values())).shape[:2])}"
           f" on a 1x1 mesh: B1 launches {b1} (unsharded {ref_b1}, expected "
-          f"{want_b1}); logits {text}; {SHARDFAM_GEN} tokens greedy "
+          f"{want_b1}); logits {text}; {toks.shape[1]} tokens greedy "
           f"{'equal' if same else 'DIFFER'}; host clock, deterministic "
           f"algorithms on: prefill {pre_ms:.1f} ms (unsharded {ref_pre:.1f}), "
           f"decode {dec_ms:.1f} ms/step (unsharded {ref_dec:.1f})",
           flush=True)
-    check(b1 == ref_b1 == want_b1, f"[shardfam] {label}: prefill launched "
+    check(b1 == ref_b1 == want_b1, f"{tag} {label}: prefill launched "
           f"B1 {b1} and {ref_b1} times, expected {want_b1}")
     check(all(bool(torch.isfinite(g).all()) for g in got),
-          f"[shardfam] {label}: logits not finite")
-    check(equal, f"[shardfam] {label}: the sharded logits {text}")
-    check(same, f"[shardfam] {label}: the sharded run's tokens differ")
+          f"{tag} {label}: logits not finite")
+    check(equal, f"{tag} {label}: the sharded logits {text}")
+    check(same, f"{tag} {label}: the sharded run's tokens differ")
     return b1
 
 
 def shard_jobs():
-    """[shard] (d)'s dry-run jobs: one process an (arch, mesh), its shapes
-    in turn (one import a process)."""
-    return [(a, m, None) for m in SHARD_MESHES for a in SHARD_DENSE]
+    """[shard]'s dry-run jobs: (c)'s cells cut by FAKE_LAYERS, then (d)'s,
+    one process an (arch, mesh), its shapes in turn (one import a
+    process); (c)'s uncut cells come from (d)'s."""
+    cut = [fake_job(ARCH, c, m) for c, m in SHARD_CELLS
+           if (ARCH, c) in FAKE_LAYERS]
+    return cut + [(a, m, None) for m in SHARD_MESHES for a in SHARD_DENSE]
 
 
 def shardfam_jobs():
-    """[shardfam] (e)'s dry-run jobs: one process a cell, SHARDFAM_CELLS'
-    first, the long ones next (train cells, whisper's 32768-token decoder
-    on meta: about a minute each on one core)."""
+    """[shardfam]'s dry-run jobs: (d)'s cells first (the MoE one cut by
+    FAKE_LAYERS, a job of its own), then (e)'s, one process a cell, the
+    long ones first (train cells, whisper's 32768-token decoder on meta:
+    about a minute each on one core)."""
     from repro_torch import configs
     cells = [(a, m, s) for m in SHARD_MESHES for a in SHARDFAM_ARCHS
              for s in configs.SHAPES
              if configs.shape_applicable(configs.get(a), configs.SHAPES[s])]
-    first = [(a, m, s) for a, s, m in SHARDFAM_CELLS]
+    first = [fake_job(a, s, m) for a, s, m in SHARDFAM_CELLS]
     return first + sorted((c for c in cells if c not in first),
                           key=lambda c: c[2] != "train_4k" and (
                               c[0], c[2]) != ("whisper-small", "prefill_32k"))
 
 
+def fake_job(arch, shape, mesh):
+    """A fake-rank cell's dry-run job: (arch, mesh, shape), with the
+    depth FAKE_LAYERS cuts it to."""
+    cut = FAKE_LAYERS.get((arch, shape))
+    return (arch, mesh, shape) + ((cut,) if cut else ())
+
+
+def shardrec_jobs():
+    """[shardrec]'s dry-run jobs, one process a cell: (d)'s cells, then
+    (e)'s (SHARDREC_POOL on both meshes), train cells first."""
+    cells = [(a, m, s) for m in SHARD_MESHES for a, shapes in SHARDREC_POOL
+             for s in shapes]
+    first = [(a, m, s) for a, s, m in SHARDREC_CELLS]
+    return first + sorted((c for c in cells if c not in first),
+                          key=lambda c: c[2] != "train_4k")
+
+
 class DryrunPool:
     """Production-mesh dry-run jobs through ``python -m
     repro_torch.launch.dryrun``, ``DRYRUN_WORKERS`` processes at a time. A
-    job is (arch, mesh, shape), shape None for every shape of the arch.
+    job is (arch, mesh, shape[, layers]), shape None for every shape of
+    the arch, layers (``--layers``) a depth cut.
     The children see no card (``CUDA_VISIBLE_DEVICES`` empty: the fake
     group's "cuda" mesh needs none) and run at nice 19, beside the card's
     phases. ``stop`` ends them (safe to call twice)."""
@@ -7661,6 +7859,7 @@ class DryrunPool:
         self.lock, self.procs, self.stopped = threading.Lock(), set(), False
         self.t0 = time.perf_counter()
         self.executor = ThreadPoolExecutor(DRYRUN_WORKERS)
+        jobs = [tuple(j) + (None,) * (4 - len(j)) for j in jobs]
         self.futures = {job: self.executor.submit(self._job, job)
                         for job in jobs}
 
@@ -7668,15 +7867,17 @@ class DryrunPool:
         """(exit code, its records by cell, seconds after the pool's start
         it ended, its log's end)."""
         import os
-        a, m, s = job
-        out = DRYRUN_ROOT / f"{a}_{m}_{s or 'all'}.json"
+        a, m, s, layers = job
+        out = DRYRUN_ROOT / (f"{a}_{m}_{s or 'all'}"
+                             + (f"_l{layers}" if layers else "") + ".json")
         with self.lock, open(out.with_suffix(".log"), "w") as log:
             if self.stopped:
                 return -1, {}, 0.0, "stopped"
             proc = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                  a, "--mesh", m, "--out", str(out)]
-                + (["--shape", s] if s else []),
+                + (["--shape", s] if s else [])
+                + (["--layers", str(layers)] if layers else []),
                 stdout=log, stderr=subprocess.STDOUT, env=self.env)
             self.procs.add(proc)
         try:
@@ -7690,11 +7891,13 @@ class DryrunPool:
                 time.perf_counter() - self.t0,
                 out.with_suffix(".log").read_text()[-2000:])
 
-    def record(self, cell, tag):
-        """The dry-run record of ``cell`` (arch, shape, mesh) and the
-        seconds after the pool's start its job ended, waiting for it."""
+    def record(self, cell, tag, layers=None):
+        """The dry-run record of ``cell`` (arch, shape, mesh), at depth
+        ``layers`` where cut, and the seconds after the pool's start its
+        job ended, waiting for it."""
         a, s, m = cell
-        job = (a, m, s) if (a, m, s) in self.futures else (a, m, None)
+        job = (a, m, s, layers)
+        job = job if job in self.futures else (a, m, None, layers)
         rc, recs, ended, log = self.futures[job].result()
         check(rc == 0 and cell in recs, f"{tag} dry-run {cell} exited "
               f"{rc}: {log}")
@@ -7720,26 +7923,27 @@ class DryrunPool:
         shutil.rmtree(DRYRUN_ROOT, ignore_errors=True)
 
 
-def shardfam_cells(card, pool):
-    """[shardfam] (e): each cell's status, GB a device and largest
-    collective, held on status and ``fits``."""
+def pool_cells(card, pool, jobs, tag):
+    """[shardfam] (e), [shardrec] (e): each uncut cell of ``jobs``' status,
+    GB a device, ``fits``, largest collective and trace seconds, held on
+    status and ``fits``."""
     import os
-    cells = [(a, s, m) for a, m, s in shardfam_jobs()]
-    got = [pool.record(c, "[shardfam] (e)") for c in cells]
+    cells = [(a, s, m) for a, m, s, *cut in jobs if not cut]
+    got = [pool.record(c, tag) for c in cells]
     recs = [r for r, _ in got]
     for cell, r in zip(cells, recs):
         coll = {k: v for k, v in r["collectives"].items() if v}
         top = max(coll.items(), key=lambda kv: kv[1]) if coll else None
-        print(f"[shardfam] (e) {card} host | {cell[0]} {cell[1]} {cell[2]}: "
+        print(f"{tag} {card} host | {cell[0]} {cell[1]} {cell[2]}: "
               f"{r['status']}, per device {r['per_device_gb']:.3f} GB, fits "
               f"{r['fits']}, largest collective "
               f"{f'{top[0]} {top[1]:,} bytes' if top else 'none'}; kernels "
               f"{r['kernels']}; dominant {r['roofline']['dominant']}; trace "
               f"{r['trace_s']:.1f} s", flush=True)
-        check(r["status"] == "ok", f"[shardfam] dry-run {cell}: {r}")
-        check(r["fits"], f"[shardfam] dry-run {cell} does not fit: "
+        check(r["status"] == "ok", f"{tag} dry-run {cell}: {r}")
+        check(r["fits"], f"{tag} dry-run {cell} does not fit: "
               f"{r['per_device_gb']} GB")
-    print(f"[shardfam] (e) {len(cells)} cells done "
+    print(f"{tag} {len(cells)} cells done "
           f"{max(t for _, t in got):.1f} s after the pool's "
           f"start, {DRYRUN_WORKERS} processes at a time "
           f"({sum(r['trace_s'] for r in recs):.1f} s of traces; "
@@ -7756,7 +7960,7 @@ def phase_shardfam(fa, fa_bwd, steps, card, pool=None):
         pool = DryrunPool(shardfam_jobs())
     try:
         out = shardfam_runs(fa, fa_bwd, steps, card, pool)
-        shardfam_cells(card, pool)
+        pool_cells(card, pool, shardfam_jobs(), "[shardfam] (e)")
     finally:
         if own:
             pool.stop()
@@ -7807,7 +8011,7 @@ def shardfam_runs(fa, fa_bwd, steps, card, pool):
         out["moe_train_step"] = shardfam_train(
             fa, fa_bwd, steps, card, mesh, "(a)", cfg, batches,
             (layers,) * 3)[-1]
-        # (b) MoE serve at [archs]' depth and prompt
+        # (b) MoE serve at SHARDFAM_SERVE's depth, [archs]' prompt
         for arch, n, B, S in SHARDFAM_SERVE:
             full = configs.get(arch)
             cfg = dataclasses.replace(full, n_layers=n or full.n_layers)
@@ -7817,14 +8021,17 @@ def shardfam_runs(fa, fa_bwd, steps, card, pool):
             out[f"{arch}_prefill"] = shardfam_serve(
                 fa, fa_bwd, steps, card, mesh, "(b)", cfg, prompt,
                 cfg.n_layers)
-        # (c) the vlm at [vlm]'s depths, whisper whole
-        vcfg = configs.get(VLM_ARCH)
+        # (c) the vlm served at SHARDFAM_VLM_SERVE_LAYERS and trained at
+        # [vlm]'s cut, whisper whole
+        vfull = configs.get(VLM_ARCH)
+        vcfg = dataclasses.replace(vfull,
+                                   n_layers=SHARDFAM_VLM_SERVE_LAYERS)
         B, S = VLM_SERVE
         out["vlm_prefill"] = shardfam_serve(
             fa, fa_bwd, steps, card, mesh, "(c)", vcfg,
             {"embeddings": vlm_embeddings(B, S, vcfg.d_model, 1)},
             vcfg.n_layers)
-        cut = dataclasses.replace(vcfg, n_layers=VLM_CUT_LAYERS)
+        cut = dataclasses.replace(vfull, n_layers=VLM_CUT_LAYERS)
         B, S = VLM_TRAIN
         rng = np.random.default_rng(3)
         batches = [{"embeddings": vlm_embeddings(B, S, cut.d_model, 10 + i),
@@ -7855,16 +8062,130 @@ def shardfam_runs(fa, fa_bwd, steps, card, pool):
               "attention is plain in the reference too", flush=True)
     finally:
         dist.destroy_process_group()
-    # (d) fake 16x16 cells, their records from (e)
+    # (d) fake 16x16 cells, their records from the pool
     for arch, shape, mesh_name in SHARDFAM_CELLS:
-        rec, _ = pool.record((arch, shape, mesh_name), "[shardfam] (d)")
+        layers = FAKE_LAYERS.get((arch, shape))
+        rec, _ = pool.record((arch, shape, mesh_name), "[shardfam] (d)",
+                             layers)
         # the dry-run's balanced router, on the card
         patches = ((moe, "_route", moe.balanced_route),) if \
             configs.get(arch).family == "moe" else ()
         counts, _ = shard_fake_cell(fa, fa_bwd, steps, card, shape,
                                     mesh_name, arch=arch, rec=rec,
-                                    patches=patches, tag="[shardfam] (d)")
+                                    patches=patches, tag="[shardfam] (d)",
+                                    layers=layers)
         out[f"fake_{mesh_name}_{arch}_{shape}"] = counts
+    return out
+
+
+def phase_shardrec(fa, fa_bwd, steps, card, pool=None):
+    """[shardrec]: the hybrid and ssm families' steps on a DeviceMesh
+    (module docstring, 20), (e)'s cells from ``pool`` (started here if
+    None). Returns B1-B3's launches of each run."""
+    t_phase = time.perf_counter()
+    own = pool is None
+    if own:
+        pool = DryrunPool(shardrec_jobs())
+    try:
+        out = shardrec_runs(fa, fa_bwd, steps, card, pool)
+        pool_cells(card, pool, shardrec_jobs(), "[shardrec] (e)")
+    finally:
+        if own:
+            pool.stop()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[shardrec] phase {phase_s:.1f} s (limit "
+          f"{SHARDREC_PHASE_LIMIT_S:.0f} s)", flush=True)
+    check(phase_s < SHARDREC_PHASE_LIMIT_S, f"the shardrec phase took "
+          f"{phase_s:.1f} s")
+    return out
+
+
+def shardrec_runs(fa, fa_bwd, steps, card, pool):
+    """[shardrec] (a)-(d), the cells of (e) running meanwhile: B1-B3's
+    launches of each run."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import optimizers
+    out = {}
+    tag = "[shardrec]"
+    SHARDREC_ROOT.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(SHARDREC_ROOT / "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=60))
+
+    def lm_batches(cfg, B, S):
+        toks = synthetic.make_lm_dataset(0, B * S * SHARD_STEPS,
+                                         cfg.vocab).reshape(SHARD_STEPS, B, S)
+        return [{"tokens": torch.from_numpy(t).cuda().long(),
+                 "labels": torch.from_numpy(np.roll(t, -1, -1)).cuda()
+                 .long()} for t in toks]
+
+    def prompt_of(cfg, B, S):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                        device="cuda")}
+    try:
+        mesh = mesh_lib.single_device_mesh()
+        # (a) the hybrid trained at the depth that fits, sgd
+        full = configs.get(HYBRID_ARCH)
+        total = torch.cuda.get_device_properties(0).total_memory
+        B, S = HYBRID_TRAIN
+        depths = [n for n in range(1, HYBRID_TRAIN_LAYERS + 1)
+                  if dataclasses.replace(full, n_layers=n).hybrid_groups]
+        layers, need = shardfam_train_layers(
+            full, total, tokens=B * S, depths=depths,
+            state_bytes=SHARDREC_STATE_BYTES, temp_bytes=SHARDREC_TEMP_BYTES)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        print(f"{tag} (a) {HYBRID_ARCH}: {layers} of {full.n_layers} layers "
+              f"({cfg.hybrid_groups} group, {cfg.hybrid_tail} tail), "
+              f"{B} x {S} tokens, sgd; reckoned {need / 1e9:.1f} GB of the "
+              f"card's {total / 1e9:.1f} GB (share {SHARDFAM_MEMORY_SHARE}): "
+              f"{SHARDREC_STATE_BYTES} B a parameter, {SHARDREC_TEMP_BYTES} "
+              f"B an element of the largest leaf, {SHARDFAM_LOGIT_BYTES} B a "
+              f"logit", flush=True)
+        out["hybrid_train_step"] = shardfam_train(
+            fa, fa_bwd, steps, card, mesh, "(a)", cfg, lm_batches(cfg, B, S),
+            (cfg.hybrid_groups,) * 3, opt=optimizers.sgd(1e-3),
+            tag=tag)[-1]
+        # (b) the hybrid served at [hybrid]'s depth and prompt
+        out["hybrid_prefill"] = shardfam_serve(
+            fa, fa_bwd, steps, card, mesh, "(b)", full,
+            prompt_of(full, *HYBRID_SERVE), full.hybrid_groups,
+            from_init=True, gen=SHARDREC_GEN, tag=tag)
+        # (c) xlstm-350m: one group trained, served whole
+        sfull = configs.get(SSM_ARCH)
+        scut = dataclasses.replace(sfull, n_layers=SSM_TRAIN_LAYERS)
+        print(f"{tag} (c) {SSM_ARCH}: trained at {SSM_TRAIN_LAYERS} of "
+              f"{sfull.n_layers} layers, {SHARDREC_SSM_TRAIN[0]} x "
+              f"{SHARDREC_SSM_TRAIN[1]} tokens, adamw; served whole, "
+              f"{SHARDREC_SSM_SERVE[0]} x {SHARDREC_SSM_SERVE[1]} (the "
+              f"sLSTM's time loop {SHARDREC_SSM_TRAIN[1]} steps a layer; "
+              f"[ssm] runs {SSM_SERVE[1]})", flush=True)
+        out["ssm_train_step"] = shardfam_train(
+            fa, fa_bwd, steps, card, mesh, "(c)", scut,
+            lm_batches(scut, *SHARDREC_SSM_TRAIN), (0, 0, 0), tag=tag)[-1]
+        out["ssm_prefill"] = shardfam_serve(
+            fa, fa_bwd, steps, card, mesh, "(c)", sfull,
+            prompt_of(sfull, *SHARDREC_SSM_SERVE), 0, from_init=True,
+            gen=SHARDREC_GEN, tag=tag)
+        print(f"{tag} (c) {SSM_ARCH} launched no kernel: the reference's "
+              "xLSTM calls none", flush=True)
+    finally:
+        dist.destroy_process_group()
+    # (d) fake 16x16 cells, their records from the pool
+    for arch, shape, mesh_name in SHARDREC_CELLS:
+        rec, _ = pool.record((arch, shape, mesh_name), f"{tag} (d)")
+        counts, _ = shard_fake_cell(fa, fa_bwd, steps, card, shape,
+                                    mesh_name, arch=arch, rec=rec,
+                                    tag=f"{tag} (d)")
+        out[f"fake_{mesh_name}_{arch}_{shape}"] = counts
+    shutil.rmtree(SHARDREC_ROOT, ignore_errors=True)
     return out
 
 
@@ -7942,6 +8263,15 @@ def main() -> int:
         print(json.dumps(phase_shardfam(fa, fa_bwd, steps, card)),
               flush=True)
         return 0
+    if sys.argv[1:2] == ["--shardrec"]:
+        print(f"[card] {card}", flush=True)
+        device_lib.resolve("cuda")
+        t0 = time.perf_counter()
+        build.build()
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps(phase_shardrec(fa, fa_bwd, steps, card)),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--service"]:
         print(f"[card] {card}", flush=True)
         device_lib.resolve("cuda")
@@ -7965,9 +8295,10 @@ def main() -> int:
         for kernel, report in ptxas_report(lib.with_suffix(".log")):
             print(f"[ptxas] {name}: {kernel}: {report}", flush=True)
     plan_spills(libs)
-    # [shard] (d)'s and [shardfam] (e)'s dry-run cells (CPU only) beside
-    # the phases from here on, done well before those phases read them
-    pool = DryrunPool(shard_jobs() + shardfam_jobs())
+    # [shard] (d)'s, [shardfam]'s and [shardrec]'s dry-run cells (CPU only)
+    # beside the phases from here on, done well before those phases read
+    # them
+    pool = DryrunPool(shard_jobs() + shardfam_jobs() + shardrec_jobs())
     atexit.register(pool.stop)
 
     phase_hopper(build)
@@ -8033,17 +8364,18 @@ def main() -> int:
     phase_dryrun(card, serve_info, train_runs(trained))
     shard = phase_shard(fa, fa_bwd, steps, card, pool)
     shardfam = phase_shardfam(fa, fa_bwd, steps, card, pool)
+    shardrec = phase_shardrec(fa, fa_bwd, steps, card, pool)
     print(f"[pool] {len(pool.futures)} dry-run jobs, the last ended "
           f"{pool.last_end():.1f} s after the build: the phases that ended "
           f"before then ran beside the pool", flush=True)
     pool.stop()
 
-    def shardfam_launches(i):
-        """A kernel's [shardfam] launches: each 1x1 sharded train step's
-        and prefill's (B1), each fake 16x16 rank's step's; zeros left
-        out."""
+    def phase_launches(runs, i):
+        """A kernel's [shardfam] or [shardrec] launches: each 1x1 sharded
+        train step's and prefill's (B1), each fake 16x16 rank's step's;
+        zeros left out."""
         return {name: c if isinstance(c, int) else c[i]
-                for name, c in shardfam.items()
+                for name, c in runs.items()
                 if (c if isinstance(c, int) else c[i])
                 and (i == 0 or not isinstance(c, int))}
 
@@ -8096,7 +8428,8 @@ def main() -> int:
          "launches_tune": tune_counts["B1"],
          "launches_tiles": tiles_launches("B1"), "plans": plan_rows("B1"),
          "launches_shard": shard_launches(0),
-         "launches_shardfam": shardfam_launches(0),
+         "launches_shardfam": phase_launches(shardfam, 0),
+         "launches_shardrec": phase_launches(shardrec, 0),
          "vlm": {"max_abs_err": errs["vlm_serve"], **vlm_timing["B1"]},
          "max_abs_err": errs["serve"], **timing,
          **hybrid_rows("B1", errs["rg_serve"])},
@@ -8113,7 +8446,8 @@ def main() -> int:
          "launches_tune": tune_counts["B2"],
          "launches_tiles": tiles_launches("B2"), "plans": plan_rows("B2"),
          "launches_shard": shard_launches(1),
-         "launches_shardfam": shardfam_launches(1),
+         "launches_shardfam": phase_launches(shardfam, 1),
+         "launches_shardrec": phase_launches(shardrec, 1),
          "plans_b2_b3": {p: r for p, r in plan_timing["B2+B3"].items()},
          "vlm": {"max_abs_err": vlm_errs[0][0], **vlm_timing["B2"]},
          "max_abs_err": train_errs[0][0],
@@ -8131,7 +8465,8 @@ def main() -> int:
          "launches_tune": tune_counts["B3"],
          "launches_tiles": tiles_launches("B3"), "plans": plan_rows("B3"),
          "launches_shard": shard_launches(2),
-         "launches_shardfam": shardfam_launches(2),
+         "launches_shardfam": phase_launches(shardfam, 2),
+         "launches_shardrec": phase_launches(shardrec, 2),
          "vlm": {"max_abs_err": max(vlm_errs[1][0], vlm_errs[2][0]),
                  **vlm_timing["B3"]},
          "max_abs_err": max(train_errs[1][0], train_errs[2][0]),

@@ -18,8 +18,10 @@ conventions:
     its kin allocate and move nothing.
   * score_bytes: the bytes of ops whose result is attention-score-class
     (``_is_score_like``), which a flash kernel keeps on chip.
-  * collectives: operand bytes per kind, c10d and functional alike, and
-    DTensor's own all-to-all (``_dtensor.shard_dim_alltoall``).
+  * collectives: operand bytes per kind, c10d and functional alike (the
+    autograd functional ops, ``_c10d_functional_autograd``, that a loop on
+    local tensors issues inside ``spmd.local_apply`` too), and DTensor's
+    own all-to-all (``_dtensor.shard_dim_alltoall``).
   * kernels: the hand-written kernels run behind ctypes, out of the mode's
     sight, so their wrappers' meta branches report their work
     (``report_kernel``; ``analysis.roofline.Work``), counted per kernel.
@@ -53,7 +55,7 @@ from repro_torch.analysis import roofline
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
-# collective op name (c10d, _c10d_functional, or DTensor's own
+# collective op name (c10d, _c10d_functional[_autograd], or DTensor's own
 # _dtensor.shard_dim_alltoall) -> kind, first match wins
 _COLLECTIVE_NAMES = (
     ("reduce_scatter", "reduce-scatter"), ("allreduce", "all-reduce"),
@@ -465,7 +467,8 @@ class _Rule(NamedTuple):
 def _rule(func) -> _Rule:
     name = func.overloadpacket.__name__
     collective = None
-    if func.namespace in ("c10d", "_c10d_functional", "_dtensor"):
+    if func.namespace in ("c10d", "_c10d_functional",
+                          "_c10d_functional_autograd", "_dtensor"):
         collective = next((k for n, k in _COLLECTIVE_NAMES if n in name),
                           None)
     writes = any(r.alias_info is not None and r.alias_info.is_write

@@ -28,14 +28,18 @@ the state, batch and cache are meta DTensors placed by
 and the collectives it issues; the fake collectives move nothing). Rank 0
 holds ``torch.chunk``'s largest piece of an uneven split, so its peak is
 the per-device bound. The group is destroyed at the end of the cell; a
-process that already has a group is refused. The dense, moe, vlm and
-audio families have sharded steps; the hybrid and ssm families' cells on
-such a mesh are recorded as skipped, naming their item (ROADMAP.md,
-"Configurations the port does not run"). On meta tensors an MoE layer
-routes as a balanced router would (``models.moe.balanced_route``).
+process that already has a group is refused. Every family has a sharded
+step; a family without one would be recorded as skipped, naming its item
+(``steps.MESH_ITEMS``; ROADMAP.md, "Configurations the port does not
+run"). On meta tensors an MoE layer routes as a balanced router would
+(``models.moe.balanced_route``). An sLSTM's time loop runs step by step on
+meta as on a device: xlstm-350m's train_4k and prefill_32k cells take
+4,096 and 32,768 steps a layer, many minutes each.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch qwen2-moe-a2.7b \
+      --shape train_4k --mesh 16x16 --layers 4     # a depth-cut cell
   python -m repro_torch.launch.dryrun --all [--mesh 16x16] [--out EXP.json]
   python -m repro_torch.launch.dryrun --all --both-meshes
 """
@@ -205,6 +209,8 @@ def run_cell(arch: str, shape_name: str, *, mesh=None,
     amesh = _abstract_mesh(mesh)
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(str(s) for s in amesh.shape)}
+    if cfg_overrides and "n_layers" in cfg_overrides:
+        rec["layers"] = cfg.n_layers
     if not configs.shape_applicable(cfg, shape):
         rec.update(status="skipped",
                    reason="full-attention arch; long_500k needs sub-quadratic "
@@ -216,7 +222,8 @@ def run_cell(arch: str, shape_name: str, *, mesh=None,
         rec.update(status="skipped",
                    reason=f"the {fam} family has no sharded step on a "
                           f"{rec['mesh']} mesh: ROADMAP.md queue A item "
-                          f"{steps.MESH_ITEMS[fam]} (\"Configurations the "
+                          f"{steps.MESH_ITEMS.get(fam, '(none named)')} "
+                          "(\"Configurations the "
                           "port does not run\")")
         return rec
 
@@ -297,8 +304,11 @@ def main(argv=None):
                     help="the reference's 2x16x16 mesh")
     ap.add_argument("--both-meshes", action="store_true",
                     help="the reference's 16x16 and 2x16x16")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this depth (n_layers)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    cut = {"n_layers": args.layers} if args.layers else None
 
     if args.all:
         archs = configs.ARCH_IDS
@@ -315,7 +325,8 @@ def main(argv=None):
     for mesh in meshes:
         for arch in archs:
             for shape in shapes:
-                results.append(run_cell(arch, shape, mesh=mesh))
+                results.append(run_cell(arch, shape, mesh=mesh,
+                                        cfg_overrides=cut))
 
     ok = sum(r["status"] == "ok" for r in results)
     sk = sum(r["status"] == "skipped" for r in results)

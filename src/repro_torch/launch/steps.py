@@ -14,8 +14,8 @@ with the cross cache.
 eagerly, so the returned functions need no ``jit``; prefill and decode run
 under ``torch.inference_mode()`` (``torch.no_grad()`` on DTensors).
 
-On a mesh (a ``DeviceMesh``) the dense, moe, vlm and audio families'
-steps run sharded, as the reference's do: ``make_train_state(..., mesh=)`` places the state by
+On a mesh (a ``DeviceMesh``) every family's steps run sharded, as the
+reference's do: ``make_train_state(..., mesh=)`` places the state by
 ``sharding.state_specs``, ``distribute_batch`` places a batch as the
 reference's ``NamedSharding`` of ``input_specs`` would, and
 ``make_train_step(..., mesh=)`` splits the batch into microbatches that
@@ -27,9 +27,13 @@ need no new argument: the shardings come from the inputs, as in the
 reference. The models pin the batch and the kv heads
 (``layers.shard_batch``, ``shard_heads``) and run B1-B3 on each rank's own
 shards (``kernels.ops``); an MoE layer routes each rank's own rows
-(``moe._apply_moe_sharded``). Losses and metrics come back as plain
-tensors, equal on every rank. The hybrid and ssm families raise
-``NotImplementedError`` on a mesh past 1x1 (``require_shardable``).
+(``moe._apply_moe_sharded``); the recurrent blocks follow the rules'
+channel splits (``models.recurrent``, ``models.xlstm``: the sLSTM's time
+loop gathers its pre-activations over "model" each step, inside one
+``spmd.local_apply``). Losses and metrics come back as plain tensors,
+equal on every rank. A family with no sharded step would raise
+``NotImplementedError`` on a mesh past 1x1 (``require_shardable``, naming
+its ROADMAP item in ``MESH_ITEMS``); none is left.
 
 The dry-run's helpers (``default_sys``, ``abstract_state``,
 ``input_specs``, ``cache_specs_abstract``, ``state_specs_abstract``,
@@ -73,10 +77,9 @@ def model_init(gen: torch.Generator, cfg, device=None):
 
 
 # families whose steps run sharded on a mesh past 1x1, and the ROADMAP
-# item (queue A) of each other family
-SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio")
-MESH_ITEMS = {"hybrid": "17. The hybrid and ssm families on a mesh",
-              "ssm": "17. The hybrid and ssm families on a mesh"}
+# item (queue A) of each other family (none is left)
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
+MESH_ITEMS: dict = {}
 
 
 def family(cfg) -> str:
@@ -101,7 +104,7 @@ def require_shardable(cfg, mesh) -> None:
         raise NotImplementedError(
             f"the {fam} family has no sharded step on a mesh past 1x1 "
             f"(mesh {tuple(mesh.shape)}): ROADMAP.md queue A item "
-            f"{MESH_ITEMS[fam]}")
+            f"{MESH_ITEMS.get(fam, '(none named)')}")
 
 
 def make_train_state(gen: torch.Generator, cfg, opt: optimizers.Optimizer,

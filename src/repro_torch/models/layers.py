@@ -552,9 +552,7 @@ def apply_mlp(params, x):
     up-projection's bias."""
     if spmd.is_dtensor(x):
         u = spmd.contract(x, params["w_up"], 1)
-        last = u.ndim - 1
-        bias = [Shard(0) if p.is_shard(last) else Replicate()
-                for p in u.placements]
+        bias = spmd.channels(u.placements, u.ndim)
         h = spmd.local_apply(
             lambda a, b: F.gelu(a + b, approximate="tanh"),
             (u, params["b_up"]), (u.placements, bias), u.placements, u.shape)

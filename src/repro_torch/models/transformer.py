@@ -711,9 +711,14 @@ def _decode_step(params, cache, tokens, pos: int, cfg, sys):
 
 def _copy_into(state, new):
     """Overwrite ``state``'s tensors (views into the stacked cache) with
-    ``new``'s, in place."""
+    ``new``'s, in place; DTensors shard by shard, ``new``'s placed as
+    ``state``'s."""
     for name, t in new.items():
-        state[name].copy_(t)
+        dst = state[name]
+        if spmd.is_dtensor(dst):
+            dst.to_local().copy_(spmd.placed(t, dst.placements).to_local())
+        else:
+            dst.copy_(t)
 
 
 def _decode_ssm(stacked, cache, x, cfg: ModelConfig, dtype):

@@ -267,16 +267,22 @@ def _row_starts(mesh, placements, n_rows, dim=0) -> int:
     """The first global index of this rank's piece of ``dim`` (of size
     ``n_rows``) split by ``placements`` (mesh dims in order, each a
     ``torch.chunk`` of the last's piece)."""
-    start, size = 0, n_rows
+    return piece(mesh, placements, n_rows, dim)[0]
+
+
+def piece(mesh, placements, n: int, dim: int = 0):
+    """(first index, length) of this rank's piece of ``dim`` (of size
+    ``n``) split by ``placements``, as ``_row_starts`` reckons it."""
+    start, size = 0, n
     coord = mesh.get_coordinate()
     for i, p in enumerate(placements):
         if p.is_shard(dim):
-            n = mesh.size(i)
-            chunk = -(-size // n)
+            k = mesh.size(i)
+            chunk = -(-size // k)
             lo = min(coord[i] * chunk, size)
             start += lo
             size = min(chunk, size - lo)
-    return start
+    return start, size
 
 
 def vocab_stats(logits, labels):
@@ -436,3 +442,44 @@ def sum_of_squares(ts):
 def mesh_size(mesh, axes) -> int:
     names = mesh.mesh_dim_names
     return math.prod(mesh.size(names.index(a)) for a in axes if a in names)
+
+
+def rows_only(placements):
+    """``placements`` with every split but a split of dim 0 (the batch)
+    gathered: each rank holds its own rows whole."""
+    return tuple(p if p.is_shard(0) else Replicate() for p in placements)
+
+
+def channels(placements, ndim: int, dim: int = 0):
+    """The placements of a per-channel parameter (its channels at ``dim``)
+    meeting an activation of ``ndim`` dims placed ``placements``: split
+    where the activation's last dim (the channels) is, else whole."""
+    return tuple(Shard(dim) if p.is_shard(ndim - 1) else Replicate()
+                 for p in placements)
+
+
+def channel_group(x, dim: int):
+    """(the mesh dim that splits DTensor ``x``'s ``dim``, its size), or
+    (None, 1) where no mesh dim of more than one rank does."""
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim) and x.device_mesh.size(i) > 1:
+            return i, x.device_mesh.size(i)
+    return None, 1
+
+
+def gather_last(t, mesh, mesh_dim, size: int):
+    """A rank's columns ``t`` (..., n) made whole, (..., size * n), in the
+    ranks' order along ``mesh_dim`` of ``mesh``: one functional all-gather
+    on local tensors, for a loop that must not dispatch DTensor ops. Its
+    backward sums the ranks' gradients and keeps each rank's columns (a
+    reduce-scatter). ``mesh_dim`` None: ``t`` as it is."""
+    if mesh_dim is None:
+        return t
+    from torch.distributed import _functional_collectives as fc
+    rows = t.reshape(-1, t.shape[-1]).contiguous()
+    gather = getattr(fc, "all_gather_single_autograd", None) or \
+        fc.all_gather_tensor_autograd
+    g = gather(rows, 0, (mesh, mesh_dim))
+    g = g.reshape((size,) + rows.shape).movedim(0, 1)
+    return g.reshape(t.shape[:-1] + (size * t.shape[-1],))
+

@@ -130,6 +130,55 @@ def test_a_collectives_result_stays_counted_while_it_lives():
     assert (held, both, after) == (mib, 2 * mib, mib)
 
 
+def test_a_loops_functional_all_gather_is_counted_and_kept():
+    """``spmd.gather_last`` (the sLSTM's per-step gather: an autograd
+    functional all-gather on local tensors, issued inside ``local_apply``)
+    on the dry-run's fake group over a "model" dim of 4: one all-gather of
+    the local columns' bytes (4 x 128 bf16), the whole result (4 x 512)
+    counted while it lives. Either namespace of the autograd op counts as
+    an all-gather."""
+    from repro_torch import spmd
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    for name in ("_c10d_functional", "_c10d_functional_autograd"):
+        op = getattr(torch.ops, name).all_gather_into_tensor.default
+        assert cost._rule(op).collective == "all-gather"
+    with dryrun.fake_group(mesh_lib.abstract_mesh(1, 4)) as mesh:
+        t = torch.empty(4, 128, dtype=torch.bfloat16, device="meta")
+        with cost.CostMode() as mode:
+            g = spmd.gather_last(t, mesh, 1, 4)
+            assert tuple(g.shape) == (4, 512)
+            held = mode.live_bytes
+            del g
+            after = mode.live_bytes
+    assert not dist.is_initialized()
+    assert mode.cost.coll["all-gather"] == 4 * 128 * 2
+    assert mode.cost.coll_count == 1
+    assert held >= 4 * 512 * 2 and after < 4 * 512 * 2
+
+
+def test_slstm_counts_one_all_gather_a_step():
+    """Reduced xlstm-350m (d_inner 128, one sLSTM) prefilled on a 1 x 4
+    mesh at 16 and 32 tokens: the 16 more time steps add 16 all-gathers of
+    a rank's pre-activation columns, 4 rows x 512 / 4 columns in bf16
+    (1024 bytes) each, and no other collective (the row-parallel
+    all-reduces grow with the tokens, not in number)."""
+    from repro_torch.launch import dryrun
+    recs = [dryrun.run_cell("xlstm-350m", "p", mesh="1x4", reduced=True,
+                            shape=configs.ShapeSpec("p", "prefill", n, 4),
+                            verbose=False) for n in (16, 32)]
+    assert all(r["status"] == "ok" for r in recs), recs
+    cfg = configs.get_reduced("xlstm-350m")
+    step = 4 * (4 * cfg.mlstm_cfg().d_inner // 4) * 2
+    more = {k: recs[1]["collectives"][k] - recs[0]["collectives"][k]
+            for k in recs[0]["collectives"]}
+    assert more["all-gather"] == 16 * step * cfg.ssm_groups
+    assert more["all-reduce"] > 0
+    assert not any(more[k] for k in ("reduce-scatter", "all-to-all",
+                                     "collective-permute"))
+    assert recs[1]["collective_count"] - recs[0]["collective_count"] == \
+        16 * cfg.ssm_groups
+
+
 @pytest.mark.parametrize("op", ["gather", "index"])
 def test_autograds_scatter_into_its_own_zeros_counts_one_buffer(op):
     """gather's and index's backward make zeros and scatter into them in

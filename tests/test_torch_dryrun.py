@@ -137,13 +137,14 @@ def test_kernel_calls_of_a_train_step():
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
-def test_meshes_past_one_chip_are_skipped(mesh):
+def test_meshes_past_one_chip_run_every_family(mesh):
     """A dense cell runs on a production mesh as rank 0 of a fake group
     (one kv head and 32768 x 32 / dp rows a rank: B1 once a layer, the
-    weights gathered); a family with no sharded step is skipped, naming its
-    ROADMAP item. mixtral-8x22b (141 B parameters, more than one card
+    weights gathered). mixtral-8x22b (141 B parameters, more than one card
     holds) runs there too: its prefill launches B1 once a layer on a
-    rank's own heads and fits."""
+    rank's own heads and fits. No family is skipped for want of a sharded
+    step: recurrentgemma-9b's decode_32k cell (the recurrent states split
+    on their channels, the attention's plain decode) runs and fits."""
     for arch in ("qwen3-0.6b", "mixtral-8x22b"):
         rec = dryrun.run_cell(arch, "prefill_32k", mesh=mesh, verbose=False)
         assert rec["status"] == "ok" and rec["mesh"] == mesh, \
@@ -152,12 +153,25 @@ def test_meshes_past_one_chip_are_skipped(mesh):
         assert rec["fits"] and rec["collectives"]["all-gather"] > 0
         assert rec["roofline"]["chips"] == math.prod(
             int(d) for d in mesh.split("x"))
-    skip = dryrun.run_cell("recurrentgemma-9b", "train_4k", mesh=mesh,
-                           verbose=False)
-    assert skip["status"] == "skipped" and skip["mesh"] == mesh
-    assert ("queue A item 17. The hybrid and ssm families on a mesh"
-            in skip["reason"])
-    assert "Configurations the port does not run" in skip["reason"]
+    hybrid = dryrun.run_cell("recurrentgemma-9b", "decode_32k", mesh=mesh,
+                             verbose=False)
+    assert hybrid["status"] == "ok" and hybrid["mesh"] == mesh, \
+        hybrid.get("traceback")
+    assert hybrid["fits"] and hybrid["kernels"] == {}
+    assert not steps.MESH_ITEMS
+    assert not torch.distributed.is_initialized()
+
+
+def test_xlstm_decode_runs_sharded_at_16x16():
+    """xlstm-350m's decode_32k on 16x16: the mLSTM's C q and n . q partial
+    sums and the sLSTM's gathered pre-activations (one step) run as rank 0
+    of a fake group; the cell fits and launches no kernel."""
+    rec = dryrun.run_cell("xlstm-350m", "decode_32k", mesh="16x16",
+                          verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["fits"] and rec["kernels"] == {}
+    assert rec["collectives"]["all-reduce"] > 0
+    assert rec["collectives"]["all-gather"] > 0
     assert not torch.distributed.is_initialized()
 
 
@@ -177,6 +191,22 @@ def test_cli(tmp_path, capsys):
                         "decode_32k", "--out", str(out)]) == 0
     assert [r["mesh"] for r in json.loads(out.read_text())] == \
         ["16x16", "2x16x16"]
+
+
+def test_cli_cuts_depth(tmp_path):
+    """``--layers`` runs a depth-cut cell (``chip_smoke.py``'s fake-rank
+    cells): the record names the depth, and the arguments shrink with it."""
+    out = tmp_path / "cut.json"
+    args = ["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--out",
+            str(out)]
+    assert dryrun.main(args + ["--layers", "2"]) == 0
+    (cut,) = json.loads(out.read_text())
+    assert dryrun.main(args) == 0
+    (whole,) = json.loads(out.read_text())
+    assert cut["status"] == whole["status"] == "ok"
+    assert cut["layers"] == 2 and "layers" not in whole
+    assert cut["memory"]["argument_size_in_bytes"] < \
+        whole["memory"]["argument_size_in_bytes"]
 
 
 @pytest.mark.parametrize("arch,factor,capped", [

@@ -316,26 +316,17 @@ def test_dryrun_counts_all_to_all_where_heads_are_uneven():
     print(f"collectives {rec['collectives']}")
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
-def test_unsharded_families_raise_on_a_mesh(arch):
-    cfg = configs.get_reduced(arch)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md queue A item 17\. The hybrid and "
-                             r"ssm families on a mesh"):
-        tsteps.require_shardable(cfg, abstract_mesh_size(2, 2))
-    tsteps.require_shardable(cfg, abstract_mesh_size(1, 1))
-    tsteps.require_shardable(configs.get_reduced("qwen3-0.6b"),
-                             abstract_mesh_size(2, 2))
-
-
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen2-moe-a2.7b",
-                                  "internvl2-26b", "whisper-small"])
+                                  "internvl2-26b", "whisper-small",
+                                  "recurrentgemma-9b", "xlstm-350m"])
 def test_sharded_families_pass_require_shardable_on_a_mesh(arch):
-    """The MoE, vlm and audio families have sharded steps
-    (``tests/test_torch_sharded_families.py`` runs them)."""
+    """The MoE, vlm, audio, hybrid and ssm families have sharded steps
+    (``tests/test_torch_sharded_families.py`` and
+    ``tests/test_torch_sharded_recurrent.py`` run them)."""
     cfg = configs.get_reduced(arch)
     assert tsteps.family(cfg) in tsteps.SHARDED_FAMILIES
     tsteps.require_shardable(cfg, abstract_mesh_size(2, 2))
+    tsteps.require_shardable(cfg, abstract_mesh_size(16, 16))
     tsteps.require_shardable(cfg, abstract_mesh_size(2, 16, 16))
 
 

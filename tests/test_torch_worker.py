@@ -427,8 +427,8 @@ def test_later_items_stand_in_the_roadmap():
         for note in kind.values():
             num, title = re.match(r"(\d+) \((.+)\)$", note).groups()
             assert _item_title(num) == title
-    # items 8, 13 and 14 are done and pruned
-    for done in (8, 13, 14):
+    # items 8, 13, 14 and 17 are done and pruned
+    for done in (8, 13, 14, 17):
         assert not re.search(rf"^{done}\. \*\*", ROADMAP, re.M)
 
 

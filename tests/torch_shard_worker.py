@@ -17,7 +17,13 @@ frames). A case's ``cfg`` replaces fields of its reduced config. For each case o
   * with ``serve``, runs the prefill step on the placed parameters and
     ``DECODE_STEPS`` greedy decode steps from its cache, and for an MoE
     arch keeps the experts each layer of the prefill chose for each of its
-    rows (``moe._gate``'s indices, gathered from every rank);
+    rows (``moe._gate``'s indices, gathered from every rank); a hybrid or
+    an ssm (whose prefill hands decode no state, as the reference's)
+    decodes the prompt's first ``DECODE_STEPS`` tokens from
+    ``transformer.init_cache`` (fp32, placed by ``cache_specs``) instead,
+    keeping every step's logits;
+  * with ``fault`` "own_gates", runs the sLSTM with its gates taken from
+    each rank's own columns of the pre-activations (a planted fault);
 and rank 0 writes ``{case}.npz``.
 """
 import dataclasses
@@ -35,7 +41,7 @@ from repro_torch import configs, spmd, weights
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
-from repro_torch.models import moe
+from repro_torch.models import moe, transformer, xlstm
 from repro_torch.models.transformer import SystemConfig
 from repro_torch.optim import optimizers
 
@@ -78,6 +84,35 @@ def batch_of(cfg, inputs, kind="train"):
     return out
 
 
+def own_gates(z, mesh, mesh_dim, size):
+    """The planted sLSTM fault: z "made whole" from the rank's own columns
+    (each gate then comes from the wrong channels)."""
+    return torch.cat([z] * size, -1)
+
+
+def recurrent(cfg) -> bool:
+    return steps.family(cfg) in ("hybrid", "ssm")
+
+
+def decode_from_init(cfg, sys_cfg, params, tokens, n, mesh=None):
+    """``n`` decode steps from ``transformer.init_cache`` (fp32) over the
+    first ``n`` columns of ``tokens`` (B, S): each step's logits whole."""
+    cache = transformer.init_cache(cfg, tokens.shape[0], n,
+                                   dtype=torch.float32, device="cpu")
+    if mesh is not None:
+        cache = steps.place(cache, sharding.cache_specs(cache, cfg, mesh),
+                            mesh)
+    decode = steps.make_decode_step(cfg, sys_cfg)
+    out = []
+    for t in range(n):
+        tok = tokens[:, t:t + 1]
+        if mesh is not None:
+            tok = steps.distribute_batch({"t": tok}, mesh)["t"]
+        logits, cache = decode(params, cache, tok, t)
+        out.append(whole(logits).numpy())
+    return np.stack(out)
+
+
 def make_mesh(case):
     dims = case["mesh"]
     pods = dims[0] if len(dims) == 3 else 1
@@ -85,6 +120,16 @@ def make_mesh(case):
 
 
 def run_case(case, inputs, out_dir, rank):
+    gather = xlstm._gather_gates
+    if case.get("fault") == "own_gates":
+        xlstm._gather_gates = own_gates
+    try:
+        _run_case(case, inputs, out_dir, rank)
+    finally:
+        xlstm._gather_gates = gather
+
+
+def _run_case(case, inputs, out_dir, rank):
     cfg = config(case)
     mesh = make_mesh(case)
     prefix = case.get("params", case["arch"]) + "/"
@@ -115,6 +160,16 @@ def run_case(case, inputs, out_dir, rank):
             sharding.param_specs(weights.unflatten(dict(flat)), cfg, mesh,
                                  sys_cfg), mesh)
         S = batch["labels"].shape[1]
+        if recurrent(cfg):
+            prompt = steps.distribute_batch(batch_of(cfg, inputs, "prefill"),
+                                            mesh)
+            logits, _ = steps.make_prefill_step(cfg, sys_cfg)(params, prompt)
+            out["prefill_logits"] = whole(logits).numpy()
+            out["decode_logits"] = decode_from_init(
+                cfg, sys_cfg, params, batch["tokens"], DECODE_STEPS, mesh)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{case['name']}.npz"), **out)
+            return
         prefill = steps.make_prefill_step(cfg, sys_cfg,
                                           max_len=S + DECODE_STEPS)
         decode = steps.make_decode_step(cfg, sys_cfg)
