@@ -41,6 +41,7 @@ from repro_torch.core.executor import make_executor
 from repro_torch.core.groundtruth import GroundTruth
 from repro_torch.core.job import HPTJob, SystemSpace
 from repro_torch.core.schedulers import AskTellScheduler
+from repro_torch.obs import spans
 
 __all__ = ["JobResult", "PipeTune", "TrialRecord", "TrialRunner", "TuneV1",
            "TuneV2", "copy_tree"]
@@ -161,34 +162,41 @@ class TrialRunner:
         `backend` pins the trial to a specific backend (a local shard); the
         binding sticks, so rung-resumed epochs hit the same backend that
         holds the trial's state."""
-        with self._hook_lock:
-            if backend is not None:
-                self._trial_backends[trial_id] = backend
-            be = self.backend_for(trial_id)
-            state = self.states.get(trial_id)
-            if state is None:
-                state = be.init_trial(workload, hparams, seed=self.seed)
-                self.states[trial_id] = state
-                self.records[trial_id] = TrialRecord(trial_id, dict(hparams))
-            elif state.hparams != dict(hparams):
-                # PBT explore: continue the same state under perturbed
-                # hparams
-                state.hparams = dict(hparams)
-                self.records[trial_id].hparams = dict(hparams)
-            record = self.records[trial_id]
-        prev = record.epochs[-1] if record.epochs else None
-        while state.epoch < total_epochs:
+        with spans.span("tune.trial") as trial:
             with self._hook_lock:
-                sys_cfg = self.sys_for_epoch(record, state, state.epoch, prev)
-                record.sys_history.append(dict(sys_cfg))
-            state, res = be.run_epoch(state, sys_cfg)
-            with self._hook_lock:
-                record.epochs.append(res)
-                self.after_epoch(record, state, res)
-            prev = res
-            yield res
-        with self._hook_lock:
-            self.finish_trial(record, state)
+                if backend is not None:
+                    self._trial_backends[trial_id] = backend
+                be = self.backend_for(trial_id)
+                state = self.states.get(trial_id)
+                if state is None:
+                    with spans.span("tune.init_trial"):
+                        state = be.init_trial(workload, hparams,
+                                              seed=self.seed)
+                    self.states[trial_id] = state
+                    self.records[trial_id] = TrialRecord(trial_id,
+                                                         dict(hparams))
+                elif state.hparams != dict(hparams):
+                    # PBT explore: continue the same state under perturbed
+                    # hparams
+                    state.hparams = dict(hparams)
+                    self.records[trial_id].hparams = dict(hparams)
+                record = self.records[trial_id]
+            prev = record.epochs[-1] if record.epochs else None
+            while state.epoch < total_epochs:
+                with spans.span("tune.policy"), self._hook_lock:
+                    sys_cfg = self.sys_for_epoch(record, state, state.epoch,
+                                                 prev)
+                    record.sys_history.append(dict(sys_cfg))
+                with spans.span("tune.epoch"):
+                    state, res = be.run_epoch(state, sys_cfg)
+                with spans.span("tune.policy"), self._hook_lock:
+                    record.epochs.append(res)
+                    self.after_epoch(record, state, res)
+                prev = res
+                with trial.outside():       # the caller's work between
+                    yield res               # epochs is not the trial's
+            with spans.span("tune.policy"), self._hook_lock:
+                self.finish_trial(record, state)
 
     def run_trial(self, workload: str, trial_id: str, hparams: dict,
                   total_epochs: int) -> TrialRecord:
@@ -244,12 +252,14 @@ class TrialRunner:
                 drive(self, job.workload, sched)
             else:
                 while True:
-                    wave = sched.suggest()
+                    with spans.span("tune.schedule"):
+                        wave = sched.suggest()
                     if not wave:
                         break
                     for proposal, score in executor.run_wave(
                             self, job.workload, wave):
-                        sched.report(proposal.trial_id, score)
+                        with spans.span("tune.schedule"):
+                            sched.report(proposal.trial_id, score)
             best_hp, best_score = sched.best()
             best_rec = max(self.records.values(),
                            key=lambda r: r.score(self.objective),
@@ -366,13 +376,20 @@ class PipeTune(TrialRunner):
         self._profiles: Dict[str, np.ndarray] = {}
 
     def sys_for_epoch(self, record, state, epoch, prev):
+        """The epoch's config; counts the epoch by phase (``obs.spans``
+        counters ``tune.epochs.profile``, ``.probe``, ``.locked``). An
+        epoch with a plan and no lock is a probe, as ``after_epoch``
+        records it."""
         tid = record.trial_id
-        if tid in self._locked:
-            return dict(self._locked[tid])
-        if epoch == 0:
-            return dict(SYS_DEFAULT)
         plan = self._plans.get(tid)
-        if plan is not None and not plan.done:
+        if tid in self._locked or (epoch > 0 and plan is None):
+            spans.counter("tune.epochs.locked")
+            return dict(self._locked.get(tid, SYS_DEFAULT))
+        if epoch == 0:
+            spans.counter("tune.epochs.profile")
+            return dict(SYS_DEFAULT)
+        spans.counter("tune.epochs.probe")
+        if not plan.done:
             cfg = plan.next_config()
             # async-compile the next candidate off the critical path
             if not plan.done and self.capabilities.async_precompile:
@@ -386,7 +403,8 @@ class PipeTune(TrialRunner):
         if state.epoch == 1:                       # profiling epoch finished
             profile = result.profile.vector()
             self._profiles[tid] = profile
-            score, known = self.groundtruth.lookup(profile)
+            with spans.span("tune.lookup"):
+                score, known = self.groundtruth.lookup(profile)
             if known is not None:
                 self._locked[tid] = known
                 record.gt_hit = True
@@ -429,5 +447,7 @@ class PipeTune(TrialRunner):
             if plan is not None and len(plan.results) >= 3:
                 locked = plan.best(self.probe_objective)
         if locked and plan is not None and len(plan.results) >= 2:
-            self.groundtruth.add(self._profiles[tid], state.workload, locked,
-                                 objective=record.score(self.objective))
+            with spans.span("tune.store"):
+                self.groundtruth.add(self._profiles[tid], state.workload,
+                                     locked,
+                                     objective=record.score(self.objective))

@@ -56,6 +56,7 @@ from repro_torch.configs import ShapeSpec
 from repro_torch.distributed import sharding
 from repro_torch.models import encdec, transformer
 from repro_torch.models.transformer import SystemConfig
+from repro_torch.obs import spans
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves
 
@@ -211,7 +212,7 @@ def make_train_step(cfg, sys: SystemConfig, opt: optimizers.Optimizer,
         return loss.detach(), metrics["accuracy"], grads, list(flat)
 
     def train_step(state, batch):
-        with spmd.replication(batch):
+        with spans.span("step"), spmd.replication(batch):
             state, metrics = _train_step(state, batch)
         return state, {k: _plain(v) for k, v in metrics.items()}
 
@@ -230,10 +231,12 @@ def make_train_step(cfg, sys: SystemConfig, opt: optimizers.Optimizer,
                 if g_sum is None:
                     g_sum = grads
                 else:
-                    torch._foreach_add_(spmd.locals_of(g_sum),
-                                        spmd.locals_of(grads))
+                    with spans.span("grad_accum"):
+                        torch._foreach_add_(spmd.locals_of(g_sum),
+                                            spmd.locals_of(grads))
                 loss_sum, acc_sum = loss_sum + loss, acc_sum + acc
-            torch._foreach_mul_(spmd.locals_of(g_sum), 1.0 / n_micro)
+            with spans.span("grad_accum"):
+                torch._foreach_mul_(spmd.locals_of(g_sum), 1.0 / n_micro)
             grads = g_sum
             loss, acc = loss_sum / n_micro, acc_sum / n_micro
         else:
@@ -241,7 +244,7 @@ def make_train_step(cfg, sys: SystemConfig, opt: optimizers.Optimizer,
         grads = weights.unflatten(dict(zip(paths, grads)))
         updates, state["opt"] = opt.update(grads, state["opt"], params,
                                            state["step"])
-        with torch.no_grad():
+        with spans.span("apply"), torch.no_grad():
             torch._foreach_add_(spmd.locals_of(tree_leaves(params)),
                                 spmd.locals_of(tree_leaves(updates)))
         state["step"] += 1

@@ -40,6 +40,7 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.obs import spans
 from repro_torch.tree import tree_leaves, tree_map
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
@@ -492,16 +493,30 @@ def forward(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS,
                         last_only)
 
 
-def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only):
+def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only,
+             loss=None):
+    """``forward``'s body. With ``loss(logits, aux) -> (loss, metrics)`` it
+    returns that instead, computed in the head's span (``obs.spans``: the
+    casts, the embedding, each block and the head with the loss each
+    record a forward and a backward span while the table is live)."""
     dtype = sys.compute_dtype
     outside = _outside_layers(params)
     if cfg.takes_embeddings and not cfg.tie_embeddings:
         del outside["embed"]        # the forward starts from the adapter
-    cparams = _cast(outside, dtype)
+    n_blocks = (cfg.hybrid_groups if cfg.family == "hybrid" else
+                cfg.ssm_groups if cfg.family == "ssm" else cfg.n_layers)
+    # the cast's backward opens when the embedding's ends, and the layers'
+    # stack and casts back run after it (autograd runs later nodes first)
+    with spans.span("cast") as sp:
+        outside, stacked = sp.input(outside, params["layers"])
+        blocks = _cast_layers(stacked, dtype, n_blocks)
+        cparams = sp.output(_cast(outside, dtype))
     if cfg.takes_embeddings:
         x = _adapt(batch["embeddings"].to(dtype), cparams["adapter"])
     else:
-        x = spmd.embed(cparams["embed"], batch["tokens"])
+        with spans.span("embed") as sp:
+            x = sp.output(spmd.embed(sp.input(cparams["embed"]),
+                                     batch["tokens"]))
 
     if cfg.family == "hybrid":
         def body(lp, x):
@@ -513,7 +528,6 @@ def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only):
                                      window=cfg.window,
                                      collect_cache=collect_cache,
                                      max_cache=max_cache)
-        n_blocks = cfg.hybrid_groups
     elif cfg.family == "ssm":
         mcfg = cfg.mlstm_cfg()
 
@@ -526,32 +540,50 @@ def _forward(params, batch, cfg, sys, collect_cache, max_cache, last_only):
             h = layers.rmsnorm(lp["slstm"]["norm"], x)
             out, _ = xlstm_lib.apply_slstm(lp["slstm"]["cell"], h, mcfg)
             return x + out, torch.zeros((), device=x.device), None
-        n_blocks = cfg.ssm_groups
     else:
         def body(lp, x):
             return _apply_attn_block(_cast(lp, dtype), x, cfg, sys,
                                      collect_cache=collect_cache,
                                      max_cache=max_cache)
-        n_blocks = cfg.n_layers
     body = _remat(body, sys)
     caches, auxs = [], []
-    for lp in _unstack(_stacked(params["layers"], dtype), n_blocks):
-        x, aux, cache = body(lp, x)
+    for lp in blocks:
+        with spans.span("block") as sp:     # outside the remat: a recompute
+            lp, x = sp.input(lp, x)         # is not counted again
+            x, aux, cache = body(lp, x)
+            x, aux = sp.output(x, aux)
         auxs.append(aux)
         caches.append(cache)
     if "tail" in params:
         tail_body = _remat(
             lambda rp, x: _apply_rec_block(_cast(rp, dtype), x, cfg), sys)
-        for rp in _unstack(_stacked(params["tail"], dtype), cfg.hybrid_tail):
-            x = tail_body(rp, x)
+        with spans.span("cast") as sp:
+            tail = sp.output(_cast_layers(sp.input(params["tail"]), dtype,
+                                          cfg.hybrid_tail))
+        for rp in tail:
+            with spans.span("block") as sp:
+                rp, x = sp.input(rp, x)
+                x = sp.output(tail_body(rp, x))
     if last_only:
         x = x[:, -1:]
-    logits = _lm_head(params, cparams, x, cfg)
     aux_total = spmd.stack(auxs).sum()
+    with spans.span("head_loss") as sp:
+        x, hp, hc = sp.input(x, {"final_norm": params["final_norm"]},
+                             cparams)
+        logits = _lm_head(hp, hc, x, cfg)
+        if loss is not None:
+            value, metrics = loss(logits, aux_total)
+            return sp.output(value), metrics
+        logits = sp.output(logits)
     if collect_cache:
         cache = None if cfg.family == "ssm" else _tree_stack(caches)
         return logits, aux_total, cache
     return logits, aux_total
+
+
+def _cast_layers(stacked, dtype, n):
+    """``_stacked`` then ``_unstack``: a list of ``n`` per-layer trees."""
+    return list(_unstack(_stacked(stacked, dtype), n))
 
 
 def _adapt(x, adapter):
@@ -590,9 +622,14 @@ def loss_fn(params, batch, cfg: ModelConfig, sys: SystemConfig = DEFAULT_SYS):
     the reference: fp32 logsumexp, the gold logit by gather, and metrics
     ``loss``, ``aux_loss``, ``tokens`` and ``accuracy``.
     """
-    logits, aux = forward(params, batch, cfg, sys)
-    with spmd.replication(logits):
-        return lm_loss(logits, aux, batch["labels"])
+    require_ported(cfg)
+
+    def loss(logits, aux):
+        with spmd.replication(logits):
+            return lm_loss(logits, aux, batch["labels"])
+    with spmd.replication(params, batch):
+        return _forward(params, batch, cfg, sys, False, None, False,
+                        loss=loss)
 
 
 def lm_loss(logits, aux, labels):

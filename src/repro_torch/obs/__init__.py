@@ -7,7 +7,10 @@ propagation and event forwarding; ``trace``: merged timelines, wall-time
 breakdown, critical path) and a fault-injecting chaos orchestrator that
 asserts recovery SLOs (``chaos`` + ``scenarios``). ``python -m
 repro_torch.obs`` is the CLI (tail a live run, scrape metrics, analyze a
-trace, run a chaos scenario).
+trace, run a chaos scenario). ``spans`` (port-only) holds spans and
+counters inside the program's hot path (the train step, the model's layers,
+the optimizer, PipeTune's loop), live while a torch.profiler session
+records or inside ``spans.enabled()``; ``spans.table()`` reads them.
 
 This ``__init__`` resolves lazily (PEP 562), as the reference's does:
 ``repro_torch.core.worker`` and ``repro_torch.cluster.engine`` import
@@ -58,6 +61,7 @@ _LAZY = {
     "SlowWorker": "repro_torch.obs.chaos",
     "run_scenario": "repro_torch.obs.chaos",
     "SCENARIOS": "repro_torch.obs.scenarios",
+    "spans": "repro_torch.obs.spans",
 }
 
 __all__ = ["Event", "EventBus", "TrialDispatched", "TrialStarted",
@@ -73,4 +77,6 @@ def __getattr__(name):
     if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     import importlib
-    return getattr(importlib.import_module(mod), name)
+    module = importlib.import_module(mod)
+    return module if mod.rpartition(".")[2] == name else getattr(module,
+                                                                    name)

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import spmd
+from repro_torch.obs import spans
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -103,8 +104,9 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
     def update(grads, state, params, step, lr_scale=1.0):
         """The updates; state's m and v are overwritten in place, one leaf
         at a time (module docstring)."""
-        scale = (_clip_scale(grads, clip_norm)[0] if clip_norm is not None
-                 else None)
+        with spans.span("optim.clip"):
+            scale = (_clip_scale(grads, clip_norm)[0]
+                     if clip_norm is not None else None)
         lr = schedule(step) * lr_scale
         t = float(step) + 1.0
         mhat_scale = 1.0 / (1.0 - b1 ** t)
@@ -118,7 +120,7 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
             if weight_decay:
                 u = u + weight_decay * p.float()
             return (-lr * u).to(p.dtype)
-        with torch.no_grad():
+        with spans.span("optim.update"), torch.no_grad():
             updates = tree_map(lambda *a: _leafwise(upd, *a, scale), params,
                                grads, state["m"], state["v"])
         return updates, state
@@ -136,8 +138,9 @@ def sgd(schedule, momentum=0.9, nesterov=False,
     def update(grads, state, params, step, lr_scale=1.0):
         """The updates; state's mu is overwritten in place, one leaf at a
         time (module docstring)."""
-        scale = (_clip_scale(grads, clip_norm)[0] if clip_norm is not None
-                 else None)
+        with spans.span("optim.clip"):
+            scale = (_clip_scale(grads, clip_norm)[0]
+                     if clip_norm is not None else None)
         lr = schedule(step) * lr_scale
 
         def upd(p, g, mu, scale):
@@ -145,7 +148,7 @@ def sgd(schedule, momentum=0.9, nesterov=False,
             mu.copy_(momentum * mu + g)
             u = g + momentum * mu if nesterov else mu
             return (-lr * u).to(p.dtype)
-        with torch.no_grad():
+        with spans.span("optim.update"), torch.no_grad():
             updates = tree_map(lambda *a: _leafwise(upd, *a, scale), params,
                                grads, state["mu"])
         return updates, state

@@ -274,8 +274,9 @@ def test_obs_package_exports_the_references_names_without_torch():
     import sys
 
     import repro.obs as jobs
-    assert tobs.__all__ == jobs.__all__
-    assert sorted(tobs._LAZY) == sorted(jobs._LAZY)
+    port_only = ["spans"]       # spans inside the port's hot path
+    assert [n for n in tobs.__all__ if n not in port_only] == jobs.__all__
+    assert sorted(tobs._LAZY) == sorted(list(jobs._LAZY) + port_only)
     for name in tobs.__all__:
         assert getattr(tobs, name) is not None
     code = ("import sys, repro_torch.obs as o; o.EventBus().enable(); "
